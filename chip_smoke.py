@@ -10,16 +10,28 @@ Phases, one JSON line each:
 2. ``build``: every hand-written kernel built from ``mxnet_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a``, one process per source, all at once;
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
-   at the serving shape (B=4, T=1024, H=16, D=64) in f32 and bf16, causal
-   and not, and at T=4096; error, kernel time, plain time, the time of the
-   nearest PyTorch call and the bound the card's peak rates set;
+   the flash forward and then the flash backward, at the serving shape
+   (B=4, T=1024, H=16, D=64) in f32 and bf16, causal and not, at the
+   training shape (B=16, bf16, causal) and at T=4096; error, kernel time,
+   plain time, the time of the nearest PyTorch call and the bound the
+   card's peak rates set; each gradient is held by its largest error and
+   by its relative norm;
 4. ``serve``: the GPT LM at full width (vocab 16384, seq 1024, d_model 1024,
    16 heads, 12 layers; random weights from a seed) written as a checkpoint,
    loaded by ``Predictor`` on ``gpu(0)`` and served through ``BatchLadder``,
    ``Batcher`` and ``Server``: six one-row requests from threads, one
    three-row request, ``GET /healthz``; every answer checked, the kernel's
    launch count checked against the forwards run, one request recomputed
-   on the CPU.
+   on the CPU;
+5. ``train``: ``models.gpt.build_bench_trainer`` at full width (batch 16,
+   bf16, Adam lr 1e-4) on ``gpu(0)``: ten steps on the staged batch, every
+   loss finite, the last below the first, both flash kernels launched once
+   per layer per step; then ms/step, tokens/s and MFU by the port's
+   ``transformer_mfu`` accounting, peak memory, and a profile of one step;
+6. ``train_check``: one f32 SGD step of the full-width GPT cut to 2 layers
+   and batch 1, on ``gpu(0)`` and on the CPU from the same weights; the
+   change in every parameter agrees within a stated relative tolerance,
+   and the same step with TF32 matmuls, run as a control, must not.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -44,10 +56,17 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import mxnet_tpu_torch as mx                                   # noqa: E402
 from mxnet_tpu_torch import cuda_build                         # noqa: E402
+from mxnet_tpu_torch.models.gpt import (                       # noqa: E402
+    build_bench_trainer, gpt_symbol)
 from mxnet_tpu_torch.ops.flash_attention import (              # noqa: E402
-    flash_attention_fwd, flash_attention_plain)
+    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    flash_attention_plain)
+from mxnet_tpu_torch.parallel import (                         # noqa: E402
+    ShardedTrainer, build_mesh)
 from mxnet_tpu_torch.serving import (                          # noqa: E402
     BatchLadder, Batcher, Server)
+from mxnet_tpu_torch.tools.transformer_mfu import (            # noqa: E402
+    H100_BF16_PEAK_TFLOPS, measure_steps)
 
 #: the repo's benchmark configuration of the GPT LM
 #: (examples/transformer/train_lm.py, build_bench_trainer)
@@ -62,6 +81,24 @@ HBM_BYTES_PER_S = 3.35e12
 
 TOL_F32 = 1e-4      # max |kernel - plain|, o and lse, f32 inputs
 TOL_BF16 = 2e-2     # max |kernel - plain in f32|, o, bf16 inputs
+# backward, per gradient x against the plain version r (for bf16 inputs the
+# plain version in f32 from the same bf16 inputs).  Two bounds: the largest
+# entries, max |x - r| <= TOL_BWD_MAX * max |r| (+ 1e-5 in f32); and all of
+# them, ||x - r|| / ||r|| <= TOL_BWD_NORM.  Under causal masking max |r|
+# comes from the first rows and most entries are far smaller, so only the
+# norm holds those.  The bf16 rounding of r itself, ||bf16(r) - r|| / ||r||,
+# is recorded beside it as the floor a right bf16 kernel reads.
+TOL_BWD_MAX = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+TOL_BWD_NORM = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# train_check: ||d_gpu - d_cpu|| / ||d_cpu|| per parameter, where d is the
+# change of the parameter in one f32 SGD step.  Both sides sum in f32 in
+# other orders (cuBLAS and the CUDA kernels; the CPU's BLAS and einsum), so
+# a pre-activation within that rounding of 0 can take another ReLU mask on
+# each side; the gradient of every parameter before that ReLU then gains or
+# loses a whole term.  On the H100 the f32 step reads 7.8e-4 at worst and
+# the same step with TF32 matmuls, run as a control, 2.8e-2: the bound lies
+# between, near their geometric mean, and the control must exceed it.
+TOL_TRAIN_CHECK = 5e-3
 
 
 def emit(phase, **fields):
@@ -69,60 +106,6 @@ def emit(phase, **fields):
 
 
 # --------------------------------------------------------------------- model
-def transformer_block(x, d_model, n_heads, prefix, ffn_mult=4, dropout=0.1):
-    """Pre-norm block, a transcription of train_lm.py's: x + Attn(LN(x));
-    x + FFN(LN(x))."""
-    h = mx.sym.LayerNorm(x, name=prefix + "_ln1")
-    qkv = mx.sym.FullyConnected(h, num_hidden=3 * d_model, flatten=False,
-                                name=prefix + "_qkv")
-    qkv = mx.sym.Reshape(qkv, shape=(0, 0, 3, n_heads, -1))
-    q = mx.sym.Reshape(mx.sym.slice_axis(qkv, axis=2, begin=0, end=1),
-                       shape=(0, 0, -3, -2))
-    k = mx.sym.Reshape(mx.sym.slice_axis(qkv, axis=2, begin=1, end=2),
-                       shape=(0, 0, -3, -2))
-    v = mx.sym.Reshape(mx.sym.slice_axis(qkv, axis=2, begin=2, end=3),
-                       shape=(0, 0, -3, -2))
-    att = mx.sym._contrib_FlashAttention(q, k, v, causal=True,
-                                         name=prefix + "_attn")
-    att = mx.sym.Reshape(att, shape=(0, 0, -3))
-    att = mx.sym.FullyConnected(att, num_hidden=d_model, flatten=False,
-                                name=prefix + "_proj")
-    if dropout > 0:
-        att = mx.sym.Dropout(att, p=dropout)
-    x = x + att
-    h = mx.sym.LayerNorm(x, name=prefix + "_ln2")
-    h = mx.sym.FullyConnected(h, num_hidden=ffn_mult * d_model,
-                              flatten=False, name=prefix + "_ffn1")
-    h = mx.sym.Activation(h, act_type="relu")
-    h = mx.sym.FullyConnected(h, num_hidden=d_model, flatten=False,
-                              name=prefix + "_ffn2")
-    if dropout > 0:
-        h = mx.sym.Dropout(h, p=dropout)
-    return x + h
-
-
-def gpt_symbol(vocab_size, seq_len, d_model=128, n_heads=4, n_layers=2,
-               dropout=0.1):
-    """The decoder-only GPT of train_lm.py's ``gpt_symbol``, built with the
-    port's ``mx.sym``: the same graph, the same JSON."""
-    data = mx.sym.Variable("data")
-    label = mx.sym.Variable("softmax_label")
-    tok = mx.sym.Embedding(data, input_dim=vocab_size, output_dim=d_model,
-                           name="tok_embed")
-    pos_ids = mx.sym.arange(start=0, stop=seq_len, name="pos_ids")
-    pos = mx.sym.Embedding(pos_ids, input_dim=seq_len, output_dim=d_model,
-                           name="pos_embed")
-    x = mx.sym.broadcast_add(tok, mx.sym.expand_dims(pos, axis=0))
-    for i in range(n_layers):
-        x = transformer_block(x, d_model, n_heads, "block%d" % i,
-                              dropout=dropout)
-    x = mx.sym.LayerNorm(x, name="ln_f")
-    x = mx.sym.Reshape(x, shape=(-1, d_model))
-    logits = mx.sym.FullyConnected(x, num_hidden=vocab_size, name="lm_head")
-    label = mx.sym.Reshape(label, shape=(-1,))
-    return mx.sym.SoftmaxOutput(logits, label=label, name="softmax")
-
-
 def gpt_params(net, seq_len, seed=0):
     """Random weights from ``numpy.random.RandomState(seed)``, in argument
     order: N(0, 0.02) for weights, zeros for biases, ones and zeros for
@@ -182,15 +165,17 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, t, h, d, dtype, causal):
-    """Least time for the flash forward on this card: the larger of the
-    flops over the dtype's peak and the bytes (q, k, v read once, o and
-    lse written once) over HBM bandwidth.  Under causal only the
-    t(t+1)/2 live (query, key) pairs are counted."""
+def attention_bound(b, t, h, d, dtype, causal, n_matmuls=2, n_tensors=4):
+    """Least time for a flash kernel on this card: the larger of the flops
+    over the dtype's peak and the bytes over HBM bandwidth.  The forward
+    does 2 products and moves 4 (B, T, H, D) tensors (q, k, v read, o
+    written); the backward does 5 and moves 8 (q, k, v, o, dO read; dq, dk,
+    dv written); each also moves one f32 (B*H, T) lse.  Under causal only
+    the t(t+1)/2 live (query, key) pairs are counted."""
     pairs = t * (t + 1) / 2 if causal else t * t
-    flops = 4.0 * b * h * d * pairs
+    flops = 2.0 * n_matmuls * b * h * d * pairs
     itemsize = torch.empty((), dtype=dtype).element_size()
-    nbytes = 4.0 * b * t * h * d * itemsize + 4.0 * b * h * t
+    nbytes = float(n_tensors) * b * t * h * d * itemsize + 4.0 * b * h * t
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"flops": flops, "bytes": nbytes,
@@ -199,13 +184,18 @@ def attention_bound(b, t, h, d, dtype, causal):
             "peak": PEAK_NAME[dtype] + ", HBM 3.35 TB/s"}
 
 
+#: the training path's attention: build_bench_trainer's batch 16, bf16
+TRAIN_SHAPE = (16, 1024, 16, 64, torch.bfloat16, True)
+
+
 def kernels_phase():
     """flash_attention_fwd against flash_attention_plain on the card."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = [(4, 1024, 16, 64, dt, causal)
              for dt in (torch.float32, torch.bfloat16)
              for causal in (True, False)]
-    cases += [(1, 4096, 16, 64, torch.float32, True),
+    cases += [TRAIN_SHAPE,
+              (1, 4096, 16, 64, torch.float32, True),
               (1, 4096, 16, 64, torch.bfloat16, True)]
     entries = []
     for b, t, h, d, dt, causal in cases:
@@ -239,6 +229,72 @@ def kernels_phase():
     bad = [e for e in entries if not e["ok"]]
     if bad:
         raise SystemExit("flash_attention_fwd disagrees with its plain "
+                         "version: %s" % json.dumps(bad))
+    return entries
+
+
+def kernels_bwd_phase():
+    """flash_attention_bwd against flash_attention_bwd_plain on the card,
+    from the forward kernel's o and lse.  The library yardstick is the
+    backward of ``F.scaled_dot_product_attention``, timed alone."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cases = [(4, 1024, 16, 64, dt, causal)
+             for dt in (torch.float32, torch.bfloat16)
+             for causal in (True, False)]
+    cases += [TRAIN_SHAPE,
+              (1, 4096, 16, 64, torch.float32, True),
+              (1, 4096, 16, 64, torch.bfloat16, True)]
+    entries = []
+    for b, t, h, d, dt, causal in cases:
+        q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+                       .to(dt) for _ in range(4))
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+        torch.cuda.synchronize()
+        ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                        o.float(), lse, do.float(), causal)
+        f32 = dt == torch.float32
+        grads = {}
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+            ref_max = r.abs().max().item()
+            ref_norm = r.norm().item()
+            grads[name] = {
+                "err": (x.float() - r).abs().max().item(),
+                "ref_max": ref_max, "ref_mean": r.abs().mean().item(),
+                "tol": TOL_BWD_MAX[dt] * ref_max + (1e-5 if f32 else 0.0),
+                "rel_norm": (x.float() - r).norm().item() / ref_norm,
+                "tol_norm": TOL_BWD_NORM[dt],
+                "rounding_norm": (r.to(dt).float() - r).norm().item()
+                / ref_norm}
+        del got, ref
+        ok = all(g["err"] <= g["tol"] and g["rel_norm"] <= g["tol_norm"]
+                 for g in grads.values())
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+        gt = do.transpose(1, 2)
+        entry = {
+            "shape": [b, t, h, d], "dtype": str(dt).replace("torch.", ""),
+            "causal": causal, "grads": grads,
+            "max_abs_err": max(g["err"] for g in grads.values()), "ok": ok,
+            "kernel_ms": cuda_ms(
+                lambda: flash_attention_bwd(q, k, v, o, lse, do, causal),
+                20),
+            "plain_ms": cuda_ms(
+                lambda: flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                  causal), 3),
+            "library_ms": cuda_ms(
+                lambda: torch.autograd.grad(out, (qt, kt, vt), gt,
+                                            retain_graph=True), 20),
+        }
+        entry.update(attention_bound(b, t, h, d, dt, causal, n_matmuls=5,
+                                     n_tensors=8))
+        entries.append(entry)
+        del q, k, v, do, o, lse, qt, kt, vt, out, gt
+    emit("kernels", name="flash_attention_bwd", entries=entries)
+    bad = [e for e in entries if not e["ok"]]
+    if bad:
+        raise SystemExit("flash_attention_bwd disagrees with its plain "
                          "version: %s" % json.dumps(bad))
     return entries
 
@@ -348,19 +404,16 @@ def serve_phase(ctx, cfg, rungs=(1, 4), check_ctx=None):
             "peak_mem_bytes": peak, "profile": profile}
 
 
-def profile_dispatch(ladder, rung, seq, top=10):
-    """One ladder dispatch at ``rung`` under ``torch.profiler``: device time
-    by kernel (copies included) and the device's busy share of the
-    dispatch's host wall."""
+def profile_device(fn, top=10):
+    """``fn()`` once under ``torch.profiler``, ending in a synchronize:
+    its host wall, device time by kernel (copies included), the device's
+    busy share of the wall, the top items and the flash kernels' share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    feed = {"data": np.zeros((rung, seq), np.float32)}
-    ladder.dispatch(rung, feed)
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ladder.dispatch(rung, feed)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -373,10 +426,172 @@ def profile_dispatch(ladder, rung, seq, top=10):
         rows.append((evt.key[:90], us / 1e3, evt.count))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    return {"rung": rung, "wall_ms": wall_ms, "device_ms": device_ms,
+    flash_ms = sum(r[1] for r in rows if "flash_" in r[0])
+    return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms if wall_ms else None,
+            "flash_kernels_ms": flash_ms,
+            "flash_share_of_device": flash_ms / device_ms if device_ms
+            else None,
             "top": [{"name": n, "ms": ms, "count": c}
                     for n, ms, c in rows[:top]]}
+
+
+def profile_dispatch(ladder, rung, seq, top=10):
+    """One ladder dispatch at ``rung`` under ``torch.profiler``, after one
+    unprofiled dispatch."""
+    feed = {"data": np.zeros((rung, seq), np.float32)}
+    ladder.dispatch(rung, feed)
+    torch.cuda.synchronize()
+    return dict(profile_device(lambda: ladder.dispatch(rung, feed), top),
+                rung=rung)
+
+
+def train_phase(ctx, cfg, batch=16, dtype="bfloat16", steps=10,
+                timed_steps=5, repeats=2):
+    """``build_bench_trainer`` at ``cfg`` on ``ctx``: ``steps`` steps on
+    the staged batch with the launch counts set to 0 just before and read
+    just after; every loss finite and the last below the first; then the
+    best of ``repeats`` timed ``run_steps(timed_steps)`` by
+    ``transformer_mfu.measure_steps`` and, on the card, peak memory and a
+    profile of one step.  Raises on any failed check."""
+    on_card = ctx.device_type == "gpu"
+    t0 = time.perf_counter()
+    trainer, staged = build_bench_trainer(
+        vocab=cfg["vocab"], seq=cfg["seq"], d_model=cfg["d_model"],
+        heads=cfg["heads"], layers=cfg["layers"], batch=batch, dtype=dtype,
+        ctx=ctx)
+    build_s = time.perf_counter() - t0
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    t0 = time.perf_counter()
+    losses = [trainer.step(staged) for _ in range(steps)]
+    losses = [float(x) for x in losses]
+    sync()
+    steps_s = time.perf_counter() - t0
+    launches = {"flash_attention_fwd": flash_attention_fwd.launches,
+                "flash_attention_bwd": flash_attention_bwd.launches}
+    want = cfg["layers"] * steps if on_card else 0
+    if any(n != want for n in launches.values()):
+        raise SystemExit("train: kernel launches %s over %d steps of %d "
+                         "layers; want %d each"
+                         % (launches, steps, cfg["layers"], want))
+    if not all(np.isfinite(losses)):
+        raise SystemExit("train: non-finite loss in %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise SystemExit("train: loss did not fall over %d steps: %s"
+                         % (steps, losses))
+    m = measure_steps(trainer, staged, timed_steps, repeats,
+                      cfg["d_model"], cfg["layers"], cfg["seq"], cfg["vocab"])
+    if not torch.isfinite(m["losses"]).all():
+        raise SystemExit("train: non-finite loss in the timed steps")
+    out = {"config": cfg, "batch": batch, "dtype": dtype,
+           "context": str(ctx), "optimizer": "adam", "learning_rate": 1e-4,
+           "params": sum(int(v.numel()) for v in trainer.params.values()),
+           "build_s": build_s, "steps": steps, "losses": losses,
+           "steps_wall_s": steps_s, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "timed_steps": timed_steps, "repeats_s": m["repeats_s"],
+           "step_ms": m["step_ms"], "tokens_per_s": m["tokens_per_s"],
+           "train_flop_per_token": m["accounting"]["train"],
+           "step_tflop": m["step_tflop"],
+           "tflops_per_s": m["tflops_per_s"], "mfu": m["mfu"],
+           "mfu_peak": "bf16 dense %g TFLOP/s" % H100_BF16_PEAK_TFLOPS}
+    if on_card:
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        # after the launch count was read: this step is not counted
+        out["profile"] = profile_device(lambda: trainer.step(staged), top=12)
+    return out
+
+
+def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
+    """One f32 SGD step (no momentum) of the GPT at ``cfg``'s width with
+    ``layers`` layers and batch 1, on ``ctx`` and on ``check_ctx`` (default:
+    the CPU), from the same seeded weights.  Per parameter, the relative
+    norm of the difference of the two updates must stay within
+    ``TOL_TRAIN_CHECK``.  On the card the step is also run with TF32
+    matmuls as a control, whose worst difference must exceed the bound:
+    the check then tells an f32 step from a lower-precision one."""
+    check_ctx = check_ctx or mx.cpu()
+    seq = cfg["seq"]
+    net = gpt_symbol(cfg["vocab"], seq, cfg["d_model"], cfg["heads"],
+                     layers, dropout=0.0)
+    x = np.random.RandomState(2).randint(0, cfg["vocab"], (1, seq)) \
+        .astype(np.float32)
+    batch = {"data": x, "softmax_label": np.roll(x, -1, 1).copy()}
+
+    def one_step(c, tf32=False):
+        trainer = ShardedTrainer(
+            net, build_mesh(devices=[c]), data_shapes={"data": (1, seq)},
+            label_shapes={"softmax_label": (1, seq)}, optimizer="sgd",
+            learning_rate=lr, momentum=0.0, dtype="float32", seed=0)
+        before = {k: v.to("cpu", copy=True)
+                  for k, v in trainer.params.items()}
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            loss = float(trainer.step(batch))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        return loss, {k: trainer.params[k].cpu() - before[k] for k in before}
+
+    def compare(delta, ref, each=False):
+        rel = {k: (delta[k] - d).norm().item() / max(d.norm().item(), 1e-30)
+               for k, d in ref.items()}
+        worst = max(rel, key=rel.get)
+        out = {"max_rel_update_diff": rel[worst], "worst_param": worst,
+               "median_rel_update_diff": float(np.median(list(rel.values())))}
+        if each:
+            out["rel_update_diff"] = rel
+        return out
+
+    loss, delta = one_step(ctx)
+    ref_loss, ref_delta = one_step(check_ctx)
+    losses = [loss, ref_loss]
+    out = {"config": dict(cfg, layers=layers), "batch": 1,
+           "optimizer": "sgd", "learning_rate": lr, "dtype": "float32",
+           "contexts": [str(ctx), str(check_ctx)], "losses": losses,
+           "params": len(ref_delta), **compare(delta, ref_delta, True),
+           "tol": TOL_TRAIN_CHECK, "control_tf32": None}
+    del delta
+    if ctx.device_type == "gpu":
+        tf32_loss, tf32_delta = one_step(ctx, tf32=True)
+        losses.append(tf32_loss)
+        out["control_tf32"] = compare(tf32_delta, ref_delta)
+    if out["max_rel_update_diff"] > TOL_TRAIN_CHECK \
+            or not np.isfinite(losses).all():
+        raise SystemExit("train_check: %s" % json.dumps(out))
+    if out["control_tf32"] is not None and \
+            out["control_tf32"]["max_rel_update_diff"] <= TOL_TRAIN_CHECK:
+        raise SystemExit("train_check: the TF32 control passes the bound, "
+                         "so the bound cannot tell it from f32: %s"
+                         % json.dumps(out))
+    return out
+
+
+def kernel_summary(name, source, replaces, also_replaces, case, launches,
+                   **extra):
+    """One entry of the kernel summary line, from a kernels-phase case and
+    the launches of the main path's run."""
+    return dict({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "also_replaces": also_replaces,
+        "launches": launches, "max_abs_err": case["max_abs_err"],
+        "ms": case["kernel_ms"], "plain_ms": case["plain_ms"],
+        "bound_ms": case["bound_ms"], "bound_by": case["bound_by"],
+        "library_ms": case["library_ms"], "shape": case["shape"],
+        "dtype": case["dtype"], "causal": case["causal"]}, **extra)
+
+
+def _case(entries, shape, dtype):
+    return next(e for e in entries if e["shape"] == shape
+                and e["dtype"] == dtype and e["causal"])
 
 
 def main():
@@ -386,24 +601,36 @@ def main():
         return 1
     env_phase()
     build_phase()
-    entries = kernels_phase()
+    fwd = kernels_phase()
+    for e in fwd:
+        e["max_abs_err"] = max(e["err_o"], e["err_lse"])
+    bwd = kernels_bwd_phase()
     serve = serve_phase(mx.gpu(0), FULL)
     emit("serve", **serve)
-    main_case = next(e for e in entries if e["shape"] == [4, 1024, 16, 64]
-                     and e["dtype"] == "float32" and e["causal"])
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "source": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
-        "replaces": "mxnet_tpu/ops/pallas_kernels.py:283",
-        "also_replaces": "mxnet_tpu/ops/pallas_kernels.py:305",
-        "launches": serve["launches"],
-        "max_abs_err": max(main_case["err_o"], main_case["err_lse"]),
-        "ms": main_case["kernel_ms"], "plain_ms": main_case["plain_ms"],
-        "bound_ms": main_case["bound_ms"],
-        "bound_by": main_case["bound_by"],
-        "library_ms": main_case["library_ms"],
-        "shape": main_case["shape"], "dtype": "float32", "causal": True,
-    }]}), flush=True)
+    train = train_phase(mx.gpu(0), FULL)
+    emit("train", **train)
+    emit("train_check", **train_check_phase(mx.gpu(0), FULL))
+    train_shape = list(TRAIN_SHAPE[:4])
+    fwd_train = _case(fwd, train_shape, "bfloat16")
+    print(json.dumps({"kernels": [
+        kernel_summary(
+            "flash_attention_fwd",
+            "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+            "mxnet_tpu/ops/pallas_kernels.py:283",
+            "mxnet_tpu/ops/pallas_kernels.py:305",
+            _case(fwd, [4, 1024, 16, 64], "float32"), serve["launches"],
+            launches_train=train["launches"]["flash_attention_fwd"],
+            train_shape={k: fwd_train[k] for k in (
+                "shape", "dtype", "max_abs_err", "kernel_ms", "plain_ms",
+                "library_ms", "bound_ms", "bound_by")}),
+        kernel_summary(
+            "flash_attention_bwd",
+            "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+            "mxnet_tpu/ops/pallas_kernels.py:486",
+            "mxnet_tpu/ops/pallas_kernels.py:499",
+            _case(bwd, train_shape, "bfloat16"),
+            train["launches"]["flash_attention_bwd"]),
+    ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

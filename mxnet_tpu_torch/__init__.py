@@ -7,7 +7,10 @@ Import convention mirrors the JAX package's::
                         {"data": (1, 1024)})          # binds on gpu(0)
 
 The port keeps the JAX package's Symbol JSON and ``.params`` formats, so a
-checkpoint written by either package loads in the other.  Its entry points
+checkpoint written by either package loads in the other.
+``parallel.ShardedTrainer`` trains a Symbol on one device (the GPT of
+``models.gpt``; ``python -m mxnet_tpu_torch.tools.transformer_mfu`` times
+it).  Its entry points
 run on the card unless the caller passes ``ctx=mx.cpu()``; without a CUDA
 device a GPU context raises.  It imports neither ``jax`` nor ``mxnet_tpu``.
 """
@@ -30,3 +33,8 @@ from . import predictor
 from .predictor import Predictor
 from . import convert
 from . import serving
+from . import initializer
+from . import initializer as init
+from . import lr_scheduler
+from . import optimizer
+from . import parallel

@@ -4,16 +4,20 @@ Weights keep their MXNet layouts in both packages (FullyConnected weight
 ``(out, in)``, Embedding ``(vocab, d)``, LayerNorm gamma/beta ``(d,)``), so
 converting is placing arrays on a device.  The file route needs no code:
 a ``.params`` file written by ``mxnet_tpu.nd.save`` loads with
-``mxnet_tpu_torch.nd.load``, and the reverse.
+``mxnet_tpu_torch.nd.load``, and the reverse.  A training state carries
+over with :func:`from_jax_trainer_state`.
 """
 from __future__ import annotations
 
 import numpy as np
 
+import torch
+
+from .base import MXNetError
 from .ndarray import NDArray, _from_numpy
 from .context import current_context
 
-__all__ = ["from_jax_params"]
+__all__ = ["from_jax_params", "from_jax_trainer_state"]
 
 
 def from_jax_params(params, ctx=None):
@@ -27,3 +31,31 @@ def from_jax_params(params, ctx=None):
         name = k.split(":", 1)[1] if k.startswith(("arg:", "aux:")) else k
         out[name] = NDArray(_from_numpy(np.asarray(v)).to(device))
     return out
+
+
+def from_jax_trainer_state(trainer, params, opt_state=None):
+    """Copy a JAX ``ShardedTrainer``'s state into the port's ``trainer``, in
+    place, on the trainer's device.  ``params``: ``{name: array}`` (numpy,
+    or anything ``np.asarray`` takes); ``opt_state``: ``{name: [slot
+    arrays]}`` in the JAX trainer's slot order, which is the port's.  Names,
+    shapes and slot counts must match the port's trainer."""
+    def put(dst, src, what):
+        src = np.asarray(src)
+        if tuple(src.shape) != tuple(dst.shape):
+            raise MXNetError("%s: shape %s, the trainer has %s"
+                             % (what, src.shape, tuple(dst.shape)))
+        dst.copy_(torch.from_numpy(np.array(src, np.float32)))
+
+    if set(params) != set(trainer.params):
+        raise MXNetError("params: names differ from the trainer's: %s"
+                         % sorted(set(params) ^ set(trainer.params)))
+    with torch.no_grad():
+        for name, value in params.items():
+            put(trainer.params[name], value, name)
+        for name, slots in (opt_state or {}).items():
+            mine = trainer.opt_state[name]
+            if len(slots) != len(mine):
+                raise MXNetError("opt_state %r: %d slots, the trainer has %d"
+                                 % (name, len(slots), len(mine)))
+            for i, value in enumerate(slots):
+                put(mine[i], value, "%s slot %d" % (name, i))

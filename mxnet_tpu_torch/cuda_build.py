@@ -28,6 +28,7 @@ _PKG = Path(__file__).resolve().parent
 #: kernel name -> its source, relative to the package
 SOURCES = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
+    "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
 }
 
 _lock = threading.Lock()

@@ -1,17 +1,21 @@
-"""Flash-attention forward: the hand-written CUDA kernel, its plain version,
-and the ``_contrib_FlashAttention`` op.
+"""Flash attention: the hand-written CUDA kernels, their plain versions,
+the autograd function and the ``_contrib_FlashAttention`` op.
 
-The counterpart of the forward half of ``mxnet_tpu/ops/pallas_kernels.py``.
-The TPU kernel (``_flash_attention_fwd_pallas``, panel and streamed forms)
-becomes ``csrc/flash_attention_fwd.cu``, built with ``nvcc`` for ``sm_90a``
-on first use and called through ctypes on PyTorch's current stream.
+The counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  The TPU kernels
+(``_flash_attention_fwd_pallas`` and ``_flash_attention_bwd_pallas``, each
+in a panel and a streamed form) become ``csrc/flash_attention_fwd.cu`` and
+``csrc/flash_attention_bwd.cu``, built with ``nvcc`` for ``sm_90a`` on first
+use and called through ctypes on PyTorch's current stream.
 
-* :func:`flash_attention_fwd` is the wrapper: a CUDA tensor launches the
-  kernel or raises; a CPU (or meta) tensor takes :func:`flash_attention_plain`.
-  ``flash_attention_fwd.launches`` counts kernel launches.
-* :func:`flash_attention_plain` computes the same ``(o, lse)`` in PyTorch,
-  the TPU kernel's panel arithmetic in f32.  The tests and ``chip_smoke.py``
-  hold the kernel against it.
+* :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
+  wrappers: a CUDA tensor launches the kernel or raises; a CPU (or meta)
+  tensor takes the plain version.  ``.launches`` on each counts launches.
+* :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`
+  compute the same results in PyTorch, the TPU kernels' panel arithmetic in
+  f32.  The tests and ``chip_smoke.py`` hold the kernels against them.
+* :class:`FlashAttention` is the ``torch.autograd.Function`` (the
+  counterpart of the JAX ``custom_vjp``): forward through
+  :func:`flash_attention_fwd`, backward through :func:`flash_attention_bwd`.
 * :func:`attention_plain` is the counterpart of ``_attention_jnp``: the op
   takes it for shapes outside the kernel's dispatch gate (ragged lengths,
   tk != tq), as the JAX op does.
@@ -30,7 +34,8 @@ from ..base import MXNetError
 from .registry import register
 
 __all__ = ["flash_attention_fwd", "flash_attention_plain", "attention_plain",
-           "KERNEL_HEAD_DIMS"]
+           "flash_attention_bwd", "flash_attention_bwd_plain",
+           "FlashAttention", "KERNEL_HEAD_DIMS"]
 
 _BLOCK_Q = 128
 
@@ -75,32 +80,33 @@ def flash_attention_plain(q, k, v, causal):
     return o.to(q.dtype), lse
 
 
-def check_kernel_args(q, k, v):
+def check_kernel_args(q, k, v, *more, name="flash_attention_fwd"):
     """Raise unless the CUDA kernel takes these tensors: (B, T, H, D) of one
     shape, one dtype (f32 or bf16) and one device, D in
-    :data:`KERNEL_HEAD_DIMS`, last dim contiguous."""
-    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
-        raise MXNetError("flash_attention_fwd: q, k, v must share one "
-                         "(batch, seq, heads, head_dim) shape, got %s %s %s"
-                         % (tuple(q.shape), tuple(k.shape), tuple(v.shape)))
-    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _KERNEL_DTYPES:
-        raise MXNetError("flash_attention_fwd: the kernel takes float32 or "
-                         "bfloat16 q, k, v of one dtype, got %s %s %s"
-                         % (q.dtype, k.dtype, v.dtype))
-    if not (q.device == k.device == v.device):
-        raise MXNetError("flash_attention_fwd: q, k, v on different devices")
+    :data:`KERNEL_HEAD_DIMS`, last dim contiguous.  ``more`` are further
+    tensors held to the same rules (the backward's dO and O)."""
+    xs = (q, k, v) + more
+    if q.dim() != 4 or any(x.shape != q.shape for x in xs):
+        raise MXNetError("%s: the inputs must share one (batch, seq, heads, "
+                         "head_dim) shape, got %s"
+                         % (name, " ".join(str(tuple(x.shape)) for x in xs)))
+    if any(x.dtype != q.dtype for x in xs) or q.dtype not in _KERNEL_DTYPES:
+        raise MXNetError("%s: the kernel takes float32 or bfloat16 inputs "
+                         "of one dtype, got %s"
+                         % (name, " ".join(str(x.dtype) for x in xs)))
+    if any(x.device != q.device for x in xs):
+        raise MXNetError("%s: inputs on different devices" % name)
     b, t, h, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
-        raise MXNetError("flash_attention_fwd: head_dim %d is not supported "
-                         "by the CUDA kernel (supported: %s)"
-                         % (d, ", ".join(map(str, KERNEL_HEAD_DIMS))))
-    if any(x.stride(-1) != 1 for x in (q, k, v)):
-        raise MXNetError("flash_attention_fwd: the last dim of q, k, v must "
-                         "be contiguous")
+        raise MXNetError("%s: head_dim %d is not supported by the CUDA "
+                         "kernel (supported: %s)"
+                         % (name, d, ", ".join(map(str, KERNEL_HEAD_DIMS))))
+    if any(x.stride(-1) != 1 for x in xs):
+        raise MXNetError("%s: the last dim of every input must be "
+                         "contiguous" % name)
     if b * h > 65535 or t < 1:
-        raise MXNetError("flash_attention_fwd: batch*heads must be at most "
-                         "65535 and seq at least 1, got %d and %d"
-                         % (b * h, t))
+        raise MXNetError("%s: batch*heads must be at most 65535 and seq at "
+                         "least 1, got %d and %d" % (name, b * h, t))
 
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
@@ -156,16 +162,129 @@ def flash_attention_fwd(q, k, v, causal):
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal):
+    """``(dq, dk, dv)`` of the flash backward in plain PyTorch: the TPU
+    panel kernel's arithmetic in f32.  P = exp(s - lse), dV = P^T dO,
+    dP = dO V^T, dS = P * (dP - delta) * scale with delta = rowsum(dO * O),
+    dQ = dS K, dK = dS^T Q; the gradients come back in q's dtype."""
+    b, t, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        mask = torch.ones(t, k.shape[1], dtype=torch.bool,
+                          device=q.device).tril()
+        s = s.masked_fill(~mask, float("-inf"))
+    p = torch.exp(s - lse.reshape(b, h, t, 1))   # masked: exp(-inf) = 0
+    delta = (dof * o.float()).sum(-1).permute(0, 2, 1).unsqueeze(-1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - delta) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+    return tuple(x.to(q.dtype) for x in (dq, dk, dv))
+
+
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+                 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p])
+
+
+def _bwd_kernel():
+    from .. import cuda_build
+    lib = cuda_build.library("flash_attention_bwd")
+    fn = lib.mxtt_flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = _BWD_ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.mxtt_bwd_error_string.argtypes = [ctypes.c_int]
+        lib.mxtt_bwd_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _launch_bwd(q, k, v, o, lse, do, causal):
+    name = "flash_attention_bwd"
+    # autograd may hand over dO with any strides: the kernel reads it
+    # through its (batch, seq, heads) strides, and only a dO whose last dim
+    # is not contiguous is copied first
+    if do.stride(-1) != 1:
+        do = do.contiguous()
+    check_kernel_args(q, k, v, do, o, name=name)
+    b, t, h, d = q.shape
+    if lse.shape != (b * h, t, 1) or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise MXNetError("%s: lse must be a contiguous float32 (%d, %d, 1) "
+                         "tensor on %s, got %s %s on %s"
+                         % (name, b * h, t, q.device, tuple(lse.shape),
+                            lse.dtype, lse.device))
+    # delta = rowsum(dO * O) in f32, outside the kernel as in the TPU code,
+    # in lse's (B*H, T, 1) layout
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty_like(dq)
+    dv = torch.empty_like(dq)
+    lib, fn = _bwd_kernel()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), b, t, h, d,
+                *(x.stride(i) for x in (q, k, v, do) for i in range(3)),
+                int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
+    if rc != 0:
+        raise MXNetError("%s: CUDA launch failed: %s (%d)"
+                         % (name, lib.mxtt_bwd_error_string(rc).decode(), rc))
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal):
+    """``(dq, dk, dv)`` of attention over (B, T, H, D) inputs, from the
+    forward's ``o`` and ``lse`` and the output gradient ``do``.  A CUDA
+    tensor launches the hand-written kernel (or raises); a CPU or meta
+    tensor takes :func:`flash_attention_bwd_plain`."""
+    kind = q.device.type
+    if kind == "cuda":
+        return _launch_bwd(q, k, v, o, lse, do, causal)
+    if kind in ("cpu", "meta"):
+        return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    raise MXNetError("flash_attention_bwd: no path for device %s" % q.device)
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash kernels on both passes: the counterpart of
+    the JAX ``flash_attention`` custom_vjp.  The forward saves
+    ``(q, k, v, o, lse)``; the backward rebuilds P from ``lse`` and returns
+    dq, dk, dv in q's dtype (summed in f32)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = bool(causal)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.causal)
+        return dq, dk, dv, None
+
+
 @register("_contrib_FlashAttention", arg_names=("q", "k", "v"),
           params={"causal": False})
 def flash_attention_op(attrs, ctx, q, k, v):
     """Attention over (batch, seq, heads, head_dim) inputs, with the JAX
-    op's dispatch gate: tk == tq and seq a multiple of min(128, seq) go to
-    :func:`flash_attention_fwd`; other shapes take :func:`attention_plain`,
-    as the JAX op takes ``_attention_jnp``."""
+    op's dispatch gate: tk == tq and seq a multiple of min(128, seq) go
+    through :class:`FlashAttention` (the flash kernels forward and, under
+    autograd, backward); other shapes take :func:`attention_plain`, as the
+    JAX op takes ``_attention_jnp``."""
     causal = bool(attrs["causal"])
     t = q.shape[1]
     block_q = min(_BLOCK_Q, t)
     if t > 0 and t % block_q == 0 and k.shape[1] == t:
-        return flash_attention_fwd(q, k, v, causal)[0]
+        return FlashAttention.apply(q, k, v, causal)
     return attention_plain(q, k, v, causal)

@@ -1,7 +1,10 @@
 """Neural-network ops: the subset of ``mxnet_tpu/ops/nn.py`` that the GPT
-serving path uses, forward only.  Parameter names and defaults are the JAX
+serves and trains with.  Parameter names and defaults are the JAX
 package's.  The dense products stay ``F.linear``: the JAX package left them
-to XLA, and the port leaves them to PyTorch."""
+to XLA, and the port leaves them to PyTorch.  Gradients come from autograd,
+except SoftmaxOutput's, which is the reference's hand-written loss gradient
+(an ``autograd.Function``, as the JAX op is a ``custom_vjp``).  No op writes
+in place into a tensor that autograd saved."""
 from __future__ import annotations
 
 import torch
@@ -51,14 +54,70 @@ def activation(attrs, ctx, data):
     return torch.relu(data)
 
 
-@register("Dropout", params={"p": 0.5, "mode": "training"},
+@register("Dropout", params={"p": 0.5, "mode": "training"}, stochastic=True,
           aliases=("dropout",))
 def dropout(attrs, ctx, data):
-    """Identity at inference.  Training-mode dropout is not yet ported."""
-    if ctx.is_train and float(attrs["p"]) > 0.0:
-        raise MXNetError("Dropout in training mode is not yet ported to "
-                         "mxnet_tpu_torch")
-    return data
+    """Inverted dropout in training, from the op context's generator: keep
+    each element with probability 1 - p and scale it by 1 / (1 - p).
+    Identity at inference.  The bits differ from the JAX package's."""
+    p = float(attrs["p"])
+    if not ctx.is_train or p <= 0.0:
+        return data
+    keep = 1.0 - p
+    u = torch.rand(data.shape, generator=ctx.require_generator(),
+                   device=data.device)
+    return torch.where(u < keep, data / keep,
+                       torch.zeros((), dtype=data.dtype,
+                                   device=data.device)).to(data.dtype)
+
+
+def softmax_output_grad(out, label, grad_scale, axis, use_ignore,
+                        ignore_label, normalization):
+    """The reference SoftmaxOutput gradient (p - onehot(label)) * scale in
+    f32, cast to ``out``'s dtype.  A label outside [0, nclass) has an
+    all-zero one-hot row, as in ``jax.nn.one_hot``; ``use_ignore`` zeroes
+    the rows whose label is ``ignore_label``; ``normalization`` divides by
+    the batch ("batch"), the count of kept labels ("valid" with
+    ``use_ignore``) or all labels ("valid" without)."""
+    nclass = out.shape[axis]
+    lab = label.long()
+    # a copy: ``out`` is saved by autograd and must stay untouched
+    grad = out.to(torch.float32, copy=True)
+    in_range = ((lab >= 0) & (lab < nclass)).unsqueeze(axis)
+    grad.scatter_add_(axis, lab.clamp(0, nclass - 1).unsqueeze(axis),
+                      -in_range.to(torch.float32))
+    scale = grad_scale
+    if use_ignore:
+        keep = lab != int(ignore_label)
+        grad = grad * keep.unsqueeze(axis)
+        if normalization == "valid":
+            scale = scale / keep.sum().clamp(min=1)
+    if normalization == "batch":
+        scale = scale / out.shape[0]
+    elif normalization == "valid" and not use_ignore:
+        scale = scale / lab.numel()
+    return (grad * scale).to(out.dtype)
+
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Softmax forward; the backward ignores the head gradient and returns
+    :func:`softmax_output_grad` for the data and zeros for the label."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, axis, use_ignore, ignore_label,
+                normalization):
+        out = torch.softmax(data.float(), dim=axis).to(data.dtype)
+        ctx.save_for_backward(out, label)
+        ctx.cfg = (grad_scale, axis, use_ignore, ignore_label, normalization)
+        return out
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        out, label = ctx.saved_tensors
+        grad = softmax_output_grad(out, label, *ctx.cfg)
+        dlabel = torch.zeros_like(label) if ctx.needs_input_grad[1] \
+            else None
+        return grad, dlabel, None, None, None, None, None
 
 
 @register("SoftmaxOutput", arg_names=("data", "label"),
@@ -66,13 +125,17 @@ def dropout(attrs, ctx, data):
                   "multi_output": False, "use_ignore": False,
                   "preserve_shape": False, "normalization": "null",
                   "out_grad": False, "smooth_alpha": 0.0},
-          aliases=("Softmax",))
+          is_loss=True, aliases=("Softmax",))
 def softmax_output(attrs, ctx, data, label):
-    """Forward of SoftmaxOutput: softmax over the last axis (axis 1 under
-    ``multi_output``) in f32, cast back.  The label only shapes the
-    gradient, which is not yet ported."""
+    """Softmax over the last axis (axis 1 under ``multi_output``) in f32,
+    cast back; its gradient is the reference's (p - onehot(label)) *
+    grad_scale whatever the head gradient
+    (``mxnet_tpu/ops/nn.py`` ``_softmax_output_bwd``)."""
     axis = 1 if attrs["multi_output"] else -1
-    return torch.softmax(data.float(), dim=axis).to(data.dtype)
+    return _SoftmaxOutput.apply(
+        data, label, float(attrs["grad_scale"]), axis,
+        bool(attrs["use_ignore"]), float(attrs["ignore_label"]),
+        attrs["normalization"])
 
 
 @register("Embedding", arg_names=("data", "weight"),

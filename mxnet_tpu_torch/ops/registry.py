@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import ast
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -27,10 +27,20 @@ _ALIASES: dict[str, str] = {}
 
 @dataclass
 class OpContext:
-    """Per-invocation context handed to fcompute: the train flag and the
-    device on which ops without inputs (``_arange``) allocate."""
+    """Per-invocation context handed to fcompute: the train flag, the
+    device on which ops without inputs (``_arange``) allocate, and the
+    ``torch.Generator`` that stochastic ops draw from in training (the
+    counterpart of the JAX context's PRNG key)."""
     is_train: bool = False
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
+    generator: Optional[torch.Generator] = None
+
+    def require_generator(self):
+        """The generator; raises when a stochastic op has none."""
+        if self.generator is None:
+            raise MXNetError("stochastic op invoked in training without a "
+                             "torch.Generator; pass generator= to eval_graph")
+        return self.generator
 
 
 @dataclass
@@ -41,6 +51,8 @@ class Operator:
     aux_names: object = ()               # tuple or callable(attrs)->tuple
     num_outputs: object = 1              # int or callable(attrs)->int
     params: dict = field(default_factory=dict)
+    stochastic: bool = False             # eval_graph hands it the generator
+    is_loss: bool = False                # output op: a gradient source
     doc: str = ""
 
     def get_arg_names(self, attrs):
@@ -95,7 +107,8 @@ def parse_attrs(param_spec, raw, op_name="<op>"):
 
 
 def register(name, arg_names=("data",), aux_names=(), num_outputs=1,
-             params=None, aliases=(), doc=""):
+             params=None, stochastic=False, is_loss=False, aliases=(),
+             doc=""):
     """Decorator: register ``fcompute`` under ``name`` and its aliases.  A
     name or alias registered twice is an error."""
     def deco(fn):
@@ -105,7 +118,8 @@ def register(name, arg_names=("data",), aux_names=(), num_outputs=1,
         _OP_REGISTRY[name] = Operator(
             name=name, fcompute=fn, arg_names=arg_names,
             aux_names=aux_names, num_outputs=num_outputs,
-            params=dict(params or {}), doc=doc or fn.__doc__ or "")
+            params=dict(params or {}), stochastic=stochastic,
+            is_loss=is_loss, doc=doc or fn.__doc__ or "")
         for a in aliases:
             _ALIASES[a] = name
         return fn

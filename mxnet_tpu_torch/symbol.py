@@ -9,8 +9,8 @@ where tensors carry shapes and no data (the counterpart of
 
 The JSON layout (nodes / arg_nodes / node_row_ptr / heads) and the attribute
 strings are the JAX package's, so a graph saved by either package loads in
-the other.  This slice is forward only: ``bind`` gives an inference
-executor.
+the other.  ``bind`` gives an inference executor; training goes through
+``parallel.ShardedTrainer``, which runs ``eval_graph`` under autograd.
 """
 from __future__ import annotations
 
@@ -102,13 +102,19 @@ def _classify_vars(topo):
     return args, aux
 
 
-def eval_graph(topo, entries, var_values, is_train=False, device=None):
+def eval_graph(topo, entries, var_values, is_train=False, device=None,
+               generator=None):
     """Run the DAG forward.  ``var_values``: id(variable node) -> tensor.
-    ``device`` is where ops without inputs allocate.  Returns the head
-    tensors."""
-    octx = OpContext(is_train=is_train,
-                     device=device if device is not None
-                     else torch.device("cpu"))
+    ``device`` is where ops without inputs allocate; ``generator`` is the
+    ``torch.Generator`` that the ops registered ``stochastic`` draw from
+    when ``is_train``; the other ops get none, as in the JAX package only
+    stochastic ops get a PRNG key.  Returns the head tensors.  Ops run
+    eagerly and autograd records them unless the caller runs this under
+    ``torch.no_grad()``/``inference_mode()``: the trainer differentiates
+    through it, the Executor serves without."""
+    device = device if device is not None else torch.device("cpu")
+    octx = OpContext(is_train=is_train, device=device)
+    sctx = OpContext(is_train=is_train, device=device, generator=generator)
     vals = {}
     for node in topo:
         if node.is_variable:
@@ -118,7 +124,8 @@ def eval_graph(topo, entries, var_values, is_train=False, device=None):
                 raise MXNetError("no value bound for variable %r" % node.name)
             continue
         ins = [vals[id(src)][idx] for (src, idx) in node.inputs]
-        vals[id(node)] = apply_op(node.op, node.attrs, octx, *ins)
+        vals[id(node)] = apply_op(node.op, node.attrs,
+                                  sctx if node.op.stochastic else octx, *ins)
     return [vals[id(n)][i] for (n, i) in entries]
 
 

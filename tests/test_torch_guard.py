@@ -34,8 +34,9 @@ def _imported_roots(path):
 def test_scan_covers_the_package():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
     assert "chip_smoke.py" in names
-    assert os.path.join("mxnet_tpu_torch", "ops", "flash_attention.py") \
-        in names
+    for rel in (("ops", "flash_attention.py"), ("parallel", "trainer.py"),
+                ("models", "gpt.py"), ("tools", "transformer_mfu.py")):
+        assert os.path.join("mxnet_tpu_torch", *rel) in names
 
 
 @pytest.mark.parametrize("path", _sources(),
@@ -50,6 +51,8 @@ def test_package_imports_with_jax_blocked():
             "for m in %r: sys.modules[m] = None\n"
             "import mxnet_tpu_torch, chip_smoke\n"
             "import mxnet_tpu_torch.serving.__main__\n"
+            "import mxnet_tpu_torch.parallel, mxnet_tpu_torch.models.gpt\n"
+            "import mxnet_tpu_torch.tools.transformer_mfu\n"
             "assert not any(m in sys.modules and sys.modules[m] is not None"
             " for m in %r)\n" % (FORBIDDEN, FORBIDDEN))
     env = dict(os.environ, PYTHONPATH=ROOT)
