@@ -31,7 +31,21 @@ Phases, one JSON line each:
 6. ``train_check``: one f32 SGD step of the full-width GPT cut to 2 layers
    and batch 1, on ``gpu(0)`` and on the CPU from the same weights; the
    change in every parameter agrees within a stated relative tolerance,
-   and the same step with TF32 matmuls, run as a control, must not.
+   and the same step with TF32 matmuls, run as a control, must not;
+7. ``kernels`` of K5 (``matmul_stats``, the GEMM with the BatchNorm
+   statistics epilogue) against its plain version at the 8 shapes one
+   ResNet-50 training step gives it in bf16, and at 2 of them in f32;
+8. ``resnet_train``: ResNet-50 v2 at ``tools/bench.py``'s configuration
+   (batch 128, 224x224, bf16, NHWC, block fusion, SGD momentum) on
+   ``gpu(0)``: ten steps after a warm-up, every loss finite, the last
+   below the first, every moving statistic moved, the fusion plan 50
+   blocks with 16 on K5 and K5 launched 16 times a step; then ms/step,
+   images/s, peak memory and a profile of one step (K5's share, and the
+   count of cuDNN layout transposes);
+9. ``resnet_train_check``: one f32 SGD step of ResNet-50 at batch 8,
+   64x64, on ``gpu(0)`` and on the CPU; every parameter's and moving
+   statistic's change agrees within a stated relative tolerance, and a
+   TF32 control must not.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -61,12 +75,16 @@ from mxnet_tpu_torch.models.gpt import (                       # noqa: E402
 from mxnet_tpu_torch.ops.flash_attention import (              # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_plain)
+from mxnet_tpu_torch.ops.fused import (                        # noqa: E402
+    matmul_stats, matmul_stats_plain)
 from mxnet_tpu_torch.parallel import (                         # noqa: E402
     ShardedTrainer, build_mesh)
 from mxnet_tpu_torch.serving import (                          # noqa: E402
     BatchLadder, Batcher, Server)
 from mxnet_tpu_torch.tools.transformer_mfu import (            # noqa: E402
     H100_BF16_PEAK_TFLOPS, measure_steps)
+from mxnet_tpu_torch.tools.bench import (                      # noqa: E402
+    build_trainer as build_resnet_trainer, time_chains)
 
 #: the repo's benchmark configuration of the GPT LM
 #: (examples/transformer/train_lm.py, build_bench_trainer)
@@ -99,6 +117,38 @@ TOL_BWD_NORM = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # the same step with TF32 matmuls, run as a control, 2.8e-2: the bound lies
 # between, near their geometric mean, and the control must exceed it.
 TOL_TRAIN_CHECK = 5e-3
+
+#: K5's launches in one training step of the bench configuration
+#: (ResNet-50 v2, batch 128, 224x224, bf16, NHWC, block fusion): (M, K, N,
+#: launches), M = 128 x 56 x 56, 128 x 28 x 28, 128 x 14 x 14, 128 x 7 x 7
+K5_BENCH_SHAPES = [
+    (401408, 64, 64, 1), (401408, 256, 64, 2), (401408, 256, 128, 1),
+    (100352, 512, 128, 3), (100352, 512, 256, 1), (25088, 1024, 256, 5),
+    (25088, 1024, 512, 1), (6272, 2048, 512, 2)]
+#: the two of them also checked in f32
+K5_F32_SHAPES = [(401408, 64, 64), (25088, 1024, 256)]
+K5_PER_STEP = sum(n for *_s, n in K5_BENCH_SHAPES)
+# K5 against matmul_stats_plain on the same inputs: y in bf16 within one
+# bf16 ulp of the plain y plus TOL_K5_Y_F32 * max |plain| (both round an
+# f32 accumulator once; the accumulators differ by the f32 rounding of
+# sums whose terms reach max |plain|, which near 0 is more than an ulp);
+# y in f32 by max |y - plain| <= TOL_K5_Y_F32 * max |plain| (f32 FMAs in
+# another order, K <= 2048); s1 and s2 by relative norm (f32 sums of up to
+# 401408 rows in another order)
+TOL_K5_Y_F32 = 1e-5
+TOL_K5_SUMS = 1e-4
+# resnet_train_check: ||d_gpu - d_cpu|| / ||d_cpu|| per parameter and per
+# moving statistic, d the change in one f32 SGD step of ResNet-50 at batch
+# 8, 64x64.  The moving statistics come from the forward alone: on the
+# H100 they read 2.7e-5 at worst, the TF32 control 1.4e-2.  The parameters
+# read 1.6e-2 at worst: fc1 (after the last ReLU) agrees to 3e-5, and every
+# parameter before relu1 differs by 6e-3 to 1.6e-2, as another ReLU mask on
+# a pre-activation within rounding of 0 gives; in stage 4 a BN channel sums
+# only 32 values, so one such flip moves its gradient by about 1/sqrt(32).
+# The TF32 control reads 0.50 there.  Each bound lies between the two
+# readings, and the control must exceed both.
+TOL_RESNET_CHECK = 5e-2
+TOL_RESNET_CHECK_AUX = 1e-3
 
 
 def emit(phase, **fields):
@@ -404,10 +454,14 @@ def serve_phase(ctx, cfg, rungs=(1, 4), check_ctx=None):
             "peak_mem_bytes": peak, "profile": profile}
 
 
-def profile_device(fn, top=10):
+def profile_device(fn, top=10, marks=None):
     """``fn()`` once under ``torch.profiler``, ending in a synchronize:
     its host wall, device time by kernel (copies included), the device's
-    busy share of the wall, the top items and the flash kernels' share."""
+    busy share of the wall and the top items.  ``marks``: name -> tuple
+    of substrings of kernel names; for each, the matching kernels' device
+    ms, launches and share of the device time (default: the flash
+    kernels)."""
+    marks = marks or {"flash_kernels": ("flash_",)}
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -426,14 +480,18 @@ def profile_device(fn, top=10):
         rows.append((evt.key[:90], us / 1e3, evt.count))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
-    flash_ms = sum(r[1] for r in rows if "flash_" in r[0])
-    return {"wall_ms": wall_ms, "device_ms": device_ms,
-            "busy_share": device_ms / wall_ms if wall_ms else None,
-            "flash_kernels_ms": flash_ms,
-            "flash_share_of_device": flash_ms / device_ms if device_ms
-            else None,
-            "top": [{"name": n, "ms": ms, "count": c}
-                    for n, ms, c in rows[:top]]}
+    out = {"wall_ms": wall_ms, "device_ms": device_ms,
+           "busy_share": device_ms / wall_ms if wall_ms else None}
+    for mark, keys in marks.items():
+        hit = [r for r in rows if any(k in r[0] for k in keys)]
+        ms = sum(r[1] for r in hit)
+        out[mark + "_ms"] = ms
+        out[mark + "_count"] = sum(r[2] for r in hit)
+        out[mark + "_share_of_device"] = ms / device_ms if device_ms \
+            else None
+    out["top"] = [{"name": n, "ms": ms, "count": c}
+                  for n, ms, c in rows[:top]]
+    return out
 
 
 def profile_dispatch(ladder, rung, seq, top=10):
@@ -555,7 +613,7 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
     ref_loss, ref_delta = one_step(check_ctx)
     losses = [loss, ref_loss]
     out = {"config": dict(cfg, layers=layers), "batch": 1,
-           "optimizer": "sgd", "learning_rate": lr, "dtype": "float32",
+           "optimizer": "sgd", "learning_rate": 0.1, "dtype": "float32",
            "contexts": [str(ctx), str(check_ctx)], "losses": losses,
            "params": len(ref_delta), **compare(delta, ref_delta, True),
            "tol": TOL_TRAIN_CHECK, "control_tf32": None}
@@ -573,6 +631,281 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
                          "so the bound cannot tell it from f32: %s"
                          % json.dumps(out))
     return out
+
+
+# ------------------------------------------------------------- ResNet-50
+def k5_bound(m, k, n, dtype):
+    """Least time for one K5 launch on this card: the larger of 2MNK
+    flops over the dtype's peak and the bytes it must move (x, w, y in the
+    dtype; c read, s1 and s2 written in f32) over HBM bandwidth."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    flops = 2.0 * m * n * k
+    nbytes = float(itemsize) * (m * k + n * k + m * n) + 12.0 * n
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "peak": PEAK_NAME[dtype] + ", HBM 3.35 TB/s"}
+
+
+def k5_library(x, w_nk, c):
+    """The yardstick: cuBLAS ``x @ w^T``, then ``torch.sum`` of ``(y - c)``
+    and of its square over the rows, in f32."""
+    y = x @ w_nk.t()
+    ys = y.float() - c
+    return y, ys.sum(0), (ys * ys).sum(0)
+
+
+def resnet_kernels_phase():
+    """K5 (``matmul_stats``) against ``matmul_stats_plain`` on the card at
+    the bench configuration's 8 shapes in bf16 and 2 of them in f32: the
+    weight is read as the OIHW (N, K) tensor lies, through its transpose."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases = [(m, k, n, torch.bfloat16, count)
+             for m, k, n, count in K5_BENCH_SHAPES]
+    cases += [(m, k, n, torch.float32, 0) for m, k, n in K5_F32_SHAPES]
+    entries = []
+    for m, k, n, dt, count in cases:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+        w_nk = (torch.randn(n, k, generator=gen, device="cuda")
+                / k ** 0.5).to(dt)
+        w2d = w_nk.t()
+        c = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        y, s1, s2 = matmul_stats(x, w2d, c)
+        torch.cuda.synchronize()
+        ry, rs1, rs2 = matmul_stats_plain(x, w2d, c)
+        dy = (y.float() - ry.float()).abs()
+        ref_max = ry.float().abs().max().item()
+        entry = {"shape": [m, k, n], "dtype": str(dt).replace("torch.", ""),
+                 "launches_per_step": count,
+                 "max_abs_err": dy.max().item(), "y_ref_max": ref_max,
+                 "y_rel_norm": (dy.norm() / ry.float().norm()).item()}
+        if dt == torch.bfloat16:
+            ulp = torch.exp2(torch.floor(torch.log2(
+                ry.float().abs().clamp_min(1e-30))) - 7)
+            entry["y_over_one_ulp"] = int((dy > ulp).sum().item())
+            entry["y_over_tol"] = int(
+                (dy > ulp + TOL_K5_Y_F32 * ref_max).sum().item())
+            ok = entry["y_over_tol"] == 0
+        else:
+            entry["y_tol"] = TOL_K5_Y_F32 * ref_max
+            ok = entry["max_abs_err"] <= entry["y_tol"]
+        for name, got, ref in (("s1", s1, rs1), ("s2", s2, rs2)):
+            entry[name + "_max_abs_err"] = (got - ref).abs().max().item()
+            entry[name + "_rel_norm"] = ((got - ref).norm()
+                                         / ref.norm()).item()
+            ok = ok and entry[name + "_rel_norm"] <= TOL_K5_SUMS
+        del y, s1, s2, ry, rs1, rs2, dy
+        entry.update(
+            ok=ok, tol_sums=TOL_K5_SUMS,
+            kernel_ms=cuda_ms(lambda: matmul_stats(x, w2d, c), 20),
+            plain_ms=cuda_ms(lambda: matmul_stats_plain(x, w2d, c), 3),
+            library_ms=cuda_ms(lambda: k5_library(x, w_nk, c), 20))
+        entry.update(k5_bound(m, k, n, dt))
+        entries.append(entry)
+        del x, w_nk, w2d, c
+    emit("kernels", name="matmul_stats", entries=entries)
+    bad = [e for e in entries if not e["ok"]]
+    if bad:
+        raise SystemExit("matmul_stats disagrees with its plain version: "
+                         "%s" % json.dumps(bad))
+    return entries
+
+
+def resnet_train_phase(ctx, batch=128, image=224, dtype="bfloat16",
+                       steps=10, timed_steps=5, repeats=2, blocks=50,
+                       k5_blocks=16, learning_rate=0.1):
+    """The bench configuration (``tools.bench.build_trainer``: ResNet-50
+    v2, SGD momentum 0.9, lr 0.1, weight decay 1e-4, NHWC, block fusion)
+    on ``ctx``: one warm-up step, then ``steps`` steps of ``run_steps``
+    with K5's count set to 0 just before and read just after.  Every loss
+    finite and the last below the first; every moving statistic moved;
+    the plan ``blocks`` blocks with ``k5_blocks`` on K5, each launching
+    once a step.  Then the best of ``repeats`` timed chains of
+    ``timed_steps``, peak memory, and a profiled step."""
+    on_card = ctx.device_type == "gpu"
+    t0 = time.perf_counter()
+    trainer, staged = build_resnet_trainer(
+        batch, image, dtype=dtype, learning_rate=learning_rate, ctx=ctx)
+    build_s = time.perf_counter() - t0
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    warm = float(trainer.step(staged))
+    aux_before = {k: v.clone() for k, v in trainer.aux.items()}
+    sync()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    matmul_stats.launches = 0
+    t0 = time.perf_counter()
+    losses = trainer.run_steps(staged, steps).tolist()
+    sync()
+    steps_s = time.perf_counter() - t0
+    launches = matmul_stats.launches
+    summary = trainer.fusion_summary()
+    want = k5_blocks * steps if on_card else 0
+    if launches != want:
+        raise SystemExit("resnet_train: matmul_stats launched %d times in "
+                         "%d steps; want %d" % (launches, steps, want))
+    if not np.isfinite([warm] + losses).all():
+        raise SystemExit("resnet_train: non-finite loss in %s" % losses)
+    if not losses[-1] < losses[0]:
+        raise SystemExit("resnet_train: loss did not fall over %d steps: "
+                         "%s" % (steps, losses))
+    still = [k for k, v in aux_before.items()
+             if torch.equal(v, trainer.aux[k])]
+    if still:
+        raise SystemExit("resnet_train: moving statistics unchanged: %s"
+                         % still)
+    if summary is None or summary["blocks"] != blocks \
+            or summary["pallas_blocks"] != k5_blocks:
+        raise SystemExit("resnet_train: fusion plan %s; want %d blocks, %d "
+                         "on K5" % (summary, blocks, k5_blocks))
+    times = []
+    for _ in range(repeats):
+        _done, seconds, timed = time_chains(trainer, staged, timed_steps,
+                                            timed_steps)
+        times.append(seconds)
+    if not torch.isfinite(timed).all():
+        raise SystemExit("resnet_train: non-finite loss in the timed steps")
+    step_s = min(times) / timed_steps
+    out = {"batch": batch, "image": image, "dtype": dtype,
+           "layout": "NHWC", "fuse_blocks": True, "context": str(ctx),
+           "optimizer": "sgd", "learning_rate": learning_rate,
+           "momentum": 0.9, "weight_decay": 1e-4,
+           "params": sum(int(v.numel()) for v in trainer.params.values()),
+           "build_s": build_s, "warmup_loss": warm, "steps": steps,
+           "losses": losses, "steps_wall_s": steps_s,
+           "launches": {"matmul_stats": launches},
+           "launches_per_step": launches / steps, "fusion": summary,
+           "timed_steps": timed_steps, "repeats_s": times,
+           "step_ms": step_s * 1e3, "images_per_s": batch / step_s}
+    if on_card:
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+        # after the launch count was read: this step is not counted
+        out["profile"] = profile_device(
+            lambda: trainer.step(staged), top=15,
+            marks={"k5": ("matmul_stats",),
+                   "layout_transposes": ("nhwcToNchw", "nchwToNhwc",
+                                         "tensorTransform"),
+                   "library_convs_gemms": (
+                       "xmma", "cudnn", "cutlass", "implicit", "nvjet",
+                       "gemm", "conv", "dgrad", "wgrad"),
+                   "pytorch_elementwise_reductions": (
+                       "elementwise_kernel", "reduce_kernel")})
+    return out
+
+
+def resnet_train_check_phase(ctx, batch=8, image=64, check_ctx=None,
+                             k5_blocks=16):
+    """One f32 SGD step of ResNet-50 v2 (NHWC, block fusion, K5 in f32) at
+    ``batch`` x ``image`` on ``ctx`` and on ``check_ctx`` (default: the
+    CPU) from the same seeded weights and batch.  Per parameter and per
+    moving statistic, the relative norm of the difference of the two
+    changes must stay within ``TOL_RESNET_CHECK`` (parameters) and
+    ``TOL_RESNET_CHECK_AUX`` (moving statistics).  On the card the step is
+    also run with TF32 convolutions and matmuls as a control, whose worst
+    differences must exceed both bounds."""
+    check_ctx = check_ctx or mx.cpu()
+
+    def one_step(c, tf32=False):
+        trainer, staged = build_resnet_trainer(batch, image,
+                                               dtype="float32", ctx=c)
+        before = {k: v.to("cpu", copy=True) for k, v in
+                  list(trainer.params.items()) + list(trainer.aux.items())}
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        matmul_stats.launches = 0
+        try:
+            loss = float(trainer.step(staged))
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+        now = dict(trainer.params, **trainer.aux)
+        return loss, matmul_stats.launches, \
+            {k: now[k].cpu() - before[k] for k in before}
+
+    def compare(delta, ref, each=False):
+        rel = {k: (delta[k] - d).norm().item() / max(d.norm().item(), 1e-30)
+               for k, d in ref.items()}
+        aux = {k: v for k, v in rel.items()
+               if k.endswith(("moving_mean", "moving_var"))}
+        par = {k: v for k, v in rel.items() if k not in aux}
+        worst = max(par, key=par.get)
+        worst_aux = max(aux, key=aux.get)
+        out = {"max_rel_update_diff": par[worst], "worst": worst,
+               "median_rel_update_diff": float(np.median(list(par.values()))),
+               "max_rel_aux_diff": aux[worst_aux], "worst_aux": worst_aux,
+               "median_rel_aux_diff": float(np.median(list(aux.values())))}
+        if each:
+            out["rel_update_diff"] = rel
+        return out
+
+    def within(o):
+        return o["max_rel_update_diff"] <= TOL_RESNET_CHECK \
+            and o["max_rel_aux_diff"] <= TOL_RESNET_CHECK_AUX
+
+    loss, launches, delta = one_step(ctx)
+    ref_loss, _n, ref_delta = one_step(check_ctx)
+    losses = [loss, ref_loss]
+    out = {"model": "resnet50", "batch": batch, "image": image,
+           "optimizer": "sgd", "learning_rate": 0.1, "dtype": "float32",
+           "contexts": [str(ctx), str(check_ctx)], "losses": losses,
+           "k5_launches": launches, "compared": len(ref_delta),
+           **compare(delta, ref_delta, True), "tol": TOL_RESNET_CHECK,
+           "tol_aux": TOL_RESNET_CHECK_AUX, "control_tf32": None}
+    del delta
+    on_card = ctx.device_type == "gpu"
+    if launches != (k5_blocks if on_card else 0):
+        raise SystemExit("resnet_train_check: matmul_stats launched %d "
+                         "times in one step" % launches)
+    if on_card:
+        tf32_loss, _n, tf32_delta = one_step(ctx, tf32=True)
+        losses.append(tf32_loss)
+        out["control_tf32"] = compare(tf32_delta, ref_delta)
+    if not within(out) or not np.isfinite(losses).all():
+        raise SystemExit("resnet_train_check: %s" % json.dumps(out))
+    control = out["control_tf32"]
+    if control is not None and (
+            control["max_rel_update_diff"] <= TOL_RESNET_CHECK
+            or control["max_rel_aux_diff"] <= TOL_RESNET_CHECK_AUX):
+        raise SystemExit("resnet_train_check: the TF32 control passes a "
+                         "bound, so the bounds cannot tell it from f32: %s"
+                         % json.dumps(out))
+    return out
+
+
+def k5_summary(entries, launches):
+    """K5's entry of the kernel summary line: the bf16 cases summed over
+    one training step's 16 launches (each shape times its launches per
+    step), so ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per
+    step; ``shapes`` keeps every case."""
+    step = [e for e in entries if e["dtype"] == "bfloat16"]
+
+    def total(key):
+        return sum(e[key] * e["launches_per_step"] for e in step)
+
+    t_ops = sum(e["flops"] * e["launches_per_step"] for e in step) \
+        / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_bytes = sum(e["bytes"] * e["launches_per_step"] for e in step) \
+        / HBM_BYTES_PER_S * 1e3
+    return {
+        "name": "matmul_stats", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/matmul_stats.cu",
+        "replaces": "mxnet_tpu/ops/fused.py:169", "launches": launches,
+        "max_abs_err": max(e["max_abs_err"] for e in entries),
+        "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": total("library_ms"), "per": "one training step, "
+        "%d launches, bf16" % K5_PER_STEP,
+        "shapes": [{k: e[k] for k in (
+            "shape", "dtype", "launches_per_step", "kernel_ms", "plain_ms",
+            "library_ms", "bound_ms", "bound_by", "max_abs_err",
+            "s1_rel_norm", "s2_rel_norm")} for e in entries]}
 
 
 def kernel_summary(name, source, replaces, also_replaces, case, launches,
@@ -610,6 +943,10 @@ def main():
     train = train_phase(mx.gpu(0), FULL)
     emit("train", **train)
     emit("train_check", **train_check_phase(mx.gpu(0), FULL))
+    k5 = resnet_kernels_phase()
+    resnet = resnet_train_phase(mx.gpu(0))
+    emit("resnet_train", **resnet)
+    emit("resnet_train_check", **resnet_train_check_phase(mx.gpu(0)))
     train_shape = list(TRAIN_SHAPE[:4])
     fwd_train = _case(fwd, train_shape, "bfloat16")
     print(json.dumps({"kernels": [
@@ -630,6 +967,7 @@ def main():
             "mxnet_tpu/ops/pallas_kernels.py:499",
             _case(bwd, train_shape, "bfloat16"),
             train["launches"]["flash_attention_bwd"]),
+        k5_summary(k5, resnet["launches"]["matmul_stats"]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Carry weights from the JAX package into the port.
 
 Weights keep their MXNet layouts in both packages (FullyConnected weight
-``(out, in)``, Embedding ``(vocab, d)``, LayerNorm gamma/beta ``(d,)``), so
-converting is placing arrays on a device.  The file route needs no code:
+``(out, in)``, Embedding ``(vocab, d)``, LayerNorm gamma/beta ``(d,)``,
+Convolution weight OIHW, BatchNorm statistics ``(C,)``), so converting is
+placing arrays on a device.  The file route needs no code:
 a ``.params`` file written by ``mxnet_tpu.nd.save`` loads with
 ``mxnet_tpu_torch.nd.load``, and the reverse.  A training state carries
 over with :func:`from_jax_trainer_state`.
@@ -33,12 +34,14 @@ def from_jax_params(params, ctx=None):
     return out
 
 
-def from_jax_trainer_state(trainer, params, opt_state=None):
+def from_jax_trainer_state(trainer, params, opt_state=None, aux=None):
     """Copy a JAX ``ShardedTrainer``'s state into the port's ``trainer``, in
     place, on the trainer's device.  ``params``: ``{name: array}`` (numpy,
     or anything ``np.asarray`` takes); ``opt_state``: ``{name: [slot
-    arrays]}`` in the JAX trainer's slot order, which is the port's.  Names,
-    shapes and slot counts must match the port's trainer."""
+    arrays]}`` in the JAX trainer's slot order, which is the port's;
+    ``aux``: ``{name: array}``, the auxiliary states (BatchNorm's moving
+    statistics).  Names, shapes and slot counts must match the port's
+    trainer."""
     def put(dst, src, what):
         src = np.asarray(src)
         if tuple(src.shape) != tuple(dst.shape):
@@ -46,12 +49,16 @@ def from_jax_trainer_state(trainer, params, opt_state=None):
                              % (what, src.shape, tuple(dst.shape)))
         dst.copy_(torch.from_numpy(np.array(src, np.float32)))
 
-    if set(params) != set(trainer.params):
-        raise MXNetError("params: names differ from the trainer's: %s"
-                         % sorted(set(params) ^ set(trainer.params)))
+    for kind, given, mine in (("params", params, trainer.params),
+                              ("aux", aux, trainer.aux)):
+        if given is not None and set(given) != set(mine):
+            raise MXNetError("%s: names differ from the trainer's: %s"
+                             % (kind, sorted(set(given) ^ set(mine))))
     with torch.no_grad():
         for name, value in params.items():
             put(trainer.params[name], value, name)
+        for name, value in (aux or {}).items():
+            put(trainer.aux[name], value, "aux " + name)
         for name, slots in (opt_state or {}).items():
             mine = trainer.opt_state[name]
             if len(slots) != len(mine):

@@ -29,6 +29,7 @@ _PKG = Path(__file__).resolve().parent
 SOURCES = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
     "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
+    "matmul_stats": "csrc/matmul_stats.cu",
 }
 
 _lock = threading.Lock()

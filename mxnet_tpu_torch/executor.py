@@ -81,8 +81,9 @@ class Executor:
         var_values.update({id(n): self.aux_dict[n.name].data
                            for n in self._aux_nodes})
         with torch.inference_mode():
-            heads = eval_graph(self._topo, self._symbol._entries, var_values,
-                               is_train=False, device=self._device)
+            heads, _aux = eval_graph(self._topo, self._symbol._entries,
+                                     var_values, is_train=False,
+                                     device=self._device)
         self._outputs = [NDArray(h) for h in heads]
         return self._outputs
 

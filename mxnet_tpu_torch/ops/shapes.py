@@ -10,7 +10,18 @@ maps the already-inferred input names (normally ``data``) to shapes.
 """
 from __future__ import annotations
 
+from .nn import current_image_layout
+
 _PARAM_SHAPE_HOOKS = {}
+
+
+def _channels(data):
+    """Channel count of an activation under the active image layout.
+    Weights always keep the reference (channel-major) layout; only 4-d
+    activations move to NHWC under ``image_layout('NHWC')``."""
+    if len(data) == 4 and current_image_layout() == "NHWC":
+        return int(data[3])
+    return int(data[1])
 
 
 def register_param_shapes(op_name):
@@ -42,6 +53,29 @@ def _fc(attrs, known):
     if not attrs["no_bias"]:
         out["bias"] = (num_hidden,)
     return out
+
+
+@register_param_shapes("Convolution")
+def _conv(attrs, known):
+    data = known.get("data")
+    if data is None:
+        return {}
+    kernel = tuple(int(k) for k in attrs["kernel"])
+    out = {"weight": (int(attrs["num_filter"]),
+                      _channels(data) // int(attrs["num_group"])) + kernel}
+    if not attrs["no_bias"]:
+        out["bias"] = (int(attrs["num_filter"]),)
+    return out
+
+
+@register_param_shapes("BatchNorm")
+def _bn(attrs, known):
+    data = known.get("data")
+    if data is None:
+        return {}
+    axis = int(attrs.get("axis", 1))
+    c = (_channels(data) if axis == 1 else int(data[axis]),)
+    return {"gamma": c, "beta": c, "moving_mean": c, "moving_var": c}
 
 
 @register_param_shapes("LayerNorm")

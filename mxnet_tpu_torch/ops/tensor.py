@@ -1,5 +1,5 @@
 """Tensor ops: the subset of ``mxnet_tpu/ops/tensor.py`` that the GPT
-serving path uses.  Parameter names and defaults are the JAX package's, so
+and ResNet paths use.  Parameter names and defaults are the JAX package's, so
 a Symbol's JSON is the same in both packages."""
 from __future__ import annotations
 
@@ -7,6 +7,12 @@ import torch
 
 from ..base import torch_dtype
 from .registry import register
+
+
+@register("identity", aliases=("_copy",))
+def identity(attrs, ctx, data):
+    """The input itself (ResNet's ``sym.identity`` stem wrapper)."""
+    return data
 
 
 @register("elemwise_add", arg_names=("lhs", "rhs"), aliases=("_plus", "_add"))

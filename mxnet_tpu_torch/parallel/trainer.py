@@ -15,14 +15,25 @@ the same step runs eagerly in PyTorch on the mesh's one device:
   ``torch.no_grad()``, **in place** on the f32 masters and the optimizer
   slots, with ``rescale_grad`` (default 1/global batch) and the reference's
   lr_mult/wd_mult;
+* BatchNorm's moving statistics (the aux state) come back from
+  ``eval_graph`` as aux updates and are written into ``self.aux`` in f32
+  after each step's backward, as the JAX step returns ``new_aux``;
 * the monitoring loss is mean -log p(label) of the softmax head, with the
   label clipped into range.
+
+``layout="NHWC"`` runs the graph under ``image_layout("NHWC")``: image
+activations are channel-minor end to end, ``put_batch`` transposes NCHW
+host images on the device, and 4-d weights keep their OIHW shape in
+``channels_last`` memory format in the compute view, which is what cuDNN
+reads for an NHWC convolution.  ``fuse_blocks=True`` runs it under
+``block_fusion(True)``: conv->BN->ReLU chains become single regions, and
+the 1x1 ones take K5 (``ops.fused.matmul_stats``).
 
 Dropout draws from one ``torch.Generator`` per trainer, seeded from
 ``seed``; initial weights come from ``numpy.random.RandomState(seed)``.
 Telemetry, numerics, resilience and checkpoints are not yet ported, nor are
-the options that select the JAX trainer's layouts, fusions and kinds of
-parallelism: setting one raises.
+the JAX trainer's TPU-era rewrites and kinds of parallelism: setting one
+raises.
 """
 from __future__ import annotations
 
@@ -33,7 +44,10 @@ import torch
 
 from ..base import MXNetError, torch_dtype
 from ..initializer import InitDesc, Xavier
+from ..ops.fused import block_fusion
+from ..ops.nn import NHWC_UNAWARE_OPS, image_layout
 from ..symbol import _classify_vars, eval_graph
+from ..analysis import fusion as _fusion
 from .. import optimizer as _opt_mod
 
 __all__ = ["ShardedTrainer"]
@@ -131,6 +145,11 @@ _PASS_THROUGH = frozenset({
     "Reshape", "Flatten", "expand_dims", "transpose", "BlockGrad",
     "slice_axis", "slice", "identity", "stop_gradient", "SwapAxis",
     "squeeze"})
+# ops of the port adapted to NHWC activations: their channel axis is
+# remapped while the graph runs, so an explicit axis attr is fine
+_NHWC_ADAPTED = frozenset({
+    "Convolution", "Pooling", "BatchNorm", "Flatten", "FullyConnected",
+    "Activation", "Dropout", "SoftmaxOutput"})
 
 
 class ShardedTrainer:
@@ -157,12 +176,17 @@ class ShardedTrainer:
             ``numpy.random.RandomState(seed)``.
         dtype: compute dtype of activations and gradients; masters stay f32.
         seed: seeds the initial weights and the trainer's Dropout generator.
+        layout: None or "NCHW" (the reference's), or "NHWC" (channel-minor
+            image activations; host batches stay NCHW and are transposed
+            on the device).  Weights keep their reference shapes.
+        fuse_blocks: run the block-fusion plan (analysis.fusion) in the
+            step and the forward; None means off.
         auto_layouts: XLA-chosen state layouts, which have no counterpart
             in eager PyTorch; only the default False is accepted.
         elide_input_bn_grad: gradients are taken with respect to parameters
             only, never batch inputs; only the default True is accepted.
-        layout="NHWC", fuse_conv_bn, fuse_blocks, stem_space_to_depth,
-        strided_bwd_phase, conv1x1_as_dot, pipeline_stages > 1,
+        fuse_conv_bn, stem_space_to_depth, strided_bwd_phase,
+        conv1x1_as_dot, pipeline_stages > 1,
         sequence_parallel, tp_rules, native_weight_layout, strict,
         input_mean/input_std: not yet ported; setting one raises (None
         means off, there being no environment defaults here).
@@ -173,10 +197,10 @@ class ShardedTrainer:
                 "elide_input_bn_grad=False have no counterpart in "
                 "mxnet_tpu_torch (eager PyTorch; gradients of parameters "
                 "only)")
+        if layout not in (None, "NCHW", "NHWC"):
+            raise MXNetError("unsupported layout %r" % (layout,))
         unported = {
-            "layout=%r" % (layout,): layout not in (None, "NCHW"),
             "fuse_conv_bn": bool(fuse_conv_bn),
-            "fuse_blocks": bool(fuse_blocks),
             "stem_space_to_depth": bool(stem_space_to_depth),
             "strided_bwd_phase": bool(strided_bwd_phase),
             "conv1x1_as_dot": bool(conv1x1_as_dot),
@@ -198,7 +222,11 @@ class ShardedTrainer:
         self.dtype = dtype
         self._device = mesh.device
         self._compute_dtype = torch_dtype(dtype)
+        self._layout = layout or "NCHW"
+        self._fuse_blocks = bool(fuse_blocks)
         self._topo = symbol._topo()
+        if self._layout == "NHWC":
+            self._check_nhwc_safe()
         self._arg_nodes, self._aux_nodes = _classify_vars(self._topo)
         arg_names = [n.name for n in self._arg_nodes]
         self._input_names = list(data_shapes) + list(label_shapes or ())
@@ -211,10 +239,17 @@ class ShardedTrainer:
                               for (n, _i) in symbol._entries]
         self._int_inputs = self._index_inputs()
 
-        shapes = {n: tuple(s) for n, s in data_shapes.items()}
+        # inputs whose activations move to channel-minor under NHWC
+        self._nhwc_inputs = {n for n, s in data_shapes.items()
+                             if self._layout == "NHWC" and len(s) == 4}
+        self._host_input_shapes = {n: tuple(s)
+                                   for n, s in data_shapes.items()}
+        shapes = {n: (s[0], s[2], s[3], s[1]) if n in self._nhwc_inputs
+                  else tuple(s) for n, s in data_shapes.items()}
         shapes.update({n: tuple(s) for n, s in self._label_shapes.items()})
         self._input_shapes = shapes
-        arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
+        with image_layout(self._layout):
+            arg_shapes, _, aux_shapes = symbol.infer_shape(**shapes)
         self._arg_shapes = dict(zip(arg_names, arg_shapes))
         self._aux_shapes = dict(zip(self._aux_names, aux_shapes))
         global_batch = next(iter(data_shapes.values()))[0]
@@ -262,6 +297,38 @@ class ShardedTrainer:
         self._generator.manual_seed(seed)
         self._step_count = 0
 
+    def _check_nhwc_safe(self):
+        """Refuse NHWC for graphs whose ops would silently index the wrong
+        axis: channel-axis ops with no NHWC adaptation, and other ops that
+        pin an explicit axis that could be spatial or channel (axis attrs
+        are written against the reference NCHW convention)."""
+        bad = set()
+        for node in self._topo:
+            if node.op is None:
+                continue
+            name = node.op.name
+            if name in NHWC_UNAWARE_OPS:
+                bad.add(name)
+                continue
+            if name in _NHWC_ADAPTED:
+                continue
+            if name == "transpose" and not node.attrs.get("axes"):
+                bad.add("transpose()")  # default axes reverse all dims
+                continue
+            for key in ("axis", "dim", "axes", "begin", "end"):
+                v = node.attrs.get(key)
+                vals = v if isinstance(v, (tuple, list)) else (v,)
+                if any(isinstance(x, int) and
+                       (1 <= x <= 3 or -3 <= x <= -1) for x in vals):
+                    bad.add("%s(%s=%r)" % (name, key, v))
+                    break
+        if bad:
+            raise MXNetError(
+                "layout='NHWC' is not supported for graphs containing %s: "
+                "these index axes in the reference NCHW convention and "
+                "have no NHWC adaptation; use the default NCHW layout"
+                % ", ".join(sorted(bad)))
+
     def _index_inputs(self):
         """Data inputs consumed as integer indices (Embedding/take/...),
         followed through shape-only ops: these are never cast to a narrow
@@ -299,16 +366,26 @@ class ShardedTrainer:
 
     # ---------------------------------------------------------------- batches
     def put_batch(self, batch):
-        """Stage a host batch (numpy arrays or tensors, global batch dim) on
-        the trainer's device in the dtypes the step takes: data inputs in
-        the compute dtype; labels and index inputs (token ids) in float32,
-        which is exact for ids below 2^24.  Reuse the result across
-        :meth:`step` calls to move it once."""
+        """Stage a host batch (numpy arrays or tensors, global batch dim,
+        images in the reference NCHW convention) on the trainer's device in
+        the dtypes and layout the step takes: data inputs in the compute
+        dtype; labels and index inputs (token ids) in float32, which is
+        exact for ids below 2^24.  Under ``layout="NHWC"`` an image batch
+        is transposed on the device, after its host bytes land.  Reuse the
+        result across :meth:`step` calls to move it once."""
         out = {}
         for k, v in batch.items():
             t = v if isinstance(v, torch.Tensor) \
                 else torch.from_numpy(np.ascontiguousarray(v))
             t = t.to(self._device)
+            # the batch dim may differ (a partial tail batch): compare the
+            # feature dims only.  A batch that also reads as NHWC (C == H
+            # == W) follows the documented NCHW host convention.
+            feat = tuple(t.shape[1:])
+            if k in self._nhwc_inputs and t.dim() == 4 and (
+                    feat != tuple(self._input_shapes[k][1:])
+                    or feat == tuple(self._host_input_shapes[k][1:])):
+                t = t.permute(0, 2, 3, 1).contiguous()
             if t.is_floating_point():
                 if "label" not in k and k not in self._int_inputs:
                     t = t.to(self._compute_dtype)
@@ -350,14 +427,34 @@ class ShardedTrainer:
         return lr, opt.num_update
 
     # ------------------------------------------------------------------ steps
+    def _compute_view(self, params):
+        """Compute-dtype copies of the f32 masters, as the graph sees them;
+        under NHWC the 4-d (convolution) weights in ``channels_last``
+        memory format, the layout cuDNN reads for an NHWC convolution."""
+        view = {}
+        for k, v in params.items():
+            if self._layout == "NHWC" and v.dim() == 4:
+                view[k] = v.to(self._compute_dtype,
+                               memory_format=torch.channels_last)
+            else:
+                view[k] = v.to(self._compute_dtype)
+        return view
+
+    def _run_graph(self, view, batch, is_train):
+        """``eval_graph`` under the trainer's image layout and block
+        fusion: ``(heads, aux_updates)``."""
+        with image_layout(self._layout), block_fusion(self._fuse_blocks):
+            return eval_graph(self._topo, self.symbol._entries,
+                              self._node_value_map(view, batch, self.aux),
+                              is_train=is_train, device=self._device,
+                              generator=self._generator if is_train
+                              else None)
+
     def _train_step(self, batch, lr, t):
         leaves = {k: w.detach().requires_grad_(True)
                   for k, w in self.params.items()}
-        view = {k: v.to(self._compute_dtype) for k, v in leaves.items()}
-        heads = eval_graph(self._topo, self.symbol._entries,
-                           self._node_value_map(view, batch, self.aux),
-                           is_train=True, device=self._device,
-                           generator=self._generator)
+        heads, aux_upd = self._run_graph(self._compute_view(leaves), batch,
+                                         True)
         loss_heads = [h for h, il in zip(heads, self._head_is_loss)
                       if il and h.requires_grad]
         if loss_heads:
@@ -372,6 +469,11 @@ class ShardedTrainer:
                 lr_mult, wd_eff = self._per_param_hyper(k)
                 self._update_rule(w, g, self.opt_state[k], lr * lr_mult,
                                   wd_eff, t)
+            # after the backward, which may still read the old statistics
+            for node in self._aux_nodes:
+                upd = aux_upd.get(id(node))
+                if upd is not None:
+                    self.aux[node.name].copy_(upd)
             return self._monitor_loss(heads, batch)
 
     def _monitor_loss(self, heads, batch):
@@ -429,12 +531,16 @@ class ShardedTrainer:
                                        dtype=torch.float32,
                                        device=self._device)
         with torch.inference_mode():
-            view = {k: v.to(self._compute_dtype)
-                    for k, v in self.params.items()}
-            return eval_graph(self._topo, self.symbol._entries,
-                              self._node_value_map(view, dev_batch,
-                                                   self.aux),
-                              is_train=False, device=self._device)
+            heads, _aux = self._run_graph(self._compute_view(self.params),
+                                          dev_batch, False)
+            return heads
+
+    def fusion_summary(self):
+        """Summary of the most recent block-fusion plan in this process
+        (blocks by kind, blocks on K5 as ``pallas_blocks``, fallback
+        reasons): None before the first fused step or forward, or when
+        ``fuse_blocks`` is off."""
+        return _fusion.last_plan_summary() if self._fuse_blocks else None
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         raise MXNetError("ShardedTrainer checkpoints are not yet ported to "

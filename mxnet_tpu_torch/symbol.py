@@ -23,7 +23,9 @@ from .context import current_context
 from . import attribute, name as _name_mod
 from .ops import registry as _registry
 from .ops.registry import OpContext, apply_op, get_op
-from .ops import shapes as _shapes
+from .ops import fused as _fused, shapes as _shapes
+from .ops.nn import current_image_layout
+from .analysis import fusion as _fusion
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
            "arange", "eval_graph"]
@@ -108,14 +110,32 @@ def eval_graph(topo, entries, var_values, is_train=False, device=None,
     ``device`` is where ops without inputs allocate; ``generator`` is the
     ``torch.Generator`` that the ops registered ``stochastic`` draw from
     when ``is_train``; the other ops get none, as in the JAX package only
-    stochastic ops get a PRNG key.  Returns the head tensors.  Ops run
+    stochastic ops get a PRNG key.
+
+    Returns ``(heads, aux_updates)``: the head tensors and, for every
+    auxiliary variable an op updates (BatchNorm's moving statistics),
+    id(variable node) -> its new value.  Under
+    :class:`~mxnet_tpu_torch.ops.fused.block_fusion` the graph runs by the
+    block plan of :mod:`mxnet_tpu_torch.analysis.fusion`: interior nodes of
+    a fused block are skipped and the block is evaluated at its terminal
+    node, its BN aux updates threaded as the unfused op's.  Ops run
     eagerly and autograd records them unless the caller runs this under
     ``torch.no_grad()``/``inference_mode()``: the trainer differentiates
     through it, the Executor serves without."""
     device = device if device is not None else torch.device("cpu")
     octx = OpContext(is_train=is_train, device=device)
     sctx = OpContext(is_train=is_train, device=device, generator=generator)
-    vals = {}
+    vals, aux_updates = {}, {}
+    block_plan = None
+    if _fused.block_fusion_enabled():
+        block_plan = _fusion.plan_block_fusion(
+            topo, entries, layout=current_image_layout(), is_train=is_train)
+
+    def thread_aux(node, updates):
+        for (src, _), upd in zip(node.inputs[node.num_args:], updates):
+            if src.is_variable:
+                aux_updates[id(src)] = upd
+
     for node in topo:
         if node.is_variable:
             try:
@@ -123,10 +143,27 @@ def eval_graph(topo, entries, var_values, is_train=False, device=None,
             except KeyError:
                 raise MXNetError("no value bound for variable %r" % node.name)
             continue
+        if block_plan is not None:
+            if id(node) in block_plan.skip:
+                # interior of a fused block: evaluated at its terminal
+                vals[id(node)] = (None,) * node.num_outputs()
+                continue
+            blk = block_plan.blocks.get(id(node))
+            if blk is not None:
+                out, bn_node, bn_aux = _fusion.apply_block(blk, vals,
+                                                           is_train)
+                vals[id(node)] = (out,)
+                if bn_node is not None:
+                    thread_aux(bn_node, bn_aux)
+                continue
         ins = [vals[id(src)][idx] for (src, idx) in node.inputs]
-        vals[id(node)] = apply_op(node.op, node.attrs,
-                                  sctx if node.op.stochastic else octx, *ins)
-    return [vals[id(n)][i] for (n, i) in entries]
+        outs = apply_op(node.op, node.attrs,
+                        sctx if node.op.stochastic else octx, *ins)
+        n_vis = node.num_outputs()
+        vals[id(node)] = outs[:n_vis]
+        thread_aux(node, outs[n_vis:])
+    heads = [vals[id(n)][i] for (n, i) in entries]
+    return heads, aux_updates
 
 
 class Symbol:
@@ -256,7 +293,8 @@ class Symbol:
                         shapes[id(src)] = tuple(shp)
             ins = [value(src, idx) for (src, idx) in node.inputs]
             if all(v is not None for v in ins):
-                vals[id(node)] = apply_op(node.op, node.attrs, octx, *ins)
+                vals[id(node)] = apply_op(node.op, node.attrs, octx,
+                                          *ins)[:node.num_outputs()]
 
         missing = [n.name for n in arg_nodes + aux_nodes
                    if id(n) not in shapes]

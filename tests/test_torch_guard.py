@@ -35,7 +35,9 @@ def test_scan_covers_the_package():
     names = {os.path.relpath(p, ROOT) for p in _sources()}
     assert "chip_smoke.py" in names
     for rel in (("ops", "flash_attention.py"), ("parallel", "trainer.py"),
-                ("models", "gpt.py"), ("tools", "transformer_mfu.py")):
+                ("models", "gpt.py"), ("tools", "transformer_mfu.py"),
+                ("ops", "fused.py"), ("analysis", "fusion.py"),
+                ("models", "resnet.py"), ("tools", "bench.py")):
         assert os.path.join("mxnet_tpu_torch", *rel) in names
 
 
@@ -53,6 +55,9 @@ def test_package_imports_with_jax_blocked():
             "import mxnet_tpu_torch.serving.__main__\n"
             "import mxnet_tpu_torch.parallel, mxnet_tpu_torch.models.gpt\n"
             "import mxnet_tpu_torch.tools.transformer_mfu\n"
+            "import mxnet_tpu_torch.ops.fused, mxnet_tpu_torch.tools.bench\n"
+            "import mxnet_tpu_torch.analysis.fusion\n"
+            "import mxnet_tpu_torch.models.resnet\n"
             "assert not any(m in sys.modules and sys.modules[m] is not None"
             " for m in %r)\n" % (FORBIDDEN, FORBIDDEN))
     env = dict(os.environ, PYTHONPATH=ROOT)

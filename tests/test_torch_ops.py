@@ -65,6 +65,15 @@ CASES = [
      [_ids(10, 2, 5), _n(10, 4)]),
     ("flash_attention", "_contrib_FlashAttention", {"causal": True},
      [_n(2, 128, 2, 16)] * 3),
+    ("convolution", "Convolution", {"kernel": (3, 3), "pad": (1, 1),
+                                    "num_filter": 4},
+     [_n(2, 3, 6, 6), _n(4, 3, 3, 3), _n(4)]),
+    ("pooling_max", "Pooling", {"kernel": (3, 3), "stride": (2, 2),
+                                "pad": (1, 1)}, [_n(2, 3, 7, 7)]),
+    ("batch_norm_inference", "BatchNorm", {"fix_gamma": False},
+     [_n(2, 3, 4, 4), _pos(3), _n(3), _n(3), _pos(3)]),
+    ("flatten", "Flatten", {}, [_n(2, 3, 2, 2)]),
+    ("identity", "identity", {}, [_n(3, 4)]),
 ]
 
 

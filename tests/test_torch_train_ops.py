@@ -203,8 +203,9 @@ def test_dropout_in_training_needs_a_generator():
 def _eval_train(net, x, generator):
     topo = net._topo()
     var = next(n for n in topo if n.is_variable)
-    return eval_graph(topo, net._entries, {id(var): x}, is_train=True,
-                      generator=generator)[0]
+    heads, _aux = eval_graph(topo, net._entries, {id(var): x},
+                             is_train=True, generator=generator)
+    return heads[0]
 
 
 def test_eval_graph_hands_the_generator_to_stochastic_ops_only(monkeypatch):
