@@ -45,7 +45,20 @@ Phases, one JSON line each:
 9. ``resnet_train_check``: one f32 SGD step of ResNet-50 at batch 8,
    64x64, on ``gpu(0)`` and on the CPU; every parameter's and moving
    statistic's change agrees within a stated relative tolerance, and a
-   TF32 control must not.
+   TF32 control must not;
+10. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
+    package's ``tests/test_rtc.py`` written in CUDA C, and abs over an
+    (8192, 8192) f32 array, and pushes each once; each output equals the
+    callable (plain) form's exactly; the full-size one is timed against
+    ``torch.abs`` and its byte bound;
+11. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
+    shapes at batch 128, then K7 (K5 with c = 0) and K8 (the prologue
+    variant) against their plain versions at each shape, with the kernel,
+    plain, library and bound times;
+12. ``block_experiment``: the tool of that name at batch 128 with its
+    defaults (64, 64, 256, rows 4), then K9 against ``block_plain`` at
+    batch 128 (and at batch 2 for its other instantiations), with the
+    kernel, plain, library and bound times.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -55,7 +68,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import threading
@@ -76,7 +88,8 @@ from mxnet_tpu_torch.ops.flash_attention import (              # noqa: E402
     flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
     flash_attention_plain)
 from mxnet_tpu_torch.ops.fused import (                        # noqa: E402
-    matmul_stats, matmul_stats_plain)
+    matmul_stats, matmul_stats_plain, matmul_stats_prologue,
+    matmul_stats_prologue_plain)
 from mxnet_tpu_torch.parallel import (                         # noqa: E402
     ShardedTrainer, build_mesh)
 from mxnet_tpu_torch.serving import (                          # noqa: E402
@@ -85,6 +98,9 @@ from mxnet_tpu_torch.tools.transformer_mfu import (            # noqa: E402
     H100_BF16_PEAK_TFLOPS, measure_steps)
 from mxnet_tpu_torch.tools.bench import (                      # noqa: E402
     build_trainer as build_resnet_trainer, time_chains)
+from mxnet_tpu_torch.tools import (                            # noqa: E402
+    block_experiment, nvidia_smi)
+from mxnet_tpu_torch.tools import matmul_stats_experiment      # noqa: E402
 
 #: the repo's benchmark configuration of the GPT LM
 #: (examples/transformer/train_lm.py, build_bench_trainer)
@@ -149,6 +165,10 @@ TOL_K5_SUMS = 1e-4
 # readings, and the control must exceed both.
 TOL_RESNET_CHECK = 5e-2
 TOL_RESNET_CHECK_AUX = 1e-3
+# K9 against block_plain: max |kernel - plain| <= TOL_BLOCK * max |plain|,
+# the JAX tool's own limit.  The kernel rounds the three products' inputs
+# to bf16 (as the library route does) where the plain version stays in f32
+TOL_BLOCK = 5e-2
 
 
 def emit(phase, **fields):
@@ -180,10 +200,7 @@ def gpt_params(net, seq_len, seed=0):
 def env_phase():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = nvidia_smi()
     print(smi, flush=True)
     emit("env", device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count(), cuda=torch.version.cuda,
@@ -634,13 +651,15 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
 
 
 # ------------------------------------------------------------- ResNet-50
-def k5_bound(m, k, n, dtype):
+def k5_bound(m, k, n, dtype, f32_values=None):
     """Least time for one K5 launch on this card: the larger of 2MNK
     flops over the dtype's peak and the bytes it must move (x, w, y in the
-    dtype; c read, s1 and s2 written in f32) over HBM bandwidth."""
+    dtype; ``f32_values`` more in f32, default 3N: c read, s1 and s2
+    written) over HBM bandwidth."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     flops = 2.0 * m * n * k
-    nbytes = float(itemsize) * (m * k + n * k + m * n) + 12.0 * n
+    f32_values = 3 * n if f32_values is None else f32_values
+    nbytes = float(itemsize) * (m * k + n * k + m * n) + 4.0 * f32_values
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"flops": flops, "bytes": nbytes,
@@ -655,6 +674,33 @@ def k5_library(x, w_nk, c):
     y = x @ w_nk.t()
     ys = y.float() - c
     return y, ys.sum(0), (ys * ys).sum(0)
+
+
+def k5_check(y, s1, s2, ry, rs1, rs2):
+    """K5's criteria: a bf16 y within one bf16 ulp of the plain y plus
+    TOL_K5_Y_F32 of its largest entry, an f32 y within TOL_K5_Y_F32 of its
+    largest entry; s1 and s2 by relative norm TOL_K5_SUMS."""
+    dy = (y.float() - ry.float()).abs()
+    ref_max = ry.float().abs().max().item()
+    out = {"max_abs_err": dy.max().item(), "y_ref_max": ref_max,
+           "y_rel_norm": (dy.norm() / ry.float().norm()).item()}
+    if y.dtype == torch.bfloat16:
+        ulp = torch.exp2(torch.floor(torch.log2(
+            ry.float().abs().clamp_min(1e-30))) - 7)
+        out["y_over_one_ulp"] = int((dy > ulp).sum().item())
+        out["y_over_tol"] = int(
+            (dy > ulp + TOL_K5_Y_F32 * ref_max).sum().item())
+        ok = out["y_over_tol"] == 0
+    else:
+        out["y_tol"] = TOL_K5_Y_F32 * ref_max
+        ok = out["max_abs_err"] <= out["y_tol"]
+    for name, got, ref in (("s1", s1, rs1), ("s2", s2, rs2)):
+        got, ref = got.reshape(-1), ref.reshape(-1)
+        out[name + "_max_abs_err"] = (got - ref).abs().max().item()
+        out[name + "_rel_norm"] = ((got - ref).norm() / ref.norm()).item()
+        ok = ok and out[name + "_rel_norm"] <= TOL_K5_SUMS
+    out["ok"] = ok
+    return out
 
 
 def resnet_kernels_phase():
@@ -674,31 +720,12 @@ def resnet_kernels_phase():
         c = 0.1 * torch.randn(n, generator=gen, device="cuda")
         y, s1, s2 = matmul_stats(x, w2d, c)
         torch.cuda.synchronize()
-        ry, rs1, rs2 = matmul_stats_plain(x, w2d, c)
-        dy = (y.float() - ry.float()).abs()
-        ref_max = ry.float().abs().max().item()
         entry = {"shape": [m, k, n], "dtype": str(dt).replace("torch.", ""),
-                 "launches_per_step": count,
-                 "max_abs_err": dy.max().item(), "y_ref_max": ref_max,
-                 "y_rel_norm": (dy.norm() / ry.float().norm()).item()}
-        if dt == torch.bfloat16:
-            ulp = torch.exp2(torch.floor(torch.log2(
-                ry.float().abs().clamp_min(1e-30))) - 7)
-            entry["y_over_one_ulp"] = int((dy > ulp).sum().item())
-            entry["y_over_tol"] = int(
-                (dy > ulp + TOL_K5_Y_F32 * ref_max).sum().item())
-            ok = entry["y_over_tol"] == 0
-        else:
-            entry["y_tol"] = TOL_K5_Y_F32 * ref_max
-            ok = entry["max_abs_err"] <= entry["y_tol"]
-        for name, got, ref in (("s1", s1, rs1), ("s2", s2, rs2)):
-            entry[name + "_max_abs_err"] = (got - ref).abs().max().item()
-            entry[name + "_rel_norm"] = ((got - ref).norm()
-                                         / ref.norm()).item()
-            ok = ok and entry[name + "_rel_norm"] <= TOL_K5_SUMS
-        del y, s1, s2, ry, rs1, rs2, dy
+                 "launches_per_step": count}
+        entry.update(k5_check(y, s1, s2, *matmul_stats_plain(x, w2d, c)))
+        del y, s1, s2
         entry.update(
-            ok=ok, tol_sums=TOL_K5_SUMS,
+            tol_sums=TOL_K5_SUMS,
             kernel_ms=cuda_ms(lambda: matmul_stats(x, w2d, c), 20),
             plain_ms=cuda_ms(lambda: matmul_stats_plain(x, w2d, c), 3),
             library_ms=cuda_ms(lambda: k5_library(x, w_nk, c), 20))
@@ -878,6 +905,263 @@ def resnet_train_check_phase(ctx, batch=8, image=64, check_ctx=None,
     return out
 
 
+# ------------------------------------------------- mx.rtc and experiments
+#: the flows of the JAX package's tests/test_rtc.py in CUDA C, with their
+#: callable (plain) forms: (name, CUDA C body, inputs, output shape, grid,
+#: block, callable); the abs body reads its element count from ``%d``
+RTC_ABS = """
+int i = blockIdx.x * blockDim.x + threadIdx.x;
+if (i < %d) y[i] = fabsf(x[i]);
+"""
+
+
+def _rtc_abs(x_ref, y_ref):
+    y_ref[:] = torch.abs(x_ref)
+
+
+def _rtc_muladd(a_ref, b_ref, out_ref):
+    out_ref[:] = a_ref * b_ref + 1.0
+
+
+def _rtc_rowscale(x_ref, y_ref):
+    i = mx.rtc.program_id(0)
+    y_ref[i, :] = x_ref[i, :] * (i + 1)
+
+
+def rtc_flows(full=True):
+    """The three flows of ``tests/test_rtc.py`` (inputs as there) and,
+    with ``full``, abs over an (8192, 8192) f32 array from a seed."""
+    x = np.random.RandomState(0).randn(100, 10).astype("f")
+    a = np.arange(64, dtype="f").reshape(8, 8)
+    b = np.ones((8, 8), "f") * 2
+    flows = [
+        ("rtc_abs", RTC_ABS % x.size, [("x", x)], ("y", x.shape),
+         (4, 1, 1), (256, 1, 1), _rtc_abs),
+        ("muladd", "int i = threadIdx.x;\nout[i] = a[i] * b[i] + 1.0f;",
+         [("a", a), ("b", b)], ("out", a.shape), (1, 1, 1), (64, 1, 1),
+         _rtc_muladd),
+        ("rowscale", "int i = blockIdx.x * 128 + threadIdx.x;\n"
+         "y[i] = x[i] * (float)(blockIdx.x + 1);",
+         [("x", np.ones((4, 128), "f"))], ("y", (4, 128)), (4, 1, 1),
+         (128, 1, 1), _rtc_rowscale)]
+    if full:
+        big = np.random.default_rng(3).standard_normal(
+            (8192, 8192), dtype=np.float32)
+        flows.append(("rtc_abs_full", RTC_ABS % big.size, [("x", big)],
+                      ("y", big.shape), (big.size // 256, 1, 1),
+                      (256, 1, 1), _rtc_abs))
+    return flows
+
+
+def rtc_phase():
+    """K6: each flow compiled from CUDA C by ``mx.rtc.Rtc`` on ``gpu(0)``
+    and pushed once, with the launch count set to 0 just before and read
+    just after; then each output against the callable form's on the same
+    inputs, exactly, and the full-size abs timed against ``torch.abs`` and
+    its byte bound (read x, write y)."""
+    ctx = mx.gpu(0)
+    runs = []
+    for name, source, ins, (oname, oshape), grid, block, plain in \
+            rtc_flows():
+        arrays = [(n, mx.nd.array(v, ctx=ctx)) for n, v in ins]
+        out = mx.nd.zeros(oshape, ctx=ctx)
+        runs.append((name, source, arrays, oname, out, grid, block, plain))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mx.rtc.Rtc.launches = 0
+    for name, source, arrays, oname, out, grid, block, _p in runs:
+        mx.rtc.Rtc(name, arrays, [(oname, out)], source).push(
+            [v for _n, v in arrays], [out], grid, block)
+    torch.cuda.synchronize()
+    launches = mx.rtc.Rtc.launches
+    build_and_run_s = time.perf_counter() - t0
+    if launches != len(runs):
+        raise SystemExit("rtc_kernels: %d launches for %d pushes"
+                         % (launches, len(runs)))
+    entries = []
+    for name, source, arrays, oname, out, grid, block, plain in runs:
+        ref = mx.nd.zeros(out.shape, ctx=ctx)
+        mx.rtc.Rtc(name, arrays, [(oname, ref)], plain).push(
+            [v for _n, v in arrays], [ref], grid)
+        entries.append({"name": name, "shape": list(out.shape),
+                        "grid": list(grid), "block": list(block),
+                        "exact": bool(torch.equal(out.data, ref.data)),
+                        "max_abs_err": (out.data - ref.data).abs().max()
+                        .item()})
+    name, source, arrays, oname, out, grid, block, plain = runs[-1]
+    ins = [v for _n, v in arrays]
+    kernel = mx.rtc.Rtc(name, arrays, [(oname, out)], source)
+    callable_form = mx.rtc.Rtc(name, arrays, [(oname, out)], plain)
+    lib_out = torch.empty_like(out.data)
+    nbytes = 2.0 * out.data.numel() * 4
+    full = entries[-1]
+    full.update(
+        kernel_ms=cuda_ms(lambda: kernel.push(ins, [out], grid, block), 20),
+        plain_ms=cuda_ms(lambda: callable_form.push(ins, [out]), 20),
+        library_ms=cuda_ms(lambda: torch.abs(ins[0].data, out=lib_out), 20),
+        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+        bound_by="bytes", peak="HBM 3.35 TB/s")
+    out_fields = {"flows": entries, "launches": launches,
+                  "build_and_run_s": build_and_run_s}
+    emit("rtc_kernels", **out_fields)
+    bad = [e for e in entries if not e["exact"]]
+    if bad:
+        raise SystemExit("rtc: CUDA C and callable forms differ: %s"
+                         % json.dumps(bad))
+    return out_fields
+
+
+def matmul_stats_experiment_phase(batch=128, repeats=2, chain=10):
+    """K7 and K8: the ``matmul_stats_experiment`` tool's run at ``batch``
+    (its own check of K7 against cuBLAS, and its times) with both launch
+    counts set to 0 just before and read just after; then, at each shape,
+    K7 (``matmul_stats`` with c = 0) and K8 (the prologue variant) against
+    their plain versions on the same inputs, and the kernel, plain,
+    library (cuBLAS plus ``torch.sum`` passes; for K8 after the eager
+    prologue) and bound times."""
+    tool = matmul_stats_experiment
+    matmul_stats.launches = 0
+    matmul_stats_prologue.launches = 0
+    rows = tool.experiment(batch, repeats, chain)
+    torch.cuda.synchronize()
+    launches = {"matmul_stats": matmul_stats.launches,
+                "matmul_stats_prologue": matmul_stats_prologue.launches}
+    n_shapes = len(tool.shapes(batch))
+    want = {"matmul_stats": n_shapes * (2 + repeats * chain),
+            "matmul_stats_prologue": n_shapes * (1 + repeats * chain)}
+    if launches != want:
+        raise SystemExit("matmul_stats_experiment: launches %s; want %s"
+                         % (launches, want))
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    k7, k8 = [], []
+    for m, k, n in tool.shapes(batch):
+        x = torch.randn(m, k, generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        w = (torch.randn(n, k, generator=gen, device="cuda") / k ** 0.5) \
+            .to(torch.bfloat16).t()
+        scale = torch.rand(1, k, generator=gen, device="cuda") + 0.5
+        shift = torch.randn(1, k, generator=gen, device="cuda")
+        zero = torch.zeros(n, device="cuda")
+        e7 = k5_check(*tool.matmul_stats(x, w),
+                            *matmul_stats_plain(x, w, zero))
+        e8 = k5_check(*tool.matmul_stats_prologue(x, w, scale, shift),
+                            *matmul_stats_prologue_plain(x, w, scale,
+                                                         shift))
+        e7.update(shape=[m, k, n], kernel_ms=cuda_ms(
+            lambda: tool.matmul_stats(x, w), 20),
+            plain_ms=cuda_ms(lambda: matmul_stats_plain(x, w, zero), 3),
+            library_ms=cuda_ms(lambda: tool.library_ref(x, w), 20),
+            dot_ms=cuda_ms(lambda: tool.library_dot_only(x, w), 20),
+            **k5_bound(m, k, n, torch.bfloat16, f32_values=2 * n))
+        e8.update(shape=[m, k, n], kernel_ms=cuda_ms(
+            lambda: tool.matmul_stats_prologue(x, w, scale, shift), 20),
+            plain_ms=cuda_ms(lambda: matmul_stats_prologue_plain(
+                x, w, scale, shift), 3),
+            library_ms=cuda_ms(lambda: tool.library_prologue(
+                x, w, scale, shift), 20),
+            **k5_bound(m, k, n, torch.bfloat16, f32_values=2 * n + 2 * k))
+        k7.append(e7)
+        k8.append(e8)
+        del x, w, scale, shift
+    out = {"batch": batch, "tool_rows": rows, "launches": launches,
+           "tol_sums": TOL_K5_SUMS, "tol_y": "one bf16 ulp + %g max|y|"
+           % TOL_K5_Y_F32, "matmul_stats": k7, "matmul_stats_prologue": k8}
+    emit("matmul_stats_experiment", **out)
+    bad = [e for e in k7 + k8 if not e["ok"]]
+    if bad:
+        raise SystemExit("matmul_stats_experiment: a kernel disagrees with "
+                         "its plain version: %s" % json.dumps(bad))
+    return out
+
+
+def block_bound(n, cin, cmid, cout):
+    """Least time for one K9 launch: the larger of its flops over the bf16
+    peak and the bytes it must move (x read and y written in bf16, the
+    weights in bf16 and the scales and shifts in f32 read once)."""
+    flops = 2.0 * n * 56 * 56 * (cin * cmid + 9 * cmid * cmid + cmid * cout)
+    nbytes = 2.0 * n * 56 * 56 * (cin + cout) \
+        + 2.0 * (cin * cmid + 9 * cmid * cmid + cmid * cout) \
+        + 4.0 * 2 * 3 * max(cin, cmid)
+    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"flops": flops, "bytes": nbytes,
+            "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "peak": PEAK_NAME[torch.bfloat16] + ", HBM 3.35 TB/s"}
+
+
+def block_experiment_phase(batch=128, repeats=5):
+    """K9: the ``block_experiment`` tool's run at ``batch`` with its
+    defaults (its own error against ``library_block``, and its times), the
+    launch count set to 0 just before and read just after; then K9 against
+    ``block_plain`` at ``batch`` from other seeded inputs, with the kernel,
+    plain, library and bound times, and the kernel's other instantiations
+    against ``block_plain`` at batch 2."""
+    tool = block_experiment
+    block_kernel = tool.block_kernel
+    block_kernel.launches = 0
+    run = tool.experiment(batch, repeats=repeats)
+    torch.cuda.synchronize()
+    launches = block_kernel.launches
+    if launches != 2 + repeats * 10:
+        raise SystemExit("block_experiment: %d launches; want %d"
+                         % (launches, 2 + repeats * 10))
+
+    def check(n, cin, cmid, cout, rows, seed):
+        args = tool.inputs(n, cin, cmid, cout, seed=seed)
+        y = block_kernel(*args, rows=rows).float()
+        torch.cuda.synchronize()
+        ref = tool.block_plain(*args).float()
+        ref_max = ref.abs().max().item()
+        err = (y - ref).abs().max().item()
+        return args, {"batch": n, "channels": [cin, cmid, cout],
+                      "rows": rows, "max_abs_err": err, "y_ref_max": ref_max,
+                      "rel_err": err / ref_max,
+                      "rel_norm": ((y - ref).norm() / ref.norm()).item(),
+                      "ok": err <= TOL_BLOCK * ref_max}
+
+    args, main_case = check(batch, 64, 64, 256, 4, seed=1)
+    main_case.update(
+        kernel_ms=cuda_ms(lambda: block_kernel(*args, rows=4), 20),
+        plain_ms=cuda_ms(lambda: tool.block_plain(*args), 3),
+        library_ms=cuda_ms(lambda: tool.library_block(*args), 20),
+        **block_bound(batch, 64, 64, 256))
+    del args
+    others = [check(2, *cfg, seed=2)[1] for cfg in tool.KERNEL_CONFIGS
+              if cfg != (64, 64, 256, 4)]
+    out = {"tool_run": run, "launches": launches, "tol": TOL_BLOCK,
+           "case": main_case, "other_configs": others}
+    emit("block_experiment", **out)
+    bad = [e for e in [main_case] + others if not e["ok"]]
+    if bad:
+        raise SystemExit("block_experiment: K9 disagrees with block_plain: "
+                         "%s" % json.dumps(bad))
+    return out
+
+
+def experiment_summary(name, source, replaces, entries, launches, **extra):
+    """A K7 or K8 entry of the kernel summary line: the times summed over
+    the tool's 8 shapes, one call each; ``shapes`` keeps every case."""
+    def total(key):
+        return sum(e[key] for e in entries)
+
+    t_ops = total("flops") / PEAK_FLOPS[torch.bfloat16] * 1e3
+    t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+    return dict({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max(e["max_abs_err"] for e in entries),
+        "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": total("library_ms"),
+        "per": "the 8 shapes of the tool at batch 128, one call each, bf16",
+        "shapes": [{k: e[k] for k in (
+            "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "max_abs_err", "s1_rel_norm", "s2_rel_norm")}
+            for e in entries]}, **extra)
+
+
 def k5_summary(entries, launches):
     """K5's entry of the kernel summary line: the bf16 cases summed over
     one training step's 16 launches (each shape times its launches per
@@ -947,6 +1231,9 @@ def main():
     resnet = resnet_train_phase(mx.gpu(0))
     emit("resnet_train", **resnet)
     emit("resnet_train_check", **resnet_train_check_phase(mx.gpu(0)))
+    rtc = rtc_phase()
+    mse = matmul_stats_experiment_phase()
+    blk = block_experiment_phase()
     train_shape = list(TRAIN_SHAPE[:4])
     fwd_train = _case(fwd, train_shape, "bfloat16")
     print(json.dumps({"kernels": [
@@ -968,6 +1255,39 @@ def main():
             _case(bwd, train_shape, "bfloat16"),
             train["launches"]["flash_attention_bwd"]),
         k5_summary(k5, resnet["launches"]["matmul_stats"]),
+        {"name": "rtc", "route": "cuda", "source": "mxnet_tpu_torch/rtc.py",
+         "generated": "build/kernels/rtc_rtc_abs_full-<hash>.cu",
+         "replaces": "mxnet_tpu/rtc.py:105", "launches": rtc["launches"],
+         "max_abs_err": max(e["max_abs_err"] for e in rtc["flows"]),
+         "ms": rtc["flows"][-1]["kernel_ms"],
+         "plain_ms": rtc["flows"][-1]["plain_ms"],
+         "bound_ms": rtc["flows"][-1]["bound_ms"], "bound_by": "bytes",
+         "library_ms": rtc["flows"][-1]["library_ms"],
+         "per": "abs over an (8192, 8192) f32 array; the launches are the "
+         "four pushes of the rtc_kernels phase"},
+        experiment_summary(
+            "matmul_stats_experiment.matmul_stats",
+            "mxnet_tpu_torch/csrc/matmul_stats.cu",
+            "tools/pallas_matmul_stats_experiment.py:70",
+            mse["matmul_stats"], mse["launches"]["matmul_stats"],
+            entry="mxtt_matmul_stats with c = 0"),
+        experiment_summary(
+            "matmul_stats_experiment.matmul_stats_prologue",
+            "mxnet_tpu_torch/csrc/matmul_stats.cu",
+            "tools/pallas_matmul_stats_experiment.py:103",
+            mse["matmul_stats_prologue"],
+            mse["launches"]["matmul_stats_prologue"],
+            entry="mxtt_matmul_stats_prologue"),
+        {"name": "bottleneck_block", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/bottleneck_block.cu",
+         "replaces": "tools/pallas_block_experiment.py:107",
+         "launches": blk["launches"],
+         "max_abs_err": blk["case"]["max_abs_err"],
+         "ms": blk["case"]["kernel_ms"], "plain_ms": blk["case"]["plain_ms"],
+         "bound_ms": blk["case"]["bound_ms"],
+         "bound_by": blk["case"]["bound_by"],
+         "library_ms": blk["case"]["library_ms"],
+         "per": "one stage-1 block, batch 128, (64, 64, 256), rows 4, bf16"},
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,7 +10,7 @@ The port keeps the JAX package's Symbol JSON and ``.params`` formats, so a
 checkpoint written by either package loads in the other.
 ``parallel.ShardedTrainer`` trains a Symbol on one device (the GPT of
 ``models.gpt``; ``python -m mxnet_tpu_torch.tools.transformer_mfu`` times
-it).  Its entry points
+it).  ``mx.rtc`` compiles CUDA C kernels at run time.  Its entry points
 run on the card unless the caller passes ``ctx=mx.cpu()``; without a CUDA
 device a GPU context raises.  It imports neither ``jax`` nor ``mxnet_tpu``.
 """
@@ -38,3 +38,4 @@ from . import initializer as init
 from . import lr_scheduler
 from . import optimizer
 from . import parallel
+from . import rtc

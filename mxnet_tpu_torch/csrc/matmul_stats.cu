@@ -18,6 +18,19 @@
 // x's dtype, as in the TPU kernel.  Any M, N, K: every tile is
 // bounds-checked.
 //
+// K8, the prologue variant (mxtt_matmul_stats_prologue), replaces
+// tools/pallas_matmul_stats_experiment.py, matmul_stats_prologue (its
+// Pallas kernel _kernel_prologue): the same function of
+//   xh = relu(x * scale + shift)   scale, shift (K,) f32
+// computed in f32 and rounded to x's dtype before the product, the previous
+// BatchNorm's transform folded into this GEMM.  The x tile lands in shared
+// memory by cp.async; one pass over it applies the transform after the copy
+// and before the fragment loads.  Depth columns past K get 0 (the scale and
+// shift there are never read), so they add nothing; rows past M become
+// relu(shift) and not 0, but the epilogue neither stores nor sums rows past
+// M.  K7 (tools/pallas_matmul_stats_experiment.py, matmul_stats) is this
+// file's K5 entry with c = 0.
+//
 // What bounds it on this card: at ResNet-50's shapes (K 64 to 2048, N 64 to
 // 512) the product does 2K flops for every 2(K + N) bytes of x and y that
 // one row moves in bf16, under the 295 flops a byte at which the H100's
@@ -125,10 +138,20 @@ __device__ __forceinline__ void stage_bf16(__nv_bfloat16 (*dst)[LDS16],
   }
 }
 
-template <bool VEC>
+// relu(v * scale + shift) for depth column k, 0 past K; the product and the
+// sum rounded apart, as the plain version computes them
+__device__ __forceinline__ float prologue(float v, const float* scale,
+                                          const float* shift, int k, int K) {
+  return k < K ? fmaxf(__fadd_rn(__fmul_rn(v, scale[k]), shift[k]), 0.0f)
+               : 0.0f;
+}
+
+template <bool VEC, bool PRO>
 __global__ void __launch_bounds__(THREADS)
 matmul_stats_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                          const __nv_bfloat16* __restrict__ w,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ shift,
                          const float* __restrict__ c,
                          __nv_bfloat16* __restrict__ y,
                          float* __restrict__ part1, float* __restrict__ part2,
@@ -174,6 +197,19 @@ matmul_stats_bf16_kernel(const __nv_bfloat16* __restrict__ x,
       cp_async_wait<0>();
     }
     __syncthreads();
+    if (PRO) {
+      // the landed x tile, in place: bf16(relu(f32(x) * scale + shift))
+      const int k0 = kt * BK16;
+      for (int e = threadIdx.x; e < BM * BK16 / 2; e += THREADS) {
+        const int r = e / (BK16 / 2);
+        const int kc = (e % (BK16 / 2)) * 2;
+        auto* p = reinterpret_cast<__nv_bfloat162*>(&xs[s][r][kc]);
+        const float2 v = __bfloat1622float2(*p);
+        *p = __floats2bfloat162_rn(prologue(v.x, scale, shift, k0 + kc, K),
+                                   prologue(v.y, scale, shift, k0 + kc + 1, K));
+      }
+      __syncthreads();
+    }
 #pragma unroll
     for (int kk = 0; kk < BK16; kk += 16) {
       uint32_t a[2][4], b[4][2];
@@ -265,11 +301,13 @@ constexpr int BK32 = 16;
 
 // Stage rows [r0, r0 + ROWS) x depth [k0, k0 + BK32) of a row-major
 // (rows, K) f32 matrix into dst[BK32][ROWS + 4], k-major.  VEC: K % 4 == 0
-// and the base 16-byte aligned (float4 loads).
-template <int ROWS, bool VEC>
+// and the base 16-byte aligned (float4 loads).  PRO: each value through
+// prologue() on its way in.
+template <int ROWS, bool VEC, bool PRO>
 __device__ __forceinline__ void stage_f32(float (*dst)[ROWS + 4],
                                           const float* src, int rows, int K,
-                                          int r0, int k0) {
+                                          int r0, int k0, const float* scale,
+                                          const float* shift) {
   const int tid = threadIdx.x;
   constexpr int CHUNKS = ROWS * BK32 / 4;
 #pragma unroll
@@ -296,14 +334,17 @@ __device__ __forceinline__ void stage_f32(float (*dst)[ROWS + 4],
       }
     }
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dst[kc + j][r] = v[j];
+    for (int j = 0; j < 4; ++j)
+      dst[kc + j][r] = PRO ? prologue(v[j], scale, shift, k0 + kc + j, K) : v[j];
   }
 }
 
-template <bool VEC>
+template <bool VEC, bool PRO>
 __global__ void __launch_bounds__(THREADS)
 matmul_stats_f32_kernel(const float* __restrict__ x,
                         const float* __restrict__ w,
+                        const float* __restrict__ scale,
+                        const float* __restrict__ shift,
                         const float* __restrict__ c, float* __restrict__ y,
                         float* __restrict__ part1, float* __restrict__ part2,
                         int M, int N, int K, int n_tiles) {
@@ -326,8 +367,8 @@ matmul_stats_f32_kernel(const float* __restrict__ x,
     for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
 
   for (int k0 = 0; k0 < K; k0 += BK32) {
-    stage_f32<BM, VEC>(xs, x, M, K, m0, k0);
-    stage_f32<BN, VEC>(ws, w, N, K, n0, k0);
+    stage_f32<BM, VEC, PRO>(xs, x, M, K, m0, k0, scale, shift);
+    stage_f32<BN, VEC, false>(ws, w, N, K, n0, k0, nullptr, nullptr);
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < BK32; ++k) {
@@ -423,18 +464,13 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-}  // namespace
-
-extern "C" {
-
-// Rows of y per block: the partial buffers hold ceil(M / this) rows of N.
-int mxtt_matmul_stats_block_rows() { return BM; }
-
-// dtype: 0 = float32, 1 = bfloat16.  part1/part2: f32 scratch of
-// ceil(M / BM) * N values each.  Returns 0 or a cudaError_t code.
-int mxtt_matmul_stats(const void* x, const void* w, const float* c, void* y,
-                      float* part1, float* part2, float* s1, float* s2, int M,
-                      int N, int K, int dtype, void* stream) {
+// Both entries: PRO selects the prologue variant (scale and shift are then
+// (K,) f32, else unused).
+template <bool PRO>
+int launch(const void* x, const void* w, const float* scale,
+           const float* shift, const float* c, void* y, float* part1,
+           float* part2, float* s1, float* s2, int M, int N, int K, int dtype,
+           void* stream) {
   if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int m_tiles = (M + BM - 1) / BM;
@@ -448,21 +484,21 @@ int mxtt_matmul_stats(const void* x, const void* w, const float* c, void* y,
     const auto* wb = static_cast<const __nv_bfloat16*>(w);
     auto* yb = static_cast<__nv_bfloat16*>(y);
     if (vec && K % 8 == 0)
-      matmul_stats_bf16_kernel<true><<<grid, THREADS, 0, st>>>(
-          xb, wb, c, yb, part1, part2, M, N, K, n_tiles);
+      matmul_stats_bf16_kernel<true, PRO><<<grid, THREADS, 0, st>>>(
+          xb, wb, scale, shift, c, yb, part1, part2, M, N, K, n_tiles);
     else
-      matmul_stats_bf16_kernel<false><<<grid, THREADS, 0, st>>>(
-          xb, wb, c, yb, part1, part2, M, N, K, n_tiles);
+      matmul_stats_bf16_kernel<false, PRO><<<grid, THREADS, 0, st>>>(
+          xb, wb, scale, shift, c, yb, part1, part2, M, N, K, n_tiles);
   } else if (dtype == 0) {
     const auto* xf = static_cast<const float*>(x);
     const auto* wf = static_cast<const float*>(w);
     auto* yf = static_cast<float*>(y);
     if (vec && K % 4 == 0)
-      matmul_stats_f32_kernel<true><<<grid, THREADS, 0, st>>>(
-          xf, wf, c, yf, part1, part2, M, N, K, n_tiles);
+      matmul_stats_f32_kernel<true, PRO><<<grid, THREADS, 0, st>>>(
+          xf, wf, scale, shift, c, yf, part1, part2, M, N, K, n_tiles);
     else
-      matmul_stats_f32_kernel<false><<<grid, THREADS, 0, st>>>(
-          xf, wf, c, yf, part1, part2, M, N, K, n_tiles);
+      matmul_stats_f32_kernel<false, PRO><<<grid, THREADS, 0, st>>>(
+          xf, wf, scale, shift, c, yf, part1, part2, M, N, K, n_tiles);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -471,6 +507,32 @@ int mxtt_matmul_stats(const void* x, const void* w, const float* c, void* y,
   stats_reduce_kernel<<<(N + RED_COLS - 1) / RED_COLS, RED_COLS * RED_ROWS, 0,
                         st>>>(part1, part2, m_tiles, N, s1, s2);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// Rows of y per block: the partial buffers hold ceil(M / this) rows of N.
+int mxtt_matmul_stats_block_rows() { return BM; }
+
+// dtype: 0 = float32, 1 = bfloat16.  part1/part2: f32 scratch of
+// ceil(M / BM) * N values each.  Returns 0 or a cudaError_t code.
+int mxtt_matmul_stats(const void* x, const void* w, const float* c, void* y,
+                      float* part1, float* part2, float* s1, float* s2, int M,
+                      int N, int K, int dtype, void* stream) {
+  return launch<false>(x, w, nullptr, nullptr, c, y, part1, part2, s1, s2, M,
+                       N, K, dtype, stream);
+}
+
+// K8: as mxtt_matmul_stats, of relu(x * scale + shift) rounded to x's dtype.
+int mxtt_matmul_stats_prologue(const void* x, const void* w,
+                               const float* scale, const float* shift,
+                               const float* c, void* y, float* part1,
+                               float* part2, float* s1, float* s2, int M,
+                               int N, int K, int dtype, void* stream) {
+  return launch<true>(x, w, scale, shift, c, y, part1, part2, s1, s2, M, N, K,
+                      dtype, stream);
 }
 
 const char* mxtt_matmul_stats_error_string(int code) {

@@ -6,7 +6,8 @@ at the root of the checkout, named by a hash of its source, so an edited
 source builds anew and an unchanged one is loaded as it is.  Nothing is
 built at import: the first call that needs a kernel builds it, and
 :func:`build_all` builds every kernel at once, one ``nvcc`` per source, all
-started together.
+started together.  :func:`build_source` builds a source made at run time
+(``mx.rtc``) the same way.
 """
 from __future__ import annotations
 
@@ -21,7 +22,8 @@ from pathlib import Path
 
 from .base import MXNetError
 
-__all__ = ["SOURCES", "build_dir", "nvcc_command", "build_all", "library"]
+__all__ = ["SOURCES", "build_dir", "nvcc_command", "build_all", "library",
+           "build_source"]
 
 _PKG = Path(__file__).resolve().parent
 
@@ -30,6 +32,7 @@ SOURCES = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
     "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
     "matmul_stats": "csrc/matmul_stats.cu",
+    "bottleneck_block": "csrc/bottleneck_block.cu",
 }
 
 _lock = threading.Lock()
@@ -59,29 +62,25 @@ def _target(name):
     return src, build_dir() / ("lib%s-%s.so" % (name, digest))
 
 
-def nvcc_command(name, out):
-    src = _PKG / SOURCES[name]
+def nvcc_command(src, out):
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
             "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
             "-Xptxas", "-v", "-o", str(out), str(src)]
 
 
-def build_all(names=None):
-    """Build the named kernels (default: all) concurrently, one ``nvcc``
-    per source.  Returns one dict per kernel: ``name``, ``cmd``,
-    ``seconds``, ``ptxas`` (the register and shared-memory report) and
-    ``cached`` (True when the library for this source already existed)."""
-    names = list(SOURCES) if names is None else list(names)
+def _compile(jobs):
+    """Run ``nvcc`` for each ``(name, src, out)`` at once; one result dict
+    per job.  Raises ``MXNetError`` with the compiler's log when any
+    fails."""
     build_dir().mkdir(parents=True, exist_ok=True)
     procs, results = [], []
-    for name in names:
-        _src, out = _target(name)
+    for name, src, out in jobs:
         if out.exists():
             results.append({"name": name, "cmd": None, "seconds": 0.0,
                             "ptxas": "", "cached": True})
             continue
         tmp = out.with_suffix(".%d.tmp" % os.getpid())
-        cmd = nvcc_command(name, tmp)
+        cmd = nvcc_command(src, tmp)
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         procs.append((name, out, tmp, cmd, proc, time.perf_counter()))
@@ -104,14 +103,53 @@ def build_all(names=None):
     return results
 
 
-def library(name):
-    """The loaded ctypes library of one kernel, built on first use."""
+def build_all(names=None):
+    """Build the named kernels (default: all) concurrently, one ``nvcc``
+    per source.  Returns one dict per kernel: ``name``, ``cmd``,
+    ``seconds``, ``ptxas`` (the register and shared-memory report) and
+    ``cached`` (True when the library for this source already existed)."""
+    names = list(SOURCES) if names is None else list(names)
+    return _compile([(name,) + _target(name) for name in names])
+
+
+def _load(key, out, build):
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(key)
         if lib is None:
-            _src, out = _target(name)
             if not out.exists():
-                build_all([name])
+                build()
             lib = ctypes.CDLL(str(out))
-            _libs[name] = lib
+            _libs[key] = lib
         return lib
+
+
+def library(name):
+    """The loaded ctypes library of one kernel, built on first use.  Once
+    loaded it is returned without hashing its source again: a launch pays
+    no file read."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    _src, out = _target(name)
+    return _load(name, out, lambda: build_all([name]))
+
+
+def build_source(name, text):
+    """Build CUDA source ``text`` made at run time as :func:`build_all`
+    builds a kernel of ``csrc/``: the same ``nvcc`` flags, into
+    ``build/kernels/``, the source and the library named by ``name`` and a
+    hash of ``text``, built once.  Returns the loaded ctypes library;
+    raises ``MXNetError`` with the compiler's log when ``nvcc`` fails."""
+    digest = hashlib.sha256(text.encode()).hexdigest()[:12]
+    stem = "%s-%s" % (name, digest)
+    src = build_dir() / (stem + ".cu")
+    out = build_dir() / ("lib%s.so" % stem)
+
+    def build():
+        build_dir().mkdir(parents=True, exist_ok=True)
+        tmp = src.with_suffix(".%d.tmp" % os.getpid())
+        tmp.write_text(text)
+        os.replace(tmp, src)
+        _compile([(name, src, out)])
+
+    return _load(str(out), out, build)

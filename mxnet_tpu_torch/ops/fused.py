@@ -13,6 +13,10 @@ one region in each direction.
   CUDA tensor launches ``csrc/matmul_stats.cu`` (or raises); a CPU or meta
   tensor takes :func:`matmul_stats_plain`.  ``matmul_stats.launches``
   counts launches.
+* :func:`matmul_stats_prologue` is the K8 wrapper, the same over
+  ``relu(x * scale + shift)`` (the previous BatchNorm folded into the
+  GEMM; the JAX package has it in ``tools/pallas_matmul_stats_experiment.py``
+  only), with :func:`matmul_stats_prologue_plain` and its own count.
 * :class:`FusedConvBN` is the 1x1 conv->BN(->ReLU) region over K5
   (``_fused_conv_bn``), taken by the blocks the plan marks ``pallas``.
 * :class:`ConvBNAct` and :class:`FCAct` are the general regions
@@ -38,7 +42,8 @@ from .nn import BNCore, bn_apply, bn_backward, bn_forward, bn_moments, \
     conv2d, conv_statics
 
 __all__ = ["block_fusion", "block_fusion_enabled", "matmul_stats",
-           "matmul_stats_plain", "FusedConvBN", "ConvBNAct", "FCAct",
+           "matmul_stats_plain", "matmul_stats_prologue",
+           "matmul_stats_prologue_plain", "FusedConvBN", "ConvBNAct", "FCAct",
            "fused_block_conv_bn_act", "fused_block_bn_act",
            "fused_block_fc_act", "conv_eligible"]
 
@@ -81,12 +86,23 @@ def matmul_stats_plain(x2d, w2d, c):
     return y.to(x2d.dtype), ys.sum(0), (ys * ys).sum(0)
 
 
-def _kernel():
+def matmul_stats_prologue_plain(x2d, w2d, scale, shift):
+    """K8's ``(y, s1, s2)`` in plain PyTorch: ``xh = relu(x * scale +
+    shift)`` in f32, rounded to ``x2d``'s dtype, then
+    :func:`matmul_stats_plain` of ``xh`` with ``c = 0``."""
+    xh = torch.relu(x2d.float() * scale.float().reshape(1, -1)
+                    + shift.float().reshape(1, -1)).to(x2d.dtype)
+    return matmul_stats_plain(xh, w2d, torch.zeros(
+        w2d.shape[1], dtype=torch.float32, device=x2d.device))
+
+
+def _kernel(entry):
     from .. import cuda_build
     lib = cuda_build.library("matmul_stats")
-    fn = lib.mxtt_matmul_stats
+    fn = getattr(lib, entry)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 \
+        pointers = 8 if entry == "mxtt_matmul_stats" else 10
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mxtt_matmul_stats_block_rows.restype = ctypes.c_int
@@ -95,8 +111,9 @@ def _kernel():
     return lib, fn
 
 
-def _launch(x2d, w2d, c):
-    name = "matmul_stats"
+def _launch(x2d, w2d, c, scale=None, shift=None):
+    """K5, or K8 when ``scale`` and ``shift`` are given."""
+    name = "matmul_stats" if scale is None else "matmul_stats_prologue"
     if x2d.dim() != 2 or w2d.dim() != 2 or x2d.shape[1] != w2d.shape[0]:
         raise MXNetError("%s: need x (M, K) and w (K, N), got %s and %s"
                          % (name, tuple(x2d.shape), tuple(w2d.shape)))
@@ -109,7 +126,17 @@ def _launch(x2d, w2d, c):
     if c.shape != (n,) or c.dtype != torch.float32:
         raise MXNetError("%s: c must be float32 of shape (%d,), got %s %s"
                          % (name, n, c.dtype, tuple(c.shape)))
-    if not (x2d.device == w2d.device == c.device):
+    vectors = [c]
+    if scale is not None:
+        for what, v in (("scale", scale), ("shift", shift)):
+            if v.numel() != k or v.dtype != torch.float32:
+                raise MXNetError("%s: %s must be float32 with %d values, "
+                                 "got %s %s" % (name, what, k, v.dtype,
+                                                tuple(v.shape)))
+        scale, shift = scale.reshape(k).contiguous(), \
+            shift.reshape(k).contiguous()
+        vectors += [scale, shift]
+    if any(v.device != x2d.device for v in [w2d] + vectors):
         raise MXNetError("%s: inputs on different devices" % name)
     if min(m, n, k) < 1:
         raise MXNetError("%s: empty product (%d, %d) @ (%d, %d)"
@@ -119,22 +146,23 @@ def _launch(x2d, w2d, c):
     # an OIHW weight is that layout already, and costs no copy
     w_nk = w2d.t().contiguous()
     c = c.contiguous()
-    lib, fn = _kernel()
+    lib, fn = _kernel("mxtt_" + name)
     rows = lib.mxtt_matmul_stats_block_rows()
     m_tiles = -(-m // rows)
     dev = x2d.device
     y = torch.empty((m, n), dtype=x2d.dtype, device=dev)
     part = torch.empty((2, m_tiles, n), dtype=torch.float32, device=dev)
     s = torch.empty((2, n), dtype=torch.float32, device=dev)
+    prologue = [] if scale is None else [scale.data_ptr(), shift.data_ptr()]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x2d.data_ptr(), w_nk.data_ptr(), c.data_ptr(), y.data_ptr(),
-                part[0].data_ptr(), part[1].data_ptr(), s[0].data_ptr(),
-                s[1].data_ptr(), m, n, k, _KERNEL_DTYPES[x2d.dtype], stream)
+        rc = fn(x2d.data_ptr(), w_nk.data_ptr(), *prologue, c.data_ptr(),
+                y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+                s[0].data_ptr(), s[1].data_ptr(), m, n, k,
+                _KERNEL_DTYPES[x2d.dtype], stream)
     if rc != 0:
         raise MXNetError("%s: CUDA launch failed: %s (%d)" % (
             name, lib.mxtt_matmul_stats_error_string(rc).decode(), rc))
-    matmul_stats.launches += 1
     return y, s[0], s[1]
 
 
@@ -146,13 +174,36 @@ def matmul_stats(x2d, w2d, c):
     :func:`matmul_stats_plain`."""
     kind = x2d.device.type
     if kind == "cuda":
-        return _launch(x2d, w2d, c)
+        out = _launch(x2d, w2d, c)
+        matmul_stats.launches += 1
+        return out
     if kind in ("cpu", "meta"):
         return matmul_stats_plain(x2d, w2d, c)
     raise MXNetError("matmul_stats: no path for device %s" % x2d.device)
 
 
 matmul_stats.launches = 0
+
+
+def matmul_stats_prologue(x2d, w2d, scale, shift):
+    """K8: :func:`matmul_stats` with ``c = 0`` of ``relu(x2d * scale +
+    shift)``, computed in f32 and rounded to ``x2d``'s dtype before the
+    product; ``scale`` and ``shift`` are f32 with K values.  A CUDA tensor
+    launches the prologue variant of ``csrc/matmul_stats.cu`` (or raises);
+    a CPU or meta tensor takes :func:`matmul_stats_prologue_plain`."""
+    kind = x2d.device.type
+    if kind == "cuda":
+        c = torch.zeros(w2d.shape[1], dtype=torch.float32, device=x2d.device)
+        out = _launch(x2d, w2d, c, scale, shift)
+        matmul_stats_prologue.launches += 1
+        return out
+    if kind in ("cpu", "meta"):
+        return matmul_stats_prologue_plain(x2d, w2d, scale, shift)
+    raise MXNetError("matmul_stats_prologue: no path for device %s"
+                     % x2d.device)
+
+
+matmul_stats_prologue.launches = 0
 
 
 # ------------------------------------------------ the K5 region

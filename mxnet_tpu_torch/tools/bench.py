@@ -26,8 +26,9 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import time
+
+from . import nvidia_smi
 
 #: the reference's published ResNet-50 training rate on one K80 (img/s)
 BASELINE_IMG_S = 45.52
@@ -112,10 +113,7 @@ def main():
         "vs_baseline": round(img_per_sec / BASELINE_IMG_S, 3),
         "step_ms": seconds / done * 1e3, "steps": done, "batch": batch,
         "image": image, "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0],
+        "nvidia_smi": nvidia_smi(),
         "fusion": {"enabled": fuse_blocks,
                    "summary": trainer.fusion_summary()},
     }))

@@ -28,8 +28,9 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import time
+
+from . import nvidia_smi
 
 #: the H100 SXM's bf16 dense tensor-core peak (NVIDIA data sheet), TFLOP/s
 H100_BF16_PEAK_TFLOPS = 989.0
@@ -146,10 +147,7 @@ def main(argv=None):
         "peak_tflops": a.peak_tflops,
         "step_ms": round(m["step_ms"], 3),
         "device": torch.cuda.get_device_name(0),
-        "nvidia_smi": subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0],
+        "nvidia_smi": nvidia_smi(),
         "config": {"d_model": a.d_model, "layers": a.layers,
                    "heads": a.heads, "seq": a.seq, "batch": a.batch,
                    "vocab": a.vocab, "dtype": a.dtype,

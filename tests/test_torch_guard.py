@@ -37,7 +37,10 @@ def test_scan_covers_the_package():
     for rel in (("ops", "flash_attention.py"), ("parallel", "trainer.py"),
                 ("models", "gpt.py"), ("tools", "transformer_mfu.py"),
                 ("ops", "fused.py"), ("analysis", "fusion.py"),
-                ("models", "resnet.py"), ("tools", "bench.py")):
+                ("models", "resnet.py"), ("tools", "bench.py"),
+                ("rtc.py",), ("autotune", "search.py"),
+                ("tools", "matmul_stats_experiment.py"),
+                ("tools", "block_experiment.py")):
         assert os.path.join("mxnet_tpu_torch", *rel) in names
 
 
@@ -58,6 +61,9 @@ def test_package_imports_with_jax_blocked():
             "import mxnet_tpu_torch.ops.fused, mxnet_tpu_torch.tools.bench\n"
             "import mxnet_tpu_torch.analysis.fusion\n"
             "import mxnet_tpu_torch.models.resnet\n"
+            "import mxnet_tpu_torch.rtc, mxnet_tpu_torch.autotune\n"
+            "import mxnet_tpu_torch.tools.matmul_stats_experiment\n"
+            "import mxnet_tpu_torch.tools.block_experiment\n"
             "assert not any(m in sys.modules and sys.modules[m] is not None"
             " for m in %r)\n" % (FORBIDDEN, FORBIDDEN))
     env = dict(os.environ, PYTHONPATH=ROOT)
