@@ -12,10 +12,13 @@ Phases, one JSON line each:
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    the flash forward and then the flash backward, at the serving shape
    (B=4, T=1024, H=16, D=64) in f32 and bf16, causal and not, at the
-   training shape (B=16, bf16, causal) and at T=4096; error, kernel time,
-   plain time, the time of the nearest PyTorch call and the bound the
-   card's peak rates set; each gradient is held by its largest error and
-   by its relative norm;
+   training shape (B=16, bf16, causal), at T=4096, at D=32 and D=128
+   (B=4, H=8, bf16, causal) and at a ragged T=1000 (B=2, H=4, bf16,
+   causal and not) and T=257 (B=3, H=5, bf16, causal); f32 runs the CUDA-core kernels, bf16 the tensor-core
+   (sm90) ones; error, kernel time, plain time, the time of the nearest
+   PyTorch call and the bound the card's peak rates set; each gradient is
+   held by its largest error and by its relative norm, and two backward
+   launches on the same inputs must give bit-identical gradients;
 4. ``serve``: the GPT LM at full width (vocab 16384, seq 1024, d_model 1024,
    16 heads, 12 layers; random weights from a seed) written as a checkpoint,
    loaded by ``Predictor`` on ``gpu(0)`` and served through ``BatchLadder``,
@@ -253,19 +256,38 @@ def attention_bound(b, t, h, d, dtype, causal, n_matmuls=2, n_tensors=4):
 
 #: the training path's attention: build_bench_trainer's batch 16, bf16
 TRAIN_SHAPE = (16, 1024, 16, 64, torch.bfloat16, True)
+#: the flash cases of both kernels phases: the serving shape in both dtypes,
+#: the training shape, T=4096, the other head dims of the bf16 (sm90)
+#: kernels (whose shared-memory swizzle differs: 64-byte rows at D=32, two
+#: 128-byte boxes at D=128) and ragged T
+FLASH_CASES = [(4, 1024, 16, 64, dt, causal)
+               for dt in (torch.float32, torch.bfloat16)
+               for causal in (True, False)] + [
+    TRAIN_SHAPE,
+    (1, 4096, 16, 64, torch.float32, True),
+    (1, 4096, 16, 64, torch.bfloat16, True),
+    (4, 1024, 8, 32, torch.bfloat16, True),
+    (4, 1024, 8, 128, torch.bfloat16, True),
+    (2, 1000, 4, 64, torch.bfloat16, True),
+    (2, 1000, 4, 64, torch.bfloat16, False),
+    # B*H*T not a multiple of 4: the backward's lse and delta rows start
+    # off 16-byte boundaries in device memory
+    (3, 257, 5, 64, torch.bfloat16, True)]
+#: the source each dtype's flash kernels are built from
+FLASH_SOURCES = {
+    "flash_attention_fwd": {
+        "float32": "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
+        "bfloat16": "mxnet_tpu_torch/csrc/flash_attention_fwd_sm90.cu"},
+    "flash_attention_bwd": {
+        "float32": "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
+        "bfloat16": "mxnet_tpu_torch/csrc/flash_attention_bwd_sm90.cu"}}
 
 
 def kernels_phase():
     """flash_attention_fwd against flash_attention_plain on the card."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = [(4, 1024, 16, 64, dt, causal)
-             for dt in (torch.float32, torch.bfloat16)
-             for causal in (True, False)]
-    cases += [TRAIN_SHAPE,
-              (1, 4096, 16, 64, torch.float32, True),
-              (1, 4096, 16, 64, torch.bfloat16, True)]
     entries = []
-    for b, t, h, d, dt, causal in cases:
+    for b, t, h, d, dt, causal in FLASH_CASES:
         q, k, v = (torch.randn(b, t, h, d, generator=gen, device="cuda")
                    .to(dt) for _ in range(3))
         o, lse = flash_attention_fwd(q, k, v, causal)
@@ -277,9 +299,11 @@ def kernels_phase():
         tol_o = TOL_F32 if dt == torch.float32 else TOL_BF16
         ok = err_o <= tol_o and err_lse <= TOL_F32
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        dtype = str(dt).replace("torch.", "")
         entry = {
-            "shape": [b, t, h, d], "dtype": str(dt).replace("torch.", ""),
-            "causal": causal, "err_o": err_o, "err_lse": err_lse,
+            "shape": [b, t, h, d], "dtype": dtype, "causal": causal,
+            "source": FLASH_SOURCES["flash_attention_fwd"][dtype],
+            "err_o": err_o, "err_lse": err_lse,
             "tol_o": tol_o, "tol_lse": TOL_F32, "ok": ok,
             "kernel_ms": cuda_ms(
                 lambda: flash_attention_fwd(q, k, v, causal), 50),
@@ -305,19 +329,17 @@ def kernels_bwd_phase():
     from the forward kernel's o and lse.  The library yardstick is the
     backward of ``F.scaled_dot_product_attention``, timed alone."""
     gen = torch.Generator(device="cuda").manual_seed(1)
-    cases = [(4, 1024, 16, 64, dt, causal)
-             for dt in (torch.float32, torch.bfloat16)
-             for causal in (True, False)]
-    cases += [TRAIN_SHAPE,
-              (1, 4096, 16, 64, torch.float32, True),
-              (1, 4096, 16, 64, torch.bfloat16, True)]
     entries = []
-    for b, t, h, d, dt, causal in cases:
+    for b, t, h, d, dt, causal in FLASH_CASES:
         q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device="cuda")
                        .to(dt) for _ in range(4))
         o, lse = flash_attention_fwd(q, k, v, causal)
         got = flash_attention_bwd(q, k, v, o, lse, do, causal)
+        # no atomics: a second launch on the same inputs gives the same bits
+        again = flash_attention_bwd(q, k, v, o, lse, do, causal)
         torch.cuda.synchronize()
+        deterministic = all(torch.equal(x, y) for x, y in zip(got, again))
+        del again
         ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
                                         o.float(), lse, do.float(), causal)
         f32 = dt == torch.float32
@@ -334,15 +356,18 @@ def kernels_bwd_phase():
                 "rounding_norm": (r.to(dt).float() - r).norm().item()
                 / ref_norm}
         del got, ref
-        ok = all(g["err"] <= g["tol"] and g["rel_norm"] <= g["tol_norm"]
-                 for g in grads.values())
+        ok = deterministic and all(
+            g["err"] <= g["tol"] and g["rel_norm"] <= g["tol_norm"]
+            for g in grads.values())
         qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
         gt = do.transpose(1, 2)
+        dtype = str(dt).replace("torch.", "")
         entry = {
-            "shape": [b, t, h, d], "dtype": str(dt).replace("torch.", ""),
-            "causal": causal, "grads": grads,
+            "shape": [b, t, h, d], "dtype": dtype, "causal": causal,
+            "source": FLASH_SOURCES["flash_attention_bwd"][dtype],
+            "deterministic": deterministic, "grads": grads,
             "max_abs_err": max(g["err"] for g in grads.values()), "ok": ok,
             "kernel_ms": cuda_ms(
                 lambda: flash_attention_bwd(q, k, v, o, lse, do, causal),
@@ -610,10 +635,15 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
         before = {k: v.to("cpu", copy=True)
                   for k, v in trainer.params.items()}
         torch.backends.cuda.matmul.allow_tf32 = tf32
+        flash_attention_fwd.launches = 0
+        flash_attention_bwd.launches = 0
         try:
             loss = float(trainer.step(batch))
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
+        launches[str(c) + (" tf32" if tf32 else "")] = {
+            "flash_attention_fwd": flash_attention_fwd.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches}
         return loss, {k: trainer.params[k].cpu() - before[k] for k in before}
 
     def compare(delta, ref, each=False):
@@ -626,6 +656,7 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
             out["rel_update_diff"] = rel
         return out
 
+    launches = {}
     loss, delta = one_step(ctx)
     ref_loss, ref_delta = one_step(check_ctx)
     losses = [loss, ref_loss]
@@ -633,7 +664,8 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
            "optimizer": "sgd", "learning_rate": 0.1, "dtype": "float32",
            "contexts": [str(ctx), str(check_ctx)], "losses": losses,
            "params": len(ref_delta), **compare(delta, ref_delta, True),
-           "tol": TOL_TRAIN_CHECK, "control_tf32": None}
+           "tol": TOL_TRAIN_CHECK, "control_tf32": None,
+           "launches": launches}
     del delta
     if ctx.device_type == "gpu":
         tf32_loss, tf32_delta = one_step(ctx, tf32=True)
@@ -642,6 +674,12 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
     if out["max_rel_update_diff"] > TOL_TRAIN_CHECK \
             or not np.isfinite(losses).all():
         raise SystemExit("train_check: %s" % json.dumps(out))
+    # the f32 step on the card runs the CUDA-core flash kernels once a layer
+    want = layers if ctx.device_type == "gpu" else 0
+    if any(n != want for n in launches[str(ctx)].values()):
+        raise SystemExit("train_check: flash launches %s in one step of %d "
+                         "layers; want %d each"
+                         % (launches[str(ctx)], layers, want))
     if out["control_tf32"] is not None and \
             out["control_tf32"]["max_rel_update_diff"] <= TOL_TRAIN_CHECK:
         raise SystemExit("train_check: the TF32 control passes the bound, "
@@ -1226,7 +1264,8 @@ def main():
     emit("serve", **serve)
     train = train_phase(mx.gpu(0), FULL)
     emit("train", **train)
-    emit("train_check", **train_check_phase(mx.gpu(0), FULL))
+    train_check = train_check_phase(mx.gpu(0), FULL)
+    emit("train_check", **train_check)
     k5 = resnet_kernels_phase()
     resnet = resnet_train_phase(mx.gpu(0))
     emit("resnet_train", **resnet)
@@ -1236,24 +1275,42 @@ def main():
     blk = block_experiment_phase()
     train_shape = list(TRAIN_SHAPE[:4])
     fwd_train = _case(fwd, train_shape, "bfloat16")
+    bwd_train = _case(bwd, train_shape, "bfloat16")
+    fwd_src = FLASH_SOURCES["flash_attention_fwd"]
+    bwd_src = FLASH_SOURCES["flash_attention_bwd"]
+    k1, k2 = ("mxnet_tpu/ops/pallas_kernels.py:283",
+              "mxnet_tpu/ops/pallas_kernels.py:305")
+    k3, k4 = ("mxnet_tpu/ops/pallas_kernels.py:486",
+              "mxnet_tpu/ops/pallas_kernels.py:499")
+
+    def shape_fields(case):
+        return {k: case[k] for k in (
+            "shape", "dtype", "source", "max_abs_err", "kernel_ms",
+            "plain_ms", "library_ms", "bound_ms", "bound_by")}
+
     print(json.dumps({"kernels": [
+        # f32, the CUDA-core kernels: serving (K1) and the f32 train check
         kernel_summary(
-            "flash_attention_fwd",
-            "mxnet_tpu_torch/csrc/flash_attention_fwd.cu",
-            "mxnet_tpu/ops/pallas_kernels.py:283",
-            "mxnet_tpu/ops/pallas_kernels.py:305",
+            "flash_attention_fwd", fwd_src["float32"], k1, k2,
             _case(fwd, [4, 1024, 16, 64], "float32"), serve["launches"],
-            launches_train=train["launches"]["flash_attention_fwd"],
-            train_shape={k: fwd_train[k] for k in (
-                "shape", "dtype", "max_abs_err", "kernel_ms", "plain_ms",
-                "library_ms", "bound_ms", "bound_by")}),
+            sources=fwd_src, train_shape=shape_fields(fwd_train)),
         kernel_summary(
-            "flash_attention_bwd",
-            "mxnet_tpu_torch/csrc/flash_attention_bwd.cu",
-            "mxnet_tpu/ops/pallas_kernels.py:486",
-            "mxnet_tpu/ops/pallas_kernels.py:499",
-            _case(bwd, train_shape, "bfloat16"),
-            train["launches"]["flash_attention_bwd"]),
+            "flash_attention_bwd", bwd_src["float32"], k3, k4,
+            _case(bwd, [4, 1024, 16, 64], "float32"),
+            train_check["launches"][str(mx.gpu(0))]["flash_attention_bwd"],
+            sources=bwd_src,
+            launches_from="train_check: one f32 step of 2 layers"),
+        # bf16, the tensor-core kernels: GPT training (K1, K3)
+        kernel_summary(
+            "flash_attention_fwd_sm90", fwd_src["bfloat16"], k1, k2,
+            fwd_train, train["launches"]["flash_attention_fwd"],
+            sources=fwd_src, train_shape=shape_fields(fwd_train),
+            t4096=shape_fields(_case(fwd, [1, 4096, 16, 64], "bfloat16"))),
+        kernel_summary(
+            "flash_attention_bwd_sm90", bwd_src["bfloat16"], k3, k4,
+            bwd_train, train["launches"]["flash_attention_bwd"],
+            sources=bwd_src, train_shape=shape_fields(bwd_train),
+            t4096=shape_fields(_case(bwd, [1, 4096, 16, 64], "bfloat16"))),
         k5_summary(k5, resnet["launches"]["matmul_stats"]),
         {"name": "rtc", "route": "cuda", "source": "mxnet_tpu_torch/rtc.py",
          "generated": "build/kernels/rtc_rtc_abs_full-<hash>.cu",

@@ -1,4 +1,6 @@
-// Flash-attention backward for Hopper (sm_90a), written for CUDA cores.
+// Flash-attention backward for Hopper (sm_90a), written for CUDA cores: the
+// float32 route of flash_attention_bwd.  The bfloat16 route runs on the
+// tensor cores, in flash_attention_bwd_sm90.cu.
 //
 // Replaces: mxnet_tpu/ops/pallas_kernels.py, _flash_attention_bwd_pallas,
 // in both of its forms: the panel form (_flash_bwd_panel_kernel, T <= 2048)
@@ -34,13 +36,12 @@
 // by arithmetic.  Here it runs as f32 FMAs on the CUDA cores (67 TFLOP/s peak),
 // fed from shared memory: each thread holds a 4x4 register micro-tile of S
 // and dP (16 shared loads per 32 FMAs) and a 4 x (D/16) micro-tile of its
-// accumulators.  bf16 inputs are widened to f32 on load.  Tensor cores
-// (wgmma) and TMA are the next step; they are not used here.
+// accumulators.  The tensor cores offer f32 only as TF32, so the f32 route
+// stays on the CUDA cores.
 //
 // Built by mxnet_tpu_torch/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention_bwd-<hash>.so this file
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -53,18 +54,11 @@ constexpr int THREADS = 256;         // 16 x 16 threads
 constexpr int S_STRIDE = BK + 4;     // P / dS tile row stride (bank spread)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 struct Strides {
   long long b, t, h;   // in elements; the d stride is 1
@@ -432,9 +426,10 @@ cudaError_t dispatch_d(int d, const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Strides are in elements, in the order
-// (batch, seq, heads) for each of q, k, v, dO.  Launches the dK/dV kernel,
-// then the dQ kernel, on `stream`.  Returns 0 or a cudaError_t code.
+// float32 only (bfloat16 runs on flash_attention_bwd_sm90.cu).  Strides are
+// in elements, in the order (batch, seq, heads) for each of q, k, v, dO.
+// Launches the dK/dV kernel, then the dQ kernel, on `stream`.  Returns 0 or
+// a cudaError_t code.
 int mxtt_flash_attention_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dq, void* dk, void* dv,
@@ -443,15 +438,13 @@ int mxtt_flash_attention_bwd(const void* q, const void* k, const void* v,
                              long long k_sb, long long k_st, long long k_sh,
                              long long v_sb, long long v_st, long long v_sh,
                              long long o_sb, long long o_st, long long o_sh,
-                             int causal, int dtype, void* stream) {
+                             int causal, void* stream) {
   const Args a{q,     k,     v,     dout,  lse,
                delta, dq,    dk,    dv,    batch,
                seq,   heads, {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh},
                {v_sb, v_st, v_sh}, {o_sb, o_st, o_sh}, causal};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_d<float>(head_dim, a, st);
-  if (dtype == 1) return (int)dispatch_d<__nv_bfloat16>(head_dim, a, st);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_d<float>(head_dim, a,
+                                static_cast<cudaStream_t>(stream));
 }
 
 const char* mxtt_bwd_error_string(int code) {

@@ -1,4 +1,6 @@
-// Flash-attention forward for Hopper (sm_90a), written for CUDA cores.
+// Flash-attention forward for Hopper (sm_90a), written for CUDA cores: the
+// float32 route of flash_attention_fwd.  The bfloat16 route runs on the
+// tensor cores, in flash_attention_fwd_sm90.cu.
 //
 // Replaces: mxnet_tpu/ops/pallas_kernels.py, _flash_attention_fwd_pallas,
 // in both of its forms: the panel form (_flash_fwd_panel_kernel, T <= 2048)
@@ -26,13 +28,13 @@
 // loads per 16 FMAs), then a 4 x (D/16) micro-tile of the running output
 // acc += P V.  The score tile never leaves shared memory, the running max m
 // and sum l live in shared memory per row (online softmax), and under causal
-// the K loop stops at the diagonal tile, which halves the work.  Tensor
-// cores (wgmma) and TMA are the next step; they are not used here.
+// the K loop stops at the diagonal tile, which halves the work.  The tensor
+// cores offer f32 only as TF32, which would change the served numbers, so
+// the f32 route stays on the CUDA cores.
 //
 // Built by mxnet_tpu_torch/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention_fwd-<hash>.so this file
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -45,18 +47,11 @@ constexpr int THREADS = 256;         // 16 x 16 threads
 constexpr int S_STRIDE = BK + 4;     // score-tile row stride (bank spread)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Shared-memory layout, in floats.  K rows are padded to D+1 so that the 16
 // threads of a half-warp reading 16 different K rows at one d hit 16 banks.
@@ -288,25 +283,20 @@ cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns 0 or a cudaError_t code.
+// float32 only (bfloat16 runs on flash_attention_fwd_sm90.cu).  Returns 0
+// or a cudaError_t code.
 int mxtt_flash_attention_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, int batch, int seq,
                              int heads, int head_dim, long long q_sb,
                              long long q_st, long long q_sh, long long k_sb,
                              long long k_st, long long k_sh, long long v_sb,
                              long long v_st, long long v_sh, int causal,
-                             int dtype, void* stream) {
+                             void* stream) {
   const Strides qs_{q_sb, q_st, q_sh}, ks_{k_sb, k_st, k_sh},
       vs_{v_sb, v_st, v_sh};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_d<float>(head_dim, q, k, v, o, lse, batch, seq,
-                                  heads, qs_, ks_, vs_, causal, st);
-  if (dtype == 1)
-    return (int)dispatch_d<__nv_bfloat16>(head_dim, q, k, v, o, lse, batch,
-                                          seq, heads, qs_, ks_, vs_, causal,
-                                          st);
-  return (int)cudaErrorInvalidValue;
+  return (int)dispatch_d<float>(head_dim, q, k, v, o, lse, batch, seq, heads,
+                                qs_, ks_, vs_, causal,
+                                static_cast<cudaStream_t>(stream));
 }
 
 const char* mxtt_error_string(int code) {

@@ -2,8 +2,9 @@
 
 Each source under ``csrc/`` is a plain C interface over one kernel.  It is
 compiled for Hopper (``sm_90a``) into a shared library in ``build/kernels/``
-at the root of the checkout, named by a hash of its source, so an edited
-source builds anew and an unchanged one is loaded as it is.  Nothing is
+at the root of the checkout, named by a hash of its source and of the
+shared headers (``csrc/*.cuh``), so an edited source builds anew and an
+unchanged one is loaded as it is.  Nothing is
 built at import: the first call that needs a kernel builds it, and
 :func:`build_all` builds every kernel at once, one ``nvcc`` per source, all
 started together.  :func:`build_source` builds a source made at run time
@@ -31,6 +32,8 @@ _PKG = Path(__file__).resolve().parent
 SOURCES = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
     "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
+    "flash_attention_fwd_sm90": "csrc/flash_attention_fwd_sm90.cu",
+    "flash_attention_bwd_sm90": "csrc/flash_attention_bwd_sm90.cu",
     "matmul_stats": "csrc/matmul_stats.cu",
     "bottleneck_block": "csrc/bottleneck_block.cu",
 }
@@ -57,9 +60,13 @@ def _nvcc():
 
 
 def _target(name):
+    # the hash covers the shared headers of csrc/ too: an edited header
+    # builds every source anew
     src = _PKG / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return src, build_dir() / ("lib%s-%s.so" % (name, digest))
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted((_PKG / "csrc").glob("*.cuh")):
+        h.update(header.read_bytes())
+    return src, build_dir() / ("lib%s-%s.so" % (name, h.hexdigest()[:12]))
 
 
 def nvcc_command(src, out):
@@ -94,7 +101,7 @@ def _compile(jobs):
             continue
         os.replace(tmp, out)     # atomic: a concurrent loader never sees
         ptxas = "\n".join(ln for ln in log.splitlines()  # a partial file
-                          if "ptxas" in ln)
+                          if "ptxas" in ln or "spill" in ln)
         results.append({"name": name, "cmd": " ".join(cmd),
                         "seconds": seconds, "ptxas": ptxas,
                         "cached": False})
@@ -106,8 +113,9 @@ def _compile(jobs):
 def build_all(names=None):
     """Build the named kernels (default: all) concurrently, one ``nvcc``
     per source.  Returns one dict per kernel: ``name``, ``cmd``,
-    ``seconds``, ``ptxas`` (the register and shared-memory report) and
-    ``cached`` (True when the library for this source already existed)."""
+    ``seconds``, ``ptxas`` (the register, shared-memory and spill report)
+    and ``cached`` (True when the library for this source already
+    existed)."""
     names = list(SOURCES) if names is None else list(names)
     return _compile([(name,) + _target(name) for name in names])
 

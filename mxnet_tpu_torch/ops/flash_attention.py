@@ -3,13 +3,18 @@ the autograd function and the ``_contrib_FlashAttention`` op.
 
 The counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  The TPU kernels
 (``_flash_attention_fwd_pallas`` and ``_flash_attention_bwd_pallas``, each
-in a panel and a streamed form) become ``csrc/flash_attention_fwd.cu`` and
-``csrc/flash_attention_bwd.cu``, built with ``nvcc`` for ``sm_90a`` on first
-use and called through ctypes on PyTorch's current stream.
+in a panel and a streamed form) become two CUDA sources each, chosen by
+dtype: float32 runs on the CUDA cores (``csrc/flash_attention_fwd.cu``,
+``csrc/flash_attention_bwd.cu``), bfloat16 on the tensor cores through
+wgmma with TMA loads (``csrc/flash_attention_fwd_sm90.cu``,
+``csrc/flash_attention_bwd_sm90.cu``).  Each is built with ``nvcc`` for
+``sm_90a`` on first use and called through ctypes on PyTorch's current
+stream.
 
 * :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
-  wrappers: a CUDA tensor launches the kernel or raises; a CPU (or meta)
-  tensor takes the plain version.  ``.launches`` on each counts launches.
+  wrappers: a CUDA tensor launches the kernel of its dtype or raises; a
+  CPU (or meta) tensor takes the plain version.  ``.launches`` on each
+  counts launches of either route.
 * :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`
   compute the same results in PyTorch, the TPU kernels' panel arithmetic in
   f32.  The tests and ``chip_smoke.py`` hold the kernels against them.
@@ -42,7 +47,7 @@ _BLOCK_Q = 128
 #: head dims the CUDA kernel is instantiated for
 KERNEL_HEAD_DIMS = (32, 64, 128)
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def attention_plain(q, k, v, causal):
@@ -80,11 +85,29 @@ def flash_attention_plain(q, k, v, causal):
     return o.to(q.dtype), lse
 
 
+def kernel_strides(x):
+    """(batch, seq, heads) strides of a (B, T, H, D) tensor in elements.
+    A dim of size 1 is never stepped, so its stride is replaced by a
+    packed one: TMA wants every stride 16-byte aligned, whatever a size-1
+    dim of a view says."""
+    b, t, h, d = x.shape
+    sb, st, sh = x.stride()[:3]
+    if h == 1:
+        sh = d
+    if t == 1:
+        st = h * sh
+    if b == 1:
+        sb = t * st
+    return sb, st, sh
+
+
 def check_kernel_args(q, k, v, *more, name="flash_attention_fwd"):
     """Raise unless the CUDA kernel takes these tensors: (B, T, H, D) of one
     shape, one dtype (f32 or bf16) and one device, D in
-    :data:`KERNEL_HEAD_DIMS`, last dim contiguous.  ``more`` are further
-    tensors held to the same rules (the backward's dO and O)."""
+    :data:`KERNEL_HEAD_DIMS`, last dim contiguous.  The bf16 route loads by
+    TMA, so there every base address and every stride must also be a
+    multiple of 16 bytes.  ``more`` are further tensors held to the same
+    rules (the backward's dO and O)."""
     xs = (q, k, v) + more
     if q.dim() != 4 or any(x.shape != q.shape for x in xs):
         raise MXNetError("%s: the inputs must share one (batch, seq, heads, "
@@ -107,23 +130,51 @@ def check_kernel_args(q, k, v, *more, name="flash_attention_fwd"):
     if b * h > 65535 or t < 1:
         raise MXNetError("%s: batch*heads must be at most 65535 and seq at "
                          "least 1, got %d and %d" % (name, b * h, t))
+    if q.dtype == torch.bfloat16:
+        if b * h * t >= 2 ** 31:
+            raise MXNetError("%s: batch*heads*seq must be below 2**31, got "
+                             "%d" % (name, b * h * t))
+        for x in xs:
+            if x.data_ptr() % 16 or any(
+                    s * x.element_size() % 16 for s in kernel_strides(x)):
+                raise MXNetError(
+                    "%s: the bf16 kernel loads by TMA, which needs a "
+                    "16-byte aligned base and (batch, seq, heads) strides "
+                    "of a multiple of 16 bytes; got base %% 16 = %d and "
+                    "strides %s" % (name, x.data_ptr() % 16,
+                                    x.stride()[:3]))
 
 
+# q, k, v, o, lse, b, t, h, d, the strides of q, k, v, causal, stream
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
-             + [ctypes.c_void_p])
+             + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p])
 
 
-def _kernel():
+#: dtype -> (library, entry, error-string function): f32 on the CUDA-core
+#: kernel, bf16 on the tensor-core (sm90) kernel
+_FWD_ROUTES = {
+    torch.float32: ("flash_attention_fwd", "mxtt_flash_attention_fwd",
+                    "mxtt_error_string"),
+    torch.bfloat16: ("flash_attention_fwd_sm90",
+                     "mxtt_flash_attention_fwd_sm90",
+                     "mxtt_fwd_sm90_error_string"),
+}
+
+
+def _bind(route, argtypes):
+    """``(entry function, error-string function)`` of a route's kernel
+    library, built on first use; a failed build raises."""
     from .. import cuda_build
-    lib = cuda_build.library("flash_attention_fwd")
-    fn = lib.mxtt_flash_attention_fwd
+    name, entry, errfn = route
+    lib = cuda_build.library(name)
+    fn = getattr(lib, entry)
+    err = getattr(lib, errfn)
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        lib.mxtt_error_string.argtypes = [ctypes.c_int]
-        lib.mxtt_error_string.restype = ctypes.c_char_p
-    return lib, fn
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+    return fn, err
 
 
 def _launch(q, k, v, causal):
@@ -131,26 +182,25 @@ def _launch(q, k, v, causal):
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, t, 1), dtype=torch.float32, device=q.device)
-    lib, fn = _kernel()
+    route = _FWD_ROUTES[q.dtype]
+    fn, err = _bind(route, _ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), b, t, h, d,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
+                *(s for x in (q, k, v) for s in kernel_strides(x)),
+                int(bool(causal)), stream)
     if rc != 0:
-        raise MXNetError("flash_attention_fwd: CUDA launch failed: %s (%d)"
-                         % (lib.mxtt_error_string(rc).decode(), rc))
+        raise MXNetError("flash_attention_fwd: CUDA launch failed (%s): %s "
+                         "(%d)" % (route[0], err(rc).decode(), rc))
     flash_attention_fwd.launches += 1
     return o, lse
 
 
 def flash_attention_fwd(q, k, v, causal):
     """``(o, lse)`` of attention over (B, T, H, D) inputs.  A CUDA tensor
-    launches the hand-written kernel (or raises); a CPU or meta tensor
-    takes :func:`flash_attention_plain`."""
+    launches the hand-written kernel of its dtype (or raises); a CPU or
+    meta tensor takes :func:`flash_attention_plain`."""
     kind = q.device.type
     if kind == "cuda":
         return _launch(q, k, v, causal)
@@ -185,21 +235,19 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal):
     return tuple(x.to(q.dtype) for x in (dq, dk, dv))
 
 
+# q, k, v, dO, lse, delta, dq, dk, dv, b, t, h, d, the strides of q, k, v,
+# dO, causal, stream
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                 + [ctypes.c_longlong] * 12 + [ctypes.c_int] * 2
-                 + [ctypes.c_void_p])
+                 + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
 
-
-def _bwd_kernel():
-    from .. import cuda_build
-    lib = cuda_build.library("flash_attention_bwd")
-    fn = lib.mxtt_flash_attention_bwd
-    if fn.argtypes is None:
-        fn.argtypes = _BWD_ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.mxtt_bwd_error_string.argtypes = [ctypes.c_int]
-        lib.mxtt_bwd_error_string.restype = ctypes.c_char_p
-    return lib, fn
+#: as :data:`_FWD_ROUTES`, for the backward
+_BWD_ROUTES = {
+    torch.float32: ("flash_attention_bwd", "mxtt_flash_attention_bwd",
+                    "mxtt_bwd_error_string"),
+    torch.bfloat16: ("flash_attention_bwd_sm90",
+                     "mxtt_flash_attention_bwd_sm90",
+                     "mxtt_bwd_sm90_error_string"),
+}
 
 
 def _launch_bwd(q, k, v, o, lse, do, causal):
@@ -218,22 +266,26 @@ def _launch_bwd(q, k, v, o, lse, do, causal):
                          % (name, b * h, t, q.device, tuple(lse.shape),
                             lse.dtype, lse.device))
     # delta = rowsum(dO * O) in f32, outside the kernel as in the TPU code,
-    # in lse's (B*H, T, 1) layout
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    # in lse's (B*H, T, 1) layout; the product is taken in place in an f32
+    # copy of dO (a copy even when dO is f32 already; o is widened inside
+    # the multiply)
+    delta = do.to(torch.float32, copy=True).mul_(o).sum(-1) \
+        .transpose(1, 2).contiguous()
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty_like(dq)
     dv = torch.empty_like(dq)
-    lib, fn = _bwd_kernel()
+    route = _BWD_ROUTES[q.dtype]
+    fn, err = _bind(route, _BWD_ARGTYPES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
                 dk.data_ptr(), dv.data_ptr(), b, t, h, d,
-                *(x.stride(i) for x in (q, k, v, do) for i in range(3)),
-                int(bool(causal)), _KERNEL_DTYPES[q.dtype], stream)
+                *(s for x in (q, k, v, do) for s in kernel_strides(x)),
+                int(bool(causal)), stream)
     if rc != 0:
-        raise MXNetError("%s: CUDA launch failed: %s (%d)"
-                         % (name, lib.mxtt_bwd_error_string(rc).decode(), rc))
+        raise MXNetError("%s: CUDA launch failed (%s): %s (%d)"
+                         % (name, route[0], err(rc).decode(), rc))
     flash_attention_bwd.launches += 1
     return dq, dk, dv
 
@@ -241,8 +293,8 @@ def _launch_bwd(q, k, v, o, lse, do, causal):
 def flash_attention_bwd(q, k, v, o, lse, do, causal):
     """``(dq, dk, dv)`` of attention over (B, T, H, D) inputs, from the
     forward's ``o`` and ``lse`` and the output gradient ``do``.  A CUDA
-    tensor launches the hand-written kernel (or raises); a CPU or meta
-    tensor takes :func:`flash_attention_bwd_plain`."""
+    tensor launches the hand-written kernel of its dtype (or raises); a
+    CPU or meta tensor takes :func:`flash_attention_bwd_plain`."""
     kind = q.device.type
     if kind == "cuda":
         return _launch_bwd(q, k, v, o, lse, do, causal)
