@@ -13,12 +13,19 @@ Phases, one JSON line each:
    the flash forward and then the flash backward, at the serving shape
    (B=4, T=1024, H=16, D=64) in f32 and bf16, causal and not, at the
    training shape (B=16, bf16, causal), at T=4096, at D=32 and D=128
-   (B=4, H=8, bf16, causal) and at a ragged T=1000 (B=2, H=4, bf16,
-   causal and not) and T=257 (B=3, H=5, bf16, causal); f32 runs the CUDA-core kernels, bf16 the tensor-core
-   (sm90) ones; error, kernel time, plain time, the time of the nearest
-   PyTorch call and the bound the card's peak rates set; each gradient is
-   held by its largest error and by its relative norm, and two backward
-   launches on the same inputs must give bit-identical gradients;
+   (B=4, H=8, causal) and at a ragged T=1000 (B=2, H=4, causal and not)
+   and T=257 (B=3, H=5, causal), each in f32 and bf16; f32 runs the
+   split-TF32 (3xTF32) mma.sync kernels, bf16 the wgmma (sm90) ones; error,
+   kernel time, plain time, the time of the nearest PyTorch call and the
+   bound the card's peak rates set (for f32 both the 3xTF32 bound of its
+   route and the CUDA-core one); each gradient is held by its largest error
+   and by its relative norm, and two backward launches on the same inputs
+   must give bit-identical gradients; each f32 case also runs the plain
+   version with TF32 matmuls as a control, which must miss every f32
+   tolerance; then the delta kernel (rowsum(dO * O)) against its plain
+   version, bit-identical across two launches, and
+   ``_contrib_FlashAttention`` on inputs the kernels do not take (D=96
+   f32, f16), which it must answer through ``attention_plain``;
 4. ``serve``: the GPT LM at full width (vocab 16384, seq 1024, d_model 1024,
    16 heads, 12 layers; random weights from a seed) written as a checkpoint,
    loaded by ``Predictor`` on ``gpu(0)`` and served through ``BatchLadder``,
@@ -28,8 +35,9 @@ Phases, one JSON line each:
    on the CPU;
 5. ``train``: ``models.gpt.build_bench_trainer`` at full width (batch 16,
    bf16, Adam lr 1e-4) on ``gpu(0)``: ten steps on the staged batch, every
-   loss finite, the last below the first, both flash kernels launched once
-   per layer per step; then ms/step, tokens/s and MFU by the port's
+   loss finite, the last below the first, the flash kernels (forward,
+   backward, delta) launched once per layer per step; then ms/step,
+   tokens/s and MFU by the port's
    ``transformer_mfu`` accounting, peak memory, and a profile of one step;
 6. ``train_check``: one f32 SGD step of the full-width GPT cut to 2 layers
    and batch 1, on ``gpu(0)`` and on the CPU from the same weights; the
@@ -71,6 +79,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import sys
 import tempfile
 import threading
@@ -88,8 +97,10 @@ from mxnet_tpu_torch import cuda_build                         # noqa: E402
 from mxnet_tpu_torch.models.gpt import (                       # noqa: E402
     build_bench_trainer, gpt_symbol)
 from mxnet_tpu_torch.ops.flash_attention import (              # noqa: E402
-    flash_attention_bwd, flash_attention_bwd_plain, flash_attention_fwd,
+    attention_plain, flash_attention_bwd, flash_attention_bwd_plain,
+    flash_attention_delta, flash_attention_delta_plain, flash_attention_fwd,
     flash_attention_plain)
+from mxnet_tpu_torch.ops.registry import OpContext, get_op     # noqa: E402
 from mxnet_tpu_torch.ops.fused import (                        # noqa: E402
     matmul_stats, matmul_stats_plain, matmul_stats_prologue,
     matmul_stats_prologue_plain)
@@ -110,10 +121,16 @@ from mxnet_tpu_torch.tools import matmul_stats_experiment      # noqa: E402
 FULL = {"vocab": 16384, "seq": 1024, "d_model": 1024, "heads": 16,
         "layers": 12}
 
-# published H100 SXM peaks (NVIDIA data sheet, dense)
+# published H100 SXM peaks (NVIDIA data sheet, dense).  PEAK_FLOPS is the
+# route of K5 and the experiments (f32 on the CUDA cores); the f32 flash
+# kernels run each product as three TF32 products on the tensor cores
+# (split TF32), so their bound is 3 x flops at the TF32 peak
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TF32_FLOPS = 495e12
 PEAK_NAME = {torch.float32: "f32 CUDA-core 67 TFLOP/s",
-             torch.bfloat16: "bf16 tensor-core 989 TFLOP/s"}
+             torch.bfloat16: "bf16 tensor-core 989 TFLOP/s",
+             "split_tf32": "f32 as split TF32: 3 x flops at the TF32 "
+                           "tensor-core 495 TFLOP/s"}
 HBM_BYTES_PER_S = 3.35e12
 
 TOL_F32 = 1e-4      # max |kernel - plain|, o and lse, f32 inputs
@@ -213,10 +230,50 @@ def env_phase():
     return smi
 
 
+def ptxas_summary(text):
+    """``-Xptxas -v``'s report of the flash kernels, one entry a kernel
+    instantiation (``flash_fwd_tf32<64>``, ``flash_delta_kernel<64,bf16>``
+    and the like): registers, static shared memory, stack frame and spill
+    bytes."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            mangled = m.group(1)
+            k = re.search(r"flash_[a-z0-9_]+?(?=I)", mangled)
+            d = re.search(r"Li(\d+)E", mangled)
+            name = None
+            if k and d:
+                name = "%s<%s%s>" % (k.group(0), d.group(1),
+                                     ",bf16" if "nv_bfloat16" in mangled
+                                     else "")
+                out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name].update(registers=int(m.group(1)),
+                             smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
 def build_phase():
     t0 = time.perf_counter()
     built = cuda_build.build_all()
-    emit("build", wall_s=time.perf_counter() - t0, kernels=built)
+    flash = {b["name"]: ptxas_summary(b["ptxas"]) for b in built
+             if b["name"].startswith("flash_attention")}
+    emit("build", wall_s=time.perf_counter() - t0, kernels=built,
+         flash_ptxas=flash)
+    return flash
 
 
 def cuda_ms(fn, iters):
@@ -237,42 +294,58 @@ def cuda_ms(fn, iters):
 
 def attention_bound(b, t, h, d, dtype, causal, n_matmuls=2, n_tensors=4):
     """Least time for a flash kernel on this card: the larger of the flops
-    over the dtype's peak and the bytes over HBM bandwidth.  The forward
+    over the route's peak and the bytes over HBM bandwidth.  The forward
     does 2 products and moves 4 (B, T, H, D) tensors (q, k, v read, o
     written); the backward does 5 and moves 8 (q, k, v, o, dO read; dq, dk,
     dv written); each also moves one f32 (B*H, T) lse.  Under causal only
-    the t(t+1)/2 live (query, key) pairs are counted."""
+    the t(t+1)/2 live (query, key) pairs are counted.  The f32 route runs
+    each product as three TF32 products: its bound is 3 x flops at the TF32
+    peak, and ``bound_cuda_core_ms`` beside it is the bound of f32 FMAs on
+    the CUDA cores (67 TFLOP/s), which earlier f32 kernels ran and the
+    kernel table keeps for comparison."""
     pairs = t * (t + 1) / 2 if causal else t * t
     flops = 2.0 * n_matmuls * b * h * d * pairs
     itemsize = torch.empty((), dtype=dtype).element_size()
     nbytes = float(n_tensors) * b * t * h * d * itemsize + 4.0 * b * h * t
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    return {"flops": flops, "bytes": nbytes,
-            "bound_ms": max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "peak": PEAK_NAME[dtype] + ", HBM 3.35 TB/s"}
+    f32 = dtype == torch.float32
+    if f32:
+        t_ops = 3.0 * flops / TF32_FLOPS * 1e3
+        peak = PEAK_NAME["split_tf32"]
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        peak = PEAK_NAME[dtype]
+    out = {"flops": flops, "bytes": nbytes,
+           "bound_ms": max(t_ops, t_bytes),
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+           "peak": peak + ", HBM 3.35 TB/s"}
+    if f32:
+        out["bound_cuda_core_ms"] = max(
+            flops / PEAK_FLOPS[torch.float32] * 1e3, t_bytes)
+    return out
 
 
 #: the training path's attention: build_bench_trainer's batch 16, bf16
 TRAIN_SHAPE = (16, 1024, 16, 64, torch.bfloat16, True)
-#: the flash cases of both kernels phases: the serving shape in both dtypes,
-#: the training shape, T=4096, the other head dims of the bf16 (sm90)
-#: kernels (whose shared-memory swizzle differs: 64-byte rows at D=32, two
-#: 128-byte boxes at D=128) and ragged T
+#: the flash cases of both kernels phases, each in both dtypes: the
+#: serving shape, T=4096, the other head dims (whose shared-memory layout
+#: and register budget differ: 64-byte bf16 rows at D=32, two 128-byte bf16
+#: boxes at D=128; one, two and four 128-byte f32 boxes at D = 32, 64, 128)
+#: and ragged T; and the training shape
 FLASH_CASES = [(4, 1024, 16, 64, dt, causal)
                for dt in (torch.float32, torch.bfloat16)
-               for causal in (True, False)] + [
-    TRAIN_SHAPE,
-    (1, 4096, 16, 64, torch.float32, True),
-    (1, 4096, 16, 64, torch.bfloat16, True),
-    (4, 1024, 8, 32, torch.bfloat16, True),
-    (4, 1024, 8, 128, torch.bfloat16, True),
-    (2, 1000, 4, 64, torch.bfloat16, True),
-    (2, 1000, 4, 64, torch.bfloat16, False),
-    # B*H*T not a multiple of 4: the backward's lse and delta rows start
-    # off 16-byte boundaries in device memory
-    (3, 257, 5, 64, torch.bfloat16, True)]
+               for causal in (True, False)] + [TRAIN_SHAPE] + [
+    case + (dt,) + causal
+    for case, causal in (
+        ((1, 4096, 16, 64), (True,)),
+        ((4, 1024, 8, 32), (True,)),
+        ((4, 1024, 8, 128), (True,)),
+        ((2, 1000, 4, 64), (True,)),
+        ((2, 1000, 4, 64), (False,)),
+        # B*H*T not a multiple of 4: the backward's lse and delta rows
+        # start off 16-byte boundaries in device memory
+        ((3, 257, 5, 64), (True,)))
+    for dt in (torch.float32, torch.bfloat16)]
 #: the source each dtype's flash kernels are built from
 FLASH_SOURCES = {
     "flash_attention_fwd": {
@@ -283,8 +356,28 @@ FLASH_SOURCES = {
         "bfloat16": "mxnet_tpu_torch/csrc/flash_attention_bwd_sm90.cu"}}
 
 
+def with_tf32(fn):
+    """``fn()`` with TF32 matmuls (cuBLAS only: the flash kernels read no
+    such switch), the setting restored after."""
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def control_misses(control, held):
+    """The names of the tolerances a TF32 control passes: ``control`` maps
+    each name to the control's reading, ``held`` to the bound the kernel is
+    held to.  A bound the control passes cannot tell the split-TF32 kernel
+    from one TF32 product."""
+    return [name for name, x in control.items() if not x > held[name]]
+
+
 def kernels_phase():
-    """flash_attention_fwd against flash_attention_plain on the card."""
+    """flash_attention_fwd against flash_attention_plain on the card; each
+    f32 case also runs the plain version with TF32 matmuls as a control,
+    which must miss both f32 tolerances."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     entries = []
     for b, t, h, d, dt, causal in FLASH_CASES:
@@ -314,6 +407,13 @@ def kernels_phase():
                     qt, kt, vt, is_causal=causal), 50),
         }
         entry.update(attention_bound(b, t, h, d, dt, causal))
+        if dt == torch.float32:
+            co, cl = with_tf32(lambda: flash_attention_plain(q, k, v, causal))
+            control = {"err_o": (co - ro).abs().max().item(),
+                       "err_lse": (cl - rl).abs().max().item()}
+            entry["control_tf32"] = dict(control, passes=control_misses(
+                control, {"err_o": tol_o, "err_lse": TOL_F32}))
+            del co, cl
         entries.append(entry)
         del q, k, v, o, lse, ro, rl, qt, kt, vt
     emit("kernels", name="flash_attention_fwd", entries=entries)
@@ -321,13 +421,20 @@ def kernels_phase():
     if bad:
         raise SystemExit("flash_attention_fwd disagrees with its plain "
                          "version: %s" % json.dumps(bad))
+    weak = [e for e in entries if e.get("control_tf32", {}).get("passes")]
+    if weak:
+        raise SystemExit("flash_attention_fwd: the TF32 control passes an "
+                         "f32 tolerance, which then cannot tell the split "
+                         "from one TF32 product: %s" % json.dumps(weak))
     return entries
 
 
 def kernels_bwd_phase():
     """flash_attention_bwd against flash_attention_bwd_plain on the card,
     from the forward kernel's o and lse.  The library yardstick is the
-    backward of ``F.scaled_dot_product_attention``, timed alone."""
+    backward of ``F.scaled_dot_product_attention``, timed alone.  Each f32
+    case also runs the plain version with TF32 matmuls as a control, which
+    must miss both f32 tolerances of every gradient."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     entries = []
     for b, t, h, d, dt, causal in FLASH_CASES:
@@ -355,6 +462,21 @@ def kernels_bwd_phase():
                 "tol_norm": TOL_BWD_NORM[dt],
                 "rounding_norm": (r.to(dt).float() - r).norm().item()
                 / ref_norm}
+        control = None
+        if f32:
+            ctrl = with_tf32(lambda: flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal))
+            control = {}
+            for name, c, r in zip(("dq", "dk", "dv"), ctrl, ref):
+                control[name + "_err"] = (c - r).abs().max().item()
+                control[name + "_rel_norm"] = \
+                    (c - r).norm().item() / r.norm().item()
+            held = {}
+            for name, g in grads.items():
+                held[name + "_err"] = g["tol"]
+                held[name + "_rel_norm"] = g["tol_norm"]
+            control["passes"] = control_misses(dict(control), held)
+            del ctrl
         del got, ref
         ok = deterministic and all(
             g["err"] <= g["tol"] and g["rel_norm"] <= g["tol_norm"]
@@ -381,6 +503,8 @@ def kernels_bwd_phase():
         }
         entry.update(attention_bound(b, t, h, d, dt, causal, n_matmuls=5,
                                      n_tensors=8))
+        if control is not None:
+            entry["control_tf32"] = control
         entries.append(entry)
         del q, k, v, do, o, lse, qt, kt, vt, out, gt
     emit("kernels", name="flash_attention_bwd", entries=entries)
@@ -388,7 +512,112 @@ def kernels_bwd_phase():
     if bad:
         raise SystemExit("flash_attention_bwd disagrees with its plain "
                          "version: %s" % json.dumps(bad))
+    weak = [e for e in entries if e.get("control_tf32", {}).get("passes")]
+    if weak:
+        raise SystemExit("flash_attention_bwd: the TF32 control passes an "
+                         "f32 tolerance, which then cannot tell the split "
+                         "from one TF32 product: %s" % json.dumps(weak))
     return entries
+
+
+#: delta against its plain version: max |kernel - plain| <= TOL_DELTA *
+#: max |plain|.  Both sum D products in f32 (a bf16 product is exact in
+#: f32) in other orders, so they differ by the f32 rounding of those sums,
+#: some 1e-7 of the largest row sum
+TOL_DELTA = 1e-6
+
+
+def delta_bound(b, t, h, d, dtype):
+    """Least time for the delta kernel: dO and O read once, delta (f32)
+    written once, over HBM bandwidth (one multiply-add a value read)."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    nbytes = 2.0 * b * t * h * d * itemsize + 4.0 * b * h * t
+    t_ops = 2.0 * b * t * h * d / PEAK_FLOPS[torch.float32] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bytes": nbytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "peak": "HBM 3.35 TB/s"}
+
+
+def delta_phase(bwd_entries):
+    """flash_attention_delta against flash_attention_delta_plain on the
+    card at every flash case's shape and dtype, bit-identical across two
+    launches, with the kernel, plain, library and bound times; and the
+    bf16 backward wrapper's time at the training shape (delta included),
+    read from the backward phase.  The library yardstick is
+    ``torch.linalg.vecdot`` for f32 (one call, the same sums as a (B, T,
+    H) f32 tensor); for bf16 no one call sums the products in f32."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    entries = []
+    for b, t, h, d, dt, causal in FLASH_CASES:
+        if not causal and (b, t, h, d, dt, True) in FLASH_CASES:
+            continue   # the same shapes as the causal case
+        o, do = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+                 .to(dt) for _ in range(2))
+        got = flash_attention_delta(o, do)
+        again = flash_attention_delta(o, do)
+        torch.cuda.synchronize()
+        ref = flash_attention_delta_plain(o, do)
+        ref_max = ref.abs().max().item()
+        err = (got - ref).abs().max().item()
+        entry = {"shape": [b, t, h, d], "dtype": str(dt)[6:],
+                 "max_abs_err": err, "ref_max": ref_max,
+                 "rel_err": err / ref_max, "tol": TOL_DELTA,
+                 "deterministic": torch.equal(got, again),
+                 "ok": err <= TOL_DELTA * ref_max and torch.equal(got, again),
+                 "kernel_ms": cuda_ms(lambda: flash_attention_delta(o, do),
+                                      50),
+                 "plain_ms": cuda_ms(
+                     lambda: flash_attention_delta_plain(o, do), 20),
+                 "library_ms": cuda_ms(
+                     lambda: torch.linalg.vecdot(do, o), 50)
+                 if dt == torch.float32 else None}
+        entry.update(delta_bound(b, t, h, d, dt))
+        entries.append(entry)
+        del o, do, got, again, ref
+    bwd_train = _case(bwd_entries, list(TRAIN_SHAPE[:4]), "bfloat16")
+    out = {"entries": entries, "tol": TOL_DELTA,
+           "bwd_bf16_train_wrapper_ms": bwd_train["kernel_ms"]}
+    emit("kernels", name="flash_attention_delta", **out)
+    bad = [e for e in entries if not e["ok"]]
+    if bad:
+        raise SystemExit("flash_attention_delta disagrees with its plain "
+                         "version or between launches: %s" % json.dumps(bad))
+    return entries
+
+
+def op_routes_phase():
+    """``_contrib_FlashAttention`` on the card for inputs the kernels do
+    not take (D=96 in f32; float16): the op answers them through
+    ``attention_plain``, with no flash launch, as the JAX op sends them to
+    ``_attention_jnp``."""
+    op = get_op("_contrib_FlashAttention")
+    attrs = op.parse_attrs({"causal": "True"})
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cases = []
+    for shape, dt in (((2, 256, 4, 96), torch.float32),
+                      ((2, 256, 4, 64), torch.float16)):
+        q, k, v = (torch.randn(*shape, generator=gen, device="cuda").to(dt)
+                   for _ in range(3))
+        before = flash_attention_fwd.launches
+        got = op.fcompute(attrs, OpContext(device=q.device), q, k, v)
+        torch.cuda.synchronize()
+        launched = flash_attention_fwd.launches - before
+        want = attention_plain(q, k, v, True)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = launched == 0 and got.dtype == dt and got.shape == q.shape \
+            and bool(torch.isfinite(got).all()) and err == 0.0
+        cases.append({"shape": list(shape), "dtype": str(dt)[6:],
+                      "flash_launches": launched, "max_abs_err": err,
+                      "ok": ok})
+        del q, k, v, got, want
+    emit("op_routes", cases=cases)
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise SystemExit("_contrib_FlashAttention: inputs the kernels do not "
+                         "take were not answered by attention_plain: %s"
+                         % json.dumps(bad))
+    return cases
 
 
 def serve_phase(ctx, cfg, rungs=(1, 4), check_ctx=None):
@@ -571,6 +800,7 @@ def train_phase(ctx, cfg, batch=16, dtype="bfloat16", steps=10,
         torch.cuda.reset_peak_memory_stats()
     flash_attention_fwd.launches = 0
     flash_attention_bwd.launches = 0
+    flash_attention_delta.launches = 0
     t0 = time.perf_counter()
     losses = [trainer.step(staged) for _ in range(steps)]
     losses = [float(x) for x in losses]
@@ -578,11 +808,13 @@ def train_phase(ctx, cfg, batch=16, dtype="bfloat16", steps=10,
     steps_s = time.perf_counter() - t0
     launches = {"flash_attention_fwd": flash_attention_fwd.launches,
                 "flash_attention_bwd": flash_attention_bwd.launches}
+    delta_launches = flash_attention_delta.launches
     want = cfg["layers"] * steps if on_card else 0
-    if any(n != want for n in launches.values()):
-        raise SystemExit("train: kernel launches %s over %d steps of %d "
-                         "layers; want %d each"
-                         % (launches, steps, cfg["layers"], want))
+    if any(n != want for n in list(launches.values()) + [delta_launches]):
+        raise SystemExit("train: kernel launches %s and %d of the delta "
+                         "kernel over %d steps of %d layers; want %d each"
+                         % (launches, delta_launches, steps, cfg["layers"],
+                            want))
     if not all(np.isfinite(losses)):
         raise SystemExit("train: non-finite loss in %s" % losses)
     if not losses[-1] < losses[0]:
@@ -597,6 +829,7 @@ def train_phase(ctx, cfg, batch=16, dtype="bfloat16", steps=10,
            "params": sum(int(v.numel()) for v in trainer.params.values()),
            "build_s": build_s, "steps": steps, "losses": losses,
            "steps_wall_s": steps_s, "launches": launches,
+           "delta_launches": delta_launches,
            "launches_per_step": {k: v / steps for k, v in launches.items()},
            "timed_steps": timed_steps, "repeats_s": m["repeats_s"],
            "step_ms": m["step_ms"], "tokens_per_s": m["tokens_per_s"],
@@ -637,13 +870,15 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
         torch.backends.cuda.matmul.allow_tf32 = tf32
         flash_attention_fwd.launches = 0
         flash_attention_bwd.launches = 0
+        flash_attention_delta.launches = 0
         try:
             loss = float(trainer.step(batch))
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
         launches[str(c) + (" tf32" if tf32 else "")] = {
             "flash_attention_fwd": flash_attention_fwd.launches,
-            "flash_attention_bwd": flash_attention_bwd.launches}
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "flash_attention_delta": flash_attention_delta.launches}
         return loss, {k: trainer.params[k].cpu() - before[k] for k in before}
 
     def compare(delta, ref, each=False):
@@ -674,7 +909,8 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
     if out["max_rel_update_diff"] > TOL_TRAIN_CHECK \
             or not np.isfinite(losses).all():
         raise SystemExit("train_check: %s" % json.dumps(out))
-    # the f32 step on the card runs the CUDA-core flash kernels once a layer
+    # the f32 step on the card runs the split-TF32 flash kernels (and the
+    # delta kernel) once a layer
     want = layers if ctx.device_type == "gpu" else 0
     if any(n != want for n in launches[str(ctx)].values()):
         raise SystemExit("train_check: flash launches %s in one step of %d "
@@ -1255,11 +1491,13 @@ def main():
               file=sys.stderr)
         return 1
     env_phase()
-    build_phase()
+    ptxas = build_phase()
     fwd = kernels_phase()
     for e in fwd:
         e["max_abs_err"] = max(e["err_o"], e["err_lse"])
     bwd = kernels_bwd_phase()
+    delta = delta_phase(bwd)
+    op_routes_phase()
     serve = serve_phase(mx.gpu(0), FULL)
     emit("serve", **serve)
     train = train_phase(mx.gpu(0), FULL)
@@ -1286,31 +1524,72 @@ def main():
     def shape_fields(case):
         return {k: case[k] for k in (
             "shape", "dtype", "source", "max_abs_err", "kernel_ms",
-            "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            "plain_ms", "library_ms", "bound_ms", "bound_by")
+            + (("bound_cuda_core_ms",) if "bound_cuda_core_ms" in case
+               else ())}
 
+    def f32_fields(entries, name):
+        """The f32 kernel's rows beside the serving shape's: T=4096 and
+        the other head dims, with -Xptxas -v's report of each D."""
+        return {
+            "t4096": shape_fields(_case(entries, [1, 4096, 16, 64],
+                                        "float32")),
+            "d32": shape_fields(_case(entries, [4, 1024, 8, 32], "float32")),
+            "d128": shape_fields(_case(entries, [4, 1024, 8, 128],
+                                       "float32")),
+            "ptxas": ptxas[name]}
+
+    delta_train = next(e for e in delta if e["shape"] == list(
+        TRAIN_SHAPE[:4]) and e["dtype"] == "bfloat16")
+    delta_f32 = next(e for e in delta if e["shape"] == [4, 1024, 16, 64]
+                     and e["dtype"] == "float32")
     print(json.dumps({"kernels": [
-        # f32, the CUDA-core kernels: serving (K1) and the f32 train check
+        # f32, the split-TF32 kernels: serving (K1) and the f32 train check
         kernel_summary(
             "flash_attention_fwd", fwd_src["float32"], k1, k2,
             _case(fwd, [4, 1024, 16, 64], "float32"), serve["launches"],
-            sources=fwd_src, train_shape=shape_fields(fwd_train)),
+            sources=fwd_src, train_shape=shape_fields(fwd_train),
+            bound_cuda_core_ms=_case(fwd, [4, 1024, 16, 64],
+                                     "float32")["bound_cuda_core_ms"],
+            **f32_fields(fwd, "flash_attention_fwd")),
         kernel_summary(
             "flash_attention_bwd", bwd_src["float32"], k3, k4,
             _case(bwd, [4, 1024, 16, 64], "float32"),
             train_check["launches"][str(mx.gpu(0))]["flash_attention_bwd"],
             sources=bwd_src,
-            launches_from="train_check: one f32 step of 2 layers"),
+            launches_from="train_check: one f32 step of 2 layers",
+            bound_cuda_core_ms=_case(bwd, [4, 1024, 16, 64],
+                                     "float32")["bound_cuda_core_ms"],
+            **f32_fields(bwd, "flash_attention_bwd")),
+        # delta = rowsum(dO * O) for both backward routes
+        {"name": "flash_attention_delta", "route": "cuda",
+         "source": "mxnet_tpu_torch/csrc/flash_attention_delta.cu",
+         "replaces": "mxnet_tpu/ops/pallas_kernels.py:468",
+         "replaces_what": "the jnp delta beside K3/K4's pallas_call",
+         "launches": train["delta_launches"],
+         "max_abs_err": delta_train["max_abs_err"],
+         "ms": delta_train["kernel_ms"], "plain_ms": delta_train["plain_ms"],
+         "bound_ms": delta_train["bound_ms"],
+         "bound_by": delta_train["bound_by"],
+         "library_ms": delta_train["library_ms"],
+         "shape": delta_train["shape"], "dtype": "bfloat16",
+         "f32_serving_shape": {k: delta_f32[k] for k in (
+             "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
+             "bound_ms")},
+         "ptxas": ptxas["flash_attention_delta"]},
         # bf16, the tensor-core kernels: GPT training (K1, K3)
         kernel_summary(
             "flash_attention_fwd_sm90", fwd_src["bfloat16"], k1, k2,
             fwd_train, train["launches"]["flash_attention_fwd"],
             sources=fwd_src, train_shape=shape_fields(fwd_train),
-            t4096=shape_fields(_case(fwd, [1, 4096, 16, 64], "bfloat16"))),
+            t4096=shape_fields(_case(fwd, [1, 4096, 16, 64], "bfloat16")),
+            ptxas=ptxas["flash_attention_fwd_sm90"]),
         kernel_summary(
             "flash_attention_bwd_sm90", bwd_src["bfloat16"], k3, k4,
             bwd_train, train["launches"]["flash_attention_bwd"],
             sources=bwd_src, train_shape=shape_fields(bwd_train),
-            t4096=shape_fields(_case(bwd, [1, 4096, 16, 64], "bfloat16"))),
+            t4096=shape_fields(_case(bwd, [1, 4096, 16, 64], "bfloat16")),
+            ptxas=ptxas["flash_attention_bwd_sm90"]),
         k5_summary(k5, resnet["launches"]["matmul_stats"]),
         {"name": "rtc", "route": "cuda", "source": "mxnet_tpu_torch/rtc.py",
          "generated": "build/kernels/rtc_rtc_abs_full-<hash>.cu",

@@ -1,290 +1,278 @@
-// Flash-attention forward for Hopper (sm_90a), written for CUDA cores: the
-// float32 route of flash_attention_fwd.  The bfloat16 route runs on the
-// tensor cores, in flash_attention_fwd_sm90.cu.
+// Flash-attention forward for Hopper (sm_90a) on the tensor cores, in f32:
+// the float32 route of flash_attention_fwd.  Its products run as split TF32
+// (3xTF32, tf32_common.cuh), which keeps f32's accuracy; the bfloat16 route
+// runs on wgmma, in flash_attention_fwd_sm90.cu.
 //
-// Replaces: mxnet_tpu/ops/pallas_kernels.py, _flash_attention_fwd_pallas,
-// in both of its forms: the panel form (_flash_fwd_panel_kernel, T <= 2048)
-// and the streamed form (_flash_fwd_kernel, T > 2048).  The split between the
-// two was a matter of the TPU's VMEM budget; here one kernel covers every
-// length by streaming K/V through shared memory.
+// Replaces: mxnet_tpu/ops/pallas_kernels.py, _flash_attention_fwd_pallas
+// (pallas_call at :283, the panel form, and :305, the streamed form, for
+// T > 2048).  The split between the two was a matter of the TPU's VMEM
+// budget; one kernel here covers every length by streaming K/V tiles.
 //
-// Computes, for q, k, v of shape (B, T, H, D) read through their strides
-// (the last dim must be contiguous):
-//   o   = softmax(q k^T / sqrt(D) [causal mask]) v     (B, T, H, D), q's dtype
+// Computes, for f32 q, k, v of shape (B, T, H, D), D in {32, 64, 128}, any
+// T >= 1, read through their strides (last dim contiguous, base and strides
+// 16-byte aligned, as TMA needs):
+//   o   = softmax(q k^T / sqrt(D) [causal mask]) v     (B, T, H, D) f32,
+//         contiguous
 //   lse = m + log(l) per query row                      (B*H, T, 1) f32,
 //         row bh = b*H + h: the layout of _fold_heads, which the backward
-//         kernel reads to rebuild P without a second softmax pass.
+//         reads to rebuild P without a second softmax pass.
 //
 // What bounds it on this card: at the serving shape (B=4, T=1024, H=16,
-// D=64) the two products do 4*B*H*T^2*D flops (half of it under causal) on
-// ~17 MB of f32 inputs, hundreds of flops per byte, so the work is bound by
-// arithmetic, not by device memory.  This kernel does that arithmetic as f32
-// FMAs on the CUDA cores (67 TFLOP/s peak) and, inside each block, by the
-// rate at which shared memory feeds those FMAs.
+// D=64, causal) the two products do 4*B*H*D flops per live (query, key)
+// pair, 8.6 GFLOP, on 4 (B, T, H, D) f32 tensors (67 MB): over 100 flops a
+// byte, so the bound is arithmetic.  On the CUDA cores (67 TFLOP/s of f32
+// FMAs, the design of earlier versions of this file) that is 0.128 ms; as
+// three TF32 products on the tensor cores (495 TFLOP/s) it is 0.052 ms.
 //
-// What the design does about it: each block owns a 64-row Q tile and keeps
-// it in shared memory; K/V tiles of 64 rows are staged once per block and
-// every thread computes a 4x4 register micro-tile of S = Q K^T (8 shared
-// loads per 16 FMAs), then a 4 x (D/16) micro-tile of the running output
-// acc += P V.  The score tile never leaves shared memory, the running max m
-// and sum l live in shared memory per row (online softmax), and under causal
-// the K loop stops at the diagonal tile, which halves the work.  The tensor
-// cores offer f32 only as TF32, which would change the served numbers, so
-// the f32 route stays on the CUDA cores.
+// What the design does about it: a block of WARPS warps owns BM = 16 MT
+// WARPS query rows (MT m16 tiles a warp).  Thread 0 brings the Q tile in by
+// TMA (SWIZZLE_128B) and streams the K and V tiles of BN keys through a
+// ring of STAGES stages with full and empty mbarriers, so the next tiles
+// load while this one is used.  Each warp computes S = Q K^T for its rows
+// with mma.sync m16n8k8 in 3xTF32, splitting each fragment into hi and lo
+// as it reads it from shared memory, keeps the online softmax (row max
+// across the quad by __shfl_xor_sync, running sum) and O in registers, and
+// feeds P back as the A operand of O += P V straight from S's accumulator:
+// the m16n8k8 accumulator layout is not the A layout, and instead of
+// moving P the contraction index of P V is permuted so that each thread's
+// accumulator is its A fragment (mma_pv in tf32_common.cuh).  No score tile
+// in shared memory.  Under causal the K loop stops at the diagonal, a
+// warp skips the tiles that lie wholly past its rows, and the blocks take
+// the query tiles heaviest first.
 //
 // Built by mxnet_tpu_torch/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libflash_attention_fwd-<hash>.so this file
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "tf32_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;               // query rows per block
-constexpr int BK = 64;               // key rows per staged tile
-constexpr int THREADS = 256;         // 16 x 16 threads
-constexpr int S_STRIDE = BK + 4;     // score-tile row stride (bank spread)
+using namespace tf32;
+using sm90::align1024;
+using sm90::exp2_approx;
+using sm90::Strides;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-// Shared-memory layout, in floats.  K rows are padded to D+1 so that the 16
-// threads of a half-warp reading 16 different K rows at one d hit 16 banks.
 template <int D>
-struct Smem {
-  static constexpr int kQ = BQ * D;
-  static constexpr int kK = BK * (D + 1);
-  static constexpr int kV = BK * D;
-  static constexpr int kS = BQ * S_STRIDE;
-  static constexpr int kRows = 3 * BQ;   // m, l, alpha per query row
-  static constexpr size_t bytes = sizeof(float) * (kQ + kK + kV + kS + kRows);
+struct Cfg {
+  // m16 tiles a warp: two at D <= 64 share each K and V fragment's split
+  // between 32 rows; at D=128 O alone is 64 registers a tile
+  static constexpr int MT = D == 128 ? 1 : 2;
+  static constexpr int BM = WARPS * 16 * MT;       // query rows a block
+  static constexpr int BN = D == 128 ? 32 : 64;    // keys a tile
+  static constexpr int STAGES = 2;
+  using QT = TileF32<D, BM>;
+  using KT = TileF32<D, BN>;
+  static constexpr int STAGE_BYTES = 2 * KT::BYTES;   // K then V
+  static constexpr size_t SMEM = 1024 + QT::BYTES + STAGES * STAGE_BYTES;
+  // two blocks an SM fit the shared memory at every D and leave ptxas 255
+  // registers a thread
+  static constexpr int MIN_BLOCKS = 2;
 };
 
-struct Strides {
-  long long b, t, h;   // in elements; the d stride is 1
+struct Params {
+  float* o;
+  float* lse;
+  int seq, heads, causal;
+  float scale_log2;   // log2(e) / sqrt(D)
 };
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int seq, int heads, Strides qs_,
-                 Strides ks_, Strides vs_, float scale, int causal) {
-  static_assert(D % 16 == 0, "D must be a multiple of 16");
-  constexpr int NJ = D / 16;
+template <int D>
+__global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
+flash_fwd_tf32(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v, Params p) {
+  using C = Cfg<D>;
+  using QT = typename C::QT;
+  using KT = typename C::KT;
+  constexpr int MT = C::MT;
+  constexpr int BN = C::BN;
+  constexpr int NT = BN / 8;   // n-tiles of S
+  constexpr int DT = D / 8;    // n-tiles of O
 
-  extern __shared__ float smem[];
-  float* qs = smem;
-  float* ks = qs + Smem<D>::kQ;
-  float* vs = ks + Smem<D>::kK;
-  float* ss = vs + Smem<D>::kV;
-  float* m_s = ss + Smem<D>::kS;
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ Ring<C::STAGES, THREADS> ring;
+  uint8_t* sq = align1024(smem_raw);
+  uint8_t* stages = sq + QT::BYTES;
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const int q0 = blockIdx.x * BQ;
+  // under causal the last query tiles loop longest: hand them out first
+  const int qt = p.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * C::BM;
   const int bh = blockIdx.y;
-  const int b = bh / heads;
-  const int h = bh - b * heads;
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int kv_end = p.causal ? min(q0 + C::BM, p.seq) : p.seq;
+  const int n_j = (kv_end + BN - 1) / BN;
 
-  const T* qb = q + b * qs_.b + h * qs_.h;
-  const T* kb = k + b * ks_.b + h * ks_.h;
-  const T* vb = v + b * vs_.b + h * vs_.h;
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int r = i / D;
-    const int d = i - r * D;
-    const int t = q0 + r;
-    qs[i] = t < seq ? to_f32(qb[(long long)t * qs_.t + d]) : 0.f;
-  }
-  if (tid < BQ) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-  }
-
-  float acc[4][NJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
-
-  // keys at or past kv_end are masked for every row of this tile
-  const int q_last = min(q0 + BQ, seq) - 1;
-  const int kv_end = causal ? q_last + 1 : seq;
-  const int n_tiles = (kv_end + BK - 1) / BK;
-
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();   // the previous tile's reads of vs and ss are done
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int r = i / D;
-      const int d = i - r * D;
-      const int t = k0 + r;
-      float kv = 0.f, vv = 0.f;
-      if (t < seq) {
-        kv = to_f32(kb[(long long)t * ks_.t + d]);
-        vv = to_f32(vb[(long long)t * vs_.t + d]);
-      }
-      ks[r * (D + 1) + d] = kv;
-      vs[i] = vv;
-    }
-    __syncthreads();
-
-    // S = Q K^T * scale: rows ty + 16i, cols tx + 16j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = qs[(ty + 16 * i) * D + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = ks[(tx + 16 * j) * (D + 1) + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const int kc = k0 + c;
-        const bool live = kc < seq && (!causal || kc <= q0 + r);
-        ss[r * S_STRIDE + c] = live ? s[i][j] * scale : -INFINITY;
-      }
-    }
-    __syncthreads();
-
-    // online softmax over this tile: four neighbouring lanes share a row
-    {
-      const int r = tid >> 2;
-      const int c4 = tid & 3;
-      float* row = ss + r * S_STRIDE;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < BK / 4; ++j) mx = fmaxf(mx, row[c4 + 4 * j]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < BK / 4; ++j) {
-        // a row with nothing live yet has m_new = -inf: exp(-inf - -inf)
-        // would be NaN, and its p is 0
-        const float p =
-            m_new == -INFINITY ? 0.f : expf(row[c4 + 4 * j] - m_new);
-        row[c4 + 4 * j] = p;
-        sum += p;
-      }
-      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-      if (c4 == 0) {
-        const float alpha = m_old == -INFINITY ? 0.f : expf(m_old - m_new);
-        l_s[r] = l_s[r] * alpha + sum;
-        m_s[r] = m_new;
-        a_s[r] = alpha;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + P V: rows ty + 16i, cols tx + 16j
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float al = a_s[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] *= al;
-    }
-    const int kn = min(BK, kv_end - k0);
-    for (int kk = 0; kk < kn; ++kk) {
-      float pv[4], vv[NJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = ss[(ty + 16 * i) * S_STRIDE + kk];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) vv[j] = vs[kk * D + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
-    }
+  // tile j (keys [j BN, + BN)): K, V
+  auto load = [&](int j, int s) {
+    uint8_t* st = stages + s * C::STAGE_BYTES;
+    mbar_expect_tx(&ring.full[s], C::STAGE_BYTES);
+    KT::template load<BN>(st, &tm_k, &ring.full[s], h, j * BN, b);
+    KT::template load<BN>(st + KT::BYTES, &tm_v, &ring.full[s], h, j * BN,
+                          b);
+  };
+  if (tid == 0) {
+    ring.init();
+    mbar_expect_tx(&ring.own, QT::BYTES);
+    QT::template load<C::BM>(sq, &tm_q, &ring.own, h, q0, b);
+    for (int j = 0; j < min(C::STAGES, n_j); ++j) load(j, j);
   }
   __syncthreads();
 
+  const int warp = tid / 32;
+  const Lane ln(tid % 32);
+  const int wr0 = warp * 16 * MT;   // the warp's first row in the tile
+  const int wq0 = q0 + wr0;         // and its query
+  const int wq_last = wq0 + 16 * MT - 1;
+
+  float o[MT][DT][4];
+  float m[MT][2], l[MT][2];   // rows g and g + 8 of each m-tile; m in
+                              // log2 units, l this thread's part of the sum
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int t = q0 + r;
-    if (t < seq) {
-      const float inv = 1.f / l_s[r];
-      T* orow = o + (((long long)b * seq + t) * heads + h) * D;
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        orow[tx + 16 * j] = from_f32<T>(acc[i][j] * inv);
-    }
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][n][e] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
   }
-  if (tid < BQ && q0 + tid < seq)
-    lse[(long long)bh * seq + q0 + tid] = m_s[tid] + logf(l_s[tid]);
+
+  mbar_wait(&ring.own, 0);
+  __syncwarp();
+  for (int j = 0; j < n_j; ++j) {
+    const int k0 = j * BN;
+    ring.wait_full(j);
+    const uint8_t* sk = stages + (j % C::STAGES) * C::STAGE_BYTES;
+    // under causal a tile wholly past the warp's last row adds nothing
+    if (!p.causal || k0 <= wq_last) {
+      float s[MT][NT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[mt][jn][e] = 0.f;
+      mma_nt<D, MT, BN, QT, KT>(s, sq, wr0, sk, ln);
+
+      // mask keys past seq and, under causal, past the row
+      if ((p.causal && k0 + BN - 1 > wq0) || k0 + BN > p.seq) {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = k0 + 8 * jn + 2 * ln.t + (e & 1);
+              const int row = wq0 + 16 * mt + ln.g + 8 * (e >> 1);
+              if (key >= p.seq || (p.causal && key > row))
+                s[mt][jn][e] = -INFINITY;
+            }
+      }
+      // online softmax: the row max on the raw scores (scale > 0), p =
+      // exp2(s scale log2e - m_new), the old sum and output shrink by
+      // exp2(m_old - m_new)
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        float base[2], corr[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int jn = 0; jn < NT; ++jn)
+            mx = fmaxf(mx, fmaxf(s[mt][jn][2 * r], s[mt][jn][2 * r + 1]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          const float m_new = fmaxf(m[mt][r], mx * p.scale_log2);
+          // a row with nothing live yet keeps m = -inf: exp2(-inf - -inf)
+          // would be NaN, and its p and correction are 0
+          base[r] = m_new == -INFINITY ? 0.f : m_new;
+          corr[r] = exp2_approx(m[mt][r] - base[r]);
+          m[mt][r] = m_new;
+          l[mt][r] *= corr[r];
+        }
+#pragma unroll
+        for (int jn = 0; jn < NT; ++jn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            s[mt][jn][e] =
+                exp2_approx(fmaf(s[mt][jn][e], p.scale_log2, -base[r]));
+            l[mt][r] += s[mt][jn][e];
+          }
+#pragma unroll
+        for (int n = 0; n < DT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[mt][n][e] *= corr[e >> 1];
+      }
+      mma_pv<D, MT, BN, KT>(o, s, sk + KT::BYTES, ln);
+    }
+    ring.release(j, n_j, load);
+  }
+
+  // o / l, lse = m ln 2 + log l
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float sum = l[mt][r];
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const int t = wq0 + 16 * mt + ln.g + 8 * r;
+      if (t >= p.seq) continue;
+      const float inv = 1.f / sum;
+      float* orow = p.o + (((long long)b * p.seq + t) * p.heads + h) * D +
+                    2 * ln.t;
+#pragma unroll
+      for (int n = 0; n < DT; ++n)
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(o[mt][n][2 * r] * inv, o[mt][n][2 * r + 1] * inv);
+      if (ln.t == 0)
+        p.lse[(long long)bh * p.seq + t] = m[mt][r] * LN2 + logf(sum);
+    }
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   float* lse, int batch, int seq, int heads, Strides qs_,
-                   Strides ks_, Strides vs_, int causal, cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D>;
-  const size_t smem = Smem<D>::bytes;
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int batch, int seq, int heads, Strides qs, Strides ks, Strides vs,
+           int causal, cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tm_q, tm_k, tm_v;
+  int rc = sm90::encode_tile_map<typename C::QT>(&tm_q, q, batch, seq, heads,
+                                                 qs, C::BM);
+  if (rc == 0)
+    rc = sm90::encode_tile_map<typename C::KT>(&tm_k, k, batch, seq, heads,
+                                               ks, C::BN);
+  if (rc == 0)
+    rc = sm90::encode_tile_map<typename C::KT>(&tm_v, v, batch, seq, heads,
+                                               vs, C::BN);
+  if (rc != 0) return rc;
+  auto kern = flash_fwd_tf32<D>;
   // above 48 KB a block's dynamic shared memory needs this opt-in; a launch
   // refused for it would never run and synchronize() would not say so
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((seq + BQ - 1) / BQ, batch * heads);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), lse, seq, heads, qs_, ks_,
-      vs_, 1.0f / sqrtf((float)D), causal);
-  return cudaGetLastError();
-}
-
-template <typename T>
-cudaError_t dispatch_d(int d, const void* q, const void* k, const void* v,
-                       void* o, float* lse, int batch, int seq, int heads,
-                       Strides qs_, Strides ks_, Strides vs_, int causal,
-                       cudaStream_t stream) {
-  switch (d) {
-    case 32:
-      return launch<T, 32>(q, k, v, o, lse, batch, seq, heads, qs_, ks_, vs_,
-                           causal, stream);
-    case 64:
-      return launch<T, 64>(q, k, v, o, lse, batch, seq, heads, qs_, ks_, vs_,
-                           causal, stream);
-    case 128:
-      return launch<T, 128>(q, k, v, o, lse, batch, seq, heads, qs_, ks_, vs_,
-                            causal, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const Params p{static_cast<float*>(o), lse, seq, heads, causal,
+                 LOG2E / sqrtf((float)D)};
+  const dim3 grid((seq + C::BM - 1) / C::BM, batch * heads);
+  kern<<<grid, THREADS, C::SMEM, stream>>>(tm_q, tm_k, tm_v, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// float32 only (bfloat16 runs on flash_attention_fwd_sm90.cu).  Returns 0
-// or a cudaError_t code.
+// float32 only (bfloat16 runs on flash_attention_fwd_sm90.cu).  Strides are
+// in elements, (batch, seq, heads) for each of q, k, v.  Returns 0, a
+// cudaError_t code, or an sm90 encode error (see mxtt_error_string).
 int mxtt_flash_attention_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, int batch, int seq,
                              int heads, int head_dim, long long q_sb,
@@ -292,15 +280,24 @@ int mxtt_flash_attention_fwd(const void* q, const void* k, const void* v,
                              long long k_st, long long k_sh, long long v_sb,
                              long long v_st, long long v_sh, int causal,
                              void* stream) {
-  const Strides qs_{q_sb, q_st, q_sh}, ks_{k_sb, k_st, k_sh},
-      vs_{v_sb, v_st, v_sh};
-  return (int)dispatch_d<float>(head_dim, q, k, v, o, lse, batch, seq, heads,
-                                qs_, ks_, vs_, causal,
-                                static_cast<cudaStream_t>(stream));
+  const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
+      vs{v_sb, v_st, v_sh};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 32:
+      return launch<32>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs,
+                        causal, st);
+    case 64:
+      return launch<64>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs,
+                        causal, st);
+    case 128:
+      return launch<128>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs,
+                         causal, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
-const char* mxtt_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
+const char* mxtt_error_string(int code) { return sm90::error_string(code); }
 
 }  // extern "C"

@@ -12,7 +12,10 @@
 // or MN-major through the transpose bit (the tile's rows are the
 // contraction: P V and the like); Tile::kmajor and Tile::mnmajor build the
 // two descriptors.  A descriptor's layout type must match the TMA swizzle,
-// or the product reads permuted numbers without any fault.
+// or the product reads permuted numbers without any fault.  The f32
+// kernels (flash_attention_fwd.cu, flash_attention_bwd.cu) reuse the
+// barriers, the TMA loads and the map encoding with tiles of their own
+// (tf32_common.cuh); encode_tile_map takes the element type from the tile.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; cuTensorMapEncodeTiled is
@@ -151,6 +154,11 @@ struct Tile {
   static constexpr int BOX_BYTES = ROWS * SWZ;
   static constexpr int BYTES = BOXES * BOX_BYTES;
   static constexpr uint32_t LAYOUT = SWZ == 128 ? 1 : 2;
+  // what encode_tile_map reads: columns, element bytes and type
+  static constexpr int COLS = D;
+  static constexpr int ELEM = 2;
+  static constexpr CUtensorMapDataType DTYPE =
+      CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
   // K-major operand: rows [row0, row0 + M or N) of the tile, columns
   // [16 kk, 16 kk + 16) as the contraction
@@ -372,28 +380,36 @@ struct Strides {
   long long b, t, h;   // in elements; the d stride is 1
 };
 
-// A (B, T, H, D) bf16 tensor as the 4-d map (D, H, T, B), boxes of
-// (BOX_COLS, 1, rows, 1) with the tile's swizzle.  Returns 0 or an error.
-template <int D>
-int encode_bthd(CUtensorMap* map, const void* ptr, int batch, int seq,
-                int heads, Strides s, int rows) {
+// A (B, T, H, D) tensor as the 4-d map (D, H, T, B), boxes of (BOX_COLS,
+// 1, rows, 1) with the swizzle, element type and size of the tile type TL
+// (Tile here, TileF32 in tf32_common.cuh).  Returns 0 or an error.
+template <typename TL>
+int encode_tile_map(CUtensorMap* map, const void* ptr, int batch, int seq,
+                    int heads, Strides s, int rows) {
   EncodeTiledFn fn = encode_fn();
   if (fn == nullptr) return ERR_NO_ENCODE;
-  using T = Tile<D, 64>;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads,
+  const cuuint64_t dims[4] = {(cuuint64_t)TL::COLS, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)s.h * 2, (cuuint64_t)s.t * 2,
-                                 (cuuint64_t)s.b * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)T::BOX_COLS, 1, (cuuint32_t)rows, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)s.h * TL::ELEM,
+                                 (cuuint64_t)s.t * TL::ELEM,
+                                 (cuuint64_t)s.b * TL::ELEM};
+  const cuuint32_t box[4] = {(cuuint32_t)TL::BOX_COLS, 1, (cuuint32_t)rows,
+                             1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                  const_cast<void*>(ptr), dims, strides, box, elem,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  T::SWZ == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : CU_TENSOR_MAP_SWIZZLE_64B,
+  CUresult r = fn(map, TL::DTYPE, 4, const_cast<void*>(ptr), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  TL::SWZ == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_64B,
                   CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+// A (B, T, H, D) bf16 tensor, as the bf16 kernels' Tile lays it down
+template <int D>
+int encode_bthd(CUtensorMap* map, const void* ptr, int batch, int seq,
+                int heads, Strides s, int rows) {
+  return encode_tile_map<Tile<D, 64>>(map, ptr, batch, seq, heads, s, rows);
 }
 
 // n f32 values as a 1-d map with boxes of `box` values

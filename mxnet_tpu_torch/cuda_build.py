@@ -34,6 +34,7 @@ SOURCES = {
     "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
     "flash_attention_fwd_sm90": "csrc/flash_attention_fwd_sm90.cu",
     "flash_attention_bwd_sm90": "csrc/flash_attention_bwd_sm90.cu",
+    "flash_attention_delta": "csrc/flash_attention_delta.cu",
     "matmul_stats": "csrc/matmul_stats.cu",
     "bottleneck_block": "csrc/bottleneck_block.cu",
 }

@@ -4,26 +4,33 @@ the autograd function and the ``_contrib_FlashAttention`` op.
 The counterpart of ``mxnet_tpu/ops/pallas_kernels.py``.  The TPU kernels
 (``_flash_attention_fwd_pallas`` and ``_flash_attention_bwd_pallas``, each
 in a panel and a streamed form) become two CUDA sources each, chosen by
-dtype: float32 runs on the CUDA cores (``csrc/flash_attention_fwd.cu``,
-``csrc/flash_attention_bwd.cu``), bfloat16 on the tensor cores through
-wgmma with TMA loads (``csrc/flash_attention_fwd_sm90.cu``,
-``csrc/flash_attention_bwd_sm90.cu``).  Each is built with ``nvcc`` for
+dtype, all on the tensor cores with TMA loads: float32 as split TF32
+(three TF32 products a product, f32's accuracy) on ``mma.sync``
+(``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``),
+bfloat16 on wgmma (``csrc/flash_attention_fwd_sm90.cu``,
+``csrc/flash_attention_bwd_sm90.cu``).  The backward's row sums delta =
+rowsum(dO * O) are a kernel of their own for both routes
+(``csrc/flash_attention_delta.cu``).  Each is built with ``nvcc`` for
 ``sm_90a`` on first use and called through ctypes on PyTorch's current
 stream.
 
-* :func:`flash_attention_fwd` and :func:`flash_attention_bwd` are the
-  wrappers: a CUDA tensor launches the kernel of its dtype or raises; a
-  CPU (or meta) tensor takes the plain version.  ``.launches`` on each
-  counts launches of either route.
-* :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`
-  compute the same results in PyTorch, the TPU kernels' panel arithmetic in
-  f32.  The tests and ``chip_smoke.py`` hold the kernels against them.
+* :func:`flash_attention_fwd`, :func:`flash_attention_bwd` and
+  :func:`flash_attention_delta` are the wrappers: a CUDA tensor launches
+  the kernel of its dtype or raises; a CPU (or meta) tensor takes the plain
+  version.  ``.launches`` on each counts launches of either route.
+* :func:`flash_attention_plain`, :func:`flash_attention_bwd_plain` and
+  :func:`flash_attention_delta_plain` compute the same results in PyTorch,
+  the TPU kernels' panel arithmetic in f32.  The tests and
+  ``chip_smoke.py`` hold the kernels against them.
+* :func:`kernel_takes` is the one rule of what the kernels take: the
+  wrappers raise on the rest (:func:`check_kernel_args`) and the op routes
+  the rest to :func:`attention_plain`.
 * :class:`FlashAttention` is the ``torch.autograd.Function`` (the
   counterpart of the JAX ``custom_vjp``): forward through
   :func:`flash_attention_fwd`, backward through :func:`flash_attention_bwd`.
 * :func:`attention_plain` is the counterpart of ``_attention_jnp``: the op
   takes it for shapes outside the kernel's dispatch gate (ragged lengths,
-  tk != tq), as the JAX op does.
+  tk != tq) and for inputs the kernels do not take, as the JAX op does.
 
 Layout everywhere: q, k, v are (batch, seq, heads, head_dim); ``lse`` is
 (batch*heads, seq, 1) f32 with row ``b*heads + h``.
@@ -40,7 +47,9 @@ from .registry import register
 
 __all__ = ["flash_attention_fwd", "flash_attention_plain", "attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
-           "FlashAttention", "KERNEL_HEAD_DIMS"]
+           "flash_attention_delta", "flash_attention_delta_plain",
+           "FlashAttention", "KERNEL_HEAD_DIMS", "kernel_takes",
+           "check_kernel_args"]
 
 _BLOCK_Q = 128
 
@@ -101,48 +110,57 @@ def kernel_strides(x):
     return sb, st, sh
 
 
-def check_kernel_args(q, k, v, *more, name="flash_attention_fwd"):
-    """Raise unless the CUDA kernel takes these tensors: (B, T, H, D) of one
-    shape, one dtype (f32 or bf16) and one device, D in
-    :data:`KERNEL_HEAD_DIMS`, last dim contiguous.  The bf16 route loads by
-    TMA, so there every base address and every stride must also be a
-    multiple of 16 bytes.  ``more`` are further tensors held to the same
-    rules (the backward's dO and O)."""
+def _tma_aligned(x):
+    """Whether TMA can load ``x``: a 16-byte aligned base and (batch, seq,
+    heads) strides of a multiple of 16 bytes."""
+    return x.data_ptr() % 16 == 0 and all(
+        s * x.element_size() % 16 == 0 for s in kernel_strides(x))
+
+
+def kernel_takes(q, k, v, *more):
+    """``None`` when the CUDA kernels take these tensors, else the reason
+    they do not.  They take (B, T, H, D) tensors of one shape, one dtype
+    (f32 or bf16) and one device, D in :data:`KERNEL_HEAD_DIMS`, the last
+    dim contiguous, B*H at most 65535, T at least 1 and B*H*T below 2**31.
+    Both routes load by TMA, so every base address and every stride must
+    also be a multiple of 16 bytes.  ``more`` are further tensors held to
+    the same rules (the backward's dO and O).  The one rule of both the
+    wrappers (:func:`check_kernel_args`) and the op's gate."""
     xs = (q, k, v) + more
     if q.dim() != 4 or any(x.shape != q.shape for x in xs):
-        raise MXNetError("%s: the inputs must share one (batch, seq, heads, "
-                         "head_dim) shape, got %s"
-                         % (name, " ".join(str(tuple(x.shape)) for x in xs)))
+        return ("the inputs must share one (batch, seq, heads, head_dim) "
+                "shape, got %s" % " ".join(str(tuple(x.shape)) for x in xs))
     if any(x.dtype != q.dtype for x in xs) or q.dtype not in _KERNEL_DTYPES:
-        raise MXNetError("%s: the kernel takes float32 or bfloat16 inputs "
-                         "of one dtype, got %s"
-                         % (name, " ".join(str(x.dtype) for x in xs)))
+        return ("the kernel takes float32 or bfloat16 inputs of one dtype, "
+                "got %s" % " ".join(str(x.dtype) for x in xs))
     if any(x.device != q.device for x in xs):
-        raise MXNetError("%s: inputs on different devices" % name)
+        return "inputs on different devices"
     b, t, h, d = q.shape
     if d not in KERNEL_HEAD_DIMS:
-        raise MXNetError("%s: head_dim %d is not supported by the CUDA "
-                         "kernel (supported: %s)"
-                         % (name, d, ", ".join(map(str, KERNEL_HEAD_DIMS))))
+        return ("head_dim %d is not supported by the CUDA kernel "
+                "(supported: %s)" % (d, ", ".join(map(str, KERNEL_HEAD_DIMS))))
     if any(x.stride(-1) != 1 for x in xs):
-        raise MXNetError("%s: the last dim of every input must be "
-                         "contiguous" % name)
+        return "the last dim of every input must be contiguous"
     if b * h > 65535 or t < 1:
-        raise MXNetError("%s: batch*heads must be at most 65535 and seq at "
-                         "least 1, got %d and %d" % (name, b * h, t))
-    if q.dtype == torch.bfloat16:
-        if b * h * t >= 2 ** 31:
-            raise MXNetError("%s: batch*heads*seq must be below 2**31, got "
-                             "%d" % (name, b * h * t))
-        for x in xs:
-            if x.data_ptr() % 16 or any(
-                    s * x.element_size() % 16 for s in kernel_strides(x)):
-                raise MXNetError(
-                    "%s: the bf16 kernel loads by TMA, which needs a "
-                    "16-byte aligned base and (batch, seq, heads) strides "
-                    "of a multiple of 16 bytes; got base %% 16 = %d and "
-                    "strides %s" % (name, x.data_ptr() % 16,
-                                    x.stride()[:3]))
+        return ("batch*heads must be at most 65535 and seq at least 1, got "
+                "%d and %d" % (b * h, t))
+    if b * h * t >= 2 ** 31:
+        return "batch*heads*seq must be below 2**31, got %d" % (b * h * t)
+    for x in xs:
+        if not _tma_aligned(x):
+            return ("the kernels load by TMA, which needs a 16-byte aligned "
+                    "base and (batch, seq, heads) strides of a multiple of 16 "
+                    "bytes; got base %% 16 = %d and strides %s"
+                    % (x.data_ptr() % 16, x.stride()[:3]))
+    return None
+
+
+def check_kernel_args(q, k, v, *more, name="flash_attention_fwd"):
+    """Raise ``MXNetError`` unless the CUDA kernels take these tensors
+    (:func:`kernel_takes`)."""
+    why = kernel_takes(q, k, v, *more)
+    if why is not None:
+        raise MXNetError("%s: %s" % (name, why))
 
 
 # q, k, v, o, lse, b, t, h, d, the strides of q, k, v, causal, stream
@@ -150,8 +168,8 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p])
 
 
-#: dtype -> (library, entry, error-string function): f32 on the CUDA-core
-#: kernel, bf16 on the tensor-core (sm90) kernel
+#: dtype -> (library, entry, error-string function): f32 on the split-TF32
+#: kernel, bf16 on the wgmma (sm90) kernel
 _FWD_ROUTES = {
     torch.float32: ("flash_attention_fwd", "mxtt_flash_attention_fwd",
                     "mxtt_error_string"),
@@ -226,13 +244,65 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, causal):
                           device=q.device).tril()
         s = s.masked_fill(~mask, float("-inf"))
     p = torch.exp(s - lse.reshape(b, h, t, 1))   # masked: exp(-inf) = 0
-    delta = (dof * o.float()).sum(-1).permute(0, 2, 1).unsqueeze(-1)
+    delta = flash_attention_delta_plain(o, do).reshape(b, h, t, 1)
     dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
     dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
     ds = p * (dp - delta) * scale
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf)
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf)
     return tuple(x.to(q.dtype) for x in (dq, dk, dv))
+
+
+def flash_attention_delta_plain(o, do):
+    """delta = rowsum(dO * O) in f32 as (B*H, T, 1), lse's layout: the
+    backward's row sums, in plain PyTorch (the TPU code's jnp delta)."""
+    b, t, h, _ = o.shape
+    return (do.float() * o.float()).sum(-1).permute(0, 2, 1) \
+        .reshape(b * h, t, 1)
+
+
+# dO, O, delta, b, t, h, d, the strides of dO and O, dtype, stream
+_DELTA_ARGTYPES = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
+_DELTA_ROUTE = ("flash_attention_delta", "mxtt_flash_attention_delta",
+                "mxtt_delta_error_string")
+_DELTA_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _launch_delta(o, do):
+    """The delta kernel on (B, T, H, D) ``o`` and ``do`` that
+    :func:`check_kernel_args` has passed."""
+    b, t, h, d = o.shape
+    delta = torch.empty((b * h, t, 1), dtype=torch.float32, device=o.device)
+    fn, err = _bind(_DELTA_ROUTE, _DELTA_ARGTYPES)
+    with torch.cuda.device(o.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, t, h, d,
+                *kernel_strides(do), *kernel_strides(o),
+                _DELTA_DTYPES[o.dtype], stream)
+    if rc != 0:
+        raise MXNetError("flash_attention_delta: CUDA launch failed: %s (%d)"
+                         % (err(rc).decode(), rc))
+    flash_attention_delta.launches += 1
+    return delta
+
+
+def flash_attention_delta(o, do):
+    """delta = rowsum(dO * O) in f32 as (B*H, T, 1), from (B, T, H, D)
+    ``o`` and ``do`` of one dtype.  A CUDA tensor launches the one-pass
+    kernel (or raises); a CPU or meta tensor takes
+    :func:`flash_attention_delta_plain`."""
+    kind = o.device.type
+    if kind == "cuda":
+        check_kernel_args(do, o, o, name="flash_attention_delta")
+        return _launch_delta(o, do)
+    if kind in ("cpu", "meta"):
+        return flash_attention_delta_plain(o, do)
+    raise MXNetError("flash_attention_delta: no path for device %s"
+                     % o.device)
+
+
+flash_attention_delta.launches = 0
 
 
 # q, k, v, dO, lse, delta, dq, dk, dv, b, t, h, d, the strides of q, k, v,
@@ -253,24 +323,25 @@ _BWD_ROUTES = {
 def _launch_bwd(q, k, v, o, lse, do, causal):
     name = "flash_attention_bwd"
     # autograd may hand over dO with any strides: the kernel reads it
-    # through its (batch, seq, heads) strides, and only a dO whose last dim
-    # is not contiguous is copied first
-    if do.stride(-1) != 1:
-        do = do.contiguous()
+    # through its (batch, seq, heads) strides, and only a dO that TMA
+    # cannot load (last dim not contiguous, or not 16-byte aligned) is
+    # copied first
+    if do.dim() == 4 and do.shape == q.shape and do.dtype == q.dtype and (
+            do.stride(-1) != 1 or not _tma_aligned(do)):
+        do = do.clone(memory_format=torch.contiguous_format)
     check_kernel_args(q, k, v, do, o, name=name)
     b, t, h, d = q.shape
     if lse.shape != (b * h, t, 1) or lse.dtype != torch.float32 \
-            or lse.device != q.device or not lse.is_contiguous():
-        raise MXNetError("%s: lse must be a contiguous float32 (%d, %d, 1) "
-                         "tensor on %s, got %s %s on %s"
+            or lse.device != q.device or not lse.is_contiguous() \
+            or lse.data_ptr() % 16:
+        raise MXNetError("%s: lse must be a contiguous, 16-byte aligned "
+                         "float32 (%d, %d, 1) tensor on %s, got %s %s on %s"
                          % (name, b * h, t, q.device, tuple(lse.shape),
                             lse.dtype, lse.device))
-    # delta = rowsum(dO * O) in f32, outside the kernel as in the TPU code,
-    # in lse's (B*H, T, 1) layout; the product is taken in place in an f32
-    # copy of dO (a copy even when dO is f32 already; o is widened inside
-    # the multiply)
-    delta = do.to(torch.float32, copy=True).mul_(o).sum(-1) \
-        .transpose(1, 2).contiguous()
+    # delta = rowsum(dO * O) in f32, outside the attention kernels as in
+    # the TPU code, in lse's (B*H, T, 1) layout: one pass of its own kernel
+    # (dO and O are checked above)
+    delta = _launch_delta(o, do)
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty_like(dq)
     dv = torch.empty_like(dq)
@@ -332,11 +403,15 @@ def flash_attention_op(attrs, ctx, q, k, v):
     """Attention over (batch, seq, heads, head_dim) inputs, with the JAX
     op's dispatch gate: tk == tq and seq a multiple of min(128, seq) go
     through :class:`FlashAttention` (the flash kernels forward and, under
-    autograd, backward); other shapes take :func:`attention_plain`, as the
-    JAX op takes ``_attention_jnp``."""
+    autograd, backward) when the kernels take the inputs
+    (:func:`kernel_takes`); other shapes, and inputs the kernels do not take
+    (a head dim outside :data:`KERNEL_HEAD_DIMS`, float16 or float64, B*H
+    over 65535, bases or strides TMA cannot load), take
+    :func:`attention_plain`, as the JAX op takes ``_attention_jnp``."""
     causal = bool(attrs["causal"])
     t = q.shape[1]
     block_q = min(_BLOCK_Q, t)
-    if t > 0 and t % block_q == 0 and k.shape[1] == t:
+    if t > 0 and t % block_q == 0 and k.shape[1] == t \
+            and kernel_takes(q, k, v) is None:
         return FlashAttention.apply(q, k, v, causal)
     return attention_plain(q, k, v, causal)

@@ -179,11 +179,24 @@ def test_bf16_route_argument_checks(bad):
 
 
 def test_f32_route_keeps_taking_unaligned_strides():
-    """The f32 route stays on the CUDA-core kernel, which reads through any
-    strides: the TMA rules are the bf16 route's alone."""
-    wide = torch.zeros(1, 64, 2 * 64 + 4)
-    q = wide[..., :128].reshape(1, 64, 2, 64)
+    """The f32 kernels load by TMA too, so they take only 16-byte aligned
+    bases and strides: the wrappers raise on an unaligned f32 stride, and
+    the op still answers it, through ``attention_plain``."""
+    from mxnet_tpu_torch.ops.registry import OpContext, get_op
+    aligned = torch.zeros(1, 64, 2 * 64 + 4)          # 528-byte rows
+    q = aligned[..., :128].reshape(1, 64, 2, 64)
     tfa.check_kernel_args(q, q, q)
+    rng = np.random.RandomState(3)
+    wide = torch.from_numpy(rng.normal(0, 1, (1, 64, 2 * 64 + 2))
+                            .astype(np.float32))      # 520-byte rows
+    q = wide[..., :128].reshape(1, 64, 2, 64)
+    assert q.stride(-1) == 1
+    with pytest.raises(MXNetError):
+        tfa.check_kernel_args(q, q, q)
+    op = get_op("_contrib_FlashAttention")
+    got = op.fcompute(op.parse_attrs({"causal": "True"}), OpContext(),
+                      q, q, q)
+    assert torch.equal(got, tfa.attention_plain(q, q, q, True))
 
 
 def test_routes_dispatch_by_dtype_to_their_sources():
