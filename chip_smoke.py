@@ -58,10 +58,12 @@ Phases, one JSON line each:
    statistic's change agrees within a stated relative tolerance, and a
    TF32 control must not;
 10. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
-    package's ``tests/test_rtc.py`` written in CUDA C, and abs over an
-    (8192, 8192) f32 array, and pushes each once; each output equals the
-    callable (plain) form's exactly; the full-size one is timed against
-    ``torch.abs`` and its byte bound;
+    package's ``tests/test_rtc.py`` written in CUDA C, abs written as a
+    CUDA programmer writes it for this card (float4 in a grid-stride
+    loop), and both abs bodies over an (8192, 8192) f32 array, and pushes
+    each once; each output equals the callable (plain) form's exactly; the
+    two full-size ones are timed against ``torch.abs`` and their byte
+    bound;
 11. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
     shapes at batch 128, then K7 (K5 with c = 0) and K8 (the prologue
     variant) against their plain versions at each shape, with the kernel,
@@ -267,12 +269,24 @@ def ptxas_summary(text):
 
 
 def build_phase():
+    """Every kernel built at once; ``-Xptxas -v``'s report of the flash
+    kernels, and for the bf16 forward, whose producer warpgroup hands its
+    registers to the consumers (``setmaxnreg``), the highest register its
+    SASS names and ptxas's C7508 warning (``setmaxnreg`` ignored), which
+    fails the phase."""
     t0 = time.perf_counter()
     built = cuda_build.build_all()
     flash = {b["name"]: ptxas_summary(b["ptxas"]) for b in built
              if b["name"].startswith("flash_attention")}
+    fwd = next(b for b in built if b["name"] == "flash_attention_fwd_sm90")
+    flash["flash_attention_fwd_sm90"]["sass_registers"] = \
+        cuda_build.sass_registers(
+            cuda_build.library("flash_attention_fwd_sm90")._name)
     emit("build", wall_s=time.perf_counter() - t0, kernels=built,
          flash_ptxas=flash)
+    if "C7508" in fwd["ptxas"]:
+        raise SystemExit("build: ptxas ignored setmaxnreg in the bf16 "
+                         "forward (C7508): %s" % fwd["ptxas"])
     return flash
 
 
@@ -1182,10 +1196,38 @@ def resnet_train_check_phase(ctx, batch=8, image=64, check_ctx=None,
 # ------------------------------------------------- mx.rtc and experiments
 #: the flows of the JAX package's tests/test_rtc.py in CUDA C, with their
 #: callable (plain) forms: (name, CUDA C body, inputs, output shape, grid,
-#: block, callable); the abs body reads its element count from ``%d``
+#: block, callable); the abs bodies read their element count from ``%d``
 RTC_ABS = """
 int i = blockIdx.x * blockDim.x + threadIdx.x;
 if (i < %d) y[i] = fabsf(x[i]);
+"""
+
+#: abs as a CUDA programmer writes it for this card: a grid-stride loop
+#: of 16-byte loads and stores (x and y 16-byte aligned), four loads in
+#: flight a thread before their stores, then the rest of the float4s and
+#: the n % 4 tail
+RTC_ABS_VEC = """
+const int n = %d;
+const int n4 = n / 4;
+const int stride = gridDim.x * blockDim.x;
+const float4* x4 = reinterpret_cast<const float4*>(x);
+float4* y4 = reinterpret_cast<float4*>(y);
+int i = blockIdx.x * blockDim.x + threadIdx.x;
+for (; i + 3 * stride < n4; i += 4 * stride) {
+  float4 v[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) v[u] = x4[i + u * stride];
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    y4[i + u * stride] = make_float4(fabsf(v[u].x), fabsf(v[u].y),
+                                     fabsf(v[u].z), fabsf(v[u].w));
+}
+for (; i < n4; i += stride) {
+  const float4 v = x4[i];
+  y4[i] = make_float4(fabsf(v.x), fabsf(v.y), fabsf(v.z), fabsf(v.w));
+}
+for (i = n4 * 4 + blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride)
+  y[i] = fabsf(x[i]);
 """
 
 
@@ -1203,8 +1245,10 @@ def _rtc_rowscale(x_ref, y_ref):
 
 
 def rtc_flows(full=True):
-    """The three flows of ``tests/test_rtc.py`` (inputs as there) and,
-    with ``full``, abs over an (8192, 8192) f32 array from a seed."""
+    """The three flows of ``tests/test_rtc.py`` (inputs as there) and abs
+    written as a CUDA programmer writes it (``rtc_abs_vec``); with
+    ``full``, both abs bodies over an (8192, 8192) f32 array from a seed,
+    the vectorised one on eight blocks of 256 an SM."""
     x = np.random.RandomState(0).randn(100, 10).astype("f")
     a = np.arange(64, dtype="f").reshape(8, 8)
     b = np.ones((8, 8), "f") * 2
@@ -1217,22 +1261,29 @@ def rtc_flows(full=True):
         ("rowscale", "int i = blockIdx.x * 128 + threadIdx.x;\n"
          "y[i] = x[i] * (float)(blockIdx.x + 1);",
          [("x", np.ones((4, 128), "f"))], ("y", (4, 128)), (4, 1, 1),
-         (128, 1, 1), _rtc_rowscale)]
+         (128, 1, 1), _rtc_rowscale),
+        ("rtc_abs_vec", RTC_ABS_VEC % x.size, [("x", x)], ("y", x.shape),
+         (4, 1, 1), (256, 1, 1), _rtc_abs)]
     if full:
         big = np.random.default_rng(3).standard_normal(
             (8192, 8192), dtype=np.float32)
-        flows.append(("rtc_abs_full", RTC_ABS % big.size, [("x", big)],
-                      ("y", big.shape), (big.size // 256, 1, 1),
-                      (256, 1, 1), _rtc_abs))
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        flows += [
+            ("rtc_abs_full", RTC_ABS % big.size, [("x", big)],
+             ("y", big.shape), (big.size // 256, 1, 1), (256, 1, 1),
+             _rtc_abs),
+            ("rtc_abs_vec_full", RTC_ABS_VEC % big.size, [("x", big)],
+             ("y", big.shape), (8 * sms, 1, 1), (256, 1, 1), _rtc_abs)]
     return flows
 
 
 def rtc_phase():
-    """K6: each flow compiled from CUDA C by ``mx.rtc.Rtc`` on ``gpu(0)``
-    and pushed once, with the launch count set to 0 just before and read
-    just after; then each output against the callable form's on the same
-    inputs, exactly, and the full-size abs timed against ``torch.abs`` and
-    its byte bound (read x, write y)."""
+    """K6: each flow of ``rtc_flows`` compiled from CUDA C by
+    ``mx.rtc.Rtc`` on ``gpu(0)`` and pushed once, with the launch count set
+    to 0 just before and read just after; then each output against the
+    callable form's on the same inputs, exactly, and the two full-size abs
+    flows (one element a thread, and float4 in a grid-stride loop) timed
+    against ``torch.abs`` and their byte bound (read x, write y)."""
     ctx = mx.gpu(0)
     runs = []
     for name, source, ins, (oname, oshape), grid, block, plain in \
@@ -1262,19 +1313,23 @@ def rtc_phase():
                         "exact": bool(torch.equal(out.data, ref.data)),
                         "max_abs_err": (out.data - ref.data).abs().max()
                         .item()})
-    name, source, arrays, oname, out, grid, block, plain = runs[-1]
-    ins = [v for _n, v in arrays]
-    kernel = mx.rtc.Rtc(name, arrays, [(oname, out)], source)
-    callable_form = mx.rtc.Rtc(name, arrays, [(oname, out)], plain)
-    lib_out = torch.empty_like(out.data)
-    nbytes = 2.0 * out.data.numel() * 4
-    full = entries[-1]
-    full.update(
-        kernel_ms=cuda_ms(lambda: kernel.push(ins, [out], grid, block), 20),
-        plain_ms=cuda_ms(lambda: callable_form.push(ins, [out]), 20),
-        library_ms=cuda_ms(lambda: torch.abs(ins[0].data, out=lib_out), 20),
-        bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
-        bound_by="bytes", peak="HBM 3.35 TB/s")
+    for (name, source, arrays, oname, out, grid, block, plain), full in zip(
+            runs, entries):
+        if not name.endswith("_full"):
+            continue
+        ins = [v for _n, v in arrays]
+        kernel = mx.rtc.Rtc(name, arrays, [(oname, out)], source)
+        callable_form = mx.rtc.Rtc(name, arrays, [(oname, out)], plain)
+        lib_out = torch.empty_like(out.data)
+        nbytes = 2.0 * out.data.numel() * 4
+        full.update(
+            kernel_ms=cuda_ms(lambda: kernel.push(ins, [out], grid, block),
+                              20),
+            plain_ms=cuda_ms(lambda: callable_form.push(ins, [out]), 20),
+            library_ms=cuda_ms(lambda: torch.abs(ins[0].data, out=lib_out),
+                               20),
+            bytes=nbytes, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+            bound_by="bytes", peak="HBM 3.35 TB/s")
     out_fields = {"flows": entries, "launches": launches,
                   "build_and_run_s": build_and_run_s}
     emit("rtc_kernels", **out_fields)
@@ -1539,6 +1594,8 @@ def main():
                                        "float32")),
             "ptxas": ptxas[name]}
 
+    rtc_full, rtc_vec = (next(e for e in rtc["flows"] if e["name"] == n)
+                         for n in ("rtc_abs_full", "rtc_abs_vec_full"))
     delta_train = next(e for e in delta if e["shape"] == list(
         TRAIN_SHAPE[:4]) and e["dtype"] == "bfloat16")
     delta_f32 = next(e for e in delta if e["shape"] == [4, 1024, 16, 64]
@@ -1595,12 +1652,14 @@ def main():
          "generated": "build/kernels/rtc_rtc_abs_full-<hash>.cu",
          "replaces": "mxnet_tpu/rtc.py:105", "launches": rtc["launches"],
          "max_abs_err": max(e["max_abs_err"] for e in rtc["flows"]),
-         "ms": rtc["flows"][-1]["kernel_ms"],
-         "plain_ms": rtc["flows"][-1]["plain_ms"],
-         "bound_ms": rtc["flows"][-1]["bound_ms"], "bound_by": "bytes",
-         "library_ms": rtc["flows"][-1]["library_ms"],
-         "per": "abs over an (8192, 8192) f32 array; the launches are the "
-         "four pushes of the rtc_kernels phase"},
+         "ms": rtc_full["kernel_ms"], "plain_ms": rtc_full["plain_ms"],
+         "bound_ms": rtc_full["bound_ms"], "bound_by": "bytes",
+         "library_ms": rtc_full["library_ms"],
+         "per": "abs over an (8192, 8192) f32 array, one element a thread; "
+         "the launches are the six pushes of the rtc_kernels phase",
+         "vectorised": {k: rtc_vec[k] for k in (
+             "name", "grid", "block", "kernel_ms", "plain_ms", "library_ms",
+             "bound_ms", "max_abs_err")}},
         experiment_summary(
             "matmul_stats_experiment.matmul_stats",
             "mxnet_tpu_torch/csrc/matmul_stats.cu",

@@ -109,6 +109,61 @@ __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of shared memory to a 4-d map at (c, h, t, b), in this thread's
+// bulk group; rows past T are not written.  The shared memory must not be
+// written again before bulk_wait_read says the box has been read, and
+// generic-proxy writes to it must be made visible first
+// (fence_proxy_async).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
+                                             const void* src, int c, int h,
+                                             int t, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c), "r"(h), "r"(t), "r"(b)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// until at most N of this thread's bulk groups are still reading shared
+// memory (bulk_wait_read) or still writing device memory (bulk_wait)
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// this thread's shared-memory writes, visible to TMA (the async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------- warp specialisation
+// named barriers (0 is __syncthreads): bar_sync waits until `count`
+// threads, its own included, have reached barrier `id`; bar_arrive counts
+// this warp in and goes on
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+// a warpgroup's registers a thread, moved to or from the SM's pool; every
+// warp of the warpgroup runs it, and ptxas honours it only where the role
+// branches never reconverge (else warning C7508)
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
 // -------------------------------------------------------------------- wgmma
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -173,6 +228,19 @@ struct Tile {
   // columns as N; the next box of columns lies BOX_BYTES on
   __device__ static __forceinline__ uint64_t mnmajor(uint32_t base, int kk) {
     return gmma_desc(base + kk * 16 * SWZ, BOX_BYTES, 8 * SWZ, LAYOUT);
+  }
+  // TMA's swizzle XORs the index of a row's 16-byte chunk with the row's
+  // place in the pattern: row % 8 for 128-byte rows, row / 2 % 4 for
+  // 64-byte rows
+  __device__ static __forceinline__ uint32_t swizzle_key(int row) {
+    return (uint32_t)(row * SWZ >> 7) & (SWZ / 16 - 1);
+  }
+  // the byte offset of element (row, col) as TMA lays the tile down, key
+  // the row's swizzle_key
+  __device__ static __forceinline__ uint32_t offset(int row, int col,
+                                                    uint32_t key) {
+    return (col / BOX_COLS) * BOX_BYTES + row * SWZ +
+           ((((col % BOX_COLS) >> 3) ^ key) << 4) + (col % 8) * 2;
   }
   // the TMA loads of rows [t0, t0 + ROWS) of head (b, h) into dst
   __device__ static __forceinline__ void load(uint8_t* dst,

@@ -15,16 +15,19 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
 
+import torch
+
 from .base import MXNetError
 
 __all__ = ["SOURCES", "build_dir", "nvcc_command", "build_all", "library",
-           "build_source"]
+           "build_source", "sass_registers", "on_device"]
 
 _PKG = Path(__file__).resolve().parent
 
@@ -162,3 +165,36 @@ def build_source(name, text):
         _compile([(name, src, out)])
 
     return _load(str(out), out, build)
+
+
+def on_device(device, launch):
+    """``launch(stream)`` with CUDA ``device`` current and ``stream`` the
+    handle of PyTorch's current stream there: what a kernel's C entry
+    launches on.  The device is switched only when it is not already the
+    current one (a ``torch.cuda.device`` context costs a few microseconds
+    a call)."""
+    if device.index == torch.cuda.current_device():
+        return launch(torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(device):
+        return launch(torch.cuda.current_stream().cuda_stream)
+
+
+def _sass(lib):
+    """``cuobjdump -sass`` of a built library."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    return subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+
+
+def sass_registers(lib):
+    """{"D=<n>": the highest register the SASS names} for each kernel
+    instantiation ``...kernelILi<n>E...`` of a built library: above the
+    count that ``-Xptxas -v`` reports for the entry when ``setmaxnreg``
+    lets a warpgroup use more."""
+    out = {}
+    for part in _sass(lib).split("Function : ")[1:]:
+        name = re.search(r"kernelILi(\d+)E", part.splitlines()[0])
+        regs = [int(r) for r in re.findall(r"\bR(\d+)\b", part)]
+        if name and regs:
+            out["D=%s" % name.group(1)] = max(regs)
+    return out

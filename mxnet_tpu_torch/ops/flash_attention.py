@@ -43,6 +43,7 @@ import math
 import torch
 
 from ..base import MXNetError
+from ..cuda_build import on_device
 from .registry import register
 
 __all__ = ["flash_attention_fwd", "flash_attention_plain", "attention_plain",
@@ -202,12 +203,11 @@ def _launch(q, k, v, causal):
     lse = torch.empty((b * h, t, 1), dtype=torch.float32, device=q.device)
     route = _FWD_ROUTES[q.dtype]
     fn, err = _bind(route, _ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                lse.data_ptr(), b, t, h, d,
-                *(s for x in (q, k, v) for s in kernel_strides(x)),
-                int(bool(causal)), stream)
+    rc = on_device(q.device, lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), b, t, h, d,
+        *(s for x in (q, k, v) for s in kernel_strides(x)),
+        int(bool(causal)), stream))
     if rc != 0:
         raise MXNetError("flash_attention_fwd: CUDA launch failed (%s): %s "
                          "(%d)" % (route[0], err(rc).decode(), rc))
@@ -275,11 +275,10 @@ def _launch_delta(o, do):
     b, t, h, d = o.shape
     delta = torch.empty((b * h, t, 1), dtype=torch.float32, device=o.device)
     fn, err = _bind(_DELTA_ROUTE, _DELTA_ARGTYPES)
-    with torch.cuda.device(o.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, t, h, d,
-                *kernel_strides(do), *kernel_strides(o),
-                _DELTA_DTYPES[o.dtype], stream)
+    rc = on_device(o.device, lambda stream: fn(
+        do.data_ptr(), o.data_ptr(), delta.data_ptr(), b, t, h, d,
+        *kernel_strides(do), *kernel_strides(o), _DELTA_DTYPES[o.dtype],
+        stream))
     if rc != 0:
         raise MXNetError("flash_attention_delta: CUDA launch failed: %s (%d)"
                          % (err(rc).decode(), rc))
@@ -347,13 +346,12 @@ def _launch_bwd(q, k, v, o, lse, do, causal):
     dv = torch.empty_like(dq)
     route = _BWD_ROUTES[q.dtype]
     fn, err = _bind(route, _BWD_ARGTYPES)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(), b, t, h, d,
-                *(s for x in (q, k, v, do) for s in kernel_strides(x)),
-                int(bool(causal)), stream)
+    rc = on_device(q.device, lambda stream: fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, t, h, d,
+        *(s for x in (q, k, v, do) for s in kernel_strides(x)),
+        int(bool(causal)), stream))
     if rc != 0:
         raise MXNetError("%s: CUDA launch failed (%s): %s (%d)"
                          % (name, route[0], err(rc).decode(), rc))

@@ -46,6 +46,7 @@ import threading
 import torch
 
 from .base import MXNetError
+from .cuda_build import on_device
 
 __all__ = ["Rtc", "program_id", "C_TYPES"]
 
@@ -144,6 +145,10 @@ class Rtc:
         self.source = _TEMPLATE % {
             "name": name, "params": ", ".join(params),
             "body": kernel.strip("\n"), "count": len(params)}
+        # per kernel: the library once loaded, and the ctypes type of its
+        # pointer array
+        self._lib = None
+        self._ptr_array = ctypes.c_void_p * len(params)
 
     def push(self, ins, outs, grid_dims=(1, 1, 1), block_dims=(1, 1, 1)):
         """Launch on the given NDArrays; results are written into ``outs``
@@ -171,27 +176,11 @@ class Rtc:
         return self._launch(ins, outs, _dims(grid_dims, "grid_dims"),
                             _dims(block_dims, "block_dims"))
 
-    def _launch(self, ins, outs, grid, block):
-        arrays = list(ins) + list(outs)
-        devices = {a.data.device for a in arrays}
-        if any(d.type != "cuda" for d in devices):
-            raise MXNetError(
-                "rtc %s: a CUDA C kernel runs on CUDA NDArrays only, got %s; "
-                "pass a Python callable as the kernel to run on the CPU"
-                % (self.name, sorted(map(str, devices))))
-        if len(devices) != 1:
-            raise MXNetError("rtc %s: arrays on different devices %s"
-                             % (self.name, sorted(map(str, devices))))
-        for n, a, d in zip(self._in_names + self._out_names, arrays,
-                           self._dtypes):
-            if a.data.dtype != d:
-                raise MXNetError("rtc %s: %s is %s, the kernel was built "
-                                 "for %s" % (self.name, n, a.data.dtype, d))
-        for n, a in zip(self._out_names, outs):
-            if not a.data.is_contiguous():
-                raise MXNetError("rtc %s: output %s is not contiguous"
-                                 % (self.name, n))
-        tensors = [a.data.contiguous() for a in ins] + [a.data for a in outs]
+    def _library(self):
+        """The built library, from this kernel, the process-wide cache, or
+        nvcc."""
+        if self._lib is not None:
+            return self._lib
         lib = _CACHE.get(self.key)
         if lib is None:
             from . import cuda_build
@@ -202,12 +191,35 @@ class Rtc:
             lib.mxtt_rtc_error_string.argtypes = [ctypes.c_int]
             lib.mxtt_rtc_error_string.restype = ctypes.c_char_p
             _CACHE[self.key] = lib
-        ptrs = (ctypes.c_void_p * len(tensors))(
-            *[t.data_ptr() for t in tensors])
-        dev = devices.pop()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            rc = lib.mxtt_rtc_launch(ptrs, *grid, *block, stream)
+        self._lib = lib
+        return lib
+
+    def _launch(self, ins, outs, grid, block):
+        arrays = [a.data for a in ins] + [a.data for a in outs]
+        devices = {t.device for t in arrays}
+        if any(d.type != "cuda" for d in devices):
+            raise MXNetError(
+                "rtc %s: a CUDA C kernel runs on CUDA NDArrays only, got %s; "
+                "pass a Python callable as the kernel to run on the CPU"
+                % (self.name, sorted(map(str, devices))))
+        if len(devices) != 1:
+            raise MXNetError("rtc %s: arrays on different devices %s"
+                             % (self.name, sorted(map(str, devices))))
+        for n, t, d in zip(self._in_names + self._out_names, arrays,
+                           self._dtypes):
+            if t.dtype != d:
+                raise MXNetError("rtc %s: %s is %s, the kernel was built "
+                                 "for %s" % (self.name, n, t.dtype, d))
+        n_in = len(ins)
+        for n, t in zip(self._out_names, arrays[n_in:]):
+            if not t.is_contiguous():
+                raise MXNetError("rtc %s: output %s is not contiguous"
+                                 % (self.name, n))
+        tensors = [t.contiguous() for t in arrays[:n_in]] + arrays[n_in:]
+        lib = self._library()
+        ptrs = self._ptr_array(*[t.data_ptr() for t in tensors])
+        rc = on_device(devices.pop(), lambda stream: lib.mxtt_rtc_launch(
+            ptrs, *grid, *block, stream))
         if rc != 0:
             raise MXNetError("rtc %s: CUDA launch failed: %s (%d)" % (
                 self.name, lib.mxtt_rtc_error_string(rc).decode(), rc))

@@ -11,6 +11,7 @@ the design can meet them before any card does.  The bf16 route's argument
 checks (TMA alignment, head dims) are tested too.
 """
 import math
+import re
 from pathlib import Path
 
 import jax  # noqa: F401  (kept on the CPU by conftest)
@@ -23,6 +24,7 @@ from mxnet_tpu.ops import pallas_kernels as pk
 from mxnet_tpu_torch import cuda_build
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as tfa
+from mxnet_tpu_torch.tools import flash_bf16_fwd_experiment as fwd_experiment
 
 # chip_smoke.py's bf16 tolerances: o by max |error|, lse by max |error|,
 # each gradient by max |error| against max |reference| and by relative norm
@@ -34,8 +36,22 @@ LOG2E = 1.0 / math.log(2.0)
 
 
 def key_tile(d):
-    """Keys per K/V tile of the forward kernel."""
+    """Keys per K/V tile of the forward kernel (``Cfg<D>::BN``)."""
     return 64 if d == 128 else 128
+
+
+def _source_key_tile(d):
+    """``Cfg<D>::BN`` as ``csrc/flash_attention_fwd_sm90.cu`` states it,
+    a constant or a C conditional on D, evaluated at ``d``."""
+    src = Path(cuda_build.__file__).parent / cuda_build.SOURCES[
+        "flash_attention_fwd_sm90"]
+    expr = re.search(r"static constexpr int BN = ([^;]+);",
+                     src.read_text()).group(1)
+    cond = re.fullmatch(r"(.+?)\?(.+?):(.+)", expr)
+    if cond:
+        expr = "(%s) if (%s) else (%s)" % (cond.group(2), cond.group(1),
+                                           cond.group(3))
+    return eval(expr, {"D": d})
 
 
 def _bf16_arrays(n, B=2, T=256, H=2, D=64, seed=0):
@@ -126,6 +142,63 @@ def test_rounding_model_meets_chip_tolerances(D, causal):
         x, r = x.float().numpy(), np.asarray(r)
         assert np.abs(x - r).max() <= TOL_BWD_MAX * np.abs(r).max()
         assert np.linalg.norm(x - r) / np.linalg.norm(r) <= TOL_BWD_NORM
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_model_key_tile_is_the_kernels(D):
+    """The model streams the key tiles the kernel does: read from the
+    source, so the two cannot drift apart."""
+    assert key_tile(D) == _source_key_tile(D)
+
+
+@pytest.mark.parametrize("variant", sorted(fwd_experiment.VARIANTS))
+def test_experiment_variants_edit_the_committed_source(variant):
+    """Each variant of ``tools/flash_bf16_fwd_experiment.py`` finds the
+    text it replaces in the committed forward, so a variant cannot go
+    stale and time the committed kernel under another name."""
+    texts = fwd_experiment._sources(variant, None)
+    name = Path(cuda_build.SOURCES["flash_attention_fwd_sm90"]).name
+    committed = (Path(cuda_build.__file__).parent / "csrc" / name) \
+        .read_text()
+    assert texts[name] != committed
+    assert "sm90_common.cuh" in texts
+
+
+def test_sass_registers_reads_each_instantiation(monkeypatch):
+    """``cuda_build.sass_registers`` gives, per ``kernel<D>``
+    instantiation of a library's SASS, the highest register it names
+    (R201 past the 168 the entry reports), and skips functions that are
+    not such an instantiation."""
+    sass = (
+        "\tcode for sm_90a\n"
+        "\t\tFunction : _ZN12_GLOBAL__N_121flash_fwd_sm90_kernelILi64EEEv"
+        "14CUtensorMap_stS1_S1_NS_6ParamsEii\n"
+        "        /*0010*/  MOV R1, c[0x0][0x28] ;\n"
+        "        /*0020*/  HMMA R201, R12, R4, R201 ;\n"
+        "\t\tFunction : _ZN12_GLOBAL__N_121flash_fwd_sm90_kernelILi128EEEv"
+        "14CUtensorMap_stS1_S1_NS_6ParamsEii\n"
+        "        /*0010*/  IADD3 R136, R2, R7, RZ ;\n"
+        "\t\tFunction : helper\n"
+        "        /*0010*/  MOV R250, R1 ;\n")
+    monkeypatch.setattr(cuda_build, "_sass", lambda lib: sass)
+    assert cuda_build.sass_registers("lib.so") == {"D=64": 201,
+                                                  "D=128": 136}
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_rounding_model_at_d128_and_ragged_t(causal):
+    """D=128 with its 64-key tiles at T=200, which is not a multiple of
+    them or of the 128 query rows of a block: full tiles and a ragged one
+    (keys past T masked), against the Pallas forward in interpret mode
+    with blocks that divide T."""
+    q, k, v = _bf16_arrays(3, B=1, T=200, H=2, D=128, seed=11)
+    o, lse = model_fwd(q, k, v, causal)
+    o_j, lse_j = pk._flash_attention_fwd_pallas(
+        *(x.float().numpy() for x in (q, k, v)), causal, interpret=True,
+        blocks=(40, 200))
+    assert o.shape == (1, 200, 2, 128) and lse.shape == (2, 200, 1)
+    assert np.abs(o.float().numpy() - np.asarray(o_j)).max() <= TOL_BF16
+    assert np.abs(lse.numpy() - np.asarray(lse_j)).max() <= TOL_LSE
 
 
 def test_rounding_model_is_finer_than_the_tolerance_needs():

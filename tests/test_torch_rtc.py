@@ -1,9 +1,9 @@
 """mx.rtc (K6): the port's callable (plain) form against the JAX package's
 ``Rtc``, in its source and its callable forms, on the three flows of
-``tests/test_rtc.py`` from the same numpy inputs, exactly; the CUDA C the
-port generates, its cache key, and its refusals.  The ``cuda`` test holds
-the CUDA C flows of ``chip_smoke.py`` against the callable form on the
-card."""
+``tests/test_rtc.py`` and the vectorised abs flow from the same numpy
+inputs, exactly; the CUDA C the port generates, its cache key, and its
+refusals.  The ``cuda`` test holds the CUDA C flows of ``chip_smoke.py``
+against the callable form on the card."""
 import numpy as np
 import pytest
 import torch
@@ -16,6 +16,7 @@ import mxnet_tpu as jmx
 import chip_smoke
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.tools import rtc_experiment
 
 
 def _jax_abs(x_ref, y_ref):
@@ -37,6 +38,9 @@ JAX_FORMS = {
     "muladd": ("out_ref[:] = a_ref[:] * b_ref[:] + 1.0", _jax_muladd),
     "rowscale": ("i = pl.program_id(0)\ny_ref[i, :] = x_ref[i, :] * (i + 1)",
                  _jax_rowscale),
+    # abs as a CUDA programmer writes it (float4, grid-stride) computes
+    # the JAX abs flow
+    "rtc_abs_vec": ("y_ref[:] = jnp.abs(x_ref[:])", _jax_abs),
 }
 
 
@@ -98,6 +102,24 @@ def test_generated_signature_and_cache_key():
     renamed = tmx.rtc.Rtc("copy_kernel", [("a", a), ("c", b)],
                           [("out", out)], body)
     assert renamed.key != r.key
+
+
+def test_experiment_restrict_form_qualifies_only_the_parameters():
+    """``rtc_experiment``'s form (c) is the generated source with each
+    pointer parameter of the kernel ``__restrict__``, and nothing else
+    changed: not the body's pointers, not the launcher's."""
+    a, b, out = _arrays()
+    body = "const float* p = a;\nout[threadIdx.x] = p[threadIdx.x];"
+    r = tmx.rtc.Rtc("copy_kernel", [("a", a), ("b", b)], [("out", out)],
+                    body)
+    restricted = rtc_experiment._restrict(r.source)
+    decl = ('extern "C" __global__ void copy_kernel(const float* a, '
+            'const __half* b, __nv_bfloat16* out) {')
+    assert restricted == r.source.replace(decl, (
+        'extern "C" __global__ void copy_kernel('
+        'const float* __restrict__ a, const __half* __restrict__ b, '
+        '__nv_bfloat16* __restrict__ out) {'))
+    assert restricted.count("__restrict__") == 3
 
 
 def test_refusals():
