@@ -8,7 +8,9 @@ Phases, one JSON line each:
 1. ``env``: the card, CUDA and PyTorch versions, ``nvidia-smi``'s name and
    power limit, and TF32 switched off for matmuls and cuDNN (f32 means f32);
 2. ``build``: every hand-written kernel built from ``mxnet_tpu_torch/csrc``
-   with ``nvcc`` for ``sm_90a``, one process per source, all at once;
+   with ``nvcc`` for ``sm_90a``, one process per source, all at once, with
+   ``-Xptxas -v``'s report of the flash kernels and K5 (no spill in K5, no
+   C7508 in the two kernels that move registers by ``setmaxnreg``);
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    the flash forward and then the flash backward, at the serving shape
    (B=4, T=1024, H=16, D=64) in f32 and bf16, causal and not, at the
@@ -45,12 +47,17 @@ Phases, one JSON line each:
    and the same step with TF32 matmuls, run as a control, must not;
 7. ``kernels`` of K5 (``matmul_stats``, the GEMM with the BatchNorm
    statistics epilogue) against its plain version at the 8 shapes one
-   ResNet-50 training step gives it in bf16, and at 2 of them in f32;
+   ResNet-50 training step gives it in bf16, at 2 of them in f32 and at
+   the cuda tests' shapes (one of which the wrapper pads for TMA), each
+   bit-identical across two launches; per step shape the card's time
+   (a CUDA graph's replay), the wrapper's host time, cuBLAS's bare
+   product and the time with the host's share;
 8. ``resnet_train``: ResNet-50 v2 at ``tools/bench.py``'s configuration
    (batch 128, 224x224, bf16, NHWC, block fusion, SGD momentum) on
    ``gpu(0)``: ten steps after a warm-up, every loss finite, the last
    below the first, every moving statistic moved, the fusion plan 50
-   blocks with 16 on K5 and K5 launched 16 times a step; then ms/step,
+   blocks with 16 on K5 and K5 launched 16 times a step, none of them
+   through the wrapper's padding; then ms/step,
    images/s, peak memory and a profile of one step (K5's share, and the
    count of cuDNN layout transposes);
 9. ``resnet_train_check``: one f32 SGD step of ResNet-50 at batch 8,
@@ -66,8 +73,9 @@ Phases, one JSON line each:
     bound;
 11. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
     shapes at batch 128, then K7 (K5 with c = 0) and K8 (the prologue
-    variant) against their plain versions at each shape, with the kernel,
-    plain, library and bound times;
+    variant) against their plain versions at each shape, bit-identical
+    across two launches, with the kernel (the card's, and with the host's
+    share), plain, library, cuBLAS product and bound times;
 12. ``block_experiment``: the tool of that name at batch 128 with its
     defaults (64, 64, 256, rows 4), then K9 against ``block_plain`` at
     batch 128 (and at batch 2 for its other instantiations), with the
@@ -165,6 +173,9 @@ K5_BENCH_SHAPES = [
     (25088, 1024, 512, 1), (6272, 2048, 512, 2)]
 #: the two of them also checked in f32
 K5_F32_SHAPES = [(401408, 64, 64), (25088, 1024, 256)]
+#: the cuda tests' shapes, off the path: ragged M and N, and (K = 30,
+#: N = 70) a bf16 shape TMA does not take, which the wrapper pads
+K5_ODD_SHAPES = [(1000, 72, 200), (4096, 256, 64), (300, 30, 70)]
 K5_PER_STEP = sum(n for *_s, n in K5_BENCH_SHAPES)
 # K5 against matmul_stats_plain on the same inputs: y in bf16 within one
 # bf16 ulp of the plain y plus TOL_K5_Y_F32 * max |plain| (both round an
@@ -268,25 +279,73 @@ def ptxas_summary(text):
     return out
 
 
+def k5_ptxas_summary(text):
+    """``-Xptxas -v``'s report of ``csrc/matmul_stats.cu``, one entry a
+    kernel instantiation (``matmul_stats_sm90_kernel<256,0>``,
+    ``matmul_stats_f32_kernel<1,1>``, ``stats_reduce_kernel``; template
+    arguments as integers, ``true`` and ``false`` as 1 and 0): registers,
+    static shared memory, stack frame and spill bytes."""
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            k = re.search(r"\d+((?:matmul_stats|stats)_\w+?kernel)"
+                          r"(?:I((?:L[ib]\d+E)+)E)?", m.group(1))
+            name = None
+            if k:
+                args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
+                name = k.group(1) + ("<%s>" % ",".join(args) if args
+                                     else "")
+                out.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name].update(registers=int(m.group(1)),
+                             smem=int(smem.group(1)) if smem else 0)
+    return out
+
+
 def build_phase():
     """Every kernel built at once; ``-Xptxas -v``'s report of the flash
-    kernels, and for the bf16 forward, whose producer warpgroup hands its
-    registers to the consumers (``setmaxnreg``), the highest register its
-    SASS names and ptxas's C7508 warning (``setmaxnreg`` ignored), which
-    fails the phase."""
+    kernels and of K5 (``matmul_stats``), and for the two kernels whose
+    producer warpgroup hands its registers to the consumers
+    (``setmaxnreg``: the bf16 forward and K5's bf16 kernel) the highest
+    register their SASS names.  ptxas's C7508 warning (``setmaxnreg``
+    ignored) in either, or a spill in K5, fails the phase."""
     t0 = time.perf_counter()
     built = cuda_build.build_all()
     flash = {b["name"]: ptxas_summary(b["ptxas"]) for b in built
              if b["name"].startswith("flash_attention")}
-    fwd = next(b for b in built if b["name"] == "flash_attention_fwd_sm90")
+    by_name = {b["name"]: b for b in built}
     flash["flash_attention_fwd_sm90"]["sass_registers"] = \
         cuda_build.sass_registers(
             cuda_build.library("flash_attention_fwd_sm90")._name)
+    flash["matmul_stats"] = dict(
+        k5_ptxas_summary(by_name["matmul_stats"]["ptxas"]),
+        sass_registers=cuda_build.sass_registers(
+            cuda_build.library("matmul_stats")._name))
     emit("build", wall_s=time.perf_counter() - t0, kernels=built,
          flash_ptxas=flash)
-    if "C7508" in fwd["ptxas"]:
-        raise SystemExit("build: ptxas ignored setmaxnreg in the bf16 "
-                         "forward (C7508): %s" % fwd["ptxas"])
+    for name in ("flash_attention_fwd_sm90", "matmul_stats"):
+        if "C7508" in by_name[name]["ptxas"]:
+            raise SystemExit("build: ptxas ignored setmaxnreg in %s "
+                             "(C7508): %s" % (name, by_name[name]["ptxas"]))
+    spills = {k: v for k, v in flash["matmul_stats"].items()
+              if isinstance(v, dict) and "stack" in v
+              and (v["spill_stores"] or v["spill_loads"])}
+    if spills:
+        raise SystemExit("build: matmul_stats spills: %s"
+                         % json.dumps(spills))
     return flash
 
 
@@ -991,14 +1050,38 @@ def k5_check(y, s1, s2, ry, rs1, rs2):
     return out
 
 
+def identical(first, second):
+    """True when two launches' outputs are bit-identical."""
+    return all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def k5_times(fn, dot):
+    """A K5, K7 or K8 launch's times: ``kernel_ms`` by CUDA events around
+    20 calls (the wrapper's host time included where it exceeds the
+    card's), ``device_ms`` from the replay of a CUDA graph of 20 launches
+    (the card's alone), ``host_us`` the wrapper's host time a call, and
+    ``dot_ms``, cuBLAS's bare product ``dot`` at the same shape, timed as
+    ``device_ms``."""
+    return {"kernel_ms": cuda_ms(fn, 20),
+            "device_ms": matmul_stats_experiment.device_ms(fn),
+            "host_us": matmul_stats_experiment.host_us(fn),
+            "dot_ms": matmul_stats_experiment.device_ms(dot)}
+
+
 def resnet_kernels_phase():
     """K5 (``matmul_stats``) against ``matmul_stats_plain`` on the card at
-    the bench configuration's 8 shapes in bf16 and 2 of them in f32: the
-    weight is read as the OIHW (N, K) tensor lies, through its transpose."""
+    the bench configuration's 8 shapes in bf16, 2 of them in f32 and the
+    cuda tests' shapes off the path (``K5_ODD_SHAPES``, bf16 and f32): the
+    weight is read as the OIHW (N, K) tensor lies, through its transpose.
+    Two launches on the same inputs must give bit-identical y, s1 and s2;
+    a bf16 shape TMA does not take must go through the wrapper's padding
+    (``matmul_stats.padded``), the others not."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(m, k, n, torch.bfloat16, count)
              for m, k, n, count in K5_BENCH_SHAPES]
     cases += [(m, k, n, torch.float32, 0) for m, k, n in K5_F32_SHAPES]
+    cases += [(m, k, n, dt, 0) for m, k, n in K5_ODD_SHAPES
+              for dt in (torch.bfloat16, torch.float32)]
     entries = []
     for m, k, n, dt, count in cases:
         x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
@@ -1006,25 +1089,42 @@ def resnet_kernels_phase():
                 / k ** 0.5).to(dt)
         w2d = w_nk.t()
         c = 0.1 * torch.randn(n, generator=gen, device="cuda")
-        y, s1, s2 = matmul_stats(x, w2d, c)
+        matmul_stats.padded = 0
+        out = matmul_stats(x, w2d, c)
         torch.cuda.synchronize()
+        padded = matmul_stats.padded
         entry = {"shape": [m, k, n], "dtype": str(dt).replace("torch.", ""),
-                 "launches_per_step": count}
-        entry.update(k5_check(y, s1, s2, *matmul_stats_plain(x, w2d, c)))
-        del y, s1, s2
-        entry.update(
-            tol_sums=TOL_K5_SUMS,
-            kernel_ms=cuda_ms(lambda: matmul_stats(x, w2d, c), 20),
-            plain_ms=cuda_ms(lambda: matmul_stats_plain(x, w2d, c), 3),
-            library_ms=cuda_ms(lambda: k5_library(x, w_nk, c), 20))
+                 "launches_per_step": count, "padded": padded,
+                 "bit_identical": identical(out, matmul_stats(x, w2d, c))}
+        entry.update(k5_check(*out, *matmul_stats_plain(x, w2d, c)))
+        del out
+        want_pad = dt == torch.bfloat16 and (k % 8 or n % 8)
+        entry["ok"] = entry["ok"] and entry["bit_identical"] \
+            and padded == (1 if want_pad else 0)
+        entry["tol_sums"] = TOL_K5_SUMS
+        if count:
+            entry.update(k5_times(lambda: matmul_stats(x, w2d, c),
+                                  lambda: x @ w2d))
+            entry.update(
+                plain_ms=cuda_ms(lambda: matmul_stats_plain(x, w2d, c), 3),
+                library_ms=cuda_ms(lambda: k5_library(x, w_nk, c), 20))
+        elif dt == torch.float32 and [m, k, n] in map(list, K5_F32_SHAPES):
+            entry.update(
+                kernel_ms=cuda_ms(lambda: matmul_stats(x, w2d, c), 20),
+                device_ms=matmul_stats_experiment.device_ms(
+                    lambda: matmul_stats(x, w2d, c)),
+                plain_ms=cuda_ms(lambda: matmul_stats_plain(x, w2d, c), 3),
+                library_ms=cuda_ms(lambda: k5_library(x, w_nk, c), 20))
         entry.update(k5_bound(m, k, n, dt))
         entries.append(entry)
         del x, w_nk, w2d, c
-    emit("kernels", name="matmul_stats", entries=entries)
+    emit("kernels", name="matmul_stats", entries=entries,
+         host=matmul_stats_experiment.host_costs())
     bad = [e for e in entries if not e["ok"]]
     if bad:
-        raise SystemExit("matmul_stats disagrees with its plain version: "
-                         "%s" % json.dumps(bad))
+        raise SystemExit("matmul_stats disagrees with its plain version, "
+                         "differs between two launches or took the wrong "
+                         "route: %s" % json.dumps(bad))
     return entries
 
 
@@ -1055,16 +1155,22 @@ def resnet_train_phase(ctx, batch=128, image=224, dtype="bfloat16",
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     matmul_stats.launches = 0
+    matmul_stats.padded = 0
     t0 = time.perf_counter()
     losses = trainer.run_steps(staged, steps).tolist()
     sync()
     steps_s = time.perf_counter() - t0
     launches = matmul_stats.launches
+    padded = matmul_stats.padded
     summary = trainer.fusion_summary()
     want = k5_blocks * steps if on_card else 0
     if launches != want:
         raise SystemExit("resnet_train: matmul_stats launched %d times in "
                          "%d steps; want %d" % (launches, steps, want))
+    if padded:
+        raise SystemExit("resnet_train: %d of matmul_stats's launches went "
+                         "through padding; every ResNet-50 shape is one "
+                         "TMA takes" % padded)
     if not np.isfinite([warm] + losses).all():
         raise SystemExit("resnet_train: non-finite loss in %s" % losses)
     if not losses[-1] < losses[0]:
@@ -1094,7 +1200,7 @@ def resnet_train_phase(ctx, batch=128, image=224, dtype="bfloat16",
            "params": sum(int(v.numel()) for v in trainer.params.values()),
            "build_s": build_s, "warmup_loss": warm, "steps": steps,
            "losses": losses, "steps_wall_s": steps_s,
-           "launches": {"matmul_stats": launches},
+           "launches": {"matmul_stats": launches}, "k5_padded": padded,
            "launches_per_step": launches / steps, "fusion": summary,
            "timed_steps": timed_steps, "repeats_s": times,
            "step_ms": step_s * 1e3, "images_per_s": batch / step_s}
@@ -1371,19 +1477,26 @@ def matmul_stats_experiment_phase(batch=128, repeats=2, chain=10):
         scale = torch.rand(1, k, generator=gen, device="cuda") + 0.5
         shift = torch.randn(1, k, generator=gen, device="cuda")
         zero = torch.zeros(n, device="cuda")
-        e7 = k5_check(*tool.matmul_stats(x, w),
-                            *matmul_stats_plain(x, w, zero))
-        e8 = k5_check(*tool.matmul_stats_prologue(x, w, scale, shift),
-                            *matmul_stats_prologue_plain(x, w, scale,
-                                                         shift))
-        e7.update(shape=[m, k, n], kernel_ms=cuda_ms(
-            lambda: tool.matmul_stats(x, w), 20),
+        out7 = tool.matmul_stats(x, w)
+        out8 = tool.matmul_stats_prologue(x, w, scale, shift)
+        e7 = k5_check(*out7, *matmul_stats_plain(x, w, zero))
+        e8 = k5_check(*out8, *matmul_stats_prologue_plain(x, w, scale,
+                                                          shift))
+        e7["bit_identical"] = identical(out7, tool.matmul_stats(x, w))
+        e8["bit_identical"] = identical(
+            out8, tool.matmul_stats_prologue(x, w, scale, shift))
+        del out7, out8
+        for e in (e7, e8):
+            e["ok"] = e["ok"] and e["bit_identical"]
+        e7.update(shape=[m, k, n], **k5_times(
+            lambda: tool.matmul_stats(x, w),
+            lambda: tool.library_dot_only(x, w)),
             plain_ms=cuda_ms(lambda: matmul_stats_plain(x, w, zero), 3),
             library_ms=cuda_ms(lambda: tool.library_ref(x, w), 20),
-            dot_ms=cuda_ms(lambda: tool.library_dot_only(x, w), 20),
             **k5_bound(m, k, n, torch.bfloat16, f32_values=2 * n))
-        e8.update(shape=[m, k, n], kernel_ms=cuda_ms(
-            lambda: tool.matmul_stats_prologue(x, w, scale, shift), 20),
+        e8.update(shape=[m, k, n], **k5_times(
+            lambda: tool.matmul_stats_prologue(x, w, scale, shift),
+            lambda: tool.library_dot_only(x, w)),
             plain_ms=cuda_ms(lambda: matmul_stats_prologue_plain(
                 x, w, scale, shift), 3),
             library_ms=cuda_ms(lambda: tool.library_prologue(
@@ -1399,7 +1512,8 @@ def matmul_stats_experiment_phase(batch=128, repeats=2, chain=10):
     bad = [e for e in k7 + k8 if not e["ok"]]
     if bad:
         raise SystemExit("matmul_stats_experiment: a kernel disagrees with "
-                         "its plain version: %s" % json.dumps(bad))
+                         "its plain version or differs between two "
+                         "launches: %s" % json.dumps(bad))
     return out
 
 
@@ -1468,9 +1582,18 @@ def block_experiment_phase(batch=128, repeats=5):
     return out
 
 
+#: what the summary line keeps of each K5, K7 and K8 case
+K5_SHAPE_KEYS = ("shape", "device_ms", "kernel_ms", "host_us", "dot_ms",
+                 "plain_ms", "library_ms", "bound_ms", "bound_by",
+                 "max_abs_err", "s1_rel_norm", "s2_rel_norm",
+                 "bit_identical")
+
+
 def experiment_summary(name, source, replaces, entries, launches, **extra):
     """A K7 or K8 entry of the kernel summary line: the times summed over
-    the tool's 8 shapes, one call each; ``shapes`` keeps every case."""
+    the tool's 8 shapes, one call each; ``ms`` is the card's time
+    (``device_ms``), ``wall_ms`` the same calls timed with the wrapper's
+    host time; ``shapes`` keeps every case."""
     def total(key):
         return sum(e[key] for e in entries)
 
@@ -1480,23 +1603,23 @@ def experiment_summary(name, source, replaces, entries, launches, **extra):
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches,
         "max_abs_err": max(e["max_abs_err"] for e in entries),
-        "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+        "ms": total("device_ms"), "plain_ms": total("plain_ms"),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": total("library_ms"),
+        "library_ms": total("library_ms"), "wall_ms": total("kernel_ms"),
+        "dot_ms": total("dot_ms"),
         "per": "the 8 shapes of the tool at batch 128, one call each, bf16",
-        "shapes": [{k: e[k] for k in (
-            "shape", "kernel_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "max_abs_err", "s1_rel_norm", "s2_rel_norm")}
-            for e in entries]}, **extra)
+        "shapes": [{k: e[k] for k in K5_SHAPE_KEYS if k in e}
+                   for e in entries]}, **extra)
 
 
-def k5_summary(entries, launches):
+def k5_summary(entries, launches, ptxas):
     """K5's entry of the kernel summary line: the bf16 cases summed over
     one training step's 16 launches (each shape times its launches per
-    step), so ``ms``, ``plain_ms``, ``bound_ms`` and ``library_ms`` are per
-    step; ``shapes`` keeps every case."""
-    step = [e for e in entries if e["dtype"] == "bfloat16"]
+    step), so ``ms`` (the card's time, ``device_ms``), ``wall_ms`` (with
+    the wrapper's host time), ``dot_ms``, ``plain_ms``, ``bound_ms`` and
+    ``library_ms`` are per step; ``shapes`` keeps every case."""
+    step = [e for e in entries if e["launches_per_step"]]
 
     def total(key):
         return sum(e[key] * e["launches_per_step"] for e in step)
@@ -1510,15 +1633,15 @@ def k5_summary(entries, launches):
         "source": "mxnet_tpu_torch/csrc/matmul_stats.cu",
         "replaces": "mxnet_tpu/ops/fused.py:169", "launches": launches,
         "max_abs_err": max(e["max_abs_err"] for e in entries),
-        "ms": total("kernel_ms"), "plain_ms": total("plain_ms"),
+        "ms": total("device_ms"), "plain_ms": total("plain_ms"),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": total("library_ms"), "per": "one training step, "
-        "%d launches, bf16" % K5_PER_STEP,
-        "shapes": [{k: e[k] for k in (
-            "shape", "dtype", "launches_per_step", "kernel_ms", "plain_ms",
-            "library_ms", "bound_ms", "bound_by", "max_abs_err",
-            "s1_rel_norm", "s2_rel_norm")} for e in entries]}
+        "library_ms": total("library_ms"), "wall_ms": total("kernel_ms"),
+        "dot_ms": total("dot_ms"), "per": "one training step, "
+        "%d launches, bf16" % K5_PER_STEP, "ptxas": ptxas,
+        "shapes": [{k: e[k] for k in ("dtype", "launches_per_step",
+                                      "padded") + K5_SHAPE_KEYS if k in e}
+                   for e in entries]}
 
 
 def kernel_summary(name, source, replaces, also_replaces, case, launches,
@@ -1647,7 +1770,8 @@ def main():
             sources=bwd_src, train_shape=shape_fields(bwd_train),
             t4096=shape_fields(_case(bwd, [1, 4096, 16, 64], "bfloat16")),
             ptxas=ptxas["flash_attention_bwd_sm90"]),
-        k5_summary(k5, resnet["launches"]["matmul_stats"]),
+        k5_summary(k5, resnet["launches"]["matmul_stats"],
+                   ptxas["matmul_stats"]),
         {"name": "rtc", "route": "cuda", "source": "mxnet_tpu_torch/rtc.py",
          "generated": "build/kernels/rtc_rtc_abs_full-<hash>.cu",
          "replaces": "mxnet_tpu/rtc.py:105", "launches": rtc["launches"],

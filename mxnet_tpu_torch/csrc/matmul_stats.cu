@@ -10,133 +10,400 @@
 // Computes, for x (M, K) row-major (the contiguous NHWC activation as
 // (N*H*W, C)), w (N, K) row-major (the OIHW 1x1 weight as it lies, so
 // y = x w^T is a B^T GEMM and no transpose is made) and c (N,) f32 (the
-// moving mean, the shift of the statistics):
+// moving mean, the shift of the statistics; null reads as 0):
 //   y  = x w^T                    (M, N), x's dtype
 //   s1 = sum over rows (y - c)    (N,) f32
 //   s2 = sum over rows (y - c)^2  (N,) f32
 // where y inside the sums is the f32 accumulator, before y is rounded to
-// x's dtype, as in the TPU kernel.  Any M, N, K: every tile is
-// bounds-checked.
+// x's dtype, as in the TPU kernel.
 //
 // K8, the prologue variant (mxtt_matmul_stats_prologue), replaces
 // tools/pallas_matmul_stats_experiment.py, matmul_stats_prologue (its
 // Pallas kernel _kernel_prologue): the same function of
 //   xh = relu(x * scale + shift)   scale, shift (K,) f32
-// computed in f32 and rounded to x's dtype before the product, the previous
-// BatchNorm's transform folded into this GEMM.  The x tile lands in shared
-// memory by cp.async; one pass over it applies the transform after the copy
-// and before the fragment loads.  Depth columns past K get 0 (the scale and
-// shift there are never read), so they add nothing; rows past M become
-// relu(shift) and not 0, but the epilogue neither stores nor sums rows past
-// M.  K7 (tools/pallas_matmul_stats_experiment.py, matmul_stats) is this
-// file's K5 entry with c = 0.
+// computed in f32 (the product and the sum rounded apart, as the plain
+// version computes them) and rounded to x's dtype before the product: the
+// previous BatchNorm's transform folded into this GEMM.  K7
+// (tools/pallas_matmul_stats_experiment.py, matmul_stats) is this file's
+// K5 entry with c = 0.
 //
 // What bounds it on this card: at ResNet-50's shapes (K 64 to 2048, N 64 to
 // 512) the product does 2K flops for every 2(K + N) bytes of x and y that
 // one row moves in bf16, under the 295 flops a byte at which the H100's
 // tensor cores overtake its memory: the 16 launches of a training step are
-// bound by bytes (1.9 GB at 3.35 TB/s) more than by operations.  So the
-// design reads x once, keeps y's statistics out of device memory, and
-// leaves the speed of the product itself to a later wgmma/TMA version.
+// bound by bytes (1.9 GB at 3.35 TB/s) more than by operations.  So x is
+// read from device memory once, y written once, and the statistics never
+// leave the chip until a block's last item.
 //
-// What the design does:
-// * bf16: mma.sync m16n8k16 on the tensor cores with f32 accumulation.  A
-//   block of 8 warps owns a 128 x 64 tile of y; each warp a 32 x 32 part
-//   of it (2 x 4 mma tiles).  x and w tiles of depth 32 are staged in
-//   shared memory by cp.async, two stages deep, rows padded to 40 values so
-//   that the fragment loads of a warp hit 32 different banks.
-// * f32: the same tiling on the CUDA cores, each thread an 8 x 4 block of
-//   FMAs, tiles of depth 16 stored k-major.  No tensor cores, so no TF32:
-//   f32 means f32.
-// * The statistics: each thread sums (acc - c) and its square over the rows
-//   it owns, a warp reduces over its rows by shuffles, the warps of a block
-//   through shared memory, always in one order.  The block writes one row
-//   of a (blocks along M, N) partial buffer; a second kernel sums each
-//   column of it in a fixed order.  The TPU summed across its grid in
-//   order; H100 blocks run in no order, so each sum has one owner and no
-//   atomics are used: the result is the same on every run.
+// bf16, the design (one kernel template, matmul_stats_sm90_kernel<BN, PRO>):
+// * Persistent: one block an SM, each a static list of 128-row items of one
+//   n-tile of BN columns (64, 128 or 256: at most what N needs, 256-column
+//   tiles at N = 512, narrower where that evens out the blocks' rounds of
+//   items; bf16_tile).  The blocks of one
+//   m-tile's n-tiles are neighbours, so they read its x tile at about the
+//   same time: from device memory once, from L2 after.
+// * A producer warpgroup (one thread issues every load) keeps x tiles
+//   (128 rows x 64 depth, 128-byte rows, SWIZZLE_128B) and w tiles (BN rows
+//   x 64) in flight by TMA (cp.async.bulk.tensor) through a ring of STAGES
+//   shared-memory stages, each with a full and an empty mbarrier, running
+//   ahead across items.  It gives its registers up (setmaxnreg.dec to 40)
+//   and the two consumers take them (setmaxnreg.inc to 232).
+// * Two consumer warpgroups of 64 rows each run wgmma.m64nBNk16 with A = x
+//   and B = w both K-major in shared memory (one Tile type gives the TMA
+//   box and the descriptors) and f32 accumulators, one k-block in flight.
+// * The epilogue: y leaves as bf16 through a staging tile in shared memory
+//   (one per consumer, swizzled as TMA lays it down) and a TMA store, whose
+//   reads are waited for only before the next item's staging.  (acc - c)
+//   and its square of each column are summed over the thread's two rows
+//   (rows past M masked: TMA fills them with 0, and K8 makes them
+//   relu(shift)), then reduce-scattered over the 8 lanes that share the
+//   columns by shuffles, in place in the accumulator's registers, into
+//   per-thread sums that live across the block's items (BN / 16 a thread,
+//   in shared memory).
+//   At its end the block adds its 8 warps' sums in a fixed order and writes
+//   one row of a (grid / n-tiles, N) partial buffer; a second kernel sums
+//   each column of it in a fixed order.  No atomics: the same result on
+//   every run.
+// * K8: between a landed x stage and its first wgmma, each consumer
+//   rewrites its own 64 rows in shared memory (a thread an 8-byte half
+//   chunk of eight rows, the same depth columns, found through the
+//   swizzle), then
+//   fence.proxy.async and a warpgroup barrier, so the tensor cores read the
+//   generic-proxy writes.
+// * TMA wants 16-byte strides and bases: K % 8 == 0, N % 8 == 0 and x, w
+//   16-byte aligned.  The wrapper (ops/fused.py) pads other bf16 shapes
+//   with zeros before it launches.
+//
+// f32: the CUDA cores, each thread an 8 x 4 block of FMAs over 128 x 64
+// tiles of depth 16, any M, N, K.  No tensor cores, so no TF32: f32 means
+// f32.  It writes one partial row a 128-row tile.
+//
+// -Xptxas -v gives the registers (168 at the entry, ptxas's budget for 384
+// threads, which bounded the consumers' code too: the 256-column
+// accumulator with the running sums beside it in registers spilled, so the
+// sums live in shared memory), spills and shared memory (PERF.md).
+// mxnet_tpu_torch/tools/matmul_stats_experiment.py times text edits of
+// this source and an older checkout's kernel against it.
 //
 // Built by mxnet_tpu_torch/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libmatmul_stats-<hash>.so this file
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
+
+using namespace sm90;
+
+// ------------------------------------------------------------- bf16 path
+constexpr int BM = 128;                        // rows of an item
+constexpr int BK = 64;                         // depth of a stage: 128 bytes
+constexpr int CONSUMERS = 2;                   // warpgroups of 64 rows
+constexpr int THREADS = (CONSUMERS + 1) * WG;  // + the producer
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;   // 128 x 40 + 256 x 232 <= 65536
+// named barriers: BAR_Y + c consumer c's y staging free, then written;
+// BAR_PRO + c its rows of x transformed (K8); BAR_END both consumers past
+// their last product
+constexpr int BAR_Y = 1;
+constexpr int BAR_PRO = 3;
+constexpr int BAR_END = 5;
+constexpr int SMEM_LIMIT = 232448;   // a block's shared memory on the H100
+constexpr int SMEM_STATIC = 2048;    // barriers and c, rounded up
+
+template <int BN>
+struct Cfg {
+  using XT = Tile<BK, BM>;   // an item's rows of x, one k-block
+  using WT = Tile<BK, BN>;   // its n-tile's rows of w, one k-block
+  using YT = Tile<BN, 64>;   // one consumer's rows of y
+  static constexpr int STAGE_BYTES = XT::BYTES + WT::BYTES;
+  static constexpr int Y_BYTES = CONSUMERS * YT::BYTES;
+  // each consumer thread's running sums (Stats), BN / 16 floats
+  static constexpr int SUM_BYTES = CONSUMERS * WG * (BN / 16) * 4;
+  static constexpr int FIT =
+      (SMEM_LIMIT - SMEM_STATIC - 1024 - Y_BYTES - SUM_BYTES) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr size_t SMEM =
+      1024 + (size_t)STAGES * STAGE_BYTES + Y_BYTES + SUM_BYTES;
+  static_assert(STAGES >= 3, "the ring holds at least three stages");
+  // the block's final sums, 2 x BN floats for each of its 8 warps, are
+  // gathered in the ring once both consumers are done with it
+  static_assert(CONSUMERS * 4 * 2 * BN * 4 <= STAGES * STAGE_BYTES,
+                "the final sums fit in the ring");
+};
+
+struct Args {
+  const float* c;       // (N,) f32, or null for 0
+  const float* scale;   // (K,) f32, K8 only
+  const float* shift;
+  float* part1;         // (grid / n-tiles, N) f32: block b's sums in row
+  float* part2;         // b / n-tiles, columns of its n-tile
+  int M, N, K;
+};
+
+// K8's transform of consumer wg's 64 rows of a landed x tile, in place:
+// bf16(relu(f32(x) * scale + shift)), depth columns from k0.  A thread
+// takes the 8-byte half chunk ctid % 16 of rows ctid / 16 + 8 j: always the
+// same 4 depth columns (one 16-byte load of scale and of shift, which are
+// 16-byte aligned), and rows of one swizzle key.  Half chunks keep few
+// registers beside a 256-column accumulator (whole 16-byte chunks, with 16
+// scale and shift values held, made ptxas spill there).  Columns past K
+// are 0 in x (TMA's fill) and get scale = shift = 0: they stay 0.
+template <typename XT>
+__device__ __forceinline__ void prologue_rows(uint8_t* xs, int wg, int ctid,
+                                              int k0, const Args& a) {
+  const int half = ctid & 15;
+  const int k = k0 + 4 * half;   // K % 8 == 0: all four columns or none
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const float4 sc =
+      k < a.K ? __ldg(reinterpret_cast<const float4*>(a.scale + k)) : zero;
+  const float4 sh =
+      k < a.K ? __ldg(reinterpret_cast<const float4*>(a.shift + k)) : zero;
+  const int r0 = wg * 64 + (ctid >> 4);
+  const uint32_t key = XT::swizzle_key(r0);   // the same for r0 + 8 j
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    uint2* p = reinterpret_cast<uint2*>(
+        xs + XT::offset(r0 + 8 * j, 4 * half, key));
+    uint2 v = *p;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&v);
+    const float2 f0 = __bfloat1622float2(h[0]);
+    const float2 f1 = __bfloat1622float2(h[1]);
+    h[0] = __floats2bfloat162_rn(
+        fmaxf(__fadd_rn(__fmul_rn(f0.x, sc.x), sh.x), 0.f),
+        fmaxf(__fadd_rn(__fmul_rn(f0.y, sc.y), sh.y), 0.f));
+    h[1] = __floats2bfloat162_rn(
+        fmaxf(__fadd_rn(__fmul_rn(f1.x, sc.z), sh.z), 0.f),
+        fmaxf(__fadd_rn(__fmul_rn(f1.y, sc.w), sh.w), 0.f));
+    *p = v;
+  }
+}
+
+// The statistics of one item, reduce-scattered in place in the
+// accumulator's registers.  Lane (g, t) = (lane / 4, lane % 4) holds rows
+// r and r + 8 of the columns 8 n + 2 t + j (acc[4 n + j] and
+// acc[4 n + 2 + j]).  Logical value L < BN / 4 is the sum of column list
+// index L = 2 n + j over the two rows; BN / 4 + L its sum of squares.
+// Three halvings over lane bits 4, 3, 2 (the lanes sharing t) leave each
+// lane the sums over the warp's 16 rows of BN / 16 of those values: stat
+// (lane >> 4) & 1, column list indices from
+// ((lane >> 3) & 1) BN / 8 + ((lane >> 2) & 1) BN / 16, added to the
+// thread's running sums in shared memory, sum[q * 256 + thread] (held in
+// registers beside a 256-column accumulator they made ptxas spill).
+template <int BN>
+struct Stats {
+  static constexpr int H1 = BN / 4;
+  __device__ static __forceinline__ float& at(float (&acc)[BN / 2], int L) {
+    return L < H1 ? acc[4 * (L >> 1) + (L & 1)]
+                  : acc[4 * ((L - H1) >> 1) + 2 + ((L - H1) & 1)];
+  }
+  template <int H, int OFF>
+  __device__ static __forceinline__ void halve(float (&acc)[BN / 2],
+                                               int lane) {
+    const bool hi = lane & OFF;
+#pragma unroll
+    for (int q = 0; q < H; ++q) {
+      const float lo_v = at(acc, q), hi_v = at(acc, H + q);
+      const float send = hi ? lo_v : hi_v;
+      const float keep = hi ? hi_v : lo_v;
+      at(acc, q) = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+    }
+  }
+  __device__ static __forceinline__ void item(float (&acc)[BN / 2],
+                                              float* sum,
+                                              const float* cs, bool ok0,
+                                              bool ok1, int lane) {
+    const int t = lane & 3;
+#pragma unroll
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float cc = cs[8 * n + 2 * t + j];
+        const float d0 = ok0 ? acc[4 * n + j] - cc : 0.f;
+        const float d1 = ok1 ? acc[4 * n + 2 + j] - cc : 0.f;
+        acc[4 * n + j] = d0 + d1;               // L = 2 n + j
+        acc[4 * n + 2 + j] = d0 * d0 + d1 * d1;  // L = H1 + 2 n + j
+      }
+    halve<H1, 16>(acc, lane);
+    halve<H1 / 2, 8>(acc, lane);
+    halve<H1 / 4, 4>(acc, lane);
+#pragma unroll
+    for (int q = 0; q < BN / 16; ++q)
+      sum[q * CONSUMERS * WG] += at(acc, q);
+  }
+  // the column (in the n-tile) of running sum q
+  __device__ static __forceinline__ int column(int q, int lane) {
+    const int li = ((lane >> 3) & 1) * (H1 / 2) + ((lane >> 2) & 1) * (H1 / 4)
+                   + q;
+    return 8 * (li >> 1) + 2 * (lane & 3) + (li & 1);
+  }
+};
+
+// A persistent kernel: block b takes n-tile b % n_tiles and the m-tiles
+// b / n_tiles + i gridDim.x / n_tiles (the grid is a multiple of n_tiles).
+template <int BN, bool PRO>
+__global__ void __launch_bounds__(THREADS, 1)
+matmul_stats_sm90_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_w,
+                         const __grid_constant__ CUtensorMap tm_y, Args a) {
+  using C = Cfg<BN>;
+  using XT = typename C::XT;
+  using WT = typename C::WT;
+  using YT = typename C::YT;
+  constexpr int STAGES = C::STAGES;
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[STAGES], empty[STAGES];
+  __shared__ float cs[BN];   // c of the n-tile's columns, 0 past N
+  uint8_t* ring = align1024(smem_raw);
+  uint8_t* sy = ring + STAGES * C::STAGE_BYTES;
+  float* sums = reinterpret_cast<float*>(sy + C::Y_BYTES);
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (a.N + BN - 1) / BN;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int m_first = blockIdx.x / n_tiles;
+  const int m_step = gridDim.x / n_tiles;
+  const int m_tiles = (a.M + BM - 1) / BM;
+  const int k_blocks = (a.K + BK - 1) / BK;
+
+  if (tid == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS * WG);
+    }
+    fence_barrier_init();
+  }
+  for (int j = tid; j < BN; j += THREADS)
+    cs[j] = a.c != nullptr && n0 + j < a.N ? a.c[n0 + j] : 0.f;
+  __syncthreads();
+
+  // the warpgroup's role, warp-uniform to the compiler as to the card
+  const int wg = __shfl_sync(0xffffffffu, tid / WG, 0);
+  if (wg == CONSUMERS) {
+    // the producer warpgroup: one thread issues every load
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid == CONSUMERS * WG) {
+      int it = 0;   // stages loaded so far, over all items
+      for (int mt = m_first; mt < m_tiles; mt += m_step)
+        for (int kb = 0; kb < k_blocks; ++kb, ++it) {
+          const int s = it % STAGES;
+          if (it >= STAGES) mbar_wait(&empty[s], (it / STAGES - 1) & 1);
+          uint8_t* st = ring + s * C::STAGE_BYTES;
+          mbar_expect_tx(&full[s], C::STAGE_BYTES);
+          tma_load_2d(st, &tm_x, &full[s], kb * BK, mt * BM);
+          tma_load_2d(st + XT::BYTES, &tm_w, &full[s], kb * BK, n0);
+        }
+    }
+  } else {
+    // consumer warpgroup wg: rows [64 wg, 64 wg + 64) of each item
+    setmaxnreg_inc<CONSUMER_REGS>();
+    const int ctid = tid % WG;
+    const int warp = ctid / 32;
+    const int lane = tid % 32;
+    const int row = warp * 16 + (lane >> 2);   // acc rows row, row + 8
+    // this warpgroup's first thread issues its y stores
+    const bool leader = ctid == 0;
+    uint8_t* my_y = sy + wg * YT::BYTES;
+    float acc[BN / 2];
+    float* sum = sums + tid;   // this thread's running sums
+#pragma unroll
+    for (int q = 0; q < BN / 16; ++q) sum[q * CONSUMERS * WG] = 0.f;
+
+    int it = 0;   // stages consumed so far, over all items
+    for (int mt = m_first; mt < m_tiles; mt += m_step) {
+      const int m0 = mt * BM;
+      for (int kb = 0; kb < k_blocks; ++kb, ++it) {
+        const int s = it % STAGES;
+        uint8_t* st = ring + s * C::STAGE_BYTES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        __syncwarp();   // wgmma is .aligned: the warp leaves the wait together
+        if (PRO) {
+          prologue_rows<XT>(st, wg, ctid, kb * BK, a);
+          fence_proxy_async();
+          bar_sync(BAR_PRO + wg, WG);
+        }
+        const uint32_t xs = smem_u32(st);
+        const uint32_t ws = xs + XT::BYTES;
+        wgmma_fence();
+        fence_regs(acc);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          wgmma_ss<0, 0>(acc, XT::kmajor(xs, wg * 64, kk),
+                         WT::kmajor(ws, 0, kk), kb > 0 || kk > 0);
+        wgmma_commit();
+        if (kb > 0) {
+          // the previous k-block's products have ended: its stage goes back
+          wgmma_wait<1>();
+          mbar_arrive(&empty[(it - 1) % STAGES]);
+        }
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[(it - 1) % STAGES]);
+
+      // y in bf16 through the staging tile: free once the previous
+      // item's store has read it
+      if (leader) bulk_wait_read<0>();
+      bar_sync(BAR_Y + wg, WG);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        uint32_t key = YT::swizzle_key(row + 8 * r);
+        // made anew each item: offsets hoisted out of the item loop would
+        // hold BN / 8 registers through the main loop
+        asm volatile("" : "+r"(key));
+#pragma unroll
+        for (int n = 0; n < BN / 8; ++n)
+          *reinterpret_cast<uint32_t*>(
+              my_y + YT::offset(row + 8 * r, 8 * n + 2 * (lane & 3), key)) =
+              pack_bf16(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+      }
+      fence_proxy_async();
+      bar_sync(BAR_Y + wg, WG);
+      if (leader) {
+#pragma unroll
+        for (int bx = 0; bx < YT::BOXES; ++bx)
+          if (n0 + bx * YT::BOX_COLS < a.N)
+            tma_store_2d(&tm_y, my_y + bx * YT::BOX_BYTES,
+                         n0 + bx * YT::BOX_COLS, m0 + wg * 64);
+        bulk_commit();
+      }
+      const int grow = m0 + wg * 64 + row;
+      Stats<BN>::item(acc, sum, cs, grow < a.M, grow + 8 < a.M, lane);
+    }
+
+    // the block's sums: its 8 warps' in a fixed order, gathered in the
+    // ring, which both consumers are done with
+    bar_sync(BAR_END, CONSUMERS * WG);
+    float* red = reinterpret_cast<float*>(ring);   // [8 warps][2][BN]
+    const int wq = wg * 4 + warp;
+    const int stat = (lane >> 4) & 1;
+#pragma unroll
+    for (int q = 0; q < BN / 16; ++q)
+      red[(wq * 2 + stat) * BN + Stats<BN>::column(q, lane)] =
+          sum[q * CONSUMERS * WG];
+    bar_sync(BAR_END, CONSUMERS * WG);
+    const size_t prow = (size_t)(blockIdx.x / n_tiles) * a.N;
+    for (int e = tid; e < 2 * BN; e += CONSUMERS * WG) {
+      const int st = e / BN, col = e % BN;
+      float sum = 0.f;
+#pragma unroll
+      for (int w8 = 0; w8 < CONSUMERS * 4; ++w8)
+        sum += red[(w8 * 2 + st) * BN + col];
+      if (n0 + col < a.N) (st ? a.part2 : a.part1)[prow + n0 + col] = sum;
+    }
+    // the block's shared memory must outlive the last store's reads
+    if (leader) bulk_wait<0>();
+  }
+}
+
+// -------------------------------------------------------------- f32 path
+namespace f32 {
 
 constexpr int BM = 128;       // rows of y per block
 constexpr int BN = 64;        // columns of y per block
 constexpr int THREADS = 256;  // 8 warps
-
-// ------------------------------------------------------------- bf16 path
-constexpr int BK16 = 32;          // depth of a staged tile
-constexpr int LDS16 = BK16 + 8;   // padded row, in bf16 values (80 bytes)
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes from global to shared; src_bytes 0 fills the 16 bytes with zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Stage rows [r0, r0 + ROWS) x depth [k0, k0 + BK16) of a row-major
-// (rows, K) bf16 matrix into dst[ROWS][LDS16].  VEC: K % 8 == 0 and the
-// base 16-byte aligned, so each 8-value chunk lies wholly inside or
-// outside the matrix and moves by cp.async; otherwise value by value.
-template <int ROWS, bool VEC>
-__device__ __forceinline__ void stage_bf16(__nv_bfloat16 (*dst)[LDS16],
-                                           const __nv_bfloat16* src,
-                                           int rows, int K, int r0, int k0) {
-  const int tid = threadIdx.x;
-  if (VEC) {
-    constexpr int CHUNKS = ROWS * BK16 / 8;
-#pragma unroll
-    for (int i = 0; i < (CHUNKS + THREADS - 1) / THREADS; ++i) {
-      const int chunk = tid + i * THREADS;
-      if (chunk < CHUNKS) {
-        const int r = chunk / (BK16 / 8);
-        const int kc = (chunk % (BK16 / 8)) * 8;
-        const bool in = (r0 + r < rows) && (k0 + kc < K);
-        const __nv_bfloat16* g =
-            in ? src + (size_t)(r0 + r) * K + (k0 + kc) : src;
-        cp_async16(&dst[r][kc], g, in ? 16 : 0);
-      }
-    }
-  } else {
-    for (int e = tid; e < ROWS * BK16; e += THREADS) {
-      const int r = e / BK16;
-      const int kc = e % BK16;
-      const bool in = (r0 + r < rows) && (k0 + kc < K);
-      dst[r][kc] = in ? src[(size_t)(r0 + r) * K + (k0 + kc)]
-                      : __float2bfloat16(0.0f);
-    }
-  }
-}
+constexpr int BK32 = 16;
 
 // relu(v * scale + shift) for depth column k, 0 past K; the product and the
 // sum rounded apart, as the plain version computes them
@@ -145,159 +412,6 @@ __device__ __forceinline__ float prologue(float v, const float* scale,
   return k < K ? fmaxf(__fadd_rn(__fmul_rn(v, scale[k]), shift[k]), 0.0f)
                : 0.0f;
 }
-
-template <bool VEC, bool PRO>
-__global__ void __launch_bounds__(THREADS)
-matmul_stats_bf16_kernel(const __nv_bfloat16* __restrict__ x,
-                         const __nv_bfloat16* __restrict__ w,
-                         const float* __restrict__ scale,
-                         const float* __restrict__ shift,
-                         const float* __restrict__ c,
-                         __nv_bfloat16* __restrict__ y,
-                         float* __restrict__ part1, float* __restrict__ part2,
-                         int M, int N, int K, int n_tiles) {
-  __shared__ __align__(16) __nv_bfloat16 xs[2][BM][LDS16];
-  __shared__ __align__(16) __nv_bfloat16 ws[2][BN][LDS16];
-  __shared__ float red1[4][BN];
-  __shared__ float red2[4][BN];
-
-  const int tile_m = blockIdx.x / n_tiles;
-  const int tile_n = blockIdx.x % n_tiles;
-  const int m0 = tile_m * BM;
-  const int n0 = tile_n * BN;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warp_m = warp >> 1;  // 0..3: 32 rows each
-  const int warp_n = warp & 1;   // 0..1: 32 columns each
-  const int g = lane >> 2;       // mma group: row (A, C) or column (B)
-  const int t = lane & 3;        // thread in group
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-    for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[mi][ni][j] = 0.0f;
-
-  const int k_tiles = (K + BK16 - 1) / BK16;
-  stage_bf16<BM, VEC>(xs[0], x, M, K, m0, 0);
-  stage_bf16<BN, VEC>(ws[0], w, N, K, n0, 0);
-  cp_async_commit();
-  for (int kt = 0; kt < k_tiles; ++kt) {
-    const int s = kt & 1;
-    if (kt + 1 < k_tiles) {
-      // the other stage was released by the barrier at the end of the
-      // previous iteration
-      stage_bf16<BM, VEC>(xs[s ^ 1], x, M, K, m0, (kt + 1) * BK16);
-      stage_bf16<BN, VEC>(ws[s ^ 1], w, N, K, n0, (kt + 1) * BK16);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (PRO) {
-      // the landed x tile, in place: bf16(relu(f32(x) * scale + shift))
-      const int k0 = kt * BK16;
-      for (int e = threadIdx.x; e < BM * BK16 / 2; e += THREADS) {
-        const int r = e / (BK16 / 2);
-        const int kc = (e % (BK16 / 2)) * 2;
-        auto* p = reinterpret_cast<__nv_bfloat162*>(&xs[s][r][kc]);
-        const float2 v = __bfloat1622float2(*p);
-        *p = __floats2bfloat162_rn(prologue(v.x, scale, shift, k0 + kc, K),
-                                   prologue(v.y, scale, shift, k0 + kc + 1, K));
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int kk = 0; kk < BK16; kk += 16) {
-      uint32_t a[2][4], b[4][2];
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi) {
-        const int r = warp_m * 32 + mi * 16 + g;
-        a[mi][0] = *reinterpret_cast<const uint32_t*>(&xs[s][r][kk + 2 * t]);
-        a[mi][1] =
-            *reinterpret_cast<const uint32_t*>(&xs[s][r + 8][kk + 2 * t]);
-        a[mi][2] =
-            *reinterpret_cast<const uint32_t*>(&xs[s][r][kk + 2 * t + 8]);
-        a[mi][3] =
-            *reinterpret_cast<const uint32_t*>(&xs[s][r + 8][kk + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int ni = 0; ni < 4; ++ni) {
-        const int n = warp_n * 32 + ni * 8 + g;
-        b[ni][0] = *reinterpret_cast<const uint32_t*>(&ws[s][n][kk + 2 * t]);
-        b[ni][1] =
-            *reinterpret_cast<const uint32_t*>(&ws[s][n][kk + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
-    }
-    __syncthreads();
-  }
-
-  // Epilogue.  acc[mi][ni][j] is y at row warp_m*32 + mi*16 + g + 8*(j/2),
-  // column warp_n*32 + ni*8 + 2*t + (j%2) of the block's tile.
-#pragma unroll
-  for (int ni = 0; ni < 4; ++ni) {
-    const int nl = warp_n * 32 + ni * 8 + 2 * t;  // local column, pair
-    const int n = n0 + nl;
-    const float c0 = n < N ? c[n] : 0.0f;
-    const float c1 = n + 1 < N ? c[n + 1] : 0.0f;
-    float s1a = 0.0f, s1b = 0.0f, s2a = 0.0f, s2b = 0.0f;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = m0 + warp_m * 32 + mi * 16 + g + 8 * h;
-        if (r >= M) continue;
-        const float v0 = acc[mi][ni][2 * h];
-        const float v1 = acc[mi][ni][2 * h + 1];
-        __nv_bfloat16* yr = y + (size_t)r * N;
-        if (n + 1 < N && (N & 1) == 0) {
-          *reinterpret_cast<__nv_bfloat162*>(yr + n) =
-              __floats2bfloat162_rn(v0, v1);
-        } else {
-          if (n < N) yr[n] = __float2bfloat16(v0);
-          if (n + 1 < N) yr[n + 1] = __float2bfloat16(v1);
-        }
-        const float d0 = v0 - c0, d1 = v1 - c1;
-        s1a += d0;
-        s2a += d0 * d0;
-        s1b += d1;
-        s2b += d1 * d1;
-      }
-    }
-    // reduce over the 8 groups of the warp (lanes differing in bits 2-4)
-#pragma unroll
-    for (int off = 4; off < 32; off <<= 1) {
-      s1a += __shfl_xor_sync(0xffffffffu, s1a, off);
-      s1b += __shfl_xor_sync(0xffffffffu, s1b, off);
-      s2a += __shfl_xor_sync(0xffffffffu, s2a, off);
-      s2b += __shfl_xor_sync(0xffffffffu, s2b, off);
-    }
-    if (g == 0) {
-      red1[warp_m][nl] = s1a;
-      red1[warp_m][nl + 1] = s1b;
-      red2[warp_m][nl] = s2a;
-      red2[warp_m][nl + 1] = s2b;
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < BN && n0 + (int)threadIdx.x < N) {
-    const int nl = threadIdx.x;
-    const float a1 = ((red1[0][nl] + red1[1][nl]) + red1[2][nl]) + red1[3][nl];
-    const float a2 = ((red2[0][nl] + red2[1][nl]) + red2[2][nl]) + red2[3][nl];
-    part1[(size_t)tile_m * N + n0 + nl] = a1;
-    part2[(size_t)tile_m * N + n0 + nl] = a2;
-  }
-}
-
-// -------------------------------------------------------------- f32 path
-constexpr int BK32 = 16;
 
 // Stage rows [r0, r0 + ROWS) x depth [k0, k0 + BK32) of a row-major
 // (rows, K) f32 matrix into dst[BK32][ROWS + 4], k-major.  VEC: K % 4 == 0
@@ -390,7 +504,7 @@ matmul_stats_f32_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int n = n0 + tx * 4 + j;
-    cc[j] = n < N ? c[n] : 0.0f;
+    cc[j] = c != nullptr && n < N ? c[n] : 0.0f;
   }
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
@@ -460,83 +574,218 @@ stats_reduce_kernel(const float* __restrict__ part1,
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}  // namespace f32
+
+// the card's SM count, read once
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// The three tensor maps of a bf16 launch: x (M, K) and w (N, K) in boxes
+// of 64 depth columns (BM and BN rows), y (M, N) in one consumer's boxes of
+// 64 columns and 64 rows.
+template <int BN>
+int encode_maps(CUtensorMap* tm_x, CUtensorMap* tm_w, CUtensorMap* tm_y,
+                const void* x, const void* w, const void* y, int M, int N,
+                int K) {
+  using C = Cfg<BN>;
+  int rc = encode_matrix_map<typename C::XT>(tm_x, x, K, M, K, BM);
+  if (rc == 0) rc = encode_matrix_map<typename C::WT>(tm_w, w, K, N, K, BN);
+  if (rc == 0) rc = encode_matrix_map<typename C::YT>(tm_y, y, N, M, N, 64);
+  return rc;
+}
+
+// Partial rows of a bf16 launch: the blocks of one n-tile, one an SM at
+// most, no more than the m-tiles.
+inline int bf16_rows(int M, int N, int BN) {
+  const int n_tiles = (N + BN - 1) / BN;
+  const int m_tiles = (M + BM - 1) / BM;
+  int rows = sm_count() / n_tiles;
+  if (rows > m_tiles) rows = m_tiles;
+  return rows < 1 ? 1 : rows;
+}
+
+template <int BN, bool PRO>
+int launch_sm90(const void* x, const void* w, const Args& args, void* y,
+                float* s, int part_rows, cudaStream_t st) {
+  using C = Cfg<BN>;
+  auto kern = matmul_stats_sm90_kernel<BN, PRO>;
+  // above 48 KB a block's dynamic shared memory needs this opt-in, once
+  // per instantiation and device; a launch refused for it would never run
+  // and synchronize() would not say so
+  constexpr int MAX_DEVICES = 64;
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) opted_in[dev] = true;
+  }
+  CUtensorMap tm_x, tm_w, tm_y;
+  const int rc = encode_maps<BN>(&tm_x, &tm_w, &tm_y, x, w, y, args.M,
+                                 args.N, args.K);
+  if (rc != 0) return rc;
+  const int n_tiles = (args.N + BN - 1) / BN;
+  const int rows = bf16_rows(args.M, args.N, BN);
+  if (rows > part_rows) return (int)cudaErrorInvalidValue;
+  kern<<<rows * n_tiles, THREADS, C::SMEM, st>>>(tm_x, tm_w, tm_y, args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  f32::stats_reduce_kernel<<<(args.N + f32::RED_COLS - 1) / f32::RED_COLS,
+                             f32::RED_COLS * f32::RED_ROWS, 0, st>>>(
+      args.part1, args.part2, rows, args.N, s, s + args.N);
+  return (int)cudaGetLastError();
+}
+
+// The tile width of a bf16 launch: at most what N needs (64, 128 or 256
+// columns; 256-column tiles above), the width of least cost, a block's
+// rounds of items times (width + ITEM_COST), the wider on a tie.
+// ITEM_COST, a per-item cost in columns, weighs the uneven last round of a
+// wide tile (25088 x 1024 x 256 runs 0.030 ms in 128-column tiles, 0.037
+// in 256, NVIDIA H100 80GB HBM3, tools/matmul_stats_experiment.py) against
+// the extra items and reads of x of a narrow one.  K8 keeps the widest:
+// every n-tile's blocks transform x again.
+constexpr int ITEM_COST = 64;
+
+inline int widest_tile(int N) { return N <= 64 ? 64 : N <= 128 ? 128 : 256; }
+
+inline int bf16_tile(int M, int N, bool pro) {
+  const int widest = widest_tile(N);
+  if (pro) return widest;
+  const long long m_tiles = (M + BM - 1) / BM;
+  int best = widest;
+  long long best_cost = -1;
+  for (int bn = widest; bn >= 64; bn /= 2) {
+    const long long rows = bf16_rows(M, N, bn);
+    const long long cost = (m_tiles + rows - 1) / rows * (bn + ITEM_COST);
+    if (best_cost < 0 || cost < best_cost) {
+      best = bn;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+template <bool PRO>
+int launch_bf16(const void* x, const void* w, const Args& args, void* y,
+                float* s, int part_rows, cudaStream_t st) {
+  // TMA: 16-byte bases and row strides; K8's float4 loads of scale, shift
+  auto misaligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+  };
+  if (args.K % 8 != 0 || args.N % 8 != 0 || misaligned(x) ||
+      misaligned(w) || misaligned(y) ||
+      (PRO && (misaligned(args.scale) || misaligned(args.shift))))
+    return (int)cudaErrorInvalidValue;
+  switch (bf16_tile(args.M, args.N, PRO)) {
+    case 64:
+      return launch_sm90<64, PRO>(x, w, args, y, s, part_rows, st);
+    case 128:
+      return launch_sm90<128, PRO>(x, w, args, y, s, part_rows, st);
+    default:
+      return launch_sm90<256, PRO>(x, w, args, y, s, part_rows, st);
+  }
+}
+
+template <bool PRO>
+int launch_f32(const float* x, const float* w, const Args& args, float* y,
+               float* s, int part_rows, cudaStream_t st) {
+  const int m_tiles = (args.M + f32::BM - 1) / f32::BM;
+  const int n_tiles = (args.N + f32::BN - 1) / f32::BN;
+  const long long blocks = (long long)m_tiles * n_tiles;
+  if (blocks > 0x7fffffffLL || m_tiles > part_rows)
+    return (int)cudaErrorInvalidValue;
+  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(w) & 15) == 0 &&
+                   args.K % 4 == 0;
+  auto kern = vec ? f32::matmul_stats_f32_kernel<true, PRO>
+                  : f32::matmul_stats_f32_kernel<false, PRO>;
+  kern<<<(unsigned)blocks, f32::THREADS, 0, st>>>(
+      x, w, args.scale, args.shift, args.c, y, args.part1, args.part2,
+      args.M, args.N, args.K, n_tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  f32::stats_reduce_kernel<<<(args.N + f32::RED_COLS - 1) / f32::RED_COLS,
+                             f32::RED_COLS * f32::RED_ROWS, 0, st>>>(
+      args.part1, args.part2, m_tiles, args.N, s, s + args.N);
+  return (int)cudaGetLastError();
 }
 
 // Both entries: PRO selects the prologue variant (scale and shift are then
 // (K,) f32, else unused).
 template <bool PRO>
 int launch(const void* x, const void* w, const float* scale,
-           const float* shift, const float* c, void* y, float* part1,
-           float* part2, float* s1, float* s2, int M, int N, int K, int dtype,
+           const float* shift, const float* c, void* y, float* part,
+           float* s, int M, int N, int K, int part_rows, int dtype,
            void* stream) {
-  if (M < 1 || N < 1 || K < 1) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int m_tiles = (M + BM - 1) / BM;
-  const int n_tiles = (N + BN - 1) / BN;
-  const long long blocks = (long long)m_tiles * n_tiles;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const dim3 grid((unsigned)blocks);
-  const bool vec = aligned16(x) && aligned16(w);
-  if (dtype == 1) {
-    const auto* xb = static_cast<const __nv_bfloat16*>(x);
-    const auto* wb = static_cast<const __nv_bfloat16*>(w);
-    auto* yb = static_cast<__nv_bfloat16*>(y);
-    if (vec && K % 8 == 0)
-      matmul_stats_bf16_kernel<true, PRO><<<grid, THREADS, 0, st>>>(
-          xb, wb, scale, shift, c, yb, part1, part2, M, N, K, n_tiles);
-    else
-      matmul_stats_bf16_kernel<false, PRO><<<grid, THREADS, 0, st>>>(
-          xb, wb, scale, shift, c, yb, part1, part2, M, N, K, n_tiles);
-  } else if (dtype == 0) {
-    const auto* xf = static_cast<const float*>(x);
-    const auto* wf = static_cast<const float*>(w);
-    auto* yf = static_cast<float*>(y);
-    if (vec && K % 4 == 0)
-      matmul_stats_f32_kernel<true, PRO><<<grid, THREADS, 0, st>>>(
-          xf, wf, scale, shift, c, yf, part1, part2, M, N, K, n_tiles);
-    else
-      matmul_stats_f32_kernel<false, PRO><<<grid, THREADS, 0, st>>>(
-          xf, wf, scale, shift, c, yf, part1, part2, M, N, K, n_tiles);
-  } else {
+  if (M < 1 || N < 1 || K < 1 || part_rows < 1)
     return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  stats_reduce_kernel<<<(N + RED_COLS - 1) / RED_COLS, RED_COLS * RED_ROWS, 0,
-                        st>>>(part1, part2, m_tiles, N, s1, s2);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args args{c, scale, shift, part, part + (size_t)part_rows * N,
+                  M, N, K};
+  if (dtype == 1) return launch_bf16<PRO>(x, w, args, y, s, part_rows, st);
+  if (dtype == 0)
+    return launch_f32<PRO>(static_cast<const float*>(x),
+                           static_cast<const float*>(w), args,
+                           static_cast<float*>(y), s, part_rows, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Rows of y per block: the partial buffers hold ceil(M / this) rows of N.
-int mxtt_matmul_stats_block_rows() { return BM; }
-
-// dtype: 0 = float32, 1 = bfloat16.  part1/part2: f32 scratch of
-// ceil(M / BM) * N values each.  Returns 0 or a cudaError_t code.
+// dtype: 0 = float32, 1 = bfloat16.  c: (N,) f32 or null (0).  part: f32
+// scratch of 2 x part_rows x N values, part_rows at least the card's SM
+// count in bf16 and ceil(M / 128) in f32; s: 2 x N f32, s1 then s2.  bf16
+// needs K % 8 == 0, N % 8 == 0 and 16-byte aligned x, w and y (and, in
+// K8, scale and shift).  Returns 0,
+// a cudaError_t code, or an sm90 encode error (mxtt_matmul_stats_error_string).
 int mxtt_matmul_stats(const void* x, const void* w, const float* c, void* y,
-                      float* part1, float* part2, float* s1, float* s2, int M,
-                      int N, int K, int dtype, void* stream) {
-  return launch<false>(x, w, nullptr, nullptr, c, y, part1, part2, s1, s2, M,
-                       N, K, dtype, stream);
+                      float* part, float* s, int M, int N, int K,
+                      int part_rows, int dtype, void* stream) {
+  return launch<false>(x, w, nullptr, nullptr, c, y, part, s, M, N, K,
+                       part_rows, dtype, stream);
 }
 
 // K8: as mxtt_matmul_stats, of relu(x * scale + shift) rounded to x's dtype.
 int mxtt_matmul_stats_prologue(const void* x, const void* w,
                                const float* scale, const float* shift,
-                               const float* c, void* y, float* part1,
-                               float* part2, float* s1, float* s2, int M,
-                               int N, int K, int dtype, void* stream) {
-  return launch<true>(x, w, scale, shift, c, y, part1, part2, s1, s2, M, N, K,
+                               const float* c, void* y, float* part,
+                               float* s, int M, int N, int K, int part_rows,
+                               int dtype, void* stream) {
+  return launch<true>(x, w, scale, shift, c, y, part, s, M, N, K, part_rows,
                       dtype, stream);
 }
 
+// The three tensor-map encodes of a bf16 launch alone, for measuring the
+// host's cost a call; returns 0 or an encode error.
+int mxtt_matmul_stats_encode(const void* x, const void* w, const void* y,
+                             int M, int N, int K) {
+  CUtensorMap tm_x, tm_w, tm_y;
+  switch (bf16_tile(M, N, false)) {
+    case 64:
+      return encode_maps<64>(&tm_x, &tm_w, &tm_y, x, w, y, M, N, K);
+    case 128:
+      return encode_maps<128>(&tm_x, &tm_w, &tm_y, x, w, y, M, N, K);
+    default:
+      return encode_maps<256>(&tm_x, &tm_w, &tm_y, x, w, y, M, N, K);
+  }
+}
+
 const char* mxtt_matmul_stats_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return sm90::error_string(code);
 }
 
 }  // extern "C"

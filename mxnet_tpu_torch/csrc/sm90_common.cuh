@@ -16,6 +16,9 @@
 // kernels (flash_attention_fwd.cu, flash_attention_bwd.cu) reuse the
 // barriers, the TMA loads and the map encoding with tiles of their own
 // (tf32_common.cuh); encode_tile_map takes the element type from the tile.
+// matmul_stats.cu reads and writes 2-d matrices through the same tiles
+// (tma_load_2d, tma_store_2d, encode_matrix_map) and runs 256-column
+// products on wgmma_ss's m64n256k16 form.
 #pragma once
 
 #include <cuda.h>   // CUtensorMap and its enums; cuTensorMapEncodeTiled is
@@ -100,6 +103,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// one box of a 2-d map (columns, rows) at (c, r) into shared memory, as
+// tma_load_4d
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c), "r"(r)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_1d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int x) {
   asm volatile(
@@ -122,6 +136,16 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map,
       " [%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c), "r"(h), "r"(t), "r"(b)
+      : "memory");
+}
+// one box of shared memory to a 2-d map at (c, r), as tma_store_4d;
+// columns and rows past the map's are not written
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map,
+                                             const void* src, int c, int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c), "r"(r)
       : "memory");
 }
 __device__ __forceinline__ void bulk_commit() {
@@ -201,7 +225,7 @@ __device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo,
 // BOX_COLS), each row SWZ bytes, 8-row groups of 8 * SWZ bytes.
 template <int D, int ROWS>
 struct Tile {
-  static_assert(D == 32 || D == 64 || D == 128, "D must be 32, 64 or 128");
+  static_assert(D == 32 || D % 64 == 0, "D must be 32 or a multiple of 64");
   static_assert(ROWS % 64 == 0, "a tile is a multiple of 64 rows");
   static constexpr int SWZ = D >= 64 ? 128 : 64;
   static constexpr int BOX_COLS = SWZ / 2;
@@ -288,7 +312,7 @@ __device__ __forceinline__ int acc_col(int lane, int i) {
 }
 
 // m64nNk16 bf16 products with an f32 accumulator d (N / 2 registers a
-// thread).  wgmma_ss (N = 64, 128): A and B from shared memory, TA / TB the
+// thread).  wgmma_ss (N = 64, 128, 256): A and B from shared memory, TA / TB the
 // transpose (MN-major) bits; wgmma_rs (N = 32, 64, 128): A from registers,
 // B from shared memory.  scale_d = 0 overwrites d, 1 adds to it.
 template <int TB>
@@ -379,6 +403,54 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[128], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, %131, %132;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 template <int TB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[64],
                                          const uint32_t (&a)[4], uint64_t db,
@@ -465,6 +537,28 @@ int encode_tile_map(CUtensorMap* map, const void* ptr, int batch, int seq,
                              1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   CUresult r = fn(map, TL::DTYPE, 4, const_cast<void*>(ptr), dims, strides,
+                  box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  TL::SWZ == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : CU_TENSOR_MAP_SWIZZLE_64B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+// A row-major (rows, cols) matrix, rows `stride` elements apart, as the
+// 2-d map (cols, rows) with boxes of (BOX_COLS, box_rows) and the swizzle
+// and element type of the tile type TL.  Columns and rows past the matrix
+// arrive as zeros and are not stored.  Returns 0 or an error.
+template <typename TL>
+int encode_matrix_map(CUtensorMap* map, const void* ptr, long long cols,
+                      long long rows, long long stride, int box_rows) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return ERR_NO_ENCODE;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride * TL::ELEM};
+  const cuuint32_t box[2] = {(cuuint32_t)TL::BOX_COLS, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(map, TL::DTYPE, 2, const_cast<void*>(ptr), dims, strides,
                   box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                   TL::SWZ == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
                                  : CU_TENSOR_MAP_SWIZZLE_64B,

@@ -187,14 +187,19 @@ def _sass(lib):
 
 
 def sass_registers(lib):
-    """{"D=<n>": the highest register the SASS names} for each kernel
-    instantiation ``...kernelILi<n>E...`` of a built library: above the
-    count that ``-Xptxas -v`` reports for the entry when ``setmaxnreg``
-    lets a warpgroup use more."""
+    """{instantiation: the highest register the SASS names} for each kernel
+    template instantiation ``...kernelI<args>E...`` of a built library:
+    above the count that ``-Xptxas -v`` reports for the entry when
+    ``setmaxnreg`` lets a warpgroup use more.  One integer argument is
+    keyed ``"D=<n>"`` (a head dim), more as ``"<a,b>"`` (``true`` and
+    ``false`` as 1 and 0)."""
     out = {}
     for part in _sass(lib).split("Function : ")[1:]:
-        name = re.search(r"kernelILi(\d+)E", part.splitlines()[0])
+        name = re.search(r"kernelI((?:L[ib]\d+E)+)E", part.splitlines()[0])
         regs = [int(r) for r in re.findall(r"\bR(\d+)\b", part)]
         if name and regs:
-            out["D=%s" % name.group(1)] = max(regs)
+            args = re.findall(r"L[ib](\d+)E", name.group(1))
+            key = "D=%s" % args[0] if len(args) == 1 \
+                else "<%s>" % ",".join(args)
+            out[key] = max(regs)
     return out

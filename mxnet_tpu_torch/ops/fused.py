@@ -12,7 +12,9 @@ one region in each direction.
   column sums of ``(y - c)`` and ``(y - c)^2`` from the f32 accumulator.  A
   CUDA tensor launches ``csrc/matmul_stats.cu`` (or raises); a CPU or meta
   tensor takes :func:`matmul_stats_plain`.  ``matmul_stats.launches``
-  counts launches.
+  counts launches, ``matmul_stats.padded`` the bf16 ones whose shape TMA
+  does not take (K or N not a multiple of 8, or an unaligned base), which
+  go through :func:`pad_operands` first.
 * :func:`matmul_stats_prologue` is the K8 wrapper, the same over
   ``relu(x * scale + shift)`` (the previous BatchNorm folded into the
   GEMM; the JAX package has it in ``tools/pallas_matmul_stats_experiment.py``
@@ -37,12 +39,13 @@ import ctypes
 
 import torch
 
+from .. import cuda_build
 from ..base import MXNetError
 from .nn import BNCore, bn_apply, bn_backward, bn_forward, bn_moments, \
     conv2d, conv_statics
 
 __all__ = ["block_fusion", "block_fusion_enabled", "matmul_stats",
-           "matmul_stats_plain", "matmul_stats_prologue",
+           "matmul_stats_plain", "matmul_stats_prologue", "pad_operands",
            "matmul_stats_prologue_plain", "FusedConvBN", "ConvBNAct", "FCAct",
            "fused_block_conv_bn_act", "fused_block_bn_act",
            "fused_block_fc_act", "conv_eligible"]
@@ -96,23 +99,66 @@ def matmul_stats_prologue_plain(x2d, w2d, scale, shift):
         w2d.shape[1], dtype=torch.float32, device=x2d.device))
 
 
+def pad_operands(x2d, w2d, c=None, scale=None, shift=None):
+    """The padded operands of a bf16 launch that TMA does not take as they
+    are: ``x2d`` (M, K) and ``w2d`` (K, N) into fresh zero buffers of depth
+    Kp = K rounded up to 8 and width Np = N rounded up to 8, ``w2d`` as the
+    (Kp, Np) transpose of a contiguous (Np, Kp) buffer (the rows the kernel
+    reads); ``c`` to Np and ``scale``, ``shift`` to Kp with zeros.  Zero
+    depth columns add nothing to y, and zero columns of w give y = 0 and
+    statistics 0 - 0 there, so the first N columns of y, s1 and s2 are the
+    unpadded ones.  Returns ``(x, w, c, scale, shift)``; ``None`` stays
+    ``None``."""
+    m, k = x2d.shape
+    n = w2d.shape[1]
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    x = x2d.new_zeros((m, kp))
+    x[:, :k] = x2d
+    w_nk = w2d.new_zeros((np_, kp))
+    w_nk[:n, :k] = w2d.t()
+
+    def vec(v, size):
+        if v is None:
+            return None
+        out = v.new_zeros(size)
+        out[:v.numel()] = v.reshape(-1)
+        return out
+
+    return x, w_nk.t(), vec(c, np_), vec(scale, kp), vec(shift, kp)
+
+
 def _kernel(entry):
-    from .. import cuda_build
     lib = cuda_build.library("matmul_stats")
     fn = getattr(lib, entry)
     if fn.argtypes is None:
-        pointers = 8 if entry == "mxtt_matmul_stats" else 10
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 4 \
+        pointers = 6 if entry == "mxtt_matmul_stats" else 8
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.mxtt_matmul_stats_block_rows.restype = ctypes.c_int
         lib.mxtt_matmul_stats_error_string.argtypes = [ctypes.c_int]
         lib.mxtt_matmul_stats_error_string.restype = ctypes.c_char_p
     return lib, fn
 
 
+_SM_COUNT = {}
+
+
+def _partial_rows(dev, m, bf16):
+    """Rows of the kernel's partial sums: one a block of an n-tile in bf16
+    (at most the SM count), one a 128-row tile in f32."""
+    if not bf16:
+        return -(-m // 128)
+    rows = _SM_COUNT.get(dev.index)
+    if rows is None:
+        rows = _SM_COUNT[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return rows
+
+
 def _launch(x2d, w2d, c, scale=None, shift=None):
-    """K5, or K8 when ``scale`` and ``shift`` are given."""
+    """K5, or K8 when ``scale`` and ``shift`` are given (``c`` may then be
+    None, read as 0).  Returns ``(y, s1, s2, padded)``: ``padded`` when a
+    bf16 shape TMA does not take went through :func:`pad_operands`."""
     name = "matmul_stats" if scale is None else "matmul_stats_prologue"
     if x2d.dim() != 2 or w2d.dim() != 2 or x2d.shape[1] != w2d.shape[0]:
         raise MXNetError("%s: need x (M, K) and w (K, N), got %s and %s"
@@ -123,20 +169,20 @@ def _launch(x2d, w2d, c, scale=None, shift=None):
         raise MXNetError("%s: the kernel takes float32 or bfloat16 x and w "
                          "of one dtype, got %s and %s"
                          % (name, x2d.dtype, w2d.dtype))
-    if c.shape != (n,) or c.dtype != torch.float32:
-        raise MXNetError("%s: c must be float32 of shape (%d,), got %s %s"
-                         % (name, n, c.dtype, tuple(c.shape)))
-    vectors = [c]
+    vectors = [w2d]
+    if c is not None:
+        if c.shape != (n,) or c.dtype != torch.float32:
+            raise MXNetError("%s: c must be float32 of shape (%d,), got %s "
+                             "%s" % (name, n, c.dtype, tuple(c.shape)))
+        vectors.append(c)
     if scale is not None:
         for what, v in (("scale", scale), ("shift", shift)):
             if v.numel() != k or v.dtype != torch.float32:
                 raise MXNetError("%s: %s must be float32 with %d values, "
                                  "got %s %s" % (name, what, k, v.dtype,
                                                 tuple(v.shape)))
-        scale, shift = scale.reshape(k).contiguous(), \
-            shift.reshape(k).contiguous()
         vectors += [scale, shift]
-    if any(v.device != x2d.device for v in [w2d] + vectors):
+    if any(v.device != x2d.device for v in vectors):
         raise MXNetError("%s: inputs on different devices" % name)
     if min(m, n, k) < 1:
         raise MXNetError("%s: empty product (%d, %d) @ (%d, %d)"
@@ -145,25 +191,39 @@ def _launch(x2d, w2d, c, scale=None, shift=None):
     # the kernel reads w as (N, K) rows: the transpose of a (K, N) view of
     # an OIHW weight is that layout already, and costs no copy
     w_nk = w2d.t().contiguous()
-    c = c.contiguous()
-    lib, fn = _kernel("mxtt_" + name)
-    rows = lib.mxtt_matmul_stats_block_rows()
-    m_tiles = -(-m // rows)
+    bf16 = x2d.dtype == torch.bfloat16
+    padded = bf16 and bool(k % 8 or n % 8 or x2d.data_ptr() % 16
+                           or w_nk.data_ptr() % 16)
+    if padded:
+        x2d, w2d, c, scale, shift = pad_operands(x2d, w_nk.t(), c, scale,
+                                                 shift)
+        w_nk = w2d.t()
+    kp = x2d.shape[1]
+    np_ = w_nk.shape[0]
+    # every tensor a pointer is taken from stays referenced until the
+    # launch; K8 reads scale and shift 16 bytes at a time
+    vectors = [v if v.dim() == 1 and v.is_contiguous() and
+               not v.data_ptr() % 16 else v.reshape(-1).clone()
+               for v in (scale, shift, c) if v is not None]
+    pointers = [x2d.data_ptr(), w_nk.data_ptr()] \
+        + [v.data_ptr() for v in vectors] + ([None] if c is None else [])
     dev = x2d.device
-    y = torch.empty((m, n), dtype=x2d.dtype, device=dev)
-    part = torch.empty((2, m_tiles, n), dtype=torch.float32, device=dev)
-    s = torch.empty((2, n), dtype=torch.float32, device=dev)
-    prologue = [] if scale is None else [scale.data_ptr(), shift.data_ptr()]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x2d.data_ptr(), w_nk.data_ptr(), *prologue, c.data_ptr(),
-                y.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-                s[0].data_ptr(), s[1].data_ptr(), m, n, k,
-                _KERNEL_DTYPES[x2d.dtype], stream)
+    rows = _partial_rows(dev, m, bf16)
+    y = torch.empty((m, np_), dtype=x2d.dtype, device=dev)
+    # rows 0 to 2 rows - 1: the partial sums of s1, then of s2; the last
+    # two rows: s1 and s2
+    buf = torch.empty((2 * rows + 2, np_), dtype=torch.float32, device=dev)
+    lib, fn = _kernel("mxtt_" + name)
+    base = buf.data_ptr()
+    rc = cuda_build.on_device(dev, lambda stream: fn(
+        *pointers, y.data_ptr(), base, base + 8 * rows * np_, m, np_, kp,
+        rows, _KERNEL_DTYPES[x2d.dtype], stream))
     if rc != 0:
         raise MXNetError("%s: CUDA launch failed: %s (%d)" % (
             name, lib.mxtt_matmul_stats_error_string(rc).decode(), rc))
-    return y, s[0], s[1]
+    if padded:
+        return y[:, :n].contiguous(), buf[-2, :n], buf[-1, :n], True
+    return y, buf[-2], buf[-1], False
 
 
 def matmul_stats(x2d, w2d, c):
@@ -171,18 +231,22 @@ def matmul_stats(x2d, w2d, c):
     sums of ``(y - c)`` and ``(y - c)^2`` taken from the f32 accumulator
     before ``y`` is rounded.  A CUDA tensor launches the hand-written K5
     kernel (or raises); a CPU or meta tensor takes
-    :func:`matmul_stats_plain`."""
+    :func:`matmul_stats_plain`.  ``matmul_stats.launches`` counts the
+    launches, ``matmul_stats.padded`` those of them that went through
+    :func:`pad_operands`."""
     kind = x2d.device.type
     if kind == "cuda":
-        out = _launch(x2d, w2d, c)
+        y, s1, s2, padded = _launch(x2d, w2d, c)
         matmul_stats.launches += 1
-        return out
+        matmul_stats.padded += padded
+        return y, s1, s2
     if kind in ("cpu", "meta"):
         return matmul_stats_plain(x2d, w2d, c)
     raise MXNetError("matmul_stats: no path for device %s" % x2d.device)
 
 
 matmul_stats.launches = 0
+matmul_stats.padded = 0
 
 
 def matmul_stats_prologue(x2d, w2d, scale, shift):
@@ -190,13 +254,14 @@ def matmul_stats_prologue(x2d, w2d, scale, shift):
     shift)``, computed in f32 and rounded to ``x2d``'s dtype before the
     product; ``scale`` and ``shift`` are f32 with K values.  A CUDA tensor
     launches the prologue variant of ``csrc/matmul_stats.cu`` (or raises);
-    a CPU or meta tensor takes :func:`matmul_stats_prologue_plain`."""
+    a CPU or meta tensor takes :func:`matmul_stats_prologue_plain`.  Counts
+    as :func:`matmul_stats` does."""
     kind = x2d.device.type
     if kind == "cuda":
-        c = torch.zeros(w2d.shape[1], dtype=torch.float32, device=x2d.device)
-        out = _launch(x2d, w2d, c, scale, shift)
+        y, s1, s2, padded = _launch(x2d, w2d, None, scale, shift)
         matmul_stats_prologue.launches += 1
-        return out
+        matmul_stats_prologue.padded += padded
+        return y, s1, s2
     if kind in ("cpu", "meta"):
         return matmul_stats_prologue_plain(x2d, w2d, scale, shift)
     raise MXNetError("matmul_stats_prologue: no path for device %s"
@@ -204,6 +269,7 @@ def matmul_stats_prologue(x2d, w2d, scale, shift):
 
 
 matmul_stats_prologue.launches = 0
+matmul_stats_prologue.padded = 0
 
 
 # ------------------------------------------------ the K5 region

@@ -9,7 +9,18 @@ round an f32 accumulator once; the accumulators differ by the f32 rounding
 of sums whose terms reach that size, more than an ulp of an entry near 0),
 s1 and s2 by relative norm 1e-4.  The ``cuda`` test holds the CUDA kernel
 against the plain version on the card.
+
+The padding rule (``pad_operands``: bf16 shapes TMA does not take, K or N
+not a multiple of 8, are zero-padded before the launch) is held on the
+CPU through the plain version: the first N columns of the padded y equal
+the unpadded y exactly, the sums agree to 1e-6 by relative norm (the same
+f32 terms summed in another order over a wider tensor), and both agree
+with the JAX ``matmul_stats`` at the unpadded shape by the tolerances
+above.
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -18,6 +29,8 @@ import jax.numpy as jnp
 
 from mxnet_tpu.ops import fused as jfused
 
+import chip_smoke
+from mxnet_tpu_torch import cuda_build
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import fused as tfused
 
@@ -139,3 +152,146 @@ def test_wrapper_refuses_mismatched_inputs():
         tfused._launch(x, w, torch.zeros(4))
     with pytest.raises(MXNetError, match="need x"):
         tfused._launch(x, torch.zeros(5, 3), torch.zeros(3))
+
+
+# (M, K, N) with K or N not a multiple of 8: the bf16 kernel's TMA needs
+# 16-byte row strides, so the wrapper pads these
+ODD_SHAPES = [(300, 30, 70), (64, 7, 9), (513, 130, 30), (256, 64, 100)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", ODD_SHAPES, ids=str)
+def test_padding_keeps_the_function(shape, dtype):
+    m, k, n = shape
+    dt = getattr(torch, dtype)
+    x, w, c = _inputs(m, k, n)
+    tx = torch.from_numpy(x).to(dt)
+    tw = torch.from_numpy(w).to(dt)
+    tc = torch.from_numpy(c)
+    xp, wp, cp, scale, shift = tfused.pad_operands(tx, tw, tc)
+    kp, np_ = -(-k // 8) * 8, -(-n // 8) * 8
+    assert xp.shape == (m, kp) and wp.shape == (kp, np_)
+    assert cp.shape == (np_,) and scale is None and shift is None
+    # w as the kernel reads it: the (Np, Kp) rows, contiguous
+    assert wp.t().is_contiguous()
+    assert torch.equal(xp[:, :k], tx) and not xp[:, k:].any()
+    assert torch.equal(wp[:k, :n], tw) and not wp[k:].any() \
+        and not wp[:, n:].any() and not cp[n:].any()
+    y, s1, s2 = tfused.matmul_stats_plain(tx, tw, tc)
+    yp, s1p, s2p = tfused.matmul_stats_plain(xp, wp, cp)
+    assert torch.equal(yp[:, :n], y) and not yp[:, n:].float().any()
+    for got, want in ((s1p, s1), (s2p, s2)):
+        assert not got[n:].any()
+        assert (got[:n] - want).norm() <= 1e-6 * want.norm()
+    jx = jnp.asarray(x).astype(dtype)
+    jw = jnp.asarray(w).astype(dtype)
+    eligible = n % 128 == 0 and k % 8 == 0
+    want = jfused.matmul_stats(jx, jw, jnp.asarray(c), interpret=eligible)
+    _check([yp[:, :n].float().numpy(), s1p[:n].numpy(), s2p[:n].numpy()],
+           [np.asarray(v.astype(jnp.float32)) for v in want], dtype)
+
+
+def test_padding_leaves_vectors_it_is_not_given():
+    """K8's scale and shift pad with zeros to Kp (relu(0 * 0 + 0) = 0 on
+    the padded depth columns); a missing c stays missing."""
+    x, w = torch.ones(4, 6), torch.ones(6, 5)
+    _x, _w, c, scale, shift = tfused.pad_operands(
+        x, w, None, torch.full((6,), 2.0), torch.full((6,), 3.0))
+    assert c is None
+    assert scale.tolist() == [2.0] * 6 + [0.0] * 2
+    assert shift.tolist() == [3.0] * 6 + [0.0] * 2
+
+
+def _k5_source():
+    csrc = Path(cuda_build.__file__).parent / "csrc"
+    return ((csrc / "matmul_stats.cu").read_text(),
+            (csrc / "sm90_common.cuh").read_text())
+
+
+def test_bf16_kernel_is_one_hopper_design():
+    """The bf16 path is a persistent wgmma kernel fed by a TMA/mbarrier
+    ring with y stored by TMA: no mma.sync or cp.async design beside it,
+    and no library call."""
+    src, common = _k5_source()
+    assert cuda_build.SOURCES["matmul_stats"] == "csrc/matmul_stats.cu"
+    assert '#include "sm90_common.cuh"' in src
+    for used in ("wgmma_ss<0, 0>(acc", "tma_load_2d(", "tma_store_2d(",
+                 "mbar_wait(&full[s]", "mbar_arrive(&empty[",
+                 "mbar_expect_tx(", "setmaxnreg_inc<CONSUMER_REGS>",
+                 "setmaxnreg_dec<PRODUCER_REGS>", "fence_proxy_async();",
+                 "bulk_wait_read<0>();", "stats_reduce_kernel<<<",
+                 "int mxtt_matmul_stats(", "int mxtt_matmul_stats_prologue("):
+        assert used in src, used
+    for gone in ("mma.sync", "cp.async.cg", "cp.async.commit_group",
+                 "cp_async", "ldmatrix", "atomicAdd"):
+        assert gone not in src, gone
+    assert not re.search(r"cublas|cutlass", src, re.I)
+    assert "wgmma.mma_async.sync.aligned.m64n256k16" in common
+    assert "cp.async.bulk.tensor.2d.shared::cluster.global" in common
+    assert "cp.async.bulk.tensor.2d.global.shared::cta" in common
+    # the ring: STAGES full and empty barriers, at least three stages
+    assert "__shared__ uint64_t full[STAGES], empty[STAGES];" in src
+    assert 'static_assert(STAGES >= 3' in src
+
+
+def test_k5_ptxas_summary_reads_each_instantiation():
+    """chip_smoke's report of -Xptxas -v for matmul_stats.cu: registers,
+    shared memory and spills per kernel instantiation."""
+    log = (
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__eb3707b4"
+        "_15_matmul_stats_cu_e4eabcdd24matmul_stats_sm90_kernelILi256ELb0EEE"
+        "v14CUtensorMap_stS1_S1_NS_4ArgsE' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN48_GLOBAL__N__eb3707b4_15"
+        "_matmul_stats_cu_e4eabcdd24matmul_stats_sm90_kernelILi256ELb0EEEv14"
+        "CUtensorMap_stS1_S1_NS_4ArgsE\n"
+        "    40 bytes stack frame, 96 bytes spill stores, 88 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 168 registers, used 16 barriers, 1072 bytes "
+        "smem\n"
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__eb3707b4"
+        "_15_matmul_stats_cu_e4eabcdd3f3219stats_reduce_kernelEPKfS2_iiPfS3_'"
+        " for 'sm_90a'\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 32 registers, used 1 barriers, 4224 bytes smem"
+        "\n")
+    out = chip_smoke.k5_ptxas_summary(log)
+    assert out == {
+        "matmul_stats_sm90_kernel<256,0>": {
+            "stack": 40, "spill_stores": 96, "spill_loads": 88,
+            "registers": 168, "smem": 1072},
+        "stats_reduce_kernel": {
+            "stack": 0, "spill_stores": 0, "spill_loads": 0,
+            "registers": 32, "smem": 4224}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(1000, 72, 200), (4096, 256, 64),
+                                   (300, 30, 70)], ids=str)
+def test_two_launches_are_bit_identical_on_card(cuda_device, shape, dtype):
+    """Every column sum has one fixed order: no atomics, a static list of
+    items, the partial rows summed in order."""
+    dt = getattr(torch, dtype)
+    x, w, c = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs(*shape))
+    x, w = x.to(dt), w.to(dt)
+    first = tfused.matmul_stats(x, w, c)
+    second = tfused.matmul_stats(x, w, c)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(300, 30, 70), (1000, 72, 200)],
+                         ids=str)
+def test_bf16_shapes_tma_refuses_are_padded_on_card(cuda_device, shape):
+    m, k, n = shape
+    x, w, c = (torch.from_numpy(a).to(cuda_device) for a in _inputs(*shape))
+    tfused.matmul_stats.launches = 0
+    tfused.matmul_stats.padded = 0
+    y, s1, _s2 = tfused.matmul_stats(x.bfloat16(), w.bfloat16(), c)
+    torch.cuda.synchronize()
+    assert y.shape == (m, n) and y.is_contiguous() and s1.shape == (n,)
+    assert tfused.matmul_stats.launches == 1
+    assert tfused.matmul_stats.padded == (1 if k % 8 or n % 8 else 0)

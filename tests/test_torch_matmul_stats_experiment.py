@@ -7,7 +7,10 @@ Tolerances: y within one bf16 ulp of the JAX y (both round an f32
 accumulator of exact bf16 products once; the accumulators differ only in
 the order of their f32 sums); the (1, N) statistics by relative norm 1e-5
 (f32 sums of 1024 rows in other orders).  The ``cuda`` tests hold the CUDA
-kernels against the plain versions on the card.
+kernels against the plain versions on the card.  K8 through the bf16
+padding rule (``ops.fused.pad_operands``) is held to the JAX tool at the
+unpadded shape, and to the unpadded plain version (y exactly, the sums by
+relative norm 1e-6: the same f32 terms summed over a wider tensor).
 """
 import importlib.util
 import os
@@ -19,6 +22,7 @@ import torch
 import jax.numpy as jnp
 from jax.experimental.pallas import tpu as pltpu
 
+import chip_smoke
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import fused
 from mxnet_tpu_torch.tools import matmul_stats_experiment as tool
@@ -187,3 +191,58 @@ def test_k8_kernel_matches_plain_on_card(cuda_device, shape, dtype):
         <= tol * ry.float().abs().max().item()
     for s, r in ((s1, rs1), (s2, rs2)):
         assert (s - r).norm().item() <= 1e-4 * r.norm().item()
+
+
+@pytest.mark.parametrize("shape", [(512, 30, 70), (1024, 64, 100)], ids=str)
+def test_k8_padding_keeps_the_function(shape):
+    (jx, jw, js, jb), (x, w, scale, shift) = _inputs(*shape)
+    n = shape[2]
+    xp, wp, c, sp, bp = fused.pad_operands(x, w, None, scale, shift)
+    assert c is None and sp.shape == bp.shape == (xp.shape[1],)
+    y, s, ss = fused.matmul_stats_prologue_plain(x, w, scale, shift)
+    yp, sp_, ssp = fused.matmul_stats_prologue_plain(xp, wp, sp, bp)
+    assert torch.equal(yp[:, :n], y) and not yp[:, n:].float().any()
+    for got, want in ((sp_, s), (ssp, ss)):
+        assert not got[n:].any()
+        assert (got[:n] - want).norm() <= 1e-6 * want.norm()
+    with pltpu.force_tpu_interpret_mode():
+        want = JTOOL.matmul_stats_prologue(jx, jw, js, jb)
+    _check([yp[:, :n].float().numpy(), sp_[:n].numpy().reshape(1, -1),
+            ssp[:n].numpy().reshape(1, -1)], _jnp(want))
+
+
+def test_k7_zero_vector_is_made_once():
+    """K7's c = 0 is cached per width and device, not allocated a call."""
+    _j, (x, w, _s, _b) = _inputs(512, 64, 128)
+    assert tool._zeros(128, x.device) is tool._zeros(128, x.device)
+    assert not tool._zeros(128, x.device).any()
+    assert tool._zeros(64, x.device).shape == (64,)
+
+
+def test_k5_shapes_are_the_resnet_steps():
+    """The tool's K5 shapes are chip_smoke's, the 16 launches of one
+    ResNet-50 step."""
+    assert tool.k5_shapes(128) == [(m, k, n) for m, k, n, _c
+                                   in chip_smoke.K5_BENCH_SHAPES]
+
+
+@pytest.mark.parametrize("variant", sorted(tool.VARIANTS))
+def test_every_variant_finds_its_text(variant):
+    """Each variant is a text edit of the committed source and must find
+    what it replaces; it changes matmul_stats.cu and nothing else."""
+    texts = tool._sources(variant, None)
+    committed = (tool._CSRC / "matmul_stats.cu").read_text()
+    assert texts["matmul_stats.cu"] != committed
+    assert texts["sm90_common.cuh"] == \
+        (tool._CSRC / "sm90_common.cuh").read_text()
+
+
+def test_generated_register_a_product_numbers_its_operands():
+    """The m64n256k16 register-A wgmma of the pro_registers variant: 128
+    accumulators, then the 4 A registers, the descriptor, scale-d and the
+    transpose bit, in the order sm90_common.cuh's forms use."""
+    src = tool._wgmma_rs(256)
+    assert "m64n256k16" in src and "float (&d)[128]" in src
+    assert "setp.ne.b32 p, %133, 0;" in src
+    assert "{%128, %129, %130, %131}, %132, p, 1, 1, %134;" in src
+    assert src.count('"+f"(d[') == 128
