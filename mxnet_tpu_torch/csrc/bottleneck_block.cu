@@ -13,388 +13,763 @@
 //   t2 = relu((3x3 conv of t1 with w2) * s2 + b2)
 //   y  = t2 @ w3                            (N, 56, 56, COUT) bf16
 // with f32 accumulation and a, t1, t2 rounded to bf16 before each product,
-// where the library route rounds them between its convolutions.
+// where the library route rounds them between its convolutions.  CIN and
+// COUT are multiples of 16 in [16, 256], CMID one of 16, 32, 48, 64: both
+// stage-1 channel sets of a deep ResNet, (64, 64, 256) and (256, 64, 256).
+// The TPU kernel's band height (`rows`) does not change y; this kernel
+// picks its own (choose_band).
 //
-// What bounds it on this card: at the defaults (64, 64, 256) a block does
-// 2 * 57344 flops for each output pixel and moves 128 bytes of x and 512
-// of y, 179 flops a byte, under the 295 at which the H100's tensor cores
-// overtake its memory (the H100 SXM data sheet's 989 TFLOP/s bf16 and
-// 3.35 TB/s, at its 700 W limit): bytes bound it, 0.077 ms at batch 128.
-// So x is read once and y written once, and t1 and t2 never leave shared
-// memory.
+// What bounds it on this card: at (64, 64, 256) a block does 2 * 57344
+// flops for each output pixel and moves 128 bytes of x and 512 of y, 179
+// flops a byte, under the 295 at which the H100's tensor cores overtake its
+// memory (the H100 SXM data sheet's 989 TFLOP/s bf16 and 3.35 TB/s, at its
+// 700 W limit): bytes bound it, 0.077 ms at batch 128; at (256, 64, 256)
+// 136 flops a byte, 0.123 ms.  So x is read once and y written once, and
+// t1 and t2 never leave the SM.
 //
-// What the design does:
-// * One block of 8 warps per SM (the weights and two activations fill its
-//   shared memory), looping over bands of R image rows of one image.  The
-//   weights are staged once per block by cp.async; the TPU kernel's grid
-//   ran in order on one core, here each block owns whole bands and nothing
-//   carries over between blocks.
-// * Stage 1: the 1x1 on the band and its one-row, one-column halo,
-//   (R + 2) x 58 positions, A fragments read straight from x with the
-//   bounds checks the TPU version had from a padded copy in device memory
-//   (there is none here); the first BatchNorm-ReLU is applied to them in
-//   registers.  The epilogue applies the second and writes 0 for positions
-//   outside the image: after BatchNorm-ReLU those would hold relu(b1), not
-//   the 0 the 3x3's padding needs.  Halo rows inside the image are real
-//   neighbours and keep their values.
-// * Stage 2: the 3x3 as 9 shifted products over t1 in shared memory; each
-//   lane hands ldmatrix the t1 row of its own output position and tap.
-// * Stage 3: the expanding 1x1 from t2 in shared memory, straight to y.
-// * mma.sync m16n8k16 bf16 with f32 accumulators; a warp owns 16 output
-//   rows and up to 64 columns.  Weights stay [in][out] as given and feed
-//   the B operand through ldmatrix.trans; activation rows are padded by 8
-//   values so that ldmatrix's 8 rows fall in 32 different banks.
+// The design (each choice timed at batch 128 on an NVIDIA H100 80GB HBM3,
+// 700 W, by variants of this file against it; PERF.md keeps the numbers):
+// * Persistent: one block an SM walks (image, band) items, a band being R
+//   image rows, an even divisor of 56 (choose_band: whole images at batch
+//   128; 8-row bands took 1.02x at (64, 64, 256) and 1.13x at (256, 64,
+//   256), 2-row bands 1.26x and 1.50x, from the halo's extra stage-1
+//   rows).  Every tile is one image row: the 64 positions w = -1 ..
+//   62 of a row and its one-cell halo, so an M tile of wgmma (64 rows) is a
+//   row, a band of R output rows needs R + 2 rows of t1, and positions 57
+//   .. 63 are computed and never stored.
+// * A producer warp issues every TMA load.  The weights come once, in
+//   strips of 8 output channels that land as MN-major interleaved operands
+//   (interleaved_mnmajor), w1 first and w2 and w3 after the first two rows
+//   of x, so that stage 1 starts while they land.  x comes in 4-d boxes of
+//   (64 channels, 64 positions, 1 row, 1 image) starting at (c, -1, row,
+//   img), SWIZZLE_128B.  TMA fills what lies outside the tensor with zeros
+//   (the rows above and below the image, w = -1 and w >= 56), which
+//   replaces the bounds checks of a load by threads; those cells become
+//   relu(b0) after the first BN and the t1 they give is set to 0, as the
+//   padding wants.  Each consumer's next row is fetched into L2 while its
+//   ring has no room (1.01x to 1.02x at (256, 64, 256), whose rings hold
+//   half a row; nothing at (64, 64, 256)).
+// * Two consumer warpgroups take the rows of a band in turns: consumer c
+//   computes t1 rows h = c, c + 2, ... (haloed row h is image row r0 - 1 +
+//   h) and output rows j = c, c + 2, ..., each after the t1 row j + 2 it
+//   owns.  Each has its own x ring of `stages` stages (one 64-channel chunk
+//   of one row each, a full and an empty mbarrier each), so every barrier
+//   is waited on by one warpgroup in order.  t1 rows live in one ring of
+//   `slots` rows shared by both: a full barrier (the writer's 128 threads)
+//   and an empty one (all 256 consumer threads, each once it has read the
+//   row for the last time; a row a consumer never reads it waits for, then
+//   releases, so both consumers see every phase of every slot in order).
+//   With at least 4 slots neither consumer can fall a whole phase behind.
+//   (One arrival a warp instead of one a thread measured the same.)
+// * Stage 1, per t1 row: each landed x chunk is rewritten in place as
+//   bf16(relu(x * s0 + b0)) by its consumer (a 16-byte unit a thread,
+//   branch-free), fence.proxy.async and a warpgroup barrier, then wgmma
+//   m64nCMIDk16 with A the chunk (K-major, SWIZZLE_128B) and B w1, each
+//   chunk's products waited for before the next chunk.  The epilogue
+//   applies the second BN-ReLU, writes 0 outside the image and stores t1 as
+//   bf16 in the interleaved layout: planes of 8 channels, each a row's 64
+//   positions of 16 bytes.
+// * Stage 2, per output row j: the 3x3 as 9 taps x CMID / 16 products of
+//   m64nCMIDk16, A the t1 row j + dy read from position dx on.  In the
+//   interleaved layout a tile may start on any position (8 positions are
+//   128 contiguous bytes), so the shifted tiles need no swizzle arithmetic;
+//   a SWIZZLE_128B t1 read from a row that is not on the pattern's 8-row
+//   period gives permuted numbers without a fault.  Positions past a row's
+//   64 read the next plane: they feed only the 8 unstored outputs.
+// * Stage 3 chained per row, as flash attention chains S into P V: the
+//   stage-2 accumulator takes BN-ReLU in registers, is rounded to bf16 and
+//   becomes the register A operand of wgmma m64n64k16 over 64-column chunks
+//   of w3 (the last chunk 16, 32 or 48 wide): t2 never touches shared
+//   memory.  Each chunk's y goes through a staging tile (SWIZZLE_128B) and
+//   leaves by a TMA store of its 56 real rows (columns past COUT are not
+//   written), waited for only before the staging tile is written again.
+// * The second and third BatchNorms of a thread's accumulator columns stay
+//   in registers for the block's life, and every BN-ReLU is an f32 FMA and
+//   one cvt.rn.relu.bf16x2.  No atomics: two launches give the same
+//   bits.
+//
+// Where trouble was likely, and what resolved it:
+// * Shared memory at cin = 256 (make_plan): resident bf16 weights take
+//   136 KB (w1 32, w2 72, w3 32).  One row of t1 is 8 KB, so a ring of 4 to
+//   6 rows (not a haloed band) holds t1; y is staged 64 columns at a time
+//   (8 KB a consumer); the x rings get the rest, 2 stages a consumer at
+//   (256, 64, 256) and 4 at (64, 64, 256).
+// * The 3x3's shifted A tiles: the interleaved layout above.
+// * M tiles: a tile is a row of 64 positions, 56 of them real, so no tile
+//   straddles two image rows, and a store of 56 rows writes nothing past the
+//   band.
+// * Registers: no setmaxnreg (two warpgroups and a warp: 224 registers a
+//   thread by launch bounds); stage 3 runs 64 columns at a time.
+//   chip_smoke's build phase fails on a spill.
+// * ptxas serializes wgmmas (its warnings C7514 to C7520) on a branch on
+//   one thread (the y store) while products are in flight (1.40x and
+//   1.26x slower: so each chunk of stage 3 ends before its epilogue) and
+//   on a guard around single products (C7519, 1.01x: so a chunk's k-steps
+//   are a switch over whole groups, s1_products).  The first build, whose
+//   consumers' trip counts differed (odd bands) and whose operand fences
+//   followed wgmma.fence, warned C7518 and C7519 as well: R is even, so
+//   both consumers run R / 2 rows, and fence_regs comes first.
 //
 // Built by mxnet_tpu_torch/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libbottleneck_block-<hash>.so this file
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90_common.cuh"
 
 namespace {
 
+using namespace sm90;
+
 constexpr int H = 56;
 constexpr int W = 56;
-constexpr int WP = W + 2;  // a haloed row
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
+constexpr int TP = 64;          // positions of a row tile: w = -1 .. 62
+constexpr int CH = 64;          // channels of an x chunk: 128-byte rows
+constexpr int CONSUMERS = 2;    // warpgroups
+constexpr int THREADS = CONSUMERS * WG + 32;   // + the producer warp
+constexpr int MAX_STAGES = 4;   // x chunks in a consumer's ring
+constexpr int MIN_SLOTS = 4;    // t1 rows in the shared ring
+constexpr int MAX_SLOTS = 6;
+using XT = Tile<CH, TP>;        // an x chunk, or a y staging tile
+constexpr int CHUNK = XT::BYTES;       // 8192
+constexpr int PLANE = TP * 16;         // 8 channels of a t1 row
+constexpr int GUARD = 128;      // read (never used) past the last t1 row
+constexpr int SMEM_LIMIT = 232448;     // a block's shared memory on the H100
+constexpr int SMEM_STATIC = 256;       // the mbarriers, rounded up
+constexpr int SMEM_MAX = SMEM_LIMIT - SMEM_STATIC;
+// named barriers: BAR_X + c consumer c's x chunk rewritten; BAR_Y + c its
+// y staging free, then written
+constexpr int BAR_X = 2;
+constexpr int BAR_Y = 4;
 
-typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// The A fragment of a 16 x 16 tile: lane l names row (l & 15), columns
-// (l >> 4) * 8 .. + 7 of it.
-__device__ __forceinline__ void ldmatrix_a(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-// The B fragments of two n8 tiles from a row-major [k][n] tile: lane l
-// names row k = (l & 15), columns (l >> 4) * 8 .. + 7; r[0], r[1] are the
-// first tile's, r[2], r[3] the second's.
-__device__ __forceinline__ void ldmatrix_b(uint32_t* r, const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ float bn_relu(float v, float s, float b) {
-  return fmaxf(__fadd_rn(__fmul_rn(v, s), b), 0.0f);
-}
-
-__device__ __forceinline__ uint32_t pack(float a, float b) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// bf16(relu(x * s + b)) of columns c, c + 1 of one x row (0 for no row)
-__device__ __forceinline__ uint32_t act_pair(const bf16* row, int c,
-                                             const float* s, const float* b) {
-  if (row == nullptr) return 0u;
-  const float2 v =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
-  return pack(bn_relu(v.x, s[c], b[c]), bn_relu(v.y, s[c + 1], b[c + 1]));
-}
-
-template <int CIN, int CMID, int COUT, int R>
-struct Cfg {
-  static constexpr int P1 = (R + 2) * WP;     // haloed band positions
-  static constexpr int P1T = (P1 + 15) / 16;  // their m16 tiles
-  static constexpr int P2 = R * W;            // output positions
-  static constexpr int P2T = P2 / 16;
-  static constexpr int LW1 = CMID + 8;        // padded row lengths
-  static constexpr int LW3 = COUT + 8;
-  static constexpr int LT = CMID + 8;         // w2, t1 and t2 rows
-  // offsets in bf16 values into dynamic shared memory
-  static constexpr int W1 = 0;
-  static constexpr int W2 = W1 + CIN * LW1;
-  static constexpr int W3 = W2 + 9 * CMID * LT;
-  static constexpr int T1 = W3 + CMID * LW3;
-  static constexpr int T2 = T1 + P1T * 16 * LT;
-  static constexpr int END = T2 + P2 * LT;
-  static constexpr int F32 = 2 * CIN + 4 * CMID;  // s0 b0 s1 b1 s2 b2
-  static constexpr size_t SMEM = END * sizeof(bf16) + F32 * sizeof(float);
-  static constexpr int NCH = COUT < 64 ? COUT : 64;  // stage-3 warp columns
-  static_assert(CIN % 16 == 0 && CMID % 16 == 0 && COUT % 16 == 0, "");
-  static_assert(CMID <= 64 && COUT % NCH == 0, "");
-  static_assert(R % 2 == 0 && H % R == 0, "R * W must be a multiple of 16");
+// A launch's shapes and shared-memory layout, made on the host (make_plan).
+// Offsets are bytes from the 1024-aligned base: the x rings at 0
+// (consumer c's stages at c * stages * CHUNK), then the y staging tiles,
+// w1, w2, w3 (strips of 8 output channels), the t1 ring and its guard.
+struct Plan {
+  int cin, cout, cmax;
+  int band, bands, items;   // band height, bands an image, n * bands
+  int nch;                  // x chunks a row: ceil(cin / 64)
+  int stages, slots;
+  int ys, w1, w2, w3, t1, smem;
 };
 
-template <int CIN, int CMID, int COUT, int R>
-__global__ void __launch_bounds__(THREADS)
-bottleneck_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                  const bf16* __restrict__ w2, const bf16* __restrict__ w3,
-                  const float* __restrict__ scales,
-                  const float* __restrict__ shifts, int cmax,
-                  bf16* __restrict__ y, int n_images) {
-  using C = Cfg<CIN, CMID, COUT, R>;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sm = reinterpret_cast<bf16*>(smem);
-  bf16* w1s = sm + C::W1;
-  bf16* w2s = sm + C::W2;
-  bf16* w3s = sm + C::W3;
-  bf16* t1s = sm + C::T1;
-  bf16* t2s = sm + C::T2;
-  float* s0 = reinterpret_cast<float*>(sm + C::END);
-  float* b0 = s0 + CIN;
-  float* s1 = b0 + CIN;
-  float* b1 = s1 + CMID;
-  float* s2 = b1 + CMID;
-  float* b2 = s2 + CMID;
+// bf16x2(relu(v * s + b)) of two neighbouring channels (lo, hi): an f32
+// FMA, then relu and the rounding to bf16 in one instruction.
+__device__ __forceinline__ uint32_t bn_relu2(float lo, float hi, float2 s,
+                                             float2 b) {
+  uint32_t r;
+  asm("cvt.rn.relu.bf16x2.f32 %0, %1, %2;"
+      : "=r"(r)
+      : "f"(fmaf(hi, s.y, b.y)), "f"(fmaf(lo, s.x, b.x)));
+  return r;
+}
 
+// bf16(relu(x * s0 + b0)) in place over consumer c's landed x chunk k: a
+// thread takes the 16-byte unit ctid % 8 (8 channels) of positions
+// ctid / 8 + 16 m, through the swizzle.  Branch-free: positions 0 and
+// 57 .. 63 are masked in t1 whatever they hold, and channels past cin
+// (their scale and shift read at cin - 1) are never read.
+__device__ __forceinline__ void rewrite_chunk(uint8_t* xs, int k, int ctid,
+                                              int cin,
+                                              const float* __restrict__ s0,
+                                              const float* __restrict__ b0) {
+  const int cc = ctid & 7;
+  const int ch = k * CH + 8 * cc;
+  float s[8], b[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    s[e] = __ldg(s0 + min(ch + e, cin - 1));
+    b[e] = __ldg(b0 + min(ch + e, cin - 1));
+  }
+#pragma unroll
+  for (int m = 0; m < TP / 16; ++m) {
+    const int pos = (ctid >> 3) + 16 * m;
+    uint4* ptr = reinterpret_cast<uint4*>(
+        xs + pos * 128 + ((cc ^ XT::swizzle_key(pos)) << 4));
+    uint4 v = *ptr;
+    uint32_t* w = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<__nv_bfloat162*>(&w[e]));
+      w[e] = bn_relu2(f.x, f.y, make_float2(s[2 * e], s[2 * e + 1]),
+                      make_float2(b[2 * e], b[2 * e + 1]));
+    }
+    *ptr = v;
+  }
+}
+
+// Stage 1, the KS k-steps of x chunk k (landed at xa) times w1's rows,
+// issued, committed and waited for: a whole group in each arm of a switch
+// on the count.  A guard on each product (kk tested against the chunk's
+// k-steps) makes ptxas warn C7519 and costs 1.01x; a group that spans the
+// switch's branches warned C7520.
+template <int KS, int CMID>
+__device__ __forceinline__ void s1_products(float (&acc)[CMID / 2],
+                                            uint32_t xa, uint32_t w1a,
+                                            int cin, int k) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+    wgmma_ss<0, 1>(acc, XT::kmajor(xa, 0, kk),
+                   interleaved_mnmajor(w1a + (64 * k + 16 * kk) * 16,
+                                       cin * 16),
+                   k > 0 || kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+}
+
+// Stage 3 for NC columns of y from n0 of one output row: t2 (registers,
+// the A operand) times w3's columns; once the products have ended, y goes
+// through consumer c's staging tile and a TMA store of the row's 56
+// positions.  The leader's store (a branch on one thread) runs with no
+// product in flight: issuing the next chunk's products before this
+// chunk's epilogue made ptxas serialize the wgmmas (C7514, C7517) and
+// took 1.40x at (64, 64, 256), 1.26x at (256, 64, 256).
+template <int NC, int CMID>
+__device__ __forceinline__ void s3_chunk(const uint32_t (&a)[CMID / 16][4],
+                                         uint32_t w3a, int cout, int n0,
+                                         uint8_t* ys, const CUtensorMap* tm_y,
+                                         int yrow, int c, int warp, int lane,
+                                         bool leader) {
+  float acc[NC / 2];
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < CMID / 16; ++kk)
+    wgmma_rs<1>(acc, a[kk],
+                interleaved_mnmajor(w3a + (n0 / 8 * CMID + 16 * kk) * 16,
+                                    CMID * 16),
+                kk > 0);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(acc);
+  // the staging tile is free once the previous store has read it
+  if (leader) bulk_wait_read<0>();
+  bar_sync(BAR_Y + c, WG);
+#pragma unroll
+  for (int i = 0; i < NC / 2; i += 2) {
+    const int row = acc_row(warp, lane, i), col = acc_col(lane, i);
+    *reinterpret_cast<uint32_t*>(
+        ys + XT::offset(row, col, XT::swizzle_key(row))) =
+        pack_bf16(acc[i], acc[i + 1]);
+  }
+  fence_proxy_async();
+  bar_sync(BAR_Y + c, WG);
+  if (leader) {
+    tma_store_2d(tm_y, ys, n0, yrow);
+    bulk_commit();
+  }
+}
+
+// Stage 3 of one output row over all cout columns: 64-column chunks, then
+// a last chunk of 16, 32 or 48 columns.
+template <int CMID>
+__device__ __forceinline__ void stage3(const uint32_t (&a)[CMID / 16][4],
+                                       uint32_t w3a, int cout, uint8_t* ys,
+                                       const CUtensorMap* tm_y, int yrow,
+                                       int c, int warp, int lane,
+                                       bool leader) {
+  const int nfull = cout / 64;
+  for (int n = 0; n < nfull; ++n)
+    s3_chunk<64, CMID>(a, w3a, cout, n * 64, ys, tm_y, yrow, c, warp, lane,
+                       leader);
+  const int n0 = nfull * 64;
+  switch (cout - n0) {
+    case 48:
+      s3_chunk<48, CMID>(a, w3a, cout, n0, ys, tm_y, yrow, c, warp, lane,
+                         leader);
+      break;
+    case 32:
+      s3_chunk<32, CMID>(a, w3a, cout, n0, ys, tm_y, yrow, c, warp, lane,
+                         leader);
+      break;
+    case 16:
+      s3_chunk<16, CMID>(a, w3a, cout, n0, ys, tm_y, yrow, c, warp, lane,
+                         leader);
+      break;
+    default:
+      break;
+  }
+}
+
+template <int CMID>
+__global__ void __launch_bounds__(THREADS, 1)
+bottleneck_sm90_kernel(const __grid_constant__ CUtensorMap tm_x,
+                       const __grid_constant__ CUtensorMap tm_y,
+                       const __grid_constant__ CUtensorMap tm_w1,
+                       const __grid_constant__ CUtensorMap tm_w2,
+                       const __grid_constant__ CUtensorMap tm_w3,
+                       const float* __restrict__ scales,
+                       const float* __restrict__ shifts, const Plan p) {
+  constexpr int SLOT = CMID * TP * 2;   // one t1 row: CMID / 8 planes
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full_x[CONSUMERS][MAX_STAGES];
+  __shared__ uint64_t empty_x[CONSUMERS][MAX_STAGES];
+  __shared__ uint64_t full_t1[MAX_SLOTS], empty_t1[MAX_SLOTS];
+  __shared__ uint64_t wbar[2];   // w1 landed; w2 and w3 landed
+  uint8_t* sm = align1024(smem_raw);
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;  // mma group: row of A and C, column of B
-  const int t = lane & 3;   // thread in group
-  const int lrow = lane & 15;         // ldmatrix: the row this lane names
-  const int lcol = (lane >> 4) * 8;   // and its 8 columns
 
-  // the weights, once per block: rows of 8-value (16-byte) chunks
-  for (int i = tid; i < CIN * CMID / 8; i += THREADS) {
-    const int r = i / (CMID / 8), c = (i % (CMID / 8)) * 8;
-    cp_async16(w1s + r * C::LW1 + c, w1 + r * CMID + c);
+  if (tid == 0) {
+    for (int c = 0; c < CONSUMERS; ++c)
+      for (int s = 0; s < p.stages; ++s) {
+        mbar_init(&full_x[c][s], 1);
+        mbar_init(&empty_x[c][s], WG);
+      }
+    for (int s = 0; s < p.slots; ++s) {
+      mbar_init(&full_t1[s], WG);
+      mbar_init(&empty_t1[s], CONSUMERS * WG);
+    }
+    mbar_init(&wbar[0], 1);
+    mbar_init(&wbar[1], 1);
+    fence_barrier_init();
   }
-  for (int i = tid; i < 9 * CMID * CMID / 8; i += THREADS) {
-    const int r = i / (CMID / 8), c = (i % (CMID / 8)) * 8;
-    cp_async16(w2s + r * C::LT + c, w2 + r * CMID + c);
-  }
-  for (int i = tid; i < CMID * COUT / 8; i += THREADS) {
-    const int r = i / (COUT / 8), c = (i % (COUT / 8)) * 8;
-    cp_async16(w3s + r * C::LW3 + c, w3 + r * COUT + c);
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-  for (int i = tid; i < CIN; i += THREADS) {
-    s0[i] = scales[i];
-    b0[i] = shifts[i];
-  }
-  for (int i = tid; i < CMID; i += THREADS) {
-    s1[i] = scales[cmax + i];
-    b1[i] = shifts[cmax + i];
-    s2[i] = scales[2 * cmax + i];
-    b2[i] = shifts[2 * cmax + i];
-  }
-  asm volatile("cp.async.wait_group 0;\n" ::);
   __syncthreads();
 
-  const int bands = n_images * (H / R);
-  for (int band = blockIdx.x; band < bands; band += gridDim.x) {
-    const int img = band / (H / R);
-    const int r0 = (band % (H / R)) * R;  // first image row of the band
-    const bf16* xi = x + (size_t)img * H * W * CIN;
-
-    // ---- stage 1: t1 over the haloed band, position p = pr * WP + pc is
-    // image row r0 - 1 + pr, column pc - 1
-    for (int mt = warp; mt < C::P1T; mt += WARPS) {
-      const bf16* rows[2];
-      bool inside[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int p = mt * 16 + g + 8 * h;
-        const int ih = r0 - 1 + p / WP, iw = p % WP - 1;
-        inside[h] = p < C::P1 && ih >= 0 && ih < H && iw >= 0 && iw < W;
-        rows[h] = inside[h] ? xi + ((size_t)ih * W + iw) * CIN : nullptr;
-      }
-      float acc[CMID / 8][4];
-#pragma unroll
-      for (int ni = 0; ni < CMID / 8; ++ni)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[ni][j] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < CIN; kk += 16) {
-        uint32_t a[4];
-        a[0] = act_pair(rows[0], kk + 2 * t, s0, b0);
-        a[1] = act_pair(rows[1], kk + 2 * t, s0, b0);
-        a[2] = act_pair(rows[0], kk + 2 * t + 8, s0, b0);
-        a[3] = act_pair(rows[1], kk + 2 * t + 8, s0, b0);
-#pragma unroll
-        for (int nb = 0; nb < CMID; nb += 16) {
-          uint32_t b[4];
-          ldmatrix_b(b, w1s + (kk + lrow) * C::LW1 + nb + lcol);
-          mma_bf16(acc[nb / 8], a, b);
-          mma_bf16(acc[nb / 8 + 1], a, b + 2);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        bf16* dst = t1s + (mt * 16 + g + 8 * h) * C::LT;
-#pragma unroll
-        for (int ni = 0; ni < CMID / 8; ++ni) {
-          const int c = ni * 8 + 2 * t;
-          const float v0 = bn_relu(acc[ni][2 * h], s1[c], b1[c]);
-          const float v1 = bn_relu(acc[ni][2 * h + 1], s1[c + 1], b1[c + 1]);
-          *reinterpret_cast<uint32_t*>(dst + c) =
-              inside[h] ? pack(v0, v1) : 0u;
-        }
-      }
-    }
-    __syncthreads();
-
-    // ---- stage 2: t2 = the 3x3 over t1, output position q = qr * W + qc
-    for (int mt = warp; mt < C::P2T; mt += WARPS) {
-      const int q = mt * 16 + lrow;
-      const bf16* base = t1s + ((q / W) * WP + q % W) * C::LT + lcol;
-      float acc[CMID / 8][4];
-#pragma unroll
-      for (int ni = 0; ni < CMID / 8; ++ni)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[ni][j] = 0.0f;
-#pragma unroll 1
-      for (int tap = 0; tap < 9; ++tap) {
-        const bf16* arow = base + ((tap / 3) * WP + tap % 3) * C::LT;
-        const bf16* wt = w2s + tap * CMID * C::LT;
-#pragma unroll
-        for (int kk = 0; kk < CMID; kk += 16) {
-          uint32_t a[4];
-          ldmatrix_a(a, arow + kk);
-#pragma unroll
-          for (int nb = 0; nb < CMID; nb += 16) {
-            uint32_t b[4];
-            ldmatrix_b(b, wt + (kk + lrow) * C::LT + nb + lcol);
-            mma_bf16(acc[nb / 8], a, b);
-            mma_bf16(acc[nb / 8 + 1], a, b + 2);
+  // the warpgroup's role, warp-uniform to the compiler as to the card
+  const int role = __shfl_sync(0xffffffffu, tid / WG, 0);
+  if (role == CONSUMERS) {
+    // the producer warp: one thread issues every load.  Haloed row h of an
+    // item goes to consumer h % 2's ring, in the order that consumer takes
+    // them.
+    if (tid == CONSUMERS * WG) {
+      // the weights in strips of 8 output channels (one box each): w1
+      // first, w2 and w3 after the first two rows of x, so that stage 1
+      // starts while they land
+      mbar_expect_tx(&wbar[0], p.cin * CMID * 2);
+      for (int n = 0; n < CMID; n += 8)
+        tma_load_2d(sm + p.w1 + n * p.cin * 2, &tm_w1, &wbar[0], n, 0);
+      bool w23 = false;
+      int q0 = 0, q1 = 0;   // chunks loaded into each ring so far
+      for (int item = blockIdx.x; item < p.items; item += gridDim.x) {
+        const int img = item / p.bands;
+        const int r0 = (item % p.bands) * p.band;
+        for (int h = 0; h < p.band + 2; ++h) {
+          const int c = h & 1;
+          // consumer c's next row, into L2 while this one waits for room
+          if (h + 2 < p.band + 2)
+            for (int k = 0; k < p.nch; ++k)
+              tma_prefetch_4d(&tm_x, k * CH, -1, r0 + 1 + h, img);
+          int q = c ? q1 : q0;
+          for (int k = 0; k < p.nch; ++k, ++q) {
+            const int s = q % p.stages;
+            if (q >= p.stages)
+              mbar_wait(&empty_x[c][s], (q / p.stages - 1) & 1);
+            uint8_t* dst = sm + (c * p.stages + s) * CHUNK;
+            mbar_expect_tx(&full_x[c][s], CHUNK);
+            tma_load_4d(dst, &tm_x, &full_x[c][s], k * CH, -1, r0 - 1 + h,
+                        img);
+          }
+          if (c) q1 = q; else q0 = q;
+          if (!w23 && h == 1) {
+            mbar_expect_tx(&wbar[1], (9 * CMID * CMID + CMID * p.cout) * 2);
+            for (int tap = 0; tap < 9; ++tap)
+              for (int n = 0; n < CMID; n += 8)
+                tma_load_2d(sm + p.w2 + (tap * CMID + n) * CMID * 2, &tm_w2,
+                            &wbar[1], n, tap * CMID);
+            for (int n = 0; n < p.cout; n += 8)
+              tma_load_2d(sm + p.w3 + n * CMID * 2, &tm_w3, &wbar[1], n, 0);
+            w23 = true;
           }
         }
       }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        bf16* dst = t2s + (mt * 16 + g + 8 * h) * C::LT;
-#pragma unroll
-        for (int ni = 0; ni < CMID / 8; ++ni) {
-          const int c = ni * 8 + 2 * t;
-          *reinterpret_cast<uint32_t*>(dst + c) =
-              pack(bn_relu(acc[ni][2 * h], s2[c], b2[c]),
-                   bn_relu(acc[ni][2 * h + 1], s2[c + 1], b2[c + 1]));
-        }
-      }
     }
-    __syncthreads();
-
-    // ---- stage 3: y = t2 @ w3, a warp item is 16 rows x NCH columns.  No
-    // barrier after it: the next band's stage 1 writes only t1, and the
-    // barrier that follows that stage orders this stage's reads of t2
-    // before the next writes.
-    constexpr int CHUNKS = COUT / C::NCH;
-    for (int item = warp; item < C::P2T * CHUNKS; item += WARPS) {
-      const int mt = item / CHUNKS;
-      const int n0 = (item % CHUNKS) * C::NCH;
-      const bf16* arow = t2s + (mt * 16 + lrow) * C::LT + lcol;
-      float acc[C::NCH / 8][4];
-#pragma unroll
-      for (int ni = 0; ni < C::NCH / 8; ++ni)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[ni][j] = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < CMID; kk += 16) {
-        uint32_t a[4];
-        ldmatrix_a(a, arow + kk);
-#pragma unroll
-        for (int nb = 0; nb < C::NCH; nb += 16) {
-          uint32_t b[4];
-          ldmatrix_b(b, w3s + (kk + lrow) * C::LW3 + n0 + nb + lcol);
-          mma_bf16(acc[nb / 8], a, b);
-          mma_bf16(acc[nb / 8 + 1], a, b + 2);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = mt * 16 + g + 8 * h;
-        bf16* dst = y + (((size_t)img * H + r0 + q / W) * W + q % W) * COUT;
-#pragma unroll
-        for (int ni = 0; ni < C::NCH / 8; ++ni) {
-          const int c = n0 + ni * 8 + 2 * t;
-          *reinterpret_cast<uint32_t*>(dst + c) =
-              pack(acc[ni][2 * h], acc[ni][2 * h + 1]);
-        }
-      }
-    }
+    return;
   }
+
+  // consumer warpgroup c
+  const int c = role;
+  const int ctid = tid % WG;
+  const int warp = ctid / 32;
+  const int lane = tid % 32;
+  const bool leader = ctid == 0;
+  uint8_t* xring = sm + c * p.stages * CHUNK;
+  uint8_t* ys = sm + p.ys + c * CHUNK;
+  // the plan's fields the loops read, held in registers (the lambdas
+  // below capture by reference)
+  const int cin = p.cin, cout = p.cout, nch = p.nch, stages = p.stages;
+  const int slots = p.slots, band = p.band, bands = p.bands;
+
+  // the second and third BatchNorms of this thread's accumulator columns
+  // 8 n + 2 (lane % 4) + {0, 1}, in registers for the block's life
+  float2 s1[CMID / 8], b1[CMID / 8], s2[CMID / 8], b2[CMID / 8];
+#pragma unroll
+  for (int n = 0; n < CMID / 8; ++n) {
+    const int col = 8 * n + 2 * (lane & 3);
+    s1[n] = make_float2(scales[p.cmax + col], scales[p.cmax + col + 1]);
+    b1[n] = make_float2(shifts[p.cmax + col], shifts[p.cmax + col + 1]);
+    s2[n] = make_float2(scales[2 * p.cmax + col],
+                        scales[2 * p.cmax + col + 1]);
+    b2[n] = make_float2(shifts[2 * p.cmax + col],
+                        shifts[2 * p.cmax + col + 1]);
+  }
+  mbar_wait(&wbar[0], 0);   // w1; w2 and w3 before the first output row
+  bool w23 = false;
+  const uint32_t w1a = smem_u32(sm + p.w1);
+  const uint32_t w2a = smem_u32(sm + p.w2);
+  const uint32_t w3a = smem_u32(sm + p.w3);
+  uint8_t* t1s = sm + p.t1;
+  const uint32_t t1a = smem_u32(t1s);
+
+  int qx = 0;   // x chunks this consumer has taken
+  int li = 0;   // the block's items so far
+  for (int item = blockIdx.x; item < p.items; item += gridDim.x, ++li) {
+    const int img = item / bands;
+    const int r0 = (item % bands) * band;
+    const int R = band;
+    const int base = li * (R + 2);   // the block's t1 row count before it
+
+    // ---- stage 1: t1 row h (image row r0 - 1 + h) into its slot
+    auto t1_row = [&](int h) {
+      const int G = base + h;
+      float acc[CMID / 2];
+      for (int k = 0; k < nch; ++k, ++qx) {
+        const int s = qx % stages;
+        uint8_t* xs = xring + s * CHUNK;
+        mbar_wait(&full_x[c][s], (qx / stages) & 1);
+        rewrite_chunk(xs, k, ctid, cin, scales, shifts);
+        fence_proxy_async();
+        bar_sync(BAR_X + c, WG);
+        const uint32_t xa = smem_u32(xs);
+        switch ((cin - k * CH) / 16) {   // the chunk's k-steps
+          case 1:
+            s1_products<1, CMID>(acc, xa, w1a, cin, k);
+            break;
+          case 2:
+            s1_products<2, CMID>(acc, xa, w1a, cin, k);
+            break;
+          case 3:
+            s1_products<3, CMID>(acc, xa, w1a, cin, k);
+            break;
+          default:
+            s1_products<4, CMID>(acc, xa, w1a, cin, k);
+            break;
+        }
+        mbar_arrive(&empty_x[c][s]);   // the chunk's stage goes back
+      }
+
+      const int slot = G % slots;
+      if (G >= slots) mbar_wait(&empty_t1[slot], (G / slots - 1) & 1);
+      uint8_t* dst = t1s + slot * SLOT;
+      // the thread's two positions (accumulator rows), 0 outside the image
+      const int ih = r0 - 1 + h;
+      const int pos0 = acc_row(warp, lane, 0);
+      const bool row_in = ih >= 0 && ih < H;
+      const bool in0 = row_in && pos0 >= 1 && pos0 <= W;
+      const bool in1 = row_in && pos0 + 8 >= 1 && pos0 + 8 <= W;
+#pragma unroll
+      for (int i = 0; i < CMID / 2; i += 2) {
+        const int pos = acc_row(warp, lane, i), col = acc_col(lane, i);
+        const uint32_t v = bn_relu2(acc[i], acc[i + 1], s1[i >> 2],
+                                    b1[i >> 2]);
+        *reinterpret_cast<uint32_t*>(dst + (col >> 3) * PLANE + pos * 16 +
+                                     (col & 7) * 2) =
+            ((i >> 1) & 1 ? in1 : in0) ? v : 0u;
+      }
+      fence_proxy_async();
+      mbar_arrive(&full_t1[slot]);
+    };
+
+    // ---- stages 2 and 3: output row j from t1 rows j, j + 1, j + 2
+    auto out_row = [&](int j) {
+      if (!w23) {
+        mbar_wait(&wbar[1], 0);
+        w23 = true;
+      }
+      const int G0 = base + j;
+      uint32_t rows[3];
+#pragma unroll
+      for (int d = 0; d < 3; ++d) {
+        const int G = G0 + d;
+        mbar_wait(&full_t1[G % slots], (G / slots) & 1);
+        rows[d] = t1a + (G % slots) * SLOT;
+      }
+      __syncwarp();   // wgmma is .aligned: the warp leaves the waits together
+      float acc[CMID / 2];
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+        for (int kk = 0; kk < CMID / 16; ++kk)
+          wgmma_ss<0, 1>(
+              acc,
+              interleaved_kmajor(rows[tap / 3] + (tap % 3) * 16 +
+                                     2 * kk * PLANE,
+                                 PLANE),
+              interleaved_mnmajor(w2a + tap * CMID * CMID * 2 + kk * 256,
+                                  CMID * 16),
+              tap > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      // t2 = bf16(relu(acc * s2 + b2)) as the A operand of stage 3: k-step
+      // kk's fragment is accumulator columns 16 kk .. 16 kk + 15 (acc_to_a)
+      uint32_t a[CMID / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < CMID / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int i = 8 * kk + 2 * r;
+          a[kk][r] = bn_relu2(acc[i], acc[i + 1], s2[i >> 2], b2[i >> 2]);
+          asm volatile("" : "+r"(a[kk][r]));
+        }
+      stage3<CMID>(a, w3a, cout, ys, &tm_y, (img * H + r0 + j) * W, c, warp,
+                   lane, leader);
+    };
+
+    // rows this consumer is done with, released in order; a row below
+    // `read` (one it has not just read) is waited for first
+    int released = 0;
+    auto release_upto = [&](int last, int read) {
+      for (; released <= last; ++released) {
+        const int G = base + released;
+        if (released < read)
+          mbar_wait(&full_t1[G % slots], (G / slots) & 1);
+        mbar_arrive(&empty_t1[G % slots]);
+      }
+    };
+
+    // R is even, so both consumers take R / 2 output rows: the loops
+    // around the products have the same trip count in every warp of the
+    // block
+    t1_row(c);
+    for (int i = 0; i < R / CONSUMERS; ++i) {
+      const int j = CONSUMERS * i + c;
+      t1_row(j + 2);
+      out_row(j);
+      release_upto(j + 1, j);   // this consumer reads j + 2 on from here
+    }
+    release_upto(R + 1, R + 2);
+  }
+  // the block's shared memory must outlive the last store's reads
+  if (leader) bulk_wait<0>();
 }
 
-template <int CIN, int CMID, int COUT, int R>
+// the card's SM count, read once
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+            cudaSuccess)
+      n = 132;
+  }
+  return n;
+}
+
+// The band height of a launch: the even divisor of 56 of least cost (even,
+// so that the two consumers take as many rows each), a block's
+// rounds of items times an item's work (R output rows of stages 2 and 3,
+// R + 2 rows of stage 1, each row a tile of 64 positions, plus ROW_COST a
+// row for its waits and epilogues), the taller on a tie.  At batch 128 on
+// 132 SMs: whole images.
+constexpr long long ROW_COST = 4096;
+
+inline int choose_band(int n, int cin, int cmid, int cout) {
+  const long long s1 = (long long)cin * cmid + ROW_COST;
+  const long long s23 = 9LL * cmid * cmid + (long long)cmid * cout + ROW_COST;
+  const long long sms = sm_count();
+  int best = 1;
+  long long best_cost = -1;
+  for (int r = 2; r <= H; r += 2) {
+    if (H % r) continue;
+    const long long items = (long long)n * (H / r);
+    const long long cost = (items + sms - 1) / sms * (r * s23 + (r + 2) * s1);
+    if (best_cost < 0 || cost <= best_cost) {
+      best = r;
+      best_cost = cost;
+    }
+  }
+  return best;
+}
+
+// The shared-memory layout: the weights, two y staging tiles, then at
+// least MIN_SLOTS t1 rows and one x stage a consumer; what is left goes to
+// more x stages (up to MAX_STAGES a consumer), then to more t1 rows.
+// Returns 0, or cudaErrorInvalidValue when even the least does not fit.
+int make_plan(Plan* p, int n, int cin, int cmid, int cout, int cmax,
+              int band) {
+  p->cin = cin;
+  p->cout = cout;
+  p->cmax = cmax;
+  p->nch = (cin + CH - 1) / CH;
+  p->band = band > 0 ? band : choose_band(n, cin, cmid, cout);
+  p->bands = H / p->band;
+  p->items = n * p->bands;
+  const int slot = cmid * TP * 2;
+  const int w1b = cin * cmid * 2, w2b = 9 * cmid * cmid * 2;
+  const int w3b = cmid * cout * 2;
+  const int fixed = CONSUMERS * CHUNK + w1b + w2b + w3b + GUARD;
+  const int avail = SMEM_MAX - 1024 - fixed;
+  int stages = (avail - MIN_SLOTS * slot) / (CONSUMERS * CHUNK);
+  if (stages > MAX_STAGES) stages = MAX_STAGES;
+  if (stages < 1) return (int)cudaErrorInvalidValue;
+  int slots = (avail - stages * CONSUMERS * CHUNK) / slot;
+  if (slots > MAX_SLOTS) slots = MAX_SLOTS;
+  p->stages = stages;
+  p->slots = slots;
+  p->ys = CONSUMERS * stages * CHUNK;
+  p->w1 = p->ys + CONSUMERS * CHUNK;
+  p->w2 = p->w1 + w1b;
+  p->w3 = p->w2 + w2b;
+  p->t1 = p->w3 + w3b;
+  p->smem = 1024 + p->t1 + slots * slot + GUARD;
+  return 0;
+}
+
+// A row-major (rows, cols) bf16 weight as a 2-d map in boxes of 8 columns
+// and box_rows rows, unswizzled: a box lands as a strip of the interleaved
+// MN-major operand (interleaved_mnmajor).
+int encode_strips(EncodeTiledFn fn, CUtensorMap* map, const void* w,
+                  int cols, int rows, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {8, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+                  const_cast<void*>(w), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : ERR_ENCODE + (int)r;
+}
+
+// x (n, 56, 56, cin) as the 4-d map (cin, W, H, n) in boxes of (64, 64, 1,
+// 1), SWIZZLE_128B, zeros outside; y (n * 56 * 56, cout) as a 2-d map in
+// boxes of 64 columns and 56 rows; the weights in strips (encode_strips),
+// w2 as (9 cmid, cmid) in boxes of one tap's rows.
+int encode_maps(CUtensorMap* tm_x, CUtensorMap* tm_y, CUtensorMap* tm_w,
+                const void* x, const void* y, const void* w1, const void* w2,
+                const void* w3, int n, int cin, int cmid, int cout) {
+  EncodeTiledFn fn = encode_fn();
+  if (fn == nullptr) return ERR_NO_ENCODE;
+  int rc = encode_strips(fn, &tm_w[0], w1, cmid, cin, cin);
+  if (rc == 0) rc = encode_strips(fn, &tm_w[1], w2, cmid, 9 * cmid, cmid);
+  if (rc == 0) rc = encode_strips(fn, &tm_w[2], w3, cout, cmid, cmid);
+  if (rc != 0) return rc;
+  const cuuint64_t dims[4] = {(cuuint64_t)cin, W, H, (cuuint64_t)n};
+  const cuuint64_t strides[3] = {(cuuint64_t)cin * 2,
+                                 (cuuint64_t)W * cin * 2,
+                                 (cuuint64_t)H * W * cin * 2};
+  const cuuint32_t box[4] = {CH, TP, 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  CUresult r = fn(tm_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                  const_cast<void*>(x), dims, strides, box, elem,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return ERR_ENCODE + (int)r;
+  return encode_matrix_map<XT>(tm_y, y, cout, (long long)n * H * W, cout, W);
+}
+
+template <int CMID>
 int launch(const void* x, const void* w1, const void* w2, const void* w3,
-           const float* scales, const float* shifts, int cmax, void* y,
-           int n, cudaStream_t st) {
-  using C = Cfg<CIN, CMID, COUT, R>;
-  auto kernel = bottleneck_kernel<CIN, CMID, COUT, R>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+           const float* scales, const float* shifts, void* y, int n,
+           int cin, int cout, int cmax, int band, cudaStream_t st) {
+  auto kern = bottleneck_sm90_kernel<CMID>;
+  // above 48 KB a block's dynamic shared memory needs this opt-in, once
+  // per instantiation and device; a launch refused for it would never run
+  // and synchronize() would not say so
+  constexpr int MAX_DEVICES = 64;
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      THREADS, C::SMEM);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long bands = (long long)n * (H / R);
-  const long long resident = (long long)sms * per_sm;
-  const int grid = (int)(bands < resident ? bands : resident);
-  kernel<<<grid, THREADS, C::SMEM, st>>>(
-      static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
-      static_cast<const bf16*>(w2), static_cast<const bf16*>(w3), scales,
-      shifts, cmax, static_cast<bf16*>(y), n);
+  if (dev >= MAX_DEVICES || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_MAX);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) opted_in[dev] = true;
+  }
+  Plan p;
+  int rc = make_plan(&p, n, cin, CMID, cout, cmax, band);
+  if (rc != 0) return rc;
+  CUtensorMap tm_x, tm_y, tm_w[3];
+  rc = encode_maps(&tm_x, &tm_y, tm_w, x, y, w1, w2, w3, n, cin, CMID,
+                   cout);
+  if (rc != 0) return rc;
+  const int grid = p.items < sm_count() ? p.items : sm_count();
+  kern<<<grid, THREADS, p.smem, st>>>(tm_x, tm_y, tm_w[0], tm_w[1],
+                                      tm_w[2], scales, shifts, p);
   return (int)cudaGetLastError();
+}
+
+bool channels_ok(int c) { return c >= 16 && c <= 256 && c % 16 == 0; }
+
+bool shape_ok(int n, int h, int w, int cin, int cmid, int cout, int cmax,
+              int band) {
+  return n >= 1 && h == H && w == W && channels_ok(cin) &&
+         channels_ok(cout) && (cmid == 16 || cmid == 32 || cmid == 48 ||
+                               cmid == 64) &&
+         cmax >= cin && cmax >= cmid &&
+         (band == 0 || (band >= 2 && band <= H && H % band == 0 &&
+                        band % 2 == 0));
 }
 
 }  // namespace
 
 extern "C" {
 
-// x (n, h, w, cin), y (n, h, w, cout) bf16 contiguous; w1, w2, w3 bf16
-// contiguous and 16-byte aligned; scales, shifts (3, cmax) f32.  The
-// (cin, cmid, cout, rows) this file instantiates: (64, 64, 256) and
-// (16, 16, 32), each with rows 2 or 4.  Returns 0 or a cudaError_t code.
+// x (n, h, w, cin), y (n, h, w, cout), w1, w2, w3 bf16 contiguous and
+// 16-byte aligned (TMA); scales, shifts (3, cmax) f32 contiguous.  h =
+// w = 56; cin and cout multiples of 16 in [16, 256]; cmid 16, 32, 48 or 64.
+// band: the band height (an even divisor of 56), or 0 for the kernel's
+// own choice; y does not depend on it.  Returns 0, a cudaError_t code, or an
+// sm90 encode error (mxtt_bottleneck_block_error_string).
 int mxtt_bottleneck_block(const void* x, const void* w1, const void* w2,
                           const void* w3, const float* scales,
                           const float* shifts, void* y, int n, int h, int w,
-                          int cin, int cmid, int cout, int cmax, int rows,
+                          int cin, int cmid, int cout, int cmax, int band,
                           void* stream) {
-  if (n < 1 || h != H || w != W || cmax < cin || cmax < cmid)
-    return (int)cudaErrorInvalidValue;
-  if ((reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2) |
-       reinterpret_cast<uintptr_t>(w3)) & 15)
+  if (!shape_ok(n, h, w, cin, cmid, cout, cmax, band) ||
+      ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
+        reinterpret_cast<uintptr_t>(w1) | reinterpret_cast<uintptr_t>(w2) |
+        reinterpret_cast<uintptr_t>(w3)) &
+       15))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define MXTT_BLOCK(CI, CM, CO, R)                                         \
-  if (cin == CI && cmid == CM && cout == CO && rows == R)                 \
-    return launch<CI, CM, CO, R>(x, w1, w2, w3, scales, shifts, cmax, y, n, \
-                                 st);
-  MXTT_BLOCK(64, 64, 256, 4)
-  MXTT_BLOCK(64, 64, 256, 2)
-  MXTT_BLOCK(16, 16, 32, 4)
-  MXTT_BLOCK(16, 16, 32, 2)
-#undef MXTT_BLOCK
-  return (int)cudaErrorInvalidValue;
+  switch (cmid) {
+    case 16:
+      return launch<16>(x, w1, w2, w3, scales, shifts, y, n, cin, cout, cmax,
+                        band, st);
+    case 32:
+      return launch<32>(x, w1, w2, w3, scales, shifts, y, n, cin, cout, cmax,
+                        band, st);
+    case 48:
+      return launch<48>(x, w1, w2, w3, scales, shifts, y, n, cin, cout, cmax,
+                        band, st);
+    default:
+      return launch<64>(x, w1, w2, w3, scales, shifts, y, n, cin, cout, cmax,
+                        band, st);
+  }
+}
+
+// The plan of a launch, for the record: out[0..5] = band, items, x stages
+// a consumer, t1 slots, dynamic shared memory bytes, grid.  Returns 0 or
+// cudaErrorInvalidValue.
+int mxtt_bottleneck_block_plan(int n, int cin, int cmid, int cout, int band,
+                               int* out) {
+  const int cmax = cin > cmid ? cin : cmid;
+  if (!shape_ok(n, H, W, cin, cmid, cout, cmax, band))
+    return (int)cudaErrorInvalidValue;
+  Plan p;
+  const int rc = make_plan(&p, n, cin, cmid, cout, cmax, band);
+  if (rc != 0) return rc;
+  out[0] = p.band;
+  out[1] = p.items;
+  out[2] = p.stages;
+  out[3] = p.slots;
+  out[4] = p.smem;
+  out[5] = p.items < sm_count() ? p.items : sm_count();
+  return 0;
 }
 
 const char* mxtt_bottleneck_block_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  return sm90::error_string(code);
 }
 
 }  // extern "C"

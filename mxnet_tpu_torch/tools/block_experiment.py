@@ -2,6 +2,9 @@
 against three library convolutions with eager BatchNorm-ReLU between them.
 
     python -m mxnet_tpu_torch.tools.block_experiment [--batch 128]
+    python -m mxnet_tpu_torch.tools.block_experiment \\
+        --baseline OLD/mxnet_tpu_torch/csrc --bands --variants \\
+        product_guard,no_prefetch,store_in_flight --profile
 
 The counterpart of ``tools/pallas_block_experiment.py``: BN-ReLU, 1x1
 cin -> cmid, BN-ReLU, 3x3 cmid -> cmid, BN-ReLU, 1x1 cmid -> cout over an
@@ -9,45 +12,77 @@ NHWC (N, 56, 56, cin) bf16 activation, each BatchNorm folded to a
 per-channel scale and shift (the inference form).  :func:`block_kernel`
 launches ``csrc/bottleneck_block.cu`` for a CUDA tensor (or raises) and
 takes :func:`block_plain` for a CPU tensor; ``block_kernel.launches``
-counts launches.  :func:`library_block` is the yardstick, the JAX tool's
+counts launches.  The kernel takes cin and cout multiples of 16 in [16,
+256] and cmid 16, 32, 48 or 64, in bf16 (:func:`kernel_takes`): both
+stage-1 channel sets of a deep ResNet, (64, 64, 256) and (256, 64, 256)
+(``STAGE1_SETS``).  :func:`library_block` is the yardstick, the JAX tool's
 ``xla_block``: cuDNN's convolutions on the channels-last view, the
 BatchNorm-ReLU passes in eager f32, each input rounded to bf16 before its
 convolution.
 
-The kernel keeps a band of ``--rows`` image rows and its halo in shared
-memory; the TPU kernel's 8 rows do not fit beside the weights there, so
-the default is 4.  It prints one JSON line (times from
-:func:`mxnet_tpu_torch.autotune.measure`, ``--repeats`` samples of 10
-chained calls) with the card's name and power limit, and needs a CUDA
-device.  ``--check-only`` runs batch 2 and checks the error alone.
+``rows`` is the TPU kernel's band height (any divisor of 56, default 8 as
+there); it does not change y, and the CUDA kernel picks its own band
+(:func:`plan`: whole images at batch 128).  The tool prints one JSON line:
+its error against ``library_block`` and the times in ms a call from
+:func:`mxnet_tpu_torch.autotune.measure` (``--repeats`` samples of 10
+chained calls, the wrapper's host time included where it exceeds the
+card's), then the card's time alone (``device_ms``, the replay of a CUDA
+graph of 20 launches) and the wrapper's host microseconds a call, the
+kernel's plan, the card's name and power limit; with ``--baseline DIR``
+the device time of an older checkout's kernel (its ``csrc`` directory,
+launched through its own C entry with rows 4, at (64, 64, 256)) in the
+same call; with ``--variants`` the device time and error of text edits of
+the committed source, each undoing one design choice (``VARIANTS``); with
+``--profile`` a consumer's clock cycles by phase (``PROFILE_PHASES``,
+from an instrumented build); with ``--bands`` the device time at every
+band height.  It needs a CUDA device (and nvcc for the variants and the
+baseline).  ``--check-only`` runs batch 2 and checks the error alone.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
 import json
+import subprocess
+from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..cuda_build import on_device
 
-__all__ = ["H", "W", "KERNEL_CONFIGS", "block_kernel", "block_plain",
-           "library_block", "inputs", "rel_err", "experiment", "main"]
+__all__ = ["H", "W", "ROWS", "BANDS", "STAGE1_SETS", "kernel_takes",
+           "block_kernel", "block_plain", "library_block", "inputs",
+           "rel_err", "plan", "times", "experiment", "VARIANTS",
+           "PROFILE_PHASES", "build_variants", "profile", "main"]
 
 H = W = 56
+#: every band height the TPU kernel takes: the divisors of 56
+ROWS = tuple(r for r in range(1, H + 1) if H % r == 0)
+#: the band heights the CUDA kernel can be held to (its own choice is one):
+#: the even divisors, so that its two consumers take as many rows each
+BANDS = tuple(r for r in ROWS if r % 2 == 0)
+#: (cin, cmid, cout) of the blocks of stage 1 of a deep ResNet: the first,
+#: and the two after it (mxnet_tpu/models/resnet.py, filter_list)
+STAGE1_SETS = ((64, 64, 256), (256, 64, 256))
+_RANGE = ("cin and cout multiples of 16 in [16, 256], cmid 16, 32, 48 or "
+          "64")
 
-#: (cin, cmid, cout, rows) that csrc/bottleneck_block.cu instantiates
-KERNEL_CONFIGS = ((64, 64, 256, 4), (64, 64, 256, 2), (16, 16, 32, 4),
-                  (16, 16, 32, 2))
+
+def kernel_takes(cin, cmid, cout):
+    """True for the channel counts ``csrc/bottleneck_block.cu`` takes."""
+    def ok(c):
+        return 16 <= c <= 256 and c % 16 == 0
+    return ok(cin) and ok(cout) and cmid in (16, 32, 48, 64)
 
 
 def _channels(x, w1, w2, w3, scales, shifts, rows):
     """``(cin, cmid, cout)``; raises on shapes the block does not take."""
-    if x.dim() != 4 or tuple(x.shape[1:3]) != (H, W) or H % rows:
+    if x.dim() != 4 or tuple(x.shape[1:3]) != (H, W) or rows not in ROWS:
         raise MXNetError("bottleneck block: x must be (N, %d, %d, cin) with "
-                         "rows dividing %d, got %s and rows %d"
+                         "rows dividing %d, got %s and rows %s"
                          % (H, W, H, tuple(x.shape), rows))
     cin = x.shape[3]
     cmid, cout = w1.shape[1], w3.shape[1]
@@ -111,9 +146,9 @@ def library_block(x, w1, w2, w3, scales, shifts):
     return conv(bn_relu(t2, 2, cmid), w3.t()[:, :, None, None], 0)
 
 
-def _kernel():
-    from .. import cuda_build
-    lib = cuda_build.library("bottleneck_block")
+def _bind(lib):
+    """Set the argument types of a K9 library's C entry (this checkout's or
+    an older one's: the same signature) once; returns the entry."""
     fn = lib.mxtt_bottleneck_block
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 \
@@ -121,46 +156,63 @@ def _kernel():
         fn.restype = ctypes.c_int
         lib.mxtt_bottleneck_block_error_string.argtypes = [ctypes.c_int]
         lib.mxtt_bottleneck_block_error_string.restype = ctypes.c_char_p
-    return lib, fn
+    return fn
 
 
-def _launch(x, w1, w2, w3, scales, shifts, rows):
-    cin, cmid, cout = _channels(x, w1, w2, w3, scales, shifts, rows)
-    if (cin, cmid, cout, rows) not in KERNEL_CONFIGS:
-        raise MXNetError("bottleneck block: the kernel takes (cin, cmid, "
-                         "cout, rows) in %s, got %s"
-                         % (KERNEL_CONFIGS, (cin, cmid, cout, rows)))
-    if any(t.dtype != torch.bfloat16 for t in (x, w1, w2, w3)) or \
-            scales.dtype != torch.float32 or shifts.dtype != torch.float32:
-        raise MXNetError("bottleneck block: the kernel takes bf16 x and "
-                         "weights and f32 scales and shifts")
-    if any(t.device != x.device for t in (w1, w2, w3, scales, shifts)):
-        raise MXNetError("bottleneck block: inputs on different devices")
-    x, w1, w2, w3, scales, shifts = (
-        t.contiguous() for t in (x, w1, w2, w3, scales, shifts))
+def _kernel():
+    from .. import cuda_build
+    lib = cuda_build.library("bottleneck_block")
+    return lib, _bind(lib)
+
+
+def _call(lib, fn, args, cout, last):
+    """Launch ``fn`` (a K9 C entry) on ``args``, contiguous; ``last`` is the
+    entry's last int (the band, or an older entry's rows).  Returns y."""
+    x, w1, w2, w3, scales, shifts = args
+    cin, cmid = w1.shape
     y = torch.empty(x.shape[:3] + (cout,), dtype=x.dtype, device=x.device)
-    lib, fn = _kernel()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
-                scales.data_ptr(), shifts.data_ptr(), y.data_ptr(),
-                x.shape[0], H, W, cin, cmid, cout, scales.shape[1], rows,
-                stream)
+    rc = on_device(x.device, lambda stream: fn(
+        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
+        scales.data_ptr(), shifts.data_ptr(), y.data_ptr(), x.shape[0], H, W,
+        cin, cmid, cout, scales.shape[1], last, stream))
     if rc != 0:
         raise MXNetError("bottleneck block: CUDA launch failed: %s (%d)" % (
             lib.mxtt_bottleneck_block_error_string(rc).decode(), rc))
     return y
 
 
-def block_kernel(x, w1, w2, w3, scales, shifts, rows=4):
+def _launch(x, w1, w2, w3, scales, shifts, band=0, rows=1):
+    """K9 on CUDA tensors; ``band`` the band height (one of ``BANDS``),
+    0 for the kernel's own; ``rows`` is checked as :func:`block_kernel`
+    checks it.  Raises on what the kernel does not take."""
+    cin, cmid, cout = _channels(x, w1, w2, w3, scales, shifts, rows)
+    if not kernel_takes(cin, cmid, cout):
+        raise MXNetError("bottleneck block: the kernel takes %s, got (cin, "
+                         "cmid, cout) %s" % (_RANGE, (cin, cmid, cout)))
+    if band and band not in BANDS:
+        raise MXNetError("bottleneck block: band %s is not one of %s"
+                         % (band, BANDS))
+    if any(t.dtype != torch.bfloat16 for t in (x, w1, w2, w3)) or \
+            scales.dtype != torch.float32 or shifts.dtype != torch.float32:
+        raise MXNetError("bottleneck block: the kernel takes bf16 x and "
+                         "weights and f32 scales and shifts")
+    if any(t.device != x.device for t in (w1, w2, w3, scales, shifts)):
+        raise MXNetError("bottleneck block: inputs on different devices")
+    args = tuple(t.contiguous() for t in (x, w1, w2, w3, scales, shifts))
+    lib, fn = _kernel()
+    return _call(lib, fn, args, cout, band)
+
+
+def block_kernel(x, w1, w2, w3, scales, shifts, rows=8):
     """``x`` (N, 56, 56, cin) -> (N, 56, 56, cout), weights as the JAX
     tool's ``pallas_block`` takes them: w1 (cin, cmid), w2 (9, cmid, cmid),
-    w3 (cmid, cout); scales, shifts (3, >= max(cin, cmid)) f32.  A CUDA
-    tensor launches K9 on bands of ``rows`` image rows (or raises); a CPU
-    tensor takes :func:`block_plain`."""
+    w3 (cmid, cout); scales, shifts (3, >= max(cin, cmid)) f32.  ``rows``,
+    the TPU kernel's band height, must divide 56 and does not change y.  A
+    CUDA tensor launches K9 (or raises); a CPU tensor takes
+    :func:`block_plain`."""
     kind = x.device.type
     if kind == "cuda":
-        y = _launch(x, w1, w2, w3, scales, shifts, rows)
+        y = _launch(x, w1, w2, w3, scales, shifts, rows=rows)
         block_kernel.launches += 1
         return y
     if kind == "cpu":
@@ -170,6 +222,22 @@ def block_kernel(x, w1, w2, w3, scales, shifts, rows=4):
 
 
 block_kernel.launches = 0
+
+
+def plan(n, cin=64, cmid=64, cout=256, band=0):
+    """The kernel's plan of a launch on this card: its band height, items,
+    x stages a consumer, t1 rows, dynamic shared memory and grid."""
+    lib, _fn = _kernel()
+    entry = lib.mxtt_bottleneck_block_plan
+    entry.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    entry.restype = ctypes.c_int
+    out = (ctypes.c_int * 6)()
+    rc = entry(n, cin, cmid, cout, band, out)
+    if rc != 0:
+        raise MXNetError("bottleneck block: no plan for %s"
+                         % ((n, cin, cmid, cout, band),))
+    return dict(zip(("band", "items", "stages", "slots", "smem", "grid"),
+                    list(out)))
 
 
 def inputs(n, cin=64, cmid=64, cout=256, device="cuda", seed=0):
@@ -196,10 +264,19 @@ def rel_err(args, rows):
     return ((y - ref).abs().max() / ref.abs().max().clamp_min(1e-6)).item()
 
 
-def experiment(batch=128, cin=64, cmid=64, cout=256, rows=4, repeats=10,
+def times(fn):
+    """The card's time a call of ``fn()`` in ms (``device_ms``: a CUDA
+    graph's replay, so the host does not set it) and the host's
+    microseconds a call (``host_us``), from
+    :mod:`~mxnet_tpu_torch.tools.matmul_stats_experiment`."""
+    from .matmul_stats_experiment import device_ms, host_us
+    return {"device_ms": device_ms(fn), "host_us": host_us(fn)}
+
+
+def experiment(batch=128, cin=64, cmid=64, cout=256, rows=8, repeats=10,
                device="cuda"):
     """K9 against :func:`library_block` at ``batch``: :func:`rel_err` and
-    the times in ms per call."""
+    the times in ms per call (``2 + 10 * repeats`` launches of K9)."""
     from ..autotune import measure
 
     args = inputs(batch, cin, cmid, cout, device)
@@ -218,6 +295,213 @@ def experiment(batch=128, cin=64, cmid=64, cout=256, rows=4, repeats=10,
             "batch": batch, "rows": rows, "channels": [cin, cmid, cout]}
 
 
+# ------------------------------------------------ variants and a baseline
+_SOURCE = "bottleneck_block.cu"
+
+#: stage 3 with the next chunk's products issued before this chunk's
+#: epilogue (two accumulators in turn), so the leader's y store runs while
+#: products are in flight
+_STORE_IN_FLIGHT = [
+    ("// Stage 3 of one output row over all cout columns",
+     """template <int CMID>
+__device__ __forceinline__ void s3_issue(float (&acc)[32],
+                                         const uint32_t (&a)[CMID / 16][4],
+                                         uint32_t w3a, int cout, int n0) {
+  fence_regs(acc);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < CMID / 16; ++kk)
+    wgmma_rs<1>(acc, a[kk],
+                interleaved_mnmajor(w3a + (n0 / 8 * CMID + 16 * kk) * 16,
+                                    CMID * 16),
+                kk > 0);
+  wgmma_commit();
+}
+
+__device__ __forceinline__ void s3_store(float (&acc)[32], uint8_t* ys,
+                                         const CUtensorMap* tm_y, int n0,
+                                         int yrow, int c, int warp, int lane,
+                                         bool leader) {
+  fence_regs(acc);
+  if (leader) bulk_wait_read<0>();
+  bar_sync(BAR_Y + c, WG);
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int row = acc_row(warp, lane, i), col = acc_col(lane, i);
+    *reinterpret_cast<uint32_t*>(
+        ys + XT::offset(row, col, XT::swizzle_key(row))) =
+        pack_bf16(acc[i], acc[i + 1]);
+  }
+  fence_proxy_async();
+  bar_sync(BAR_Y + c, WG);
+  if (leader) {
+    tma_store_2d(tm_y, ys, n0, yrow);
+    bulk_commit();
+  }
+}
+
+// Stage 3 of one output row over all cout columns"""),
+    ("""  const int nfull = cout / 64;
+  for (int n = 0; n < nfull; ++n)
+    s3_chunk<64, CMID>(a, w3a, cout, n * 64, ys, tm_y, yrow, c, warp, lane,
+                       leader);
+""", """  const int nfull = cout / 64;
+  float acc0[32], acc1[32];
+  if (nfull > 0) s3_issue<CMID>(acc0, a, w3a, cout, 0);
+  for (int n = 0; n < nfull; n += 2) {
+    if (n + 1 < nfull) {
+      s3_issue<CMID>(acc1, a, w3a, cout, (n + 1) * 64);
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    s3_store(acc0, ys, tm_y, n * 64, yrow, c, warp, lane, leader);
+    if (n + 1 < nfull) {
+      if (n + 2 < nfull) {
+        s3_issue<CMID>(acc0, a, w3a, cout, (n + 2) * 64);
+        wgmma_wait<1>();
+      } else {
+        wgmma_wait<0>();
+      }
+      s3_store(acc1, ys, tm_y, (n + 1) * 64, yrow, c, warp, lane, leader);
+    }
+  }
+""")]
+
+#: a consumer's cycles by phase (clock64 in every consumer thread, thread 0
+#: of each consumer writing its block's sums once, at the end), read back
+#: by mxtt_bottleneck_block_profile
+PROFILE_PHASES = ("x_wait", "x_rewrite", "stage1", "t1_slot_wait",
+                  "t1_epilogue", "t1_wait", "stage2", "t2_pack", "stage3",
+                  "release", "weights", "total")
+_PROFILE_BLOCKS = 1024
+_PROFILE = [
+    ("using namespace sm90;\n",
+     "using namespace sm90;\n__device__ long long k9_profile[%d * 2 * 16];\n"
+     % _PROFILE_BLOCKS),
+    ("  const int c = role;\n",
+     "  const int c = role;\n  long long prof[12] = {};\n"
+     "  long long pt = clock64();\n  const long long pstart = pt;\n"
+     "#define PMARK(i) { const long long n_ = clock64(); "
+     "prof[i] += n_ - pt; pt = n_; }\n"),
+    ("        mbar_wait(&full_x[c][s], (qx / stages) & 1);\n",
+     "        PMARK(11)\n        mbar_wait(&full_x[c][s], (qx / stages) & 1);"
+     "\n        PMARK(0)\n"),
+    ("        bar_sync(BAR_X + c, WG);\n",
+     "        bar_sync(BAR_X + c, WG);\n        PMARK(1)\n"),
+    ("        mbar_arrive(&empty_x[c][s]);   // the chunk's stage goes back\n",
+     "        PMARK(2)\n        mbar_arrive(&empty_x[c][s]);\n"),
+    ("      if (G >= slots) mbar_wait(&empty_t1[slot], (G / slots - 1) & 1);"
+     "\n",
+     "      if (G >= slots) mbar_wait(&empty_t1[slot], (G / slots - 1) & 1);"
+     "\n      PMARK(3)\n"),
+    ("      mbar_arrive(&full_t1[slot]);\n",
+     "      mbar_arrive(&full_t1[slot]);\n      PMARK(4)\n"),
+    ("      __syncwarp();   // wgmma is .aligned: the warp leaves the waits "
+     "together\n",
+     "      __syncwarp();\n      PMARK(5)\n"),
+    ("      fence_regs(acc);\n      // t2 = bf16",
+     "      fence_regs(acc);\n      PMARK(6)\n      // t2 = bf16"),
+    ("      stage3<CMID>(a, w3a,", "      PMARK(7)\n      stage3<CMID>(a, w3a,"),
+    ("                   lane, leader);\n    };\n",
+     "                   lane, leader);\n      PMARK(8)\n    };\n"),
+    ("      release_upto(j + 1, j);   // this consumer reads j + 2 on from "
+     "here\n",
+     "      PMARK(11)\n      release_upto(j + 1, j);\n      PMARK(9)\n"),
+    ("  mbar_wait(&wbar[0], 0);   // w1; w2 and w3 before the first output "
+     "row\n",
+     "  mbar_wait(&wbar[0], 0);\n  PMARK(10)\n"),
+    ("  if (leader) bulk_wait<0>();\n}\n",
+     "  prof[11] = clock64() - pstart;\n"
+     "  if (ctid == 0 && blockIdx.x < %d)\n"
+     "    for (int i = 0; i < 12; ++i)\n"
+     "      k9_profile[(blockIdx.x * 2 + c) * 16 + i] = prof[i];\n"
+     "  if (leader) bulk_wait<0>();\n}\n" % _PROFILE_BLOCKS),
+    ('extern "C" {\n',
+     'extern "C" {\n\nint mxtt_bottleneck_block_profile(long long* out) {\n'
+     "  return (int)cudaMemcpyFromSymbol(out, k9_profile, "
+     "sizeof(k9_profile));\n}\n"),
+]
+
+#: text edits of the committed source, each undoing one design choice
+VARIANTS = {
+    # a guard on each stage-1 product (the k-steps of a partial chunk), not
+    # a switch over whole groups: ptxas serializes every wgmma (C7520)
+    "product_guard": [("""  for (int kk = 0; kk < KS; ++kk)
+    wgmma_ss<0, 1>(acc,""", """  for (int kk = 0; kk < CH / 16; ++kk)
+    if (kk < (cin - k * CH) / 16)
+    wgmma_ss<0, 1>(acc,""")],
+    # no L2 prefetch of a consumer's next row
+    "no_prefetch": [("""          // consumer c's next row, into L2 while this one waits for room
+          if (h + 2 < p.band + 2)
+            for (int k = 0; k < p.nch; ++k)
+              tma_prefetch_4d(&tm_x, k * CH, -1, r0 + 1 + h, img);
+""", "")],
+    "store_in_flight": _STORE_IN_FLIGHT,
+    "profile": _PROFILE,
+}
+
+
+def _sources(name, baseline):
+    """{file name: text} of variant ``name``'s csrc directory ("baseline":
+    the csrc directory ``baseline`` as it is)."""
+    from .. import cuda_build
+    csrc = Path(baseline) if name == "baseline" \
+        else Path(cuda_build.__file__).resolve().parent / "csrc"
+    texts = {f.name: f.read_text() for f in csrc.iterdir()
+             if f.suffix in (".cu", ".cuh")}
+    for old, new in VARIANTS.get(name, ()):
+        if old not in texts[_SOURCE]:
+            raise MXNetError("block_experiment: %r is not in %s"
+                             % (old, _SOURCE))
+        texts[_SOURCE] = texts[_SOURCE].replace(old, new)
+    return texts
+
+
+def build_variants(names, baseline=None):
+    """Build the K9 of each variant in ``names`` ("baseline": the
+    ``bottleneck_block.cu`` of the csrc directory ``baseline``), one nvcc
+    each, all started together, with this checkout's nvcc flags.  Returns
+    {variant: (library, C entry, ptxas report)}."""
+    from .. import cuda_build
+    procs = {}
+    for name in names:
+        out = cuda_build.build_dir() / "experiment_k9" / name
+        out.mkdir(parents=True, exist_ok=True)
+        for fname, text in _sources(name, baseline).items():
+            (out / fname).write_text(text)
+        lib = out / "libbottleneck_block.so"
+        procs[name] = (lib, subprocess.Popen(
+            cuda_build.nvcc_command(out / _SOURCE, lib),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (path, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise MXNetError("nvcc failed for %s:\n%s" % (name, log))
+        lib = ctypes.CDLL(str(path))
+        built[name] = (lib, _bind(lib), "\n".join(
+            ln for ln in log.splitlines() if "ptxas" in ln or "spill" in ln))
+    return built
+
+
+def profile(built, args, cout, grid):
+    """The profile variant's cycles a consumer by phase
+    (``PROFILE_PHASES``), the mean over the ``grid`` blocks' consumers of
+    one launch on ``args``."""
+    lib, fn, _ptxas = built
+    read = lib.mxtt_bottleneck_block_profile
+    read.argtypes = [ctypes.c_void_p]
+    read.restype = ctypes.c_int
+    _call(lib, fn, args, cout, 0)
+    torch.cuda.synchronize()
+    buf = np.zeros(_PROFILE_BLOCKS * 2 * 16, np.int64)
+    if read(buf.ctypes.data):
+        raise MXNetError("block_experiment: the profile could not be read")
+    cycles = buf.reshape(_PROFILE_BLOCKS, 2, 16)[:grid, :, :12].mean((0, 1))
+    return dict(zip(PROFILE_PHASES, cycles.tolist()))
+
+
 def main(argv=None):
     from . import nvidia_smi
 
@@ -226,9 +510,20 @@ def main(argv=None):
     ap.add_argument("--cin", type=int, default=64)
     ap.add_argument("--cmid", type=int, default=64)
     ap.add_argument("--cout", type=int, default=256)
-    ap.add_argument("--rows", type=int, default=4)
+    ap.add_argument("--rows", type=int, default=8)
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--check-only", action="store_true")
+    ap.add_argument("--baseline", default=None,
+                    help="an older checkout's csrc directory, whose "
+                    "bottleneck_block.cu is timed too (rows 4; it takes "
+                    "(64, 64, 256))")
+    ap.add_argument("--bands", action="store_true",
+                    help="time every band height as well")
+    ap.add_argument("--variants", default="",
+                    help="comma-separated subset of %s" % ", ".join(
+                        v for v in VARIANTS if v != "profile"))
+    ap.add_argument("--profile", action="store_true",
+                    help="a consumer's cycles by phase")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("block_experiment: no CUDA device; this tool "
@@ -241,6 +536,40 @@ def main(argv=None):
         print("OK")
         return None
     out = experiment(a.batch, a.cin, a.cmid, a.cout, a.rows, a.repeats)
+    args = tuple(t.contiguous() for t in inputs(a.batch, a.cin, a.cmid,
+                                                 a.cout))
+    out.update(times(lambda: block_kernel(*args, rows=a.rows)),
+               plan=plan(a.batch, a.cin, a.cmid, a.cout),
+               library_device_ms=times(
+                   lambda: library_block(*args))["device_ms"])
+    names = [v for v in a.variants.split(",") if v]
+    build = names + (["baseline"] if a.baseline else []) \
+        + (["profile"] if a.profile else [])
+    built = build_variants(build, a.baseline) if build else {}
+    ref = block_plain(*args).float() if built else None
+    for name in names + (["baseline"] if a.baseline else []):
+        lib, fn, ptxas = built[name]
+        last = 4 if name == "baseline" else 0
+        y = _call(lib, fn, args, a.cout, last)
+        out[name] = {
+            "device_ms": times(lambda: _call(
+                lib, fn, args, a.cout, last))["device_ms"],
+            "max_abs_err": (y.float() - ref).abs().max().item(),
+            "ptxas_serialized": sorted({
+                ln.split(")")[0].split("(")[-1] for ln in ptxas.splitlines()
+                if "(C75" in ln})}
+        del y
+    if built:
+        # the committed kernel once more after the others, in turns
+        out["device_ms_after"] = times(
+            lambda: block_kernel(*args, rows=a.rows))["device_ms"]
+    if a.profile:
+        out["profile_cycles"] = profile(built["profile"], args, a.cout,
+                                        out["plan"]["grid"])
+    if a.bands:
+        out["bands"] = {
+            r: times(lambda r=r: _launch(*args, band=r))["device_ms"]
+            for r in BANDS}
     out.update(device=torch.cuda.get_device_name(0),
                nvidia_smi=nvidia_smi())
     print(json.dumps(out))
