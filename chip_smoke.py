@@ -9,9 +9,9 @@ Phases, one JSON line each:
    power limit, and TF32 switched off for matmuls and cuDNN (f32 means f32);
 2. ``build``: every hand-written kernel built from ``mxnet_tpu_torch/csrc``
    with ``nvcc`` for ``sm_90a``, one process per source, all at once, with
-   ``-Xptxas -v``'s report of the flash kernels, K5 and K9 (no spill in K5
-   or K9, no C7508 in the two kernels that move registers by
-   ``setmaxnreg``);
+   ``-Xptxas -v``'s report of the flash kernels, K5 and both K9 routes (no
+   spill in K5 or either K9, no C7508 in the two kernels that move
+   registers by ``setmaxnreg``);
 3. ``kernels``: each kernel against its plain PyTorch version on the card,
    the flash forward and then the flash backward, at the serving shape
    (B=4, T=1024, H=16, D=64) in f32 and bf16, causal and not, at the
@@ -49,12 +49,13 @@ Phases, one JSON line each:
 7. ``kernels`` of K5 (``matmul_stats``, the GEMM with the BatchNorm
    statistics epilogue) against its plain version at the 8 shapes one
    ResNet-50 training step gives it in bf16, at 2 of them in f32 and at
-   the cuda tests' shapes (one of which the wrapper pads for TMA), each
-   bit-identical across two launches; per step shape the card's time
-   (a CUDA graph's replay), the wrapper's host time, cuBLAS's bare
-   product and the time with the host's share; at the 2 f32 shapes the
-   card's time, cuBLAS's f32 product (TF32 off) and the bound of the
-   product as split TF32 beside the CUDA-core one;
+   the cuda tests' shapes (one of which the wrapper pads for TMA in both
+   dtypes), each bit-identical across two launches; per step shape the
+   card's time (a CUDA graph's replay), the wrapper's host time, cuBLAS's
+   bare product and the time with the host's share; at the 2 f32 shapes
+   (split TF32 on the tensor cores) the card's time, cuBLAS's f32 product
+   (TF32 off) and the bound of the product as split TF32 beside the
+   CUDA-core one;
 8. ``resnet_train``: ResNet-50 v2 at ``tools/bench.py``'s configuration
    (batch 128, 224x224, bf16, NHWC, block fusion, SGD momentum) on
    ``gpu(0)``: ten steps after a warm-up, every loss finite, the last
@@ -80,12 +81,18 @@ Phases, one JSON line each:
     across two launches, with the kernel (the card's, and with the host's
     share), plain, library, cuBLAS product and bound times;
 12. ``block_experiment``: the tool of that name at batch 128 with its
-    defaults (64, 64, 256, rows 8), then K9 against ``block_plain`` at
-    both stage-1 channel sets, (64, 64, 256) and (256, 64, 256), batch
-    128, with the card's time, the wall and host time a call, plain,
-    library and bound times; at batch 2 every divisor of 56 as rows, every
-    band height, and channel sets across the kernel's range, each
-    bit-identical across two launches; shapes outside the range raise.
+    defaults (64, 64, 256, rows 8, bf16: the wgmma kernel) and again in
+    f32 (the general kernel), then K9 against ``block_plain`` at both
+    stage-1 channel sets, (64, 64, 256) and (256, 64, 256), batch 128, in
+    bf16 and in f32, with the card's time, the wall and host time a call,
+    plain, library and bound times (f32: with a TF32 control that must
+    miss ``TOL_BLOCK_F32``); at batch 2 every divisor of 56 as rows, every
+    band height, and channel sets across the wgmma kernel's range; the
+    general kernel at batch 2 on sets outside that range in bf16 ((64, 80,
+    256), (24, 64, 256), (64, 64, 272), which raised before it existed,
+    and the Wide ResNet sets (64, 128, 256) and (256, 128, 256)) and on
+    those and the range sets in f32; each bit-identical across two
+    launches; cmid 512 must raise in both dtypes.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -137,10 +144,11 @@ from mxnet_tpu_torch.tools import matmul_stats_experiment      # noqa: E402
 FULL = {"vocab": 16384, "seq": 1024, "d_model": 1024, "heads": 16,
         "layers": 12}
 
-# published H100 SXM peaks (NVIDIA data sheet, dense).  PEAK_FLOPS is the
-# route of K5 and the experiments (f32 on the CUDA cores); the f32 flash
-# kernels run each product as three TF32 products on the tensor cores
-# (split TF32), so their bound is 3 x flops at the TF32 peak
+# published H100 SXM peaks (NVIDIA data sheet, dense).  PEAK_FLOPS[bf16]
+# is the route of every bf16 kernel; the f32 kernels (flash, K5, the
+# general K9) run each product as three TF32 products on the tensor cores
+# (split TF32), so their bound is 3 x flops at the TF32 peak, and
+# PEAK_FLOPS[f32], the CUDA cores', gives the bound kept beside it
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 TF32_FLOPS = 495e12
 PEAK_NAME = {torch.float32: "f32 CUDA-core 67 TFLOP/s",
@@ -208,6 +216,13 @@ TOL_RESNET_CHECK_AUX = 1e-3
 # the JAX tool's own limit.  The kernel rounds the three products' inputs
 # to bf16 (as the library route does) where the plain version stays in f32
 TOL_BLOCK = 5e-2
+# K9 in f32 (the general kernel, split TF32) against block_plain in f32
+# (cuBLAS, TF32 off), by max |kernel - plain| over max |plain|.  On the
+# H100 the kernel read 3.2e-7 to 1.1e-6 at the block phase's 14 f32 sets
+# (batch 2 and 128); the plain version with TF32 matmuls, run as a
+# control, 4.7e-4 to 7.0e-4.  The bound lies between, near their
+# geometric mean, and the control must exceed it.
+TOL_BLOCK_F32 = 2e-5
 
 
 def emit(phase, **fields):
@@ -285,22 +300,29 @@ def ptxas_summary(text):
     return out
 
 
+#: template type arguments as the mangled names spell them
+_MANGLED_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16"}
+
+
 def kernel_ptxas_summary(text, kernel):
     """``-Xptxas -v``'s report of one source, one entry a kernel
     instantiation whose name matches the regular expression ``kernel``
-    (``matmul_stats_sm90_kernel<256,0>``, ``stats_reduce_kernel``; template
-    arguments as integers, ``true`` and ``false`` as 1 and 0): registers,
-    static shared memory, stack frame and spill bytes."""
+    (``matmul_stats_sm90_kernel<256,0>``, ``stats_reduce_kernel``,
+    ``bottleneck_general_kernel<f32,4>``; integer template arguments as
+    integers, ``true`` and ``false`` as 1 and 0, float and bf16 as ``f32``
+    and ``bf16``): registers, static shared memory, stack frame and spill
+    bytes."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
-            k = re.search(r"\d+(%s)(?:I((?:L[ib]\d+E)+)E)?" % kernel,
-                          m.group(1))
+            k = re.search(r"\d+(%s)(?:I((?:L[ib]\d+E|13__nv_bfloat16|f)+)E)?"
+                          % kernel, m.group(1))
             name = None
             if k:
-                args = re.findall(r"L[ib](\d+)E", k.group(2) or "")
+                args = [i or _MANGLED_TYPES[t or f] for i, t, f in re.findall(
+                    r"L[ib](\d+)E|(13__nv_bfloat16)|(f)", k.group(2) or "")]
                 name = k.group(1) + ("<%s>" % ",".join(args) if args
                                      else "")
                 out.setdefault(name, {})
@@ -334,14 +356,23 @@ def block_ptxas_summary(text):
     return kernel_ptxas_summary(text, r"bottleneck_\w+?kernel")
 
 
+def general_block_ptxas_summary(text):
+    """:func:`kernel_ptxas_summary` of ``csrc/bottleneck_block_general.cu``,
+    one entry a dtype and tile height (``bottleneck_general_kernel<f32,4>``:
+    16 x 4 positions a tile)."""
+    return kernel_ptxas_summary(text, r"bottleneck_general_kernel")
+
+
 def build_phase():
     """Every kernel built at once; ``-Xptxas -v``'s report of the flash
-    kernels, of K5 (``matmul_stats``) and of K9 (``bottleneck_block``, with
-    its ptxas warnings), and for the two kernels whose producer warpgroup
-    hands its registers to the consumers (``setmaxnreg``: the bf16 forward
-    and K5's bf16 kernel) and for K9 the highest register their SASS
-    names.  ptxas's C7508 warning (``setmaxnreg`` ignored) in either of the
-    two, or a spill in K5 or K9, fails the phase."""
+    kernels, of K5 (``matmul_stats``: the bf16 wgmma and the f32 split-TF32
+    kernels) and of both K9 routes (``bottleneck_block`` and
+    ``bottleneck_block_general``, with their ptxas warnings), and for the
+    two kernels whose producer warpgroup hands its registers to the
+    consumers (``setmaxnreg``: the bf16 forward and K5's bf16 kernel) and
+    for K9 the highest register their SASS names.  ptxas's C7508 warning
+    (``setmaxnreg`` ignored) in either of the two, or a spill in K5 or
+    either K9, fails the phase."""
     t0 = time.perf_counter()
     built = cuda_build.build_all()
     flash = {b["name"]: ptxas_summary(b["ptxas"]) for b in built
@@ -360,13 +391,19 @@ def build_phase():
             cuda_build.library("bottleneck_block")._name),
         warnings=[ln for ln in by_name["bottleneck_block"]["ptxas"]
                   .splitlines() if "warning" in ln])
+    flash["bottleneck_block_general"] = dict(
+        general_block_ptxas_summary(
+            by_name["bottleneck_block_general"]["ptxas"]),
+        warnings=[ln for ln in by_name["bottleneck_block_general"]["ptxas"]
+                  .splitlines() if "warning" in ln])
     emit("build", wall_s=time.perf_counter() - t0, kernels=built,
          flash_ptxas=flash)
     for name in ("flash_attention_fwd_sm90", "matmul_stats"):
         if "C7508" in by_name[name]["ptxas"]:
             raise SystemExit("build: ptxas ignored setmaxnreg in %s "
                              "(C7508): %s" % (name, by_name[name]["ptxas"]))
-    for name in ("matmul_stats", "bottleneck_block"):
+    for name in ("matmul_stats", "bottleneck_block",
+                 "bottleneck_block_general"):
         spills = {k: v for k, v in flash[name].items()
                   if isinstance(v, dict) and "stack" in v
                   and (v["spill_stores"] or v["spill_loads"])}
@@ -1027,26 +1064,33 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
 # ------------------------------------------------------------- ResNet-50
 def k5_bound(m, k, n, dtype, f32_values=None):
     """Least time for one K5 launch on this card: the larger of 2MNK
-    flops over the dtype's peak and the bytes it must move (x, w, y in the
+    flops over the route's peak and the bytes it must move (x, w, y in the
     dtype; ``f32_values`` more in f32, default 3N: c read, s1 and s2
-    written) over HBM bandwidth.  In f32 also ``bound_split_tf32_ms``, the
-    bound of the same product as split TF32 on the tensor cores (3 x flops
-    at 495 TFLOP/s, or the bytes), the route the f32 flash kernels take."""
+    written) over HBM bandwidth.  bf16 runs on the bf16 tensor cores; f32
+    runs each product as three TF32 products (split TF32), so its bound is
+    3 x flops at 495 TFLOP/s (also ``bound_split_tf32_ms``), with
+    ``bound_cuda_core_ms`` beside it, the bound of f32 FMAs on the CUDA
+    cores, which an earlier f32 kernel ran and the kernel table keeps."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     flops = 2.0 * m * n * k
     f32_values = 3 * n if f32_values is None else f32_values
     nbytes = float(itemsize) * (m * k + n * k + m * n) + 4.0 * f32_values
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    if dtype == torch.float32:
+        t_ops = 3.0 * flops / TF32_FLOPS * 1e3
+        peak = PEAK_NAME["split_tf32"]
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        peak = PEAK_NAME[dtype]
     out = {"flops": flops, "bytes": nbytes,
            "bound_ms": max(t_ops, t_bytes),
            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-           "peak": PEAK_NAME[dtype] + ", HBM 3.35 TB/s"}
+           "peak": peak + ", HBM 3.35 TB/s"}
     if dtype == torch.float32:
-        t_split = 3.0 * flops / TF32_FLOPS * 1e3
-        out.update(bound_split_tf32_ms=max(t_split, t_bytes),
-                   bound_split_tf32_by="operations" if t_split >= t_bytes
-                   else "bytes")
+        out.update(bound_split_tf32_ms=out["bound_ms"],
+                   bound_split_tf32_by=out["bound_by"],
+                   bound_cuda_core_ms=max(
+                       flops / PEAK_FLOPS[torch.float32] * 1e3, t_bytes))
     return out
 
 
@@ -1109,8 +1153,9 @@ def resnet_kernels_phase():
     cuda tests' shapes off the path (``K5_ODD_SHAPES``, bf16 and f32): the
     weight is read as the OIHW (N, K) tensor lies, through its transpose.
     Two launches on the same inputs must give bit-identical y, s1 and s2;
-    a bf16 shape TMA does not take must go through the wrapper's padding
-    (``matmul_stats.padded``), the others not."""
+    a shape TMA does not take (K or N not a multiple of 16 bytes) must go
+    through the wrapper's padding (``matmul_stats.padded``), the others
+    not."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases = [(m, k, n, torch.bfloat16, count)
              for m, k, n, count in K5_BENCH_SHAPES]
@@ -1133,7 +1178,9 @@ def resnet_kernels_phase():
                  "bit_identical": identical(out, matmul_stats(x, w2d, c))}
         entry.update(k5_check(*out, *matmul_stats_plain(x, w2d, c)))
         del out
-        want_pad = dt == torch.bfloat16 and (k % 8 or n % 8)
+        # TMA's 16-byte row strides: 8 bf16 or 4 f32 values
+        q = 8 if dt == torch.bfloat16 else 4
+        want_pad = bool(k % q or n % q)
         entry["ok"] = entry["ok"] and entry["bit_identical"] \
             and padded == (1 if want_pad else 0)
         entry["tol_sums"] = TOL_K5_SUMS
@@ -1554,84 +1601,133 @@ def matmul_stats_experiment_phase(batch=128, repeats=2, chain=10):
     return out
 
 
-def block_bound(n, cin, cmid, cout):
-    """Least time for one K9 launch: the larger of its flops over the bf16
-    peak and the bytes it must move (x read and y written in bf16, the
-    weights in bf16 and the scales and shifts in f32 read once)."""
+def block_bound(n, cin, cmid, cout, dtype=torch.bfloat16):
+    """Least time for one K9 launch: the larger of its flops over the
+    route's peak and the bytes it must move (x read and y written, the
+    weights read once, in the dtype; the scales and shifts in f32).  bf16
+    runs on the bf16 tensor cores; f32 runs each product as split TF32, 3 x
+    flops at 495 TFLOP/s."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
     flops = 2.0 * n * 56 * 56 * (cin * cmid + 9 * cmid * cmid + cmid * cout)
-    nbytes = 2.0 * n * 56 * 56 * (cin + cout) \
-        + 2.0 * (cin * cmid + 9 * cmid * cmid + cmid * cout) \
+    nbytes = float(itemsize) * n * 56 * 56 * (cin + cout) \
+        + float(itemsize) * (cin * cmid + 9 * cmid * cmid + cmid * cout) \
         + 4.0 * 2 * 3 * max(cin, cmid)
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
+    if dtype == torch.float32:
+        t_ops = 3.0 * flops / TF32_FLOPS * 1e3
+        peak = PEAK_NAME["split_tf32"]
+    else:
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        peak = PEAK_NAME[dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"flops": flops, "bytes": nbytes,
             "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "peak": PEAK_NAME[torch.bfloat16] + ", HBM 3.35 TB/s"}
+            "peak": peak + ", HBM 3.35 TB/s"}
 
 
 #: K9's channel sets at batch 2 beyond the stage-1 sets and the tests'
 #: (16, 16, 32): every cmid, a cin whose last 64-channel chunk is partial
 #: (48, 80, 208) and a cout whose last chunk of y is 16, 48 or 32 wide
 K9_RANGE_SETS = [(48, 48, 80), (32, 32, 112), (208, 16, 48), (80, 48, 160)]
+#: sets only the general kernel takes in bf16: the three that raised
+#: before it existed (cmid 80; cin 24; cout 272) and a Wide ResNet's
+#: stage-1 sets (cmid 128), as block 1 and as blocks 2 and 3
+K9_GENERAL_SETS = [(64, 80, 256), (24, 64, 256), (64, 64, 272),
+                   (64, 128, 256), (256, 128, 256)]
+#: f32 sets besides those: odd counts everywhere, and cmid 256, whose t1
+#: rows in f32 leave room for half rows of 28 positions only
+K9_GENERAL_F32_EXTRA = [(3, 7, 5), (64, 256, 64)]
 
 
-def block_experiment_phase(batch=128, repeats=5):
-    """K9: the ``block_experiment`` tool's run at ``batch`` with its
-    defaults (its own error against ``library_block``, and its times), the
-    launch count set to 0 just before and read just after.  Then at both
-    stage-1 channel sets, batch 128: K9 against ``block_plain`` on other
-    seeded inputs, two launches bit-identical, the kernel's plan, the
-    card's time (``device_ms``, a CUDA graph's replay), the wall a call
-    (``kernel_ms``), the wrapper's host time, plain, library and bound.
-    At batch 2: every divisor of 56 as ``rows`` at (16, 16, 32), the same
-    bits each time; every band height the kernel can be held to
-    (``BANDS``) at (16, 16, 32) and both stage-1 sets; the channel sets
-    of ``K9_RANGE_SETS``; each against ``block_plain`` and bit-identical
-    across two launches.  Last, shapes outside the kernel's range must
-    raise on the card."""
+def block_experiment_phase(batch=128, repeats=5, f32_repeats=2):
+    """K9, both routes.  The ``block_experiment`` tool's run at ``batch``
+    with its defaults (bf16: the wgmma kernel; its own error against
+    ``library_block``, and its times), and again in f32 (the general
+    kernel), each with both launch counts set to 0 just before and read
+    just after.  Then at both stage-1 channel sets, batch 128, in bf16 and
+    in f32: K9 against ``block_plain`` on other seeded inputs, two launches
+    bit-identical, the kernel's plan, the card's time (``device_ms``, a
+    CUDA graph's replay), the wall a call (``kernel_ms``), the wrapper's
+    host time, plain, library and bound; in f32 also the plain version
+    with TF32 matmuls as a control, which must miss ``TOL_BLOCK_F32``.  At
+    batch 2: every divisor of 56 as ``rows`` at (16, 16, 32), the same
+    bits each time; every band height the wgmma kernel can be held to
+    (``BANDS``) at (16, 16, 32) and both stage-1 sets; the channel sets of
+    ``K9_RANGE_SETS``; the general kernel on ``K9_GENERAL_SETS`` in bf16
+    and on those, ``K9_RANGE_SETS``, the tests' set and
+    ``K9_GENERAL_F32_EXTRA`` in f32; each against ``block_plain`` and
+    bit-identical across two launches, through the route it should take.
+    Last, cmid 512 must raise on the card in both dtypes."""
     tool = block_experiment
     block_kernel = tool.block_kernel
-    block_kernel.launches = 0
-    run = tool.experiment(batch, repeats=repeats)
-    torch.cuda.synchronize()
-    launches = block_kernel.launches
-    if launches != 2 + repeats * 10:
-        raise SystemExit("block_experiment: %d launches; want %d"
-                         % (launches, 2 + repeats * 10))
+
+    def counted(fn):
+        block_kernel.launches = 0
+        block_kernel.general_launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"sm90": block_kernel.launches,
+                     "general": block_kernel.general_launches}
+
+    run, launches = counted(lambda: tool.experiment(batch, repeats=repeats))
+    want = {"sm90": 2 + repeats * 10, "general": 0}
+    run_f32, launches_f32 = counted(lambda: tool.experiment(
+        batch, repeats=f32_repeats, dtype=torch.float32))
+    want_f32 = {"sm90": 0, "general": 2 + f32_repeats * 10}
+    if launches != want or launches_f32 != want_f32:
+        raise SystemExit("block_experiment: launches %s and %s; want %s and "
+                         "%s" % (launches, launches_f32, want, want_f32))
 
     def compare(y, ref, y2=None, **fields):
+        tol = TOL_BLOCK_F32 if y.dtype == torch.float32 else TOL_BLOCK
         y = y.float()
         ref_max = ref.abs().max().item()
         err = (y - ref).abs().max().item()
         out = dict(fields, max_abs_err=err, y_ref_max=ref_max,
-                   rel_err=err / ref_max,
+                   rel_err=err / ref_max, tol=tol,
                    rel_norm=((y - ref).norm() / ref.norm()).item())
-        out["ok"] = err <= TOL_BLOCK * ref_max
+        out["ok"] = err <= tol * ref_max
         if y2 is not None:
             out["bit_identical"] = torch.equal(y, y2.float())
             out["ok"] = out["ok"] and out["bit_identical"]
         return out
 
+    def routed(args, want_route, **fields):
+        """Two launches against block_plain, through ``want_route``."""
+        (y, y2), n = counted(lambda: (block_kernel(*args),
+                                      block_kernel(*args)))
+        ref = tool.block_plain(*args).float()
+        case = compare(y, ref, y2, route=want_route, **fields)
+        case["launches"] = n
+        case["ok"] = case["ok"] and n[want_route] == 2
+        if y.dtype == torch.float32:
+            control = with_tf32(lambda: tool.block_plain(*args)).float()
+            case["control_tf32_rel_err"] = \
+                (control - ref).abs().max().item() / case["y_ref_max"]
+            case["ok"] = case["ok"] and \
+                case["control_tf32_rel_err"] > TOL_BLOCK_F32
+        return case
+
     sets = []
-    for i, (cin, cmid, cout) in enumerate(tool.STAGE1_SETS):
-        args = tool.inputs(batch, cin, cmid, cout, seed=1 + i)
-        y, y2 = block_kernel(*args), block_kernel(*args)
-        torch.cuda.synchronize()
-        case = compare(y, tool.block_plain(*args).float(), y2, batch=batch,
-                       channels=[cin, cmid, cout])
-        del y, y2
+    for dt in (torch.bfloat16, torch.float32):
+        for i, (cin, cmid, cout) in enumerate(tool.STAGE1_SETS):
+            args = tool.inputs(batch, cin, cmid, cout, seed=1 + i, dtype=dt)
+            case = routed(args, "sm90" if dt == torch.bfloat16
+                          else "general", batch=batch,
+                          channels=[cin, cmid, cout],
+                          dtype=str(dt).replace("torch.", ""))
 
-        def call():
-            return block_kernel(*args)
+            def call():
+                return block_kernel(*args)
 
-        case.update(plan=tool.plan(batch, cin, cmid, cout),
-                    kernel_ms=cuda_ms(call, 20), **tool.times(call),
-                    plain_ms=cuda_ms(lambda: tool.block_plain(*args), 3),
-                    library_ms=cuda_ms(lambda: tool.library_block(*args), 20),
-                    **block_bound(batch, cin, cmid, cout))
-        sets.append(case)
-        del args
+            case.update(plan=tool.plan(batch, cin, cmid, cout, dtype=dt),
+                        kernel_ms=cuda_ms(call, 20), **tool.times(call),
+                        plain_ms=cuda_ms(lambda: tool.block_plain(*args), 3),
+                        library_ms=cuda_ms(
+                            lambda: tool.library_block(*args), 20),
+                        **block_bound(batch, cin, cmid, cout, dt))
+            sets.append(case)
+            del args
 
     args = tool.inputs(2, 16, 16, 32, seed=2)
     ref = tool.block_plain(*args).float()
@@ -1652,37 +1748,51 @@ def block_experiment_phase(batch=128, repeats=5):
     ranges = []
     for cin, cmid, cout in K9_RANGE_SETS:
         args = tool.inputs(2, cin, cmid, cout, seed=4)
-        ranges.append(compare(
-            block_kernel(*args), tool.block_plain(*args).float(),
-            block_kernel(*args), channels=[cin, cmid, cout],
-            plan=tool.plan(2, cin, cmid, cout)))
+        ranges.append(routed(args, "sm90", channels=[cin, cmid, cout],
+                             plan=tool.plan(2, cin, cmid, cout)))
+    general = []
+    for dt, channel_sets in (
+            (torch.bfloat16, K9_GENERAL_SETS),
+            (torch.float32, K9_GENERAL_SETS + K9_RANGE_SETS
+             + [(16, 16, 32)] + K9_GENERAL_F32_EXTRA)):
+        for cin, cmid, cout in channel_sets:
+            args = tool.inputs(2, cin, cmid, cout, seed=5, dtype=dt)
+            general.append(routed(
+                args, "general", channels=[cin, cmid, cout],
+                dtype=str(dt).replace("torch.", ""),
+                plan=tool.plan(2, cin, cmid, cout, dtype=dt)))
     refused = {}
-    for cin, cmid, cout in ((64, 80, 256), (24, 64, 256), (64, 64, 272)):
+    for dt in (torch.bfloat16, torch.float32):
+        key = str(((64, 512, 256), str(dt).replace("torch.", "")))
         try:
-            block_kernel(*tool.inputs(1, cin, cmid, cout))
-            refused[str((cin, cmid, cout))] = False
+            block_kernel(*tool.inputs(1, 64, 512, 256, dtype=dt))
+            refused[key] = False
         except mx.base.MXNetError:
-            refused[str((cin, cmid, cout))] = True
+            refused[key] = True
     torch.cuda.synchronize()
-    out = {"tool_run": run, "launches": launches, "tol": TOL_BLOCK,
-           "sets": sets, "rows": rows_case, "bands": bands,
-           "range_sets": ranges, "refused": refused}
+    out = {"tool_run": run, "launches": launches,
+           "tool_run_f32": run_f32, "launches_f32": launches_f32,
+           "tol": TOL_BLOCK, "tol_f32": TOL_BLOCK_F32, "sets": sets,
+           "rows": rows_case, "bands": bands, "range_sets": ranges,
+           "general_sets": general, "refused": refused}
     emit("block_experiment", **out)
-    bad = [e for e in sets + [rows_case] + bands + ranges if not e["ok"]]
+    bad = [e for e in sets + [rows_case] + bands + ranges + general
+           if not e["ok"]]
     if bad:
-        raise SystemExit("block_experiment: K9 disagrees with block_plain "
-                         "or differs between launches: %s" % json.dumps(bad))
+        raise SystemExit("block_experiment: K9 disagrees with block_plain, "
+                         "differs between launches, took another route or "
+                         "its TF32 control passed: %s" % json.dumps(bad))
     if not all(refused.values()):
-        raise SystemExit("block_experiment: K9 took a shape outside its "
-                         "range: %s" % json.dumps(refused))
+        raise SystemExit("block_experiment: K9 took a shape past the "
+                         "general kernel's limits: %s" % json.dumps(refused))
     return out
 
 
 #: what the summary line keeps of each K5, K7 and K8 case
 K5_SHAPE_KEYS = ("shape", "device_ms", "kernel_ms", "host_us", "dot_ms",
                  "plain_ms", "library_ms", "bound_ms", "bound_by",
-                 "bound_split_tf32_ms", "max_abs_err", "s1_rel_norm",
-                 "s2_rel_norm", "bit_identical")
+                 "bound_split_tf32_ms", "bound_cuda_core_ms", "max_abs_err",
+                 "s1_rel_norm", "s2_rel_norm", "bit_identical")
 
 
 def experiment_summary(name, source, replaces, entries, launches, **extra):
@@ -1740,6 +1850,60 @@ def k5_summary(entries, launches, ptxas):
                    for e in entries]}
 
 
+def k5_f32_summary(entries, launches):
+    """The f32 K5's entry of the kernel summary line (split TF32, its own
+    kernel in ``matmul_stats.cu``): the two f32 shapes of the kernels phase
+    summed, one call each; ``launches`` from ``resnet_train_check``'s f32
+    step."""
+    f32 = [e for e in entries if e["dtype"] == "float32"
+           and e["shape"] in map(list, K5_F32_SHAPES)]
+
+    def total(key):
+        return sum(e[key] for e in f32)
+
+    t_ops = 3.0 * total("flops") / TF32_FLOPS * 1e3
+    t_bytes = total("bytes") / HBM_BYTES_PER_S * 1e3
+    return {
+        "name": "matmul_stats_f32", "route": "cuda",
+        "source": "mxnet_tpu_torch/csrc/matmul_stats.cu",
+        "kernel": "matmul_stats_tf32_kernel",
+        "replaces": "mxnet_tpu/ops/fused.py:169", "launches": launches,
+        "launches_from": "resnet_train_check: one f32 step",
+        "max_abs_err": max(e["max_abs_err"] for e in f32),
+        "ms": total("device_ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": total("library_ms"), "wall_ms": total("kernel_ms"),
+        "dot_ms": total("dot_ms"),
+        "per": "the two f32 shapes %s, one call each" % K5_F32_SHAPES,
+        "shapes": [{k: e[k] for k in K5_SHAPE_KEYS if k in e} for e in f32]}
+
+
+def block_summary(name, source, launches, sets, ptxas, **extra):
+    """A K9 entry of the kernel summary line from the block phase's batch
+    128 cases of one route: the first stage-1 set's numbers, ``sets``
+    keeping both."""
+    first = sets[0]
+    return dict({
+        "name": name, "route": "cuda", "source": source,
+        "replaces": "tools/pallas_block_experiment.py:107",
+        "launches": launches, "max_abs_err": first["max_abs_err"],
+        "ms": first["device_ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+        "library_ms": first["library_ms"],
+        "per": "one stage-1 block, batch 128, %s, %s; ms is the card's "
+        "time, wall_ms with the wrapper's host time"
+        % (tuple(first["channels"]), first["dtype"]),
+        "wall_ms": first["kernel_ms"], "host_us": first["host_us"],
+        "sets": [{k: e[k] for k in (
+            "channels", "dtype", "device_ms", "kernel_ms", "host_us",
+            "plain_ms", "library_ms", "bound_ms", "bound_by", "max_abs_err",
+            "rel_err", "plan", "bit_identical") + (
+                ("control_tf32_rel_err",) if "control_tf32_rel_err" in e
+                else ())} for e in sets],
+        "ptxas": ptxas}, **extra)
+
+
 def kernel_summary(name, source, replaces, also_replaces, case, launches,
                    **extra):
     """One entry of the kernel summary line, from a kernels-phase case and
@@ -1781,7 +1945,8 @@ def main():
     k5 = resnet_kernels_phase()
     resnet = resnet_train_phase(mx.gpu(0))
     emit("resnet_train", **resnet)
-    emit("resnet_train_check", **resnet_train_check_phase(mx.gpu(0)))
+    resnet_check = resnet_train_check_phase(mx.gpu(0))
+    emit("resnet_train_check", **resnet_check)
     rtc = rtc_phase()
     mse = matmul_stats_experiment_phase()
     blk = block_experiment_phase()
@@ -1868,6 +2033,7 @@ def main():
             ptxas=ptxas["flash_attention_bwd_sm90"]),
         k5_summary(k5, resnet["launches"]["matmul_stats"],
                    ptxas["matmul_stats"]),
+        k5_f32_summary(k5, resnet_check["k5_launches"]),
         {"name": "rtc", "route": "cuda", "source": "mxnet_tpu_torch/rtc.py",
          "generated": "build/kernels/rtc_rtc_abs_full-<hash>.cu",
          "replaces": "mxnet_tpu/rtc.py:105", "launches": rtc["launches"],
@@ -1893,25 +2059,21 @@ def main():
             mse["matmul_stats_prologue"],
             mse["launches"]["matmul_stats_prologue"],
             entry="mxtt_matmul_stats_prologue"),
-        {"name": "bottleneck_block", "route": "cuda",
-         "source": "mxnet_tpu_torch/csrc/bottleneck_block.cu",
-         "replaces": "tools/pallas_block_experiment.py:107",
-         "launches": blk["launches"],
-         "max_abs_err": blk["sets"][0]["max_abs_err"],
-         "ms": blk["sets"][0]["device_ms"],
-         "plain_ms": blk["sets"][0]["plain_ms"],
-         "bound_ms": blk["sets"][0]["bound_ms"],
-         "bound_by": blk["sets"][0]["bound_by"],
-         "library_ms": blk["sets"][0]["library_ms"],
-         "per": "one stage-1 block, batch 128, (64, 64, 256), bf16; ms is "
-         "the card's time, wall_ms with the wrapper's host time",
-         "wall_ms": blk["sets"][0]["kernel_ms"],
-         "host_us": blk["sets"][0]["host_us"],
-         "sets": [{k: e[k] for k in (
-             "channels", "device_ms", "kernel_ms", "host_us", "plain_ms",
-             "library_ms", "bound_ms", "bound_by", "max_abs_err", "plan",
-             "bit_identical")} for e in blk["sets"]],
-         "ptxas": ptxas["bottleneck_block"]},
+        block_summary(
+            "bottleneck_block", "mxnet_tpu_torch/csrc/bottleneck_block.cu",
+            blk["launches"]["sm90"],
+            [e for e in blk["sets"] if e["dtype"] == "bfloat16"],
+            ptxas["bottleneck_block"]),
+        block_summary(
+            "bottleneck_block_general",
+            "mxnet_tpu_torch/csrc/bottleneck_block_general.cu",
+            blk["launches_f32"]["general"],
+            [e for e in blk["sets"] if e["dtype"] == "float32"],
+            ptxas["bottleneck_block_general"],
+            launches_from="the tool's run in f32 at batch 128",
+            general_sets=[{k: e[k] for k in (
+                "channels", "dtype", "rel_err", "bit_identical", "plan")}
+                for e in blk["general_sets"]]),
     ]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -74,9 +74,32 @@
 //   16-byte aligned.  The wrapper (ops/fused.py) pads other bf16 shapes
 //   with zeros before it launches.
 //
-// f32: the CUDA cores, each thread an 8 x 4 block of FMAs over 128 x 64
-// tiles of depth 16, any M, N, K.  No tensor cores, so no TF32: f32 means
-// f32.  It writes one partial row a 128-row tile.
+// f32, the design (matmul_stats_tf32_kernel<BN, PRO>): the tensor cores as
+// split TF32 (tf32_common.cuh: x = hi + lo, three m16n8k8 TF32 products a
+// product, about 21 of f32's 24 bits), on the bf16 route's frame.
+// * Persistent as above: one block an SM, 128-row items of one n-tile of BN
+//   columns (64 where N <= 64, else 128), the partial rows the same.
+// * Thread 0 keeps x (128 rows x 32 depth) and w (BN x 32) in flight by
+//   TMA, f32 rows of 128 bytes with SWIZZLE_128B (tf32::TileF32), through a
+//   ring of STAGES stages with full and empty mbarriers.
+// * Eight consumer warps (2 x 4 of 64 x 32 at BN = 128, 4 x 2 of 32 x 32 at
+//   BN = 64) read their fragments by ldsm_x4 (an 8x8 b16 matrix is an 8 x 4
+//   f32 block in the TF32 fragment layout), split them in registers and
+//   run the warp-level m16n8k8 TF32 products, which read registers, not
+//   shared memory.
+// * Sums: the tensor cores' f32 accumulator truncates, so a K = 2048 sum
+//   kept in it drifts past 1e-5 of max |y|.  Each stage's products (32
+//   deep, 12 products) go into a zeroed accumulator that is then added into
+//   the running sum on the CUDA cores, rounded to nearest.
+// * K8: relu(x * scale + shift) is applied to the A fragments in registers
+//   before the split, scale and shift read a k-step (__ldg, 0 past K).
+// * y leaves through a swizzled f32 staging tile and TMA stores of 32-column
+//   boxes; the statistics come from the f32 accumulator in registers (rows
+//   past M masked), summed a thread's items in order, then over the 8 lanes
+//   sharing a column by shuffles and over the warps along M in a fixed
+//   order into the block's partial row.  No atomics.
+// * TMA wants K % 4 == 0, N % 4 == 0 and 16-byte aligned x, w and y; the
+//   wrapper pads other shapes.
 //
 // -Xptxas -v gives the registers (168 at the entry, ptxas's budget for 384
 // threads, which bounded the consumers' code too: the 256-column
@@ -89,6 +112,7 @@
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC -o libmatmul_stats-<hash>.so this file
 #include "sm90_common.cuh"
+#include "tf32_common.cuh"
 
 namespace {
 
@@ -400,142 +424,272 @@ matmul_stats_sm90_kernel(const __grid_constant__ CUtensorMap tm_x,
 // -------------------------------------------------------------- f32 path
 namespace f32 {
 
-constexpr int BM = 128;       // rows of y per block
-constexpr int BN = 64;        // columns of y per block
-constexpr int THREADS = 256;  // 8 warps
-constexpr int BK32 = 16;
+constexpr int BM = 128;                     // rows of an item
+constexpr int BK = 32;                      // depth of a stage: 128 bytes
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;   // two warps a scheduler: 255 registers
 
-// relu(v * scale + shift) for depth column k, 0 past K; the product and the
-// sum rounded apart, as the plain version computes them
-__device__ __forceinline__ float prologue(float v, const float* scale,
-                                          const float* shift, int k, int K) {
-  return k < K ? fmaxf(__fadd_rn(__fmul_rn(v, scale[k]), shift[k]), 0.0f)
-               : 0.0f;
+template <int BN>
+struct Cfg {
+  using XT = tf32::TileF32<BK, BM>;   // an item's rows of x, one k-block
+  using WT = tf32::TileF32<BK, BN>;   // its n-tile's rows of w
+  using YT = tf32::TileF32<BN, BM>;   // the item's y, BN / 32 boxes
+  static constexpr int WM = BN == 64 ? 4 : 2;   // warps along M
+  static constexpr int WN = WARPS / WM;         // and along N
+  static constexpr int MT = BM / WM / 16;       // m16 tiles a warp
+  static constexpr int NT = BN / WN / 8;        // n8 tiles a warp
+  static constexpr int STAGE_BYTES = XT::BYTES + WT::BYTES;
+  static constexpr int FIT =
+      (SMEM_LIMIT - SMEM_STATIC - 1024 - YT::BYTES) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 8 ? FIT : 8;
+  static constexpr size_t SMEM =
+      1024 + (size_t)STAGES * STAGE_BYTES + YT::BYTES;
+  static_assert(NT % 2 == 0, "B fragments come two n-tiles at a time");
+  static_assert(STAGES >= 3, "the ring holds at least three stages");
+  static_assert(WM * 2 * BN * 4 <= STAGES * STAGE_BYTES,
+                "the final sums fit in the ring");
+};
+
+// relu(v * scale + shift), the product and the sum rounded apart, as the
+// plain version computes them
+__device__ __forceinline__ float prologue(float v, float sc, float sh) {
+  return fmaxf(__fadd_rn(__fmul_rn(v, sc), sh), 0.f);
 }
 
-// Stage rows [r0, r0 + ROWS) x depth [k0, k0 + BK32) of a row-major
-// (rows, K) f32 matrix into dst[BK32][ROWS + 4], k-major.  VEC: K % 4 == 0
-// and the base 16-byte aligned (float4 loads).  PRO: each value through
-// prologue() on its way in.
-template <int ROWS, bool VEC, bool PRO>
-__device__ __forceinline__ void stage_f32(float (*dst)[ROWS + 4],
-                                          const float* src, int rows, int K,
-                                          int r0, int k0, const float* scale,
-                                          const float* shift) {
+// A persistent kernel: block b takes n-tile b % n_tiles and the m-tiles
+// b / n_tiles + i gridDim.x / n_tiles, as the bf16 kernel does.  Thread 0
+// issues the loads: stage u of the block's list (item u / k_blocks, k-block
+// u % k_blocks) goes into ring stage u % STAGES once all threads have
+// released use u - STAGES.  (A producer warp beside the eight would make
+// nine warps, three on one scheduler, and cap ptxas at 168 registers: the
+// accumulators spilled.)
+template <int BN, bool PRO>
+__global__ void __launch_bounds__(THREADS, 1)
+matmul_stats_tf32_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_w,
+                         const __grid_constant__ CUtensorMap tm_y, Args a) {
+  using C = Cfg<BN>;
+  using XT = typename C::XT;
+  using WT = typename C::WT;
+  using YT = typename C::YT;
+  constexpr int STAGES = C::STAGES;
+  constexpr int MT = C::MT;
+  constexpr int NT = C::NT;
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[STAGES], empty[STAGES];
+  __shared__ float cs[BN];   // c of the n-tile's columns, 0 past N
+  uint8_t* ring = align1024(smem_raw);
+  uint8_t* sy = ring + STAGES * C::STAGE_BYTES;
+
   const int tid = threadIdx.x;
-  constexpr int CHUNKS = ROWS * BK32 / 4;
+  const int n_tiles = (a.N + BN - 1) / BN;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int m_first = blockIdx.x / n_tiles;
+  const int m_step = gridDim.x / n_tiles;
+  const int m_tiles = (a.M + BM - 1) / BM;
+  const int k_blocks = (a.K + BK - 1) / BK;
+
+  const int uses = (m_tiles - m_first + m_step - 1) / m_step * k_blocks;
+  auto load = [&](int u) {   // thread 0: stage u of the block's list
+    const int s = u % STAGES, kb = u % k_blocks;
+    const int mt = m_first + u / k_blocks * m_step;
+    uint8_t* st = ring + s * C::STAGE_BYTES;
+    mbar_expect_tx(&full[s], C::STAGE_BYTES);
+    tma_load_2d(st, &tm_x, &full[s], kb * BK, mt * BM);
+    tma_load_2d(st + XT::BYTES, &tm_w, &full[s], kb * BK, n0);
+  };
+  if (tid == 0) {
 #pragma unroll
-  for (int i = 0; i < (CHUNKS + THREADS - 1) / THREADS; ++i) {
-    const int chunk = tid + i * THREADS;
-    if (chunk >= CHUNKS) continue;
-    const int r = chunk / (BK32 / 4);
-    const int kc = (chunk % (BK32 / 4)) * 4;
-    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-    if (r0 + r < rows) {
-      const float* p = src + (size_t)(r0 + r) * K + k0 + kc;
-      if (VEC) {
-        if (k0 + kc < K) {
-          const float4 q = *reinterpret_cast<const float4*>(p);
-          v[0] = q.x;
-          v[1] = q.y;
-          v[2] = q.z;
-          v[3] = q.w;
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], THREADS);
+    }
+    fence_barrier_init();
+    for (int u = 0; u < STAGES && u < uses; ++u) load(u);
+  }
+  for (int j = tid; j < BN; j += THREADS)
+    cs[j] = a.c != nullptr && n0 + j < a.N ? a.c[n0 + j] : 0.f;
+  __syncthreads();
+
+  // warp (wm, wn): rows [16 MT wm, 16 MT (wm + 1)) of each item, columns
+  // [8 NT wn, 8 NT (wn + 1)) of the n-tile
+  const int warp = tid / 32;
+  const int lane = tid & 31;
+  const int wm = warp / C::WN, wn = warp % C::WN;
+  const tf32::Lane ln(lane);
+  const int row0 = 16 * MT * wm, col0 = 8 * NT * wn;
+  const bool leader = tid == 0;
+  float acc[MT][NT][4];
+  float sum1[NT][2], sum2[NT][2];   // this thread's columns, all its items
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) sum1[n][j] = sum2[n][j] = 0.f;
+
+  int it = 0;   // stages consumed so far, over all items
+  for (int mt = m_first; mt < m_tiles; mt += m_step) {
+    const int m0 = mt * BM;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.f;
+    for (int kb = 0; kb < k_blocks; ++kb, ++it) {
+      const int s = it % STAGES;
+      const uint8_t* xs = ring + s * C::STAGE_BYTES;
+      const uint8_t* ws = xs + XT::BYTES;
+      mbar_wait(&full[s], (it / STAGES) & 1);
+      __syncwarp();   // the fragment reads are .aligned
+      // the stage's products in a zeroed accumulator
+      float p[MT][NT][4];
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) p[m][n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < BK / 8; ++kk) {
+        const int kc = kk * 2;   // the k-step's first 16-byte chunk
+        // K8: the scale and shift of this thread's two depth columns of the
+        // k-step, t and t + 4
+        float sc[2], sh[2];
+        if (PRO) {
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int k = kb * BK + 8 * kk + 4 * j + ln.t;
+            sc[j] = k < a.K ? __ldg(a.scale + k) : 0.f;
+            sh[j] = k < a.K ? __ldg(a.shift + k) : 0.f;
+          }
         }
-      } else {
+        tf32::FragA fa[MT];
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (k0 + kc + j < K) v[j] = p[j];
+        for (int m = 0; m < MT; ++m) {
+          float x[4];
+          tf32::ldsm_x4(x, xs + (row0 + 16 * m) * 128 + ln.a_row +
+                               ((kc << 4) ^ ln.a_xor));
+          if (PRO) {
+            // x[0], x[1] sit in column t of the k-step, x[2], x[3] in t + 4
+            x[0] = prologue(x[0], sc[0], sh[0]);
+            x[1] = prologue(x[1], sc[0], sh[0]);
+            x[2] = prologue(x[2], sc[1], sh[1]);
+            x[3] = prologue(x[3], sc[1], sh[1]);
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) tf32::split(x[i], fa[m].hi[i], fa[m].lo[i]);
+        }
+        tf32::FragB fb[NT];
+#pragma unroll
+        for (int n = 0; n < NT; n += 2) {
+          float w[4];
+          tf32::ldsm_x4(w, ws + (col0 + 8 * n) * 128 + ln.b_row +
+                               ((kc << 4) ^ ln.b_xor));
+          fb[n].set(w[0], w[1]);
+          fb[n + 1].set(w[2], w[3]);
+        }
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < NT; ++n) tf32::mma3(p[m][n], fa[m], fb[n]);
       }
+      mbar_arrive(&empty[s]);   // this thread is done with the stage
+      if (tid == 0 && it + STAGES < uses) {
+        mbar_wait(&empty[s], (it / STAGES) & 1);
+        load(it + STAGES);
+      }
+      // added into the running sums on the CUDA cores, rounded to nearest
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n][e] += p[m][n][e];
     }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      dst[kc + j][r] = PRO ? prologue(v[j], scale, shift, k0 + kc + j, K) : v[j];
-  }
-}
 
-template <bool VEC, bool PRO>
-__global__ void __launch_bounds__(THREADS)
-matmul_stats_f32_kernel(const float* __restrict__ x,
-                        const float* __restrict__ w,
-                        const float* __restrict__ scale,
-                        const float* __restrict__ shift,
-                        const float* __restrict__ c, float* __restrict__ y,
-                        float* __restrict__ part1, float* __restrict__ part2,
-                        int M, int N, int K, int n_tiles) {
-  __shared__ __align__(16) float xs[BK32][BM + 4];
-  __shared__ __align__(16) float ws[BK32][BN + 4];
-  __shared__ float red1[16][BN];
-  __shared__ float red2[16][BN];
-
-  const int tile_m = blockIdx.x / n_tiles;
-  const int tile_n = blockIdx.x % n_tiles;
-  const int m0 = tile_m * BM;
-  const int n0 = tile_n * BN;
-  const int tx = threadIdx.x & 15;  // columns tx*4 .. tx*4+3
-  const int ty = threadIdx.x >> 4;  // rows ty*8 .. ty*8+7
-
-  float acc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < K; k0 += BK32) {
-    stage_f32<BM, VEC, PRO>(xs, x, M, K, m0, k0, scale, shift);
-    stage_f32<BN, VEC, false>(ws, w, N, K, n0, k0, nullptr, nullptr);
+    // y through the staging tile: free once the previous item's store has
+    // read it
+    if (leader) bulk_wait_read<0>();
     __syncthreads();
 #pragma unroll
-    for (int k = 0; k < BK32; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&xs[k][ty * 8]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&xs[k][ty * 8 + 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&ws[k][tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bb[4] = {b.x, b.y, b.z, b.w};
+    for (int m = 0; m < MT; ++m)
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 16 * m + ln.g + 8 * h;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], bb[j], acc[i][j]);
-    }
+        for (int n = 0; n < NT; ++n) {
+          const int col = col0 + 8 * n + 2 * ln.t;
+          const int chunk = (col % 32) / 4;
+          *reinterpret_cast<float2*>(
+              sy + (col / 32) * YT::BOX_BYTES + r * 128 +
+              ((chunk ^ (r & 7)) << 4) + (col % 4) * 4) =
+              make_float2(acc[m][n][2 * h], acc[m][n][2 * h + 1]);
+        }
+      }
+    fence_proxy_async();
     __syncthreads();
+    if (leader) {
+#pragma unroll
+      for (int bx = 0; bx < YT::BOXES; ++bx)
+        if (n0 + bx * YT::BOX_COLS < a.N)
+          tma_store_2d(&tm_y, sy + bx * YT::BOX_BYTES,
+                       n0 + bx * YT::BOX_COLS, m0);
+      bulk_commit();
+    }
+    // the statistics of the item's rows below M, in a fixed order
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      const int r = m0 + row0 + 16 * m + ln.g;
+      const bool ok0 = r < a.M, ok1 = r + 8 < a.M;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const float cc = cs[col0 + 8 * n + 2 * ln.t + j];
+          const float d0 = ok0 ? acc[m][n][j] - cc : 0.f;
+          const float d1 = ok1 ? acc[m][n][2 + j] - cc : 0.f;
+          sum1[n][j] += d0 + d1;
+          sum2[n][j] += d0 * d0 + d1 * d1;
+        }
+    }
   }
 
-  float s1[4] = {0.0f, 0.0f, 0.0f, 0.0f}, s2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float cc[4];
+  // over the 8 lanes that share a column (lane bits 2 to 4)
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int n = n0 + tx * 4 + j;
-    cc[j] = c != nullptr && n < N ? c[n] : 0.0f;
-  }
+  for (int n = 0; n < NT; ++n)
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = m0 + ty * 8 + i;
-    if (r >= M) continue;
-    float* yr = y + (size_t)r * N;
+    for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < N) yr[n] = acc[i][j];
-      const float d = acc[i][j] - cc[j];
-      s1[j] += d;
-      s2[j] += d * d;
-    }
-  }
+      for (int off = 4; off < 32; off *= 2) {
+        sum1[n][j] += __shfl_xor_sync(0xffffffffu, sum1[n][j], off);
+        sum2[n][j] += __shfl_xor_sync(0xffffffffu, sum2[n][j], off);
+      }
+  // over the warps along M in a fixed order, gathered in the ring, which
+  // every thread is done with (and every load has landed)
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(ring);   // [WM][2][BN]
+  if (ln.g == 0) {
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    red1[ty][tx * 4 + j] = s1[j];
-    red2[ty][tx * 4 + j] = s2[j];
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = col0 + 8 * n + 2 * ln.t + j;
+        red[(wm * 2) * BN + col] = sum1[n][j];
+        red[(wm * 2 + 1) * BN + col] = sum2[n][j];
+      }
   }
   __syncthreads();
-  if (threadIdx.x < BN && n0 + (int)threadIdx.x < N) {
-    const int nl = threadIdx.x;
-    float a1 = 0.0f, a2 = 0.0f;
-    for (int i = 0; i < 16; ++i) {
-      a1 += red1[i][nl];
-      a2 += red2[i][nl];
-    }
-    part1[(size_t)tile_m * N + n0 + nl] = a1;
-    part2[(size_t)tile_m * N + n0 + nl] = a2;
+  const size_t prow = (size_t)(blockIdx.x / n_tiles) * a.N;
+  for (int e = tid; e < 2 * BN; e += THREADS) {
+    const int st = e / BN, col = e % BN;
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < C::WM; ++w) v += red[(w * 2 + st) * BN + col];
+    if (n0 + col < a.N) (st ? a.part2 : a.part1)[prow + n0 + col] = v;
   }
+  // the block's shared memory must outlive the last store's reads
+  if (leader) bulk_wait<0>();
 }
 
 // ----------------------------------------------------- the column sums
@@ -698,28 +852,68 @@ int launch_bf16(const void* x, const void* w, const Args& args, void* y,
   }
 }
 
-template <bool PRO>
-int launch_f32(const float* x, const float* w, const Args& args, float* y,
-               float* s, int part_rows, cudaStream_t st) {
-  const int m_tiles = (args.M + f32::BM - 1) / f32::BM;
-  const int n_tiles = (args.N + f32::BN - 1) / f32::BN;
-  const long long blocks = (long long)m_tiles * n_tiles;
-  if (blocks > 0x7fffffffLL || m_tiles > part_rows)
-    return (int)cudaErrorInvalidValue;
-  const bool vec = (reinterpret_cast<uintptr_t>(x) & 15) == 0 &&
-                   (reinterpret_cast<uintptr_t>(w) & 15) == 0 &&
-                   args.K % 4 == 0;
-  auto kern = vec ? f32::matmul_stats_f32_kernel<true, PRO>
-                  : f32::matmul_stats_f32_kernel<false, PRO>;
-  kern<<<(unsigned)blocks, f32::THREADS, 0, st>>>(
-      x, w, args.scale, args.shift, args.c, y, args.part1, args.part2,
-      args.M, args.N, args.K, n_tiles);
-  cudaError_t err = cudaGetLastError();
+// The three tensor maps of an f32 launch: x (M, K) and w (N, K) in boxes
+// of 32 depth columns (BM and BN rows), y (M, N) in boxes of 32 columns and
+// BM rows.
+template <int BN>
+int encode_maps_f32(CUtensorMap* tm_x, CUtensorMap* tm_w, CUtensorMap* tm_y,
+                    const void* x, const void* w, const void* y, int M,
+                    int N, int K) {
+  using C = f32::Cfg<BN>;
+  int rc = encode_matrix_map<typename C::XT>(tm_x, x, K, M, K, f32::BM);
+  if (rc == 0) rc = encode_matrix_map<typename C::WT>(tm_w, w, K, N, K, BN);
+  if (rc == 0)
+    rc = encode_matrix_map<typename C::YT>(tm_y, y, N, M, N, f32::BM);
+  return rc;
+}
+
+template <int BN, bool PRO>
+int launch_tf32(const void* x, const void* w, const Args& args, void* y,
+                float* s, int part_rows, cudaStream_t st) {
+  using C = f32::Cfg<BN>;
+  auto kern = f32::matmul_stats_tf32_kernel<BN, PRO>;
+  // the dynamic shared memory opt-in, once per instantiation and device
+  constexpr int MAX_DEVICES = 64;
+  static bool opted_in[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= MAX_DEVICES || !opted_in[dev]) {
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
+    if (err != cudaSuccess) return (int)err;
+    if (dev < MAX_DEVICES) opted_in[dev] = true;
+  }
+  CUtensorMap tm_x, tm_w, tm_y;
+  const int rc = encode_maps_f32<BN>(&tm_x, &tm_w, &tm_y, x, w, y, args.M,
+                                     args.N, args.K);
+  if (rc != 0) return rc;
+  const int n_tiles = (args.N + BN - 1) / BN;
+  const int rows = bf16_rows(args.M, args.N, BN);   // the same grid rule
+  if (rows > part_rows) return (int)cudaErrorInvalidValue;
+  kern<<<rows * n_tiles, f32::THREADS, C::SMEM, st>>>(tm_x, tm_w, tm_y,
+                                                       args);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   f32::stats_reduce_kernel<<<(args.N + f32::RED_COLS - 1) / f32::RED_COLS,
                              f32::RED_COLS * f32::RED_ROWS, 0, st>>>(
-      args.part1, args.part2, m_tiles, args.N, s, s + args.N);
+      args.part1, args.part2, rows, args.N, s, s + args.N);
   return (int)cudaGetLastError();
+}
+
+template <bool PRO>
+int launch_f32(const void* x, const void* w, const Args& args, void* y,
+               float* s, int part_rows, cudaStream_t st) {
+  // TMA: 16-byte bases and row strides
+  auto misaligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
+  };
+  if (args.K % 4 != 0 || args.N % 4 != 0 || misaligned(x) ||
+      misaligned(w) || misaligned(y))
+    return (int)cudaErrorInvalidValue;
+  if (args.N <= 64)
+    return launch_tf32<64, PRO>(x, w, args, y, s, part_rows, st);
+  return launch_tf32<128, PRO>(x, w, args, y, s, part_rows, st);
 }
 
 // Both entries: PRO selects the prologue variant (scale and shift are then
@@ -735,10 +929,7 @@ int launch(const void* x, const void* w, const float* scale,
   const Args args{c, scale, shift, part, part + (size_t)part_rows * N,
                   M, N, K};
   if (dtype == 1) return launch_bf16<PRO>(x, w, args, y, s, part_rows, st);
-  if (dtype == 0)
-    return launch_f32<PRO>(static_cast<const float*>(x),
-                           static_cast<const float*>(w), args,
-                           static_cast<float*>(y), s, part_rows, st);
+  if (dtype == 0) return launch_f32<PRO>(x, w, args, y, s, part_rows, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -748,9 +939,9 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  c: (N,) f32 or null (0).  part: f32
 // scratch of 2 x part_rows x N values, part_rows at least the card's SM
-// count in bf16 and ceil(M / 128) in f32; s: 2 x N f32, s1 then s2.  bf16
-// needs K % 8 == 0, N % 8 == 0 and 16-byte aligned x, w and y (and, in
-// K8, scale and shift).  Returns 0,
+// count; s: 2 x N f32, s1 then s2.  bf16 needs K % 8 == 0, N % 8 == 0 and
+// 16-byte aligned x, w and y (and, in K8, scale and shift); f32 K % 4 ==
+// 0, N % 4 == 0 and 16-byte aligned x, w and y.  Returns 0,
 // a cudaError_t code, or an sm90 encode error (mxtt_matmul_stats_error_string).
 int mxtt_matmul_stats(const void* x, const void* w, const float* c, void* y,
                       float* part, float* s, int M, int N, int K,

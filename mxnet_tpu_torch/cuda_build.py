@@ -40,6 +40,7 @@ SOURCES = {
     "flash_attention_delta": "csrc/flash_attention_delta.cu",
     "matmul_stats": "csrc/matmul_stats.cu",
     "bottleneck_block": "csrc/bottleneck_block.cu",
+    "bottleneck_block_general": "csrc/bottleneck_block_general.cu",
 }
 
 _lock = threading.Lock()

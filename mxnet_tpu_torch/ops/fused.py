@@ -12,9 +12,11 @@ one region in each direction.
   column sums of ``(y - c)`` and ``(y - c)^2`` from the f32 accumulator.  A
   CUDA tensor launches ``csrc/matmul_stats.cu`` (or raises); a CPU or meta
   tensor takes :func:`matmul_stats_plain`.  ``matmul_stats.launches``
-  counts launches, ``matmul_stats.padded`` the bf16 ones whose shape TMA
-  does not take (K or N not a multiple of 8, or an unaligned base), which
-  go through :func:`pad_operands` first.
+  counts launches, ``matmul_stats.padded`` those whose shape TMA does not
+  take (K or N not a multiple of 16 bytes: 8 bf16 or 4 f32 values; or an
+  unaligned base), which go through :func:`pad_operands` first.  bf16 runs
+  on wgmma, f32 on the tensor cores as split TF32 (three TF32 products a
+  product).
 * :func:`matmul_stats_prologue` is the K8 wrapper, the same over
   ``relu(x * scale + shift)`` (the previous BatchNorm folded into the
   GEMM; the JAX package has it in ``tools/pallas_matmul_stats_experiment.py``
@@ -100,7 +102,7 @@ def matmul_stats_prologue_plain(x2d, w2d, scale, shift):
 
 
 def pad_operands(x2d, w2d, c=None, scale=None, shift=None):
-    """The padded operands of a bf16 launch that TMA does not take as they
+    """The padded operands of a launch that TMA does not take as they
     are: ``x2d`` (M, K) and ``w2d`` (K, N) into fresh zero buffers of depth
     Kp = K rounded up to 8 and width Np = N rounded up to 8, ``w2d`` as the
     (Kp, Np) transpose of a contiguous (Np, Kp) buffer (the rows the kernel
@@ -143,11 +145,10 @@ def _kernel(entry):
 _SM_COUNT = {}
 
 
-def _partial_rows(dev, m, bf16):
-    """Rows of the kernel's partial sums: one a block of an n-tile in bf16
-    (at most the SM count), one a 128-row tile in f32."""
-    if not bf16:
-        return -(-m // 128)
+def _partial_rows(dev):
+    """Rows of the kernel's partial sums: one a block of an n-tile, at most
+    the card's SM count, in both dtypes (both kernels are persistent, one
+    block an SM)."""
     rows = _SM_COUNT.get(dev.index)
     if rows is None:
         rows = _SM_COUNT[dev.index] = \
@@ -155,10 +156,15 @@ def _partial_rows(dev, m, bf16):
     return rows
 
 
+#: elements in the 16 bytes TMA wants as a row stride, by dtype
+_TMA_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
+
+
 def _launch(x2d, w2d, c, scale=None, shift=None):
     """K5, or K8 when ``scale`` and ``shift`` are given (``c`` may then be
     None, read as 0).  Returns ``(y, s1, s2, padded)``: ``padded`` when a
-    bf16 shape TMA does not take went through :func:`pad_operands`."""
+    shape TMA does not take (K or N not a multiple of 16 bytes, an
+    unaligned base) went through :func:`pad_operands`."""
     name = "matmul_stats" if scale is None else "matmul_stats_prologue"
     if x2d.dim() != 2 or w2d.dim() != 2 or x2d.shape[1] != w2d.shape[0]:
         raise MXNetError("%s: need x (M, K) and w (K, N), got %s and %s"
@@ -191,9 +197,9 @@ def _launch(x2d, w2d, c, scale=None, shift=None):
     # the kernel reads w as (N, K) rows: the transpose of a (K, N) view of
     # an OIHW weight is that layout already, and costs no copy
     w_nk = w2d.t().contiguous()
-    bf16 = x2d.dtype == torch.bfloat16
-    padded = bf16 and bool(k % 8 or n % 8 or x2d.data_ptr() % 16
-                           or w_nk.data_ptr() % 16)
+    q = _TMA_ALIGN[x2d.dtype]
+    padded = bool(k % q or n % q or x2d.data_ptr() % 16
+                  or w_nk.data_ptr() % 16)
     if padded:
         x2d, w2d, c, scale, shift = pad_operands(x2d, w_nk.t(), c, scale,
                                                  shift)
@@ -208,7 +214,7 @@ def _launch(x2d, w2d, c, scale=None, shift=None):
     pointers = [x2d.data_ptr(), w_nk.data_ptr()] \
         + [v.data_ptr() for v in vectors] + ([None] if c is None else [])
     dev = x2d.device
-    rows = _partial_rows(dev, m, bf16)
+    rows = _partial_rows(dev)
     y = torch.empty((m, np_), dtype=x2d.dtype, device=dev)
     # rows 0 to 2 rows - 1: the partial sums of s1, then of s2; the last
     # two rows: s1 and s2

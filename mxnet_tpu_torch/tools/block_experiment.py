@@ -2,41 +2,52 @@
 against three library convolutions with eager BatchNorm-ReLU between them.
 
     python -m mxnet_tpu_torch.tools.block_experiment [--batch 128]
+        [--dtype float32] [--cin 256 --cmid 64 --cout 256]
     python -m mxnet_tpu_torch.tools.block_experiment \\
         --baseline OLD/mxnet_tpu_torch/csrc --bands --variants \\
         product_guard,no_prefetch,store_in_flight --profile
 
 The counterpart of ``tools/pallas_block_experiment.py``: BN-ReLU, 1x1
 cin -> cmid, BN-ReLU, 3x3 cmid -> cmid, BN-ReLU, 1x1 cmid -> cout over an
-NHWC (N, 56, 56, cin) bf16 activation, each BatchNorm folded to a
-per-channel scale and shift (the inference form).  :func:`block_kernel`
-launches ``csrc/bottleneck_block.cu`` for a CUDA tensor (or raises) and
-takes :func:`block_plain` for a CPU tensor; ``block_kernel.launches``
-counts launches.  The kernel takes cin and cout multiples of 16 in [16,
-256] and cmid 16, 32, 48 or 64, in bf16 (:func:`kernel_takes`): both
-stage-1 channel sets of a deep ResNet, (64, 64, 256) and (256, 64, 256)
-(``STAGE1_SETS``).  :func:`library_block` is the yardstick, the JAX tool's
-``xla_block``: cuDNN's convolutions on the channels-last view, the
-BatchNorm-ReLU passes in eager f32, each input rounded to bf16 before its
-convolution.
+NHWC (N, 56, 56, cin) activation, each BatchNorm folded to a per-channel
+scale and shift (the inference form), y in x's dtype.  :func:`block_kernel`
+launches a CUDA kernel for a CUDA tensor (or raises) and takes
+:func:`block_plain` for a CPU tensor.  Two routes (:func:`route`):
+
+* ``sm90``, ``csrc/bottleneck_block.cu`` (wgmma, TMA, resident weights):
+  bf16 with cin and cout multiples of 16 in [16, 256] and cmid 16, 32, 48
+  or 64 (:func:`kernel_takes`), both stage-1 channel sets of a deep ResNet,
+  (64, 64, 256) and (256, 64, 256) (``STAGE1_SETS``);
+* ``general``, ``csrc/bottleneck_block_general.cu`` (mma.sync, weights
+  streamed in chunks, loads by threads): everything else the JAX tool
+  takes up to cin and cout 2048 and cmid 256 (:func:`general_takes`): f32
+  as split TF32, and the other bf16 channel sets.
+
+``block_kernel.launches`` counts the sm90 kernel's launches,
+``block_kernel.general_launches`` the general kernel's.
+:func:`library_block` is the yardstick, the JAX tool's ``xla_block``:
+cuDNN's convolutions on the channels-last view, the BatchNorm-ReLU passes
+in eager f32, each input rounded to x's dtype before its convolution.
 
 ``rows`` is the TPU kernel's band height (any divisor of 56, default 8 as
-there); it does not change y, and the CUDA kernel picks its own band
-(:func:`plan`: whole images at batch 128).  The tool prints one JSON line:
-its error against ``library_block`` and the times in ms a call from
+there); it does not change y, and each CUDA kernel picks its own band
+(:func:`plan`).  The tool prints one JSON line: its error against
+``library_block`` and the times in ms a call from
 :func:`mxnet_tpu_torch.autotune.measure` (``--repeats`` samples of 10
 chained calls, the wrapper's host time included where it exceeds the
 card's), then the card's time alone (``device_ms``, the replay of a CUDA
 graph of 20 launches) and the wrapper's host microseconds a call, the
 kernel's plan, the card's name and power limit; with ``--baseline DIR``
-the device time of an older checkout's kernel (its ``csrc`` directory,
-launched through its own C entry with rows 4, at (64, 64, 256)) in the
-same call; with ``--variants`` the device time and error of text edits of
-the committed source, each undoing one design choice (``VARIANTS``); with
-``--profile`` a consumer's clock cycles by phase (``PROFILE_PHASES``,
-from an instrumented build); with ``--bands`` the device time at every
-band height.  It needs a CUDA device (and nvcc for the variants and the
-baseline).  ``--check-only`` runs batch 2 and checks the error alone.
+the device time of an older checkout's sm90 kernel (its ``csrc``
+directory, launched through its own C entry with rows 4, at (64, 64,
+256) in bf16) in the same call, and whether its y has the committed
+kernel's bits; with ``--variants`` the device time and error of text
+edits of the committed sm90 source, each undoing one design choice
+(``VARIANTS``); with ``--profile`` a consumer's clock cycles by phase
+(``PROFILE_PHASES``, from an instrumented build); with ``--bands`` the
+device time at every band height.  It needs a CUDA device (and nvcc for
+the variants and the baseline).  ``--check-only`` runs batch 2 and checks
+the error alone.
 """
 from __future__ import annotations
 
@@ -54,7 +65,8 @@ from ..base import MXNetError
 from ..cuda_build import on_device
 
 __all__ = ["H", "W", "ROWS", "BANDS", "STAGE1_SETS", "kernel_takes",
-           "block_kernel", "block_plain", "library_block", "inputs",
+           "general_takes", "route", "block_kernel", "block_plain",
+           "library_block", "inputs",
            "rel_err", "plan", "times", "experiment", "VARIANTS",
            "PROFILE_PHASES", "build_variants", "profile", "main"]
 
@@ -67,15 +79,30 @@ BANDS = tuple(r for r in ROWS if r % 2 == 0)
 #: (cin, cmid, cout) of the blocks of stage 1 of a deep ResNet: the first,
 #: and the two after it (mxnet_tpu/models/resnet.py, filter_list)
 STAGE1_SETS = ((64, 64, 256), (256, 64, 256))
-_RANGE = ("cin and cout multiples of 16 in [16, 256], cmid 16, 32, 48 or "
-          "64")
+#: the general route's limits: its t1 rows and t2 of one row live in
+#: shared memory, and at cmid 256 in f32 (half rows) they take 153184 of
+#: a block's 232448 bytes; the weights stream, so cin and cout do not touch
+#: it
+MAX_C = 2048
+MAX_CMID = 256
+_GENERAL_RANGE = ("cin and cout 1 to %d and cmid 1 to %d (t1's three rows "
+                  "and t2 live in the 227 KB of shared memory a block may "
+                  "have)" % (MAX_C, MAX_CMID))
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def kernel_takes(cin, cmid, cout):
-    """True for the channel counts ``csrc/bottleneck_block.cu`` takes."""
+    """True for the channel counts ``csrc/bottleneck_block.cu`` takes (in
+    bf16)."""
     def ok(c):
         return 16 <= c <= 256 and c % 16 == 0
     return ok(cin) and ok(cout) and cmid in (16, 32, 48, 64)
+
+
+def general_takes(cin, cmid, cout):
+    """True for the channel counts ``csrc/bottleneck_block_general.cu``
+    takes, in f32 or bf16."""
+    return 1 <= cin <= MAX_C and 1 <= cout <= MAX_C and 1 <= cmid <= MAX_CMID
 
 
 def _channels(x, w1, w2, w3, scales, shifts, rows):
@@ -181,39 +208,100 @@ def _call(lib, fn, args, cout, last):
     return y
 
 
-def _launch(x, w1, w2, w3, scales, shifts, band=0, rows=1):
-    """K9 on CUDA tensors; ``band`` the band height (one of ``BANDS``),
-    0 for the kernel's own; ``rows`` is checked as :func:`block_kernel`
-    checks it.  Raises on what the kernel does not take."""
+def route(x, w1, w2, w3, scales, shifts, rows=1):
+    """The kernel that takes these inputs: ``"sm90"`` (bf16 within
+    :func:`kernel_takes`) or ``"general"`` (f32, and bf16 outside it, within
+    :func:`general_takes`).  Raises on inputs neither takes; builds
+    nothing."""
     cin, cmid, cout = _channels(x, w1, w2, w3, scales, shifts, rows)
-    if not kernel_takes(cin, cmid, cout):
-        raise MXNetError("bottleneck block: the kernel takes %s, got (cin, "
-                         "cmid, cout) %s" % (_RANGE, (cin, cmid, cout)))
+    if x.dtype not in _DTYPES or any(t.dtype != x.dtype
+                                     for t in (w1, w2, w3)) or \
+            scales.dtype != torch.float32 or shifts.dtype != torch.float32:
+        raise MXNetError("bottleneck block: the kernels take x and weights "
+                         "of one dtype, float32 or bfloat16, and f32 scales "
+                         "and shifts; got %s, %s, %s, %s, %s, %s"
+                         % tuple(t.dtype for t in (x, w1, w2, w3, scales,
+                                                   shifts)))
+    if any(t.device != x.device for t in (w1, w2, w3, scales, shifts)):
+        raise MXNetError("bottleneck block: inputs on different devices")
+    if x.dtype == torch.bfloat16 and kernel_takes(cin, cmid, cout):
+        return "sm90"
+    if general_takes(cin, cmid, cout):
+        return "general"
+    raise MXNetError("bottleneck block: the general kernel takes %s, got "
+                     "(cin, cmid, cout) %s" % (_GENERAL_RANGE,
+                                               (cin, cmid, cout)))
+
+
+def _general_kernel():
+    from .. import cuda_build
+    lib = cuda_build.library("bottleneck_block_general")
+    fn = lib.mxtt_bottleneck_general
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 \
+            + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        lib.mxtt_bottleneck_general_error_string.argtypes = [ctypes.c_int]
+        lib.mxtt_bottleneck_general_error_string.restype = ctypes.c_char_p
+    return lib, fn
+
+
+def _call_general(args, band):
+    x, w1, w2, w3, scales, shifts = args
+    cin, cmid = w1.shape
+    cout = w3.shape[1]
+    lib, fn = _general_kernel()
+    y = torch.empty(x.shape[:3] + (cout,), dtype=x.dtype, device=x.device)
+    rc = on_device(x.device, lambda stream: fn(
+        x.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
+        scales.data_ptr(), shifts.data_ptr(), y.data_ptr(), x.shape[0], H, W,
+        cin, cmid, cout, scales.shape[1], band, _DTYPES[x.dtype], stream))
+    if rc != 0:
+        raise MXNetError("bottleneck block: CUDA launch failed: %s (%d)" % (
+            lib.mxtt_bottleneck_general_error_string(rc).decode(), rc))
+    return y
+
+
+def _launch_route(x, w1, w2, w3, scales, shifts, band=0, rows=1):
+    """K9 on CUDA tensors through the kernel :func:`route` picks; ``band``
+    the band height (one of ``BANDS``), 0 for the kernel's own; ``rows`` is
+    checked as :func:`block_kernel` checks it.  Returns ``(y, route)``;
+    raises on what neither kernel takes."""
+    which = route(x, w1, w2, w3, scales, shifts, rows)
     if band and band not in BANDS:
         raise MXNetError("bottleneck block: band %s is not one of %s"
                          % (band, BANDS))
-    if any(t.dtype != torch.bfloat16 for t in (x, w1, w2, w3)) or \
-            scales.dtype != torch.float32 or shifts.dtype != torch.float32:
-        raise MXNetError("bottleneck block: the kernel takes bf16 x and "
-                         "weights and f32 scales and shifts")
-    if any(t.device != x.device for t in (w1, w2, w3, scales, shifts)):
-        raise MXNetError("bottleneck block: inputs on different devices")
+    if x.device.type != "cuda":
+        raise MXNetError("bottleneck block: the kernels take CUDA tensors, "
+                         "got %s" % x.device)
     args = tuple(t.contiguous() for t in (x, w1, w2, w3, scales, shifts))
+    if which == "general":
+        return _call_general(args, band), which
     lib, fn = _kernel()
-    return _call(lib, fn, args, cout, band)
+    return _call(lib, fn, args, w3.shape[1], band), which
+
+
+def _launch(x, w1, w2, w3, scales, shifts, band=0, rows=1):
+    """:func:`_launch_route`'s y alone."""
+    return _launch_route(x, w1, w2, w3, scales, shifts, band, rows)[0]
 
 
 def block_kernel(x, w1, w2, w3, scales, shifts, rows=8):
     """``x`` (N, 56, 56, cin) -> (N, 56, 56, cout), weights as the JAX
     tool's ``pallas_block`` takes them: w1 (cin, cmid), w2 (9, cmid, cmid),
-    w3 (cmid, cout); scales, shifts (3, >= max(cin, cmid)) f32.  ``rows``,
-    the TPU kernel's band height, must divide 56 and does not change y.  A
-    CUDA tensor launches K9 (or raises); a CPU tensor takes
+    w3 (cmid, cout) in x's dtype; scales, shifts (3, >= max(cin, cmid))
+    f32.  ``rows``, the TPU kernel's band height, must divide 56 and does
+    not change y.  A CUDA tensor launches the kernel :func:`route` picks
+    (or raises), counted in ``block_kernel.launches`` (sm90) or
+    ``block_kernel.general_launches``; a CPU tensor takes
     :func:`block_plain`."""
     kind = x.device.type
     if kind == "cuda":
-        y = _launch(x, w1, w2, w3, scales, shifts, rows=rows)
-        block_kernel.launches += 1
+        y, which = _launch_route(x, w1, w2, w3, scales, shifts, rows=rows)
+        if which == "general":
+            block_kernel.general_launches += 1
+        else:
+            block_kernel.launches += 1
         return y
     if kind == "cpu":
         _channels(x, w1, w2, w3, scales, shifts, rows)
@@ -222,28 +310,44 @@ def block_kernel(x, w1, w2, w3, scales, shifts, rows=8):
 
 
 block_kernel.launches = 0
+block_kernel.general_launches = 0
 
 
-def plan(n, cin=64, cmid=64, cout=256, band=0):
-    """The kernel's plan of a launch on this card: its band height, items,
-    x stages a consumer, t1 rows, dynamic shared memory and grid."""
-    lib, _fn = _kernel()
-    entry = lib.mxtt_bottleneck_block_plan
-    entry.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+def plan(n, cin=64, cmid=64, cout=256, band=0, dtype=torch.bfloat16):
+    """The plan of a launch on this card by the kernel that takes it: for
+    sm90 its band height, items, x stages a consumer, t1 rows, dynamic
+    shared memory and grid; for the general kernel its band height, items,
+    positions a tile (56 or 28), dynamic shared memory, grid, blocks an SM
+    and positions computed a tile."""
+    if dtype == torch.bfloat16 and kernel_takes(cin, cmid, cout):
+        lib, _fn = _kernel()
+        entry, keys = lib.mxtt_bottleneck_block_plan, (
+            "band", "items", "stages", "slots", "smem", "grid")
+        argv = (n, cin, cmid, cout, band)
+    else:
+        lib, _fn = _general_kernel()
+        entry, keys = lib.mxtt_bottleneck_general_plan, (
+            "band", "items", "tile", "smem", "grid", "per_sm", "positions")
+        argv = (n, cin, cmid, cout, band, _DTYPES[dtype])
+    entry.argtypes = [ctypes.c_int] * len(argv) \
+        + [ctypes.POINTER(ctypes.c_int)]
     entry.restype = ctypes.c_int
-    out = (ctypes.c_int * 6)()
-    rc = entry(n, cin, cmid, cout, band, out)
+    out = (ctypes.c_int * len(keys))()
+    rc = entry(*argv, out)
     if rc != 0:
         raise MXNetError("bottleneck block: no plan for %s"
-                         % ((n, cin, cmid, cout, band),))
-    return dict(zip(("band", "items", "stages", "slots", "smem", "grid"),
-                    list(out)))
+                         % ((n, cin, cmid, cout, band, dtype),))
+    plan_ = dict(zip(keys, list(out)))
+    plan_["route"] = "sm90" if "stages" in plan_ else "general"
+    return plan_
 
 
-def inputs(n, cin=64, cmid=64, cout=256, device="cuda", seed=0):
+def inputs(n, cin=64, cmid=64, cout=256, device="cuda", seed=0,
+           dtype=torch.bfloat16):
     """``(x, w1, w2, w3, scales, shifts)`` from ``RandomState(seed)``, drawn
-    as the JAX tool draws them: bf16 activation and weights, f32 scales in
-    [0.5, 1.5) and shifts in [-0.2, 0.2)."""
+    as the JAX tool draws them: the activation and weights in ``dtype``
+    (bf16 as the tool's default), f32 scales in [0.5, 1.5) and shifts in
+    [-0.2, 0.2)."""
     rng = np.random.RandomState(seed)
     cmax = max(cin, cmid)
     arrays = (rng.uniform(-1, 1, (n, H, W, cin)),
@@ -253,7 +357,7 @@ def inputs(n, cin=64, cmid=64, cout=256, device="cuda", seed=0):
               rng.uniform(0.5, 1.5, (3, cmax)),
               rng.uniform(-0.2, 0.2, (3, cmax)))
     out = [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrays]
-    return tuple(t.to(torch.bfloat16) for t in out[:4]) + tuple(out[4:])
+    return tuple(t.to(dtype) for t in out[:4]) + tuple(out[4:])
 
 
 def rel_err(args, rows):
@@ -274,12 +378,12 @@ def times(fn):
 
 
 def experiment(batch=128, cin=64, cmid=64, cout=256, rows=8, repeats=10,
-               device="cuda"):
+               device="cuda", dtype=torch.bfloat16):
     """K9 against :func:`library_block` at ``batch``: :func:`rel_err` and
     the times in ms per call (``2 + 10 * repeats`` launches of K9)."""
     from ..autotune import measure
 
-    args = inputs(batch, cin, cmid, cout, device)
+    args = inputs(batch, cin, cmid, cout, device, dtype=dtype)
     err = rel_err(args, rows)
     chain = 10
     t_k = measure(lambda *a: block_kernel(*a, rows=rows), args, repeats,
@@ -292,7 +396,8 @@ def experiment(batch=128, cin=64, cmid=64, cout=256, rows=8, repeats=10,
             "speedup": t_l / t_k, "rel_err": err, "gflop": gflop,
             "kernel_tflops": gflop / t_k / 1e3,
             "library_tflops": gflop / t_l / 1e3,
-            "batch": batch, "rows": rows, "channels": [cin, cmid, cout]}
+            "batch": batch, "rows": rows, "channels": [cin, cmid, cout],
+            "dtype": str(dtype).replace("torch.", "")}
 
 
 # ------------------------------------------------ variants and a baseline
@@ -511,6 +616,8 @@ def main(argv=None):
     ap.add_argument("--cmid", type=int, default=64)
     ap.add_argument("--cout", type=int, default=256)
     ap.add_argument("--rows", type=int, default=8)
+    ap.add_argument("--dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"))
     ap.add_argument("--repeats", type=int, default=10)
     ap.add_argument("--check-only", action="store_true")
     ap.add_argument("--baseline", default=None,
@@ -528,18 +635,24 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("block_experiment: no CUDA device; this tool "
                          "measures the GPU")
+    # f32 means f32: cuDNN's convolutions (library_block) and cuBLAS's
+    # products (block_plain) run TF32 by default
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dtype = getattr(torch, a.dtype)
     if a.check_only:
-        err = rel_err(inputs(2, a.cin, a.cmid, a.cout), a.rows)
+        err = rel_err(inputs(2, a.cin, a.cmid, a.cout, dtype=dtype), a.rows)
         print("rel err %.3e" % err)
         if not err < 5e-2:
             raise SystemExit("block_experiment: rel err %g >= 5e-2" % err)
         print("OK")
         return None
-    out = experiment(a.batch, a.cin, a.cmid, a.cout, a.rows, a.repeats)
+    out = experiment(a.batch, a.cin, a.cmid, a.cout, a.rows, a.repeats,
+                     dtype=dtype)
     args = tuple(t.contiguous() for t in inputs(a.batch, a.cin, a.cmid,
-                                                 a.cout))
+                                                 a.cout, dtype=dtype))
     out.update(times(lambda: block_kernel(*args, rows=a.rows)),
-               plan=plan(a.batch, a.cin, a.cmid, a.cout),
+               plan=plan(a.batch, a.cin, a.cmid, a.cout, dtype=dtype),
                library_device_ms=times(
                    lambda: library_block(*args))["device_ms"])
     names = [v for v in a.variants.split(",") if v]
@@ -547,6 +660,7 @@ def main(argv=None):
         + (["profile"] if a.profile else [])
     built = build_variants(build, a.baseline) if build else {}
     ref = block_plain(*args).float() if built else None
+    mine = block_kernel(*args, rows=a.rows) if built else None
     for name in names + (["baseline"] if a.baseline else []):
         lib, fn, ptxas = built[name]
         last = 4 if name == "baseline" else 0
@@ -555,6 +669,7 @@ def main(argv=None):
             "device_ms": times(lambda: _call(
                 lib, fn, args, a.cout, last))["device_ms"],
             "max_abs_err": (y.float() - ref).abs().max().item(),
+            "bit_identical_to_committed": torch.equal(y, mine),
             "ptxas_serialized": sorted({
                 ln.split(")")[0].split("(")[-1] for ln in ptxas.splitlines()
                 if "(C75" in ln})}

@@ -5,6 +5,8 @@ statistics passes, at the ResNet-50 1x1-convolution shapes.
     python -m mxnet_tpu_torch.tools.matmul_stats_experiment
     python -m mxnet_tpu_torch.tools.matmul_stats_experiment \\
         --baseline OLD/mxnet_tpu_torch/csrc --variants bn128
+    python -m mxnet_tpu_torch.tools.matmul_stats_experiment --f32 \\
+        --variants wgmma_tf32
 
 The counterpart of ``tools/pallas_matmul_stats_experiment.py``.  K7,
 :func:`matmul_stats`, is ``y = x @ w``, ``s = sum(y)``, ``ss = sum(y * y)``
@@ -35,7 +37,10 @@ the committed source: ``bn128`` 128-column tiles above N = 256,
 on A fragments in registers through the register-A form of wgmma) and of an
 older checkout's kernel (``--baseline DIR``, its ``csrc`` directory, launched
 through its own C entries); and the host's costs a call at a tiny shape
-(:func:`host_costs`).  It prints the card's name and power limit first, and
+(:func:`host_costs`).  ``--f32`` times the f32 route alone (split TF32)
+at ``F32_SHAPES``, K5 and K8, the committed kernel against the variants
+(``wgmma_tf32``: the products on wgmma's .tf32 form instead of mma.sync),
+with each one's error against the plain version (:func:`compare_f32`).  It prints the card's name and power limit first, and
 needs a CUDA device (and nvcc for the variants and the baseline).
 """
 from __future__ import annotations
@@ -58,7 +63,8 @@ from ..ops import fused
 __all__ = ["shapes", "k5_shapes", "matmul_stats", "matmul_stats_prologue",
            "library_ref", "library_dot_only", "library_prologue",
            "experiment", "device_ms", "host_us", "host_costs",
-           "build_variants", "VARIANTS", "main"]
+           "build_variants", "VARIANTS", "F32_SHAPES", "compare_f32",
+           "main"]
 
 _KERNEL = "matmul_stats"
 _SOURCE = "matmul_stats.cu"
@@ -174,6 +180,233 @@ _PRO_REGISTERS = [
       mbar_arrive(&empty[(it - 1) % STAGES]);
 """)]
 
+def _wgmma_tf32(n):
+    """The source of ``wgmma_tf32`` for an m64n``n``k8 TF32 product with A
+    from registers (``n`` / 2 accumulator registers a thread); the .tf32
+    form has no transpose arguments (both operands K-major)."""
+    regs = n // 2
+    outs = ", ".join('"+f"(d[%d])' % i for i in range(regs))
+    return (
+        "__device__ __forceinline__ void wgmma_tf32(float (&d)[%d], "
+        "const uint32_t (&a)[4], uint64_t db, int scale_d) {\n"
+        '  asm volatile("{\\n.reg .pred p;\\nsetp.ne.b32 p, %%%d, 0;\\n"\n'
+        '      "wgmma.mma_async.sync.aligned.m64n%dk8.f32.tf32.tf32 {%s}, '
+        '{%%%d, %%%d, %%%d, %%%d}, %%%d, p, 1, 1;\\n}\\n"\n'
+        "      : %s\n"
+        '      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), '
+        '"r"(scale_d));\n'
+        "}\n\n" % (
+            regs, regs + 5, n, ", ".join("%%%d" % i for i in range(regs)),
+            regs, regs + 1, regs + 2, regs + 3, regs + 4, outs))
+
+
+#: The f32 route on wgmma (the .tf32 form), in place of mma.sync: two
+#: consumer warpgroups of 64 rows, A (x) split in registers from ldsm_x4
+#: fragments, B (w) split once a stage by all threads into hi and lo tiles
+#: in shared memory (the TMA tile's swizzled layout, so the K-major
+#: descriptors read them), three wgmma a k-step into a zeroed stage
+#: accumulator (scale-d 0 on the first), added on the CUDA cores after the
+#: stage's products end.  The next stage's A fragments and split run while
+#: the products do (two register and two shared-memory buffers); y leaves
+#: from registers (no staging: the ring keeps four stages), the statistics
+#: through the bf16 kernel's Stats.
+_WGMMA_TF32_KERNEL = """
+template <int BN>
+struct WCfg {
+  using XT = tf32::TileF32<BK, BM>;
+  using WT = tf32::TileF32<BK, BN>;
+  static constexpr int STAGE_BYTES = XT::BYTES + WT::BYTES;
+  static constexpr int SPLIT_BYTES = 2 * WT::BYTES;   // hi, lo
+  static constexpr int SUM_BYTES = THREADS * (BN / 16) * 4;
+  static constexpr int FIT = (SMEM_LIMIT - SMEM_STATIC - 1024 -
+                              2 * SPLIT_BYTES - SUM_BYTES) / STAGE_BYTES;
+  static constexpr int STAGES = FIT < 6 ? FIT : 6;
+  static constexpr size_t SMEM = 1024 + (size_t)STAGES * STAGE_BYTES +
+                                 2 * SPLIT_BYTES + SUM_BYTES;
+  static_assert(STAGES >= 3, "three stages at least");
+};
+
+template <int BN, bool PRO>
+__global__ void __launch_bounds__(THREADS, 1)
+matmul_stats_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                          const __grid_constant__ CUtensorMap tm_w,
+                          const __grid_constant__ CUtensorMap tm_y, Args a,
+                          float* __restrict__ yout) {
+  using C = WCfg<BN>;
+  using XT = typename C::XT;
+  using WT = typename C::WT;
+  constexpr int STAGES = C::STAGES;
+  constexpr int KS = BK / 8;
+
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full[STAGES], empty[STAGES];
+  __shared__ float cs[BN];
+  uint8_t* ring = align1024(smem_raw);
+  uint8_t* split = ring + STAGES * C::STAGE_BYTES;
+  float* sums = reinterpret_cast<float*>(split + 2 * C::SPLIT_BYTES);
+
+  const int tid = threadIdx.x;
+  const int n_tiles = (a.N + BN - 1) / BN;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int m_first = blockIdx.x / n_tiles;
+  const int m_step = gridDim.x / n_tiles;
+  const int m_tiles = (a.M + BM - 1) / BM;
+  const int k_blocks = (a.K + BK - 1) / BK;
+  const int uses = (m_tiles - m_first + m_step - 1) / m_step * k_blocks;
+  auto load = [&](int u) {
+    const int s = u % STAGES, kb = u % k_blocks;
+    const int mt = m_first + u / k_blocks * m_step;
+    uint8_t* st = ring + s * C::STAGE_BYTES;
+    mbar_expect_tx(&full[s], C::STAGE_BYTES);
+    tma_load_2d(st, &tm_x, &full[s], kb * BK, mt * BM);
+    tma_load_2d(st + XT::BYTES, &tm_w, &full[s], kb * BK, n0);
+  };
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], THREADS);
+    }
+    fence_barrier_init();
+    for (int u = 0; u < STAGES && u < uses; ++u) load(u);
+  }
+  for (int j = tid; j < BN; j += THREADS)
+    cs[j] = a.c != nullptr && n0 + j < a.N ? a.c[n0 + j] : 0.f;
+#pragma unroll
+  for (int q = 0; q < BN / 16; ++q) sums[q * THREADS + tid] = 0.f;
+  __syncthreads();
+
+  const int wg = tid / WG, warp = (tid % WG) / 32, lane = tid % 32;
+  const tf32::Lane ln(lane);
+  const int row = warp * 16 + (lane >> 2);
+  float acc[BN / 2], p[BN / 2];
+  uint32_t ah[2][KS][4], al[2][KS][4];
+
+  // stage v: its A fragments split into buffer c, its w split into split
+  // buffer c; then the ring stage goes back
+  auto prep = [&](int v, int c) {
+    const int s = v % STAGES, kb = v % k_blocks;
+    mbar_wait(&full[s], (v / STAGES) & 1);
+    __syncwarp();
+    const uint8_t* xs = ring + s * C::STAGE_BYTES;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      float x[4];
+      tf32::ldsm_x4(x, xs + (wg * 64 + warp * 16) * 128 + ln.a_row +
+                           (((2 * kk) << 4) ^ ln.a_xor));
+      if (PRO) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int k = kb * BK + 8 * kk + 4 * j + ln.t;
+          const float sc = k < a.K ? __ldg(a.scale + k) : 0.f;
+          const float sh = k < a.K ? __ldg(a.shift + k) : 0.f;
+          x[2 * j] = prologue(x[2 * j], sc, sh);
+          x[2 * j + 1] = prologue(x[2 * j + 1], sc, sh);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tf32::split(x[i], ah[c][kk][i], al[c][kk][i]);
+    }
+    const float4* raw = reinterpret_cast<const float4*>(xs + XT::BYTES);
+    float4* hi = reinterpret_cast<float4*>(split + c * C::SPLIT_BYTES);
+    float4* lo = hi + WT::BYTES / 16;
+    for (int i = tid; i < WT::BYTES / 16; i += THREADS) {
+      const float4 w = raw[i];
+      uint32_t h[4], l[4];
+      tf32::split(w.x, h[0], l[0]);
+      tf32::split(w.y, h[1], l[1]);
+      tf32::split(w.z, h[2], l[2]);
+      tf32::split(w.w, h[3], l[3]);
+      hi[i] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]),
+                          __uint_as_float(h[2]), __uint_as_float(h[3]));
+      lo[i] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]),
+                          __uint_as_float(l[2]), __uint_as_float(l[3]));
+    }
+    fence_proxy_async();
+    mbar_arrive(&empty[s]);
+    if (tid == 0 && v + STAGES < uses) {
+      mbar_wait(&empty[s], (v / STAGES) & 1);
+      load(v + STAGES);
+    }
+    __syncwarp();
+  };
+
+  if (uses > 0) prep(0, 0);
+  __syncthreads();
+  for (int u0 = 0; u0 < uses; u0 += 2) {
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+      const int u = u0 + b;
+      if (u < uses) {
+        const int kb = u % k_blocks;
+        if (kb == 0) {
+#pragma unroll
+          for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+        }
+        const uint32_t hs = smem_u32(split + b * C::SPLIT_BYTES);
+        const uint32_t ls = hs + WT::BYTES;
+        wgmma_fence();
+        fence_regs(p);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          wgmma_tf32(p, al[b][kk], gmma_desc(hs + 32 * kk, 16, 1024, 1),
+                     kk > 0);
+          wgmma_tf32(p, ah[b][kk], gmma_desc(ls + 32 * kk, 16, 1024, 1), 1);
+          wgmma_tf32(p, ah[b][kk], gmma_desc(hs + 32 * kk, 16, 1024, 1), 1);
+        }
+        wgmma_commit();
+        if (u + 1 < uses) prep(u + 1, 1 - b);
+        wgmma_wait<0>();
+        fence_regs(p);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            asm volatile("" : "+r"(ah[b][kk][i]), "+r"(al[b][kk][i]));
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) acc[i] += p[i];
+        if (kb == k_blocks - 1) {
+          const int m0 = (m_first + u / k_blocks * m_step) * BM;
+          const int grow = m0 + wg * 64 + row;
+          float* y = yout;
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            if (grow + 8 * r < a.M)
+#pragma unroll
+              for (int n = 0; n < BN / 8; ++n) {
+                const int col = n0 + 8 * n + 2 * (lane & 3);
+                if (col < a.N)
+                  *reinterpret_cast<float2*>(
+                      y + (size_t)(grow + 8 * r) * a.N + col) =
+                      make_float2(acc[4 * n + 2 * r], acc[4 * n + 2 * r + 1]);
+              }
+          Stats<BN>::item(acc, sums + tid, cs, grow < a.M, grow + 8 < a.M,
+                          lane);
+        }
+        __syncthreads();
+      }
+    }
+  }
+
+  float* red = reinterpret_cast<float*>(ring);   // [8 warps][2][BN]
+  const int wq = wg * 4 + warp;
+  const int stat = (lane >> 4) & 1;
+#pragma unroll
+  for (int q = 0; q < BN / 16; ++q)
+    red[(wq * 2 + stat) * BN + Stats<BN>::column(q, lane)] =
+        sums[q * THREADS + tid];
+  __syncthreads();
+  const size_t prow = (size_t)(blockIdx.x / n_tiles) * a.N;
+  for (int e = tid; e < 2 * BN; e += THREADS) {
+    const int st = e / BN, col = e % BN;
+    float v = 0.f;
+#pragma unroll
+    for (int w8 = 0; w8 < 8; ++w8) v += red[(w8 * 2 + st) * BN + col];
+    if (n0 + col < a.N) (st ? a.part2 : a.part1)[prow + n0 + col] = v;
+  }
+}
+
+"""
+
 #: variant name -> [(text in the committed source, its replacement)]
 VARIANTS = {
     # N above 256 in 128-column tiles, not 256
@@ -184,6 +417,50 @@ VARIANTS = {
     # K5 too in the widest tile N needs, whatever the rounds
     "widest": [("  if (pro) return widest;\n", "  return widest;\n")],
     "pro_registers": _PRO_REGISTERS,
+    # the split with hi truncated to TF32 (one AND) instead of rounded to
+    # nearest (cvt.rna, three instructions on sm_90a): |lo| < 2^-10 |x|
+    # where rounding leaves 2^-11
+    "trunc_hi": [
+        ("// relu(v * scale + shift), the product and the sum rounded apart",
+         "__device__ __forceinline__ void split_trunc(float x, uint32_t& hi,\n"
+         "                                            uint32_t& lo) {\n"
+         "  hi = __float_as_uint(x) & 0xffffe000u;\n"
+         "  lo = __float_as_uint(x - __uint_as_float(hi));\n"
+         "}\n\n"
+         "// relu(v * scale + shift), the product and the sum rounded apart"),
+        ("          for (int i = 0; i < 4; ++i) tf32::split(x[i], fa[m].hi[i], "
+         "fa[m].lo[i]);",
+         "          for (int i = 0; i < 4; ++i) split_trunc(x[i], fa[m].hi[i], "
+         "fa[m].lo[i]);"),
+        ("          fb[n].set(w[0], w[1]);\n          fb[n + 1].set(w[2], w[3]);",
+         "          split_trunc(w[0], fb[n].hi[0], fb[n].lo[0]);\n"
+         "          split_trunc(w[1], fb[n].hi[1], fb[n].lo[1]);\n"
+         "          split_trunc(w[2], fb[n + 1].hi[0], fb[n + 1].lo[0]);\n"
+         "          split_trunc(w[3], fb[n + 1].hi[1], fb[n + 1].lo[1]);")],
+    # the f32 route on wgmma's .tf32 form instead of mma.sync
+    "wgmma_tf32": [
+        ("// ----------------------------------------------------- the column "
+         "sums\n",
+         _wgmma_tf32(64) + _wgmma_tf32(128) + _WGMMA_TF32_KERNEL
+         + "// ----------------------------------------------------- the "
+         "column sums\n"),
+        ("  auto kern = f32::matmul_stats_tf32_kernel<BN, PRO>;",
+         "  using WC = f32::WCfg<BN>;\n"
+         "  auto kern = f32::matmul_stats_wgmma_kernel<BN, PRO>;"),
+        ("        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, "
+         "(int)C::SMEM);\n    if (err != cudaSuccess) return (int)err;\n"
+         "    if (dev < MAX_DEVICES) opted_in[dev] = true;\n  }\n"
+         "  CUtensorMap tm_x, tm_w, tm_y;\n  const int rc = encode_maps_f32",
+         "        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, "
+         "(int)WC::SMEM);\n    if (err != cudaSuccess) return (int)err;\n"
+         "    if (dev < MAX_DEVICES) opted_in[dev] = true;\n  }\n"
+         "  CUtensorMap tm_x, tm_w, tm_y;\n  const int rc = encode_maps_f32"),
+        ("  kern<<<rows * n_tiles, f32::THREADS, C::SMEM, st>>>(tm_x, tm_w, "
+         "tm_y,\n                                                       "
+         "args);",
+         "  kern<<<rows * n_tiles, f32::THREADS, WC::SMEM, st>>>(tm_x, tm_w, "
+         "tm_y, args,\n                                                        "
+         "static_cast<float*>(y));")],
 }
 
 
@@ -356,7 +633,7 @@ def host_costs(calls=2000, shape=(256, 64, 64)):
                                    "cuda")
     w_nk = w.t()
     c = _zeros(n, x.device)
-    rows = fused._partial_rows(x.device, m, True)
+    rows = fused._partial_rows(x.device)
     y = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
     buf = torch.empty(2 * (rows + 1) * n, dtype=torch.float32,
                       device="cuda")
@@ -518,6 +795,62 @@ def compare(batch=128, names=(), built=None):
     return rows
 
 
+#: the f32 route's shapes: ResNet-50's first pointwise convolution and its
+#: deepest well-fed one, at batch 128
+F32_SHAPES = [(401408, 64, 64), (25088, 1024, 256)]
+
+
+def compare_f32(names=(), built=None, shapes_=F32_SHAPES):
+    """The f32 route (split TF32): one dict a shape and entry (K5 with c
+    drawn from a seed, K8), with the committed kernel's and every
+    variant's :func:`device_ms`, max |y - plain| over max |plain|, the
+    sums' relative norms and whether two launches give the same bits, and
+    cuBLAS's f32 product (TF32 off) as ``dot_ms``."""
+    built = built or {}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    rows = []
+    for m, k, n in shapes_:
+        x = torch.randn(m, k, generator=gen, device="cuda")
+        w = (torch.randn(n, k, generator=gen, device="cuda")
+             / k ** 0.5).t()
+        c = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        scale = torch.rand(k, generator=gen, device="cuda") + 0.5
+        shift = torch.randn(k, generator=gen, device="cuda")
+        for kind in ("k5", "k8"):
+            if kind == "k8":
+                def run():
+                    return fused.matmul_stats_prologue(x, w, scale, shift)
+                ref = fused.matmul_stats_prologue_plain(x, w, scale, shift)
+            else:
+                def run():
+                    return fused.matmul_stats(x, w, c)
+                ref = fused.matmul_stats_plain(x, w, c)
+
+            def check(out, again):
+                y, s1, s2 = out
+                return {
+                    "y_rel_err": ((y - ref[0]).abs().max()
+                                  / ref[0].abs().max()).item(),
+                    "s1_rel_norm": ((s1 - ref[1]).norm()
+                                    / ref[1].norm()).item(),
+                    "s2_rel_norm": ((s2 - ref[2]).norm()
+                                    / ref[2].norm()).item(),
+                    "bit_identical": all(torch.equal(p, q)
+                                         for p, q in zip(out, again))}
+
+            row = {"kernel": kind, "shape": [m, k, n],
+                   "device_ms": device_ms(run),
+                   "dot_ms": device_ms(lambda: x @ w), **check(run(), run())}
+            for name in names:
+                with _standing_in(built[name][0]):
+                    row[name] = dict(device_ms=device_ms(run),
+                                     **check(run(), run()))
+            row["device_ms_after"] = device_ms(run)
+            rows.append(row)
+        del x, w, c, scale, shift
+    return rows
+
+
 def main(argv=None):
     from . import nvidia_smi
 
@@ -530,11 +863,25 @@ def main(argv=None):
     ap.add_argument("--baseline", default=None,
                     help="an older checkout's csrc directory, whose "
                     "matmul_stats.cu is timed too")
+    ap.add_argument("--f32", action="store_true",
+                    help="the f32 route alone: the committed kernel and "
+                    "the variants at F32_SHAPES (K5 and K8)")
     a = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("matmul_stats_experiment: no CUDA device; this "
                          "tool measures the GPU")
     print(nvidia_smi(), flush=True)
+    if a.f32:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        names = [n for n in a.variants.split(",") if n]
+        built = build_variants(names) if names else {}
+        for name in names:
+            print(json.dumps({"variant": name, "ptxas": built[name][1]}),
+                  flush=True)
+        rows = compare_f32(names, built)
+        for row in rows:
+            print(json.dumps(row), flush=True)
+        return rows
     rows = experiment(a.batch, a.repeats, a.chain)
     print(f"{'M':>9} {'K':>5} {'N':>5} | {'lib dot':>8} {'lib+st':>8} "
           f"{'kernel':>8} {'ker+pro':>8} {'lib+pro':>8}  (ms)")

@@ -1,15 +1,24 @@
 """K9, the stage-1 bottleneck block: the port's ``block_plain`` against the
 JAX tool's Pallas kernel (``tools/pallas_block_experiment.py``, loaded by
 path) in interpret mode, and ``library_block`` against its ``xla_block``,
-on the same bf16 inputs from a seed, at batch 1.
+on the same inputs from a seed, at batch 1: bf16 at the tests' set and
+both stage-1 sets, f32 at those and at the general route's sets (24, 80,
+40) and (64, 128, 256), which take bf16 too.  The JAX kernel reads its
+first BatchNorm as the scales' whole first row, so it takes cin >= cmid
+only; for cin < cmid it gets x and w1 padded with zero channels to cmid,
+which leaves y as it is.
 
-Tolerances, as a share of max |y|: 1e-2.  ``block_plain`` and the Pallas
-kernel both compute in f32 and round y to bf16 once, so they differ by the
-rounding of a y whose f32 values differ in their last bits (one bf16 ulp,
-under 4e-3 of an entry); ``library_block`` and ``xla_block`` round at the
-same four places.  The ``cuda`` tests hold the CUDA kernel against
-``block_plain`` on the card at the JAX tool's limit, 5e-2, at both stage-1
-channel sets and several band heights.
+Tolerances, as a share of max |y|: 1e-2 in bf16.  ``block_plain`` and the
+Pallas kernel both compute in f32 and round y to bf16 once, so they differ
+by the rounding of a y whose f32 values differ in their last bits (one bf16
+ulp, under 4e-3 of an entry); ``library_block`` and ``xla_block`` round at
+the same four places.  In f32, 1e-5: both sum the same f32 products in
+other orders (up to 9 x 128 terms a sum).  The router (``route``) sends
+bf16 within ``kernel_takes`` to the wgmma kernel (sm90) and everything else
+within ``general_takes`` to the general kernel, and refuses the rest before
+it builds anything.  The ``cuda`` tests hold both CUDA kernels against
+``block_plain`` on the card: bf16 at the JAX tool's limit, 5e-2, f32 at
+chip_smoke's ``TOL_BLOCK_F32``.
 """
 import importlib.util
 import os
@@ -39,15 +48,23 @@ def _jax_tool():
 JTOOL = _jax_tool()
 
 
-def _both(cin, cmid, cout, seed=0, shifts=None):
+def _both(cin, cmid, cout, seed=0, shifts=None, dtype=torch.bfloat16):
     """The tool's inputs at batch 1 for the port and, from the same values,
     for JAX."""
-    args = list(tool.inputs(1, cin, cmid, cout, device="cpu", seed=seed))
+    args = list(tool.inputs(1, cin, cmid, cout, device="cpu", seed=seed,
+                            dtype=dtype))
     if shifts is not None:
         args[5] = shifts
     jargs = [jnp.asarray(a.float().numpy()).astype(
         jnp.bfloat16 if a.dtype == torch.bfloat16 else jnp.float32)
         for a in args]
+    if cin < cmid:
+        # the JAX kernel reads the first BatchNorm as the scales' whole
+        # first row, so it takes scales exactly cin wide and cin >= cmid:
+        # it gets x and w1 padded with zero channels to cmid, which leaves
+        # y as it is (a zero channel meets a zero row of w1)
+        jargs[0] = jnp.pad(jargs[0], ((0, 0),) * 3 + ((0, cmid - cin),))
+        jargs[1] = jnp.pad(jargs[1], ((0, cmid - cin), (0, 0)))
     return args, jargs
 
 
@@ -66,6 +83,42 @@ def test_plain_matches_the_pallas_kernel(channels):
     want = JTOOL.pallas_block(*jargs, rows=8, interpret=True)
     y = tool.block_plain(*args)
     assert y.shape == (1, 56, 56, channels[2]) and y.dtype == torch.bfloat16
+    assert _rel(y, want) <= 1e-2
+
+
+#: sets only the general kernel takes, in both dtypes: cin not a multiple
+#: of 16 and cmid 80; a Wide ResNet's stage-1 block (cmid 128)
+GENERAL_SETS = [(24, 80, 40), (64, 128, 256)]
+
+
+def test_inputs_take_a_dtype():
+    """bf16 by default, as the JAX tool draws; f32 from the same values."""
+    b = tool.inputs(1, 16, 16, 32, device="cpu", seed=5)
+    f = tool.inputs(1, 16, 16, 32, device="cpu", seed=5,
+                    dtype=torch.float32)
+    assert [t.dtype for t in b] == [torch.bfloat16] * 4 + [torch.float32] * 2
+    assert [t.dtype for t in f] == [torch.float32] * 6
+    for tb, tf in zip(b, f):
+        assert tb.shape == tf.shape
+        assert torch.equal(tb, tf.to(tb.dtype))
+
+
+@pytest.mark.parametrize("channels", CHANNELS + GENERAL_SETS, ids=str)
+def test_plain_matches_the_pallas_kernel_in_f32(channels):
+    """f32 in, f32 out (the JAX tool's ``yshape`` takes x's dtype)."""
+    args, jargs = _both(*channels, seed=6, dtype=torch.float32)
+    want = JTOOL.pallas_block(*jargs, rows=8, interpret=True)
+    y = tool.block_plain(*args)
+    assert y.dtype == torch.float32 and want.dtype == jnp.float32
+    assert _rel(y, want) <= 1e-5
+
+
+@pytest.mark.parametrize("channels", GENERAL_SETS, ids=str)
+def test_plain_matches_the_pallas_kernel_at_general_sets(channels):
+    args, jargs = _both(*channels, seed=7)
+    want = JTOOL.pallas_block(*jargs, rows=8, interpret=True)
+    y = tool.block_plain(*args)
+    assert y.dtype == torch.bfloat16
     assert _rel(y, want) <= 1e-2
 
 
@@ -126,17 +179,26 @@ def test_block_kernel_refuses_other_shapes():
         tool.block_kernel(x, w1, w2[:, :8], w3, s, b)
     with pytest.raises(MXNetError, match="scales and shifts"):
         tool.block_kernel(x, w1, w2, w3, s[:, :8], b[:, :8])
-    # the CUDA path checks the kernel's range before building: cmid 80 and
-    # cin 24 lie outside it
+    # cmid 80 and cin 24 lie outside the wgmma kernel's range: the general
+    # kernel takes them (they raised before it existed)
     for cin, cmid in ((16, 80), (24, 16)):
         args = tool.inputs(1, cin, cmid, 32, device="cpu")
-        with pytest.raises(MXNetError, match="takes cin and cout"):
+        assert tool.route(*args) == "general"
+    # past the general kernel's limits, and mixed dtypes, raise before
+    # anything is built
+    for cin, cmid, cout in ((16, 512, 32), (4096, 16, 32), (16, 16, 4096)):
+        args = tool.inputs(1, cin, cmid, cout, device="cpu")
+        with pytest.raises(MXNetError, match="cmid 1 to 256"):
             tool._launch(*args)
-    with pytest.raises(MXNetError, match="bf16"):
+    with pytest.raises(MXNetError, match="one dtype"):
         tool._launch(x.float(), w1, w2, w3, s, b)
+    with pytest.raises(MXNetError, match="one dtype"):
+        tool._launch(x.half(), w1.half(), w2.half(), w3.half(), s, b)
     for band in (5, 7):
         with pytest.raises(MXNetError, match="band"):
             tool._launch(x, w1, w2, w3, s, b, band=band)
+    with pytest.raises(MXNetError, match="CUDA tensors"):
+        tool._launch(x, w1, w2, w3, s, b)
 
 
 @pytest.mark.parametrize("channels,takes", [
@@ -147,8 +209,51 @@ def test_block_kernel_refuses_other_shapes():
     ids=str)
 def test_kernel_takes_its_range(channels, takes):
     """cin and cout multiples of 16 in [16, 256], cmid 16, 32, 48 or 64:
-    both stage-1 sets, the tests' set and chip_smoke's range sets."""
+    both stage-1 sets, the tests' set and chip_smoke's range sets.  What
+    the wgmma kernel takes goes to it in bf16; the rest, and f32, to the
+    general kernel where it takes them (cin 0 nowhere)."""
     assert tool.kernel_takes(*channels) is takes
+    general = tool.general_takes(*channels)
+    for dtype in (torch.bfloat16, torch.float32):
+        args = tool.inputs(1, *channels, device="cpu", dtype=dtype) \
+            if min(channels) > 0 else None
+        want = "sm90" if takes and dtype == torch.bfloat16 \
+            else "general" if general else None
+        if args is None:
+            assert want is None
+        else:
+            assert tool.route(*args) == want
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("channels,route_bf16", [
+    ((64, 64, 256), "sm90"), ((256, 64, 256), "sm90"),
+    ((16, 16, 32), "sm90"), ((64, 80, 256), "general"),
+    ((24, 64, 256), "general"), ((64, 64, 272), "general"),
+    ((64, 128, 256), "general"), ((256, 128, 256), "general"),
+    ((1, 1, 1), "general"), ((3, 7, 5), "general"),
+    ((2048, 256, 2048), "general"), ((64, 256, 64), "general"),
+    ((64, 257, 64), None), ((2049, 64, 64), None), ((64, 64, 2049), None)],
+    ids=str)
+def test_route_chooser(channels, route_bf16, dtype):
+    """bf16 within the wgmma kernel's range goes there; f32 everywhere, and
+    bf16 outside that range, to the general kernel up to cin and cout 2048
+    and cmid 256; past that the router raises, naming the limits.  The
+    router builds nothing, so it runs on CPU tensors."""
+    cin, cmid, cout = channels
+    dt = getattr(torch, dtype)
+    x = torch.zeros(1, 56, 56, cin, dtype=dt)
+    w1, w2 = torch.zeros(cin, cmid, dtype=dt), torch.zeros(9, cmid, cmid,
+                                                           dtype=dt)
+    w3 = torch.zeros(cmid, cout, dtype=dt)
+    s = torch.ones(3, max(cin, cmid))
+    want = route_bf16 if dt == torch.bfloat16 or route_bf16 is None \
+        else "general"
+    if want is None:
+        with pytest.raises(MXNetError, match="cmid 1 to 256"):
+            tool.route(x, w1, w2, w3, s, s)
+    else:
+        assert tool.route(x, w1, w2, w3, s, s) == want
 
 
 def test_chip_smoke_range_sets_are_in_range_and_cover_the_tails():
@@ -159,6 +264,33 @@ def test_chip_smoke_range_sets_are_in_range_and_cover_the_tails():
     assert {c[1] for c in sets} == {16, 32, 48, 64}
     assert {c[0] % 64 for c in sets} >= {0, 16, 48}
     assert {c[2] % 64 for c in sets} == {0, 16, 32, 48}
+
+
+def test_general_kernel_source():
+    """The general route: its own source in cuda_build.SOURCES, split TF32
+    (m16n8k8 .tf32 from tf32_common.cuh, with its cvt.rna split) and bf16
+    m16n8k16 on mma.sync, the chunk sums added on the CUDA cores, loads by
+    threads (no TMA, so any channel count), no atomics and no library
+    call."""
+    from mxnet_tpu_torch import cuda_build
+    assert cuda_build.SOURCES["bottleneck_block_general"] == \
+        "csrc/bottleneck_block_general.cu"
+    csrc = os.path.join(ROOT, "mxnet_tpu_torch", "csrc")
+    with open(os.path.join(csrc, "bottleneck_block_general.cu")) as f:
+        src = f.read()
+    with open(os.path.join(csrc, "tf32_common.cuh")) as f:
+        tf32 = f.read()
+    assert '#include "tf32_common.cuh"' in src
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in tf32
+    assert "cvt.rna.tf32.f32" in tf32
+    assert "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32" in src
+    for used in ("tf32::mma3(", "tf32::split(", "acc[m][n][e] += p[m][n][e]",
+                 "int mxtt_bottleneck_general(",
+                 "int mxtt_bottleneck_general_plan("):
+        assert used in src, used
+    for gone in ("atomicadd", "atom.", "red.", "cublas", "cudnn",
+                 "tma_load", "wgmma_", "wgmma.mma_async"):
+        assert gone not in src.lower(), gone
 
 
 def test_kernel_source_is_the_hopper_design():
@@ -221,6 +353,34 @@ def test_chip_smoke_reads_k9_ptxas_report():
             "registers": 154, "smem": 224}}
 
 
+def test_chip_smoke_reads_the_general_kernel_ptxas_report():
+    """The same report for bottleneck_block_general.cu: one entry a dtype
+    and tile height (``bottleneck_general_kernel<4>`` for f32 whole rows;
+    the type argument is not an integer and is dropped, so the f32 and
+    bf16 entries keep their order of appearance)."""
+    log = (
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__0a1b2c3d"
+        "_27_bottleneck_block_general_cu_1a2b3c4d25bottleneck_general_kernel"
+        "IfLi4EEEvNS_6ParamsE' for 'sm_90a'\n"
+        "ptxas info    : Function properties for _ZN48_GLOBAL__N__0a1b2c3d_27"
+        "_bottleneck_block_general_cu_1a2b3c4d25bottleneck_general_kernelIf"
+        "Li4EEEvNS_6ParamsE\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 96 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_ZN48_GLOBAL__N__0a1b2c3d"
+        "_27_bottleneck_block_general_cu_1a2b3c4d25bottleneck_general_kernel"
+        "I13__nv_bfloat16Li2EEEvNS_6ParamsE' for 'sm_90a'\n"
+        "    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads\n"
+        "ptxas info    : Used 128 registers, used 1 barriers\n")
+    assert chip_smoke.general_block_ptxas_summary(log) == {
+        "bottleneck_general_kernel<f32,4>": {
+            "stack": 0, "spill_stores": 0, "spill_loads": 0,
+            "registers": 96, "smem": 0},
+        "bottleneck_general_kernel<bf16,2>": {
+            "stack": 0, "spill_stores": 4, "spill_loads": 4,
+            "registers": 128, "smem": 0}}
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -253,6 +413,70 @@ def test_kernel_is_the_same_at_every_band_on_card(cuda_device, channels,
 
 @pytest.mark.cuda
 def test_kernel_refuses_other_shapes_on_card(cuda_device):
-    args = tool.inputs(1, 64, 80, 256, device=cuda_device)
-    with pytest.raises(MXNetError, match="takes cin and cout"):
-        tool.block_kernel(*args)
+    """cmid 512 lies past the general kernel's limit in both dtypes; (64,
+    80, 256), which raised before the general kernel, now runs."""
+    for dtype in (torch.bfloat16, torch.float32):
+        args = tool.inputs(1, 64, 512, 256, device=cuda_device, dtype=dtype)
+        with pytest.raises(MXNetError, match="cmid 1 to 256"):
+            tool.block_kernel(*args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("channels", [(64, 80, 256), (24, 64, 256),
+                                      (64, 64, 272), (64, 128, 256),
+                                      (3, 7, 5)] + CHANNELS, ids=str)
+def test_general_kernel_matches_plain_on_card(cuda_device, channels, dtype):
+    """The general kernel: bf16 outside the wgmma kernel's range, and f32
+    at every set, against block_plain (bf16 at the JAX tool's 5e-2, f32 at
+    chip_smoke's TOL_BLOCK_F32), bit-identical across two launches."""
+    dt = getattr(torch, dtype)
+    args = tool.inputs(2, *channels, device=cuda_device, dtype=dt)
+    if dt == torch.bfloat16 and tool.kernel_takes(*channels):
+        pytest.skip("the wgmma kernel's set")
+    before = tool.block_kernel.general_launches
+    y = tool.block_kernel(*args)
+    y2 = tool.block_kernel(*args)
+    torch.cuda.synchronize()
+    assert tool.block_kernel.general_launches == before + 2
+    assert y.dtype == dt and torch.equal(y, y2)
+    ref = tool.block_plain(*args).float()
+    tol = chip_smoke.TOL_BLOCK_F32 if dt == torch.float32 \
+        else chip_smoke.TOL_BLOCK
+    assert (y.float() - ref).abs().max().item() \
+        <= tol * ref.abs().max().item()
+
+
+def test_chip_smoke_block_bound_takes_the_dtype():
+    """bf16: 2-byte x, y and weights at 989 TFLOP/s; f32: 4-byte ones and
+    split TF32, 3 x flops at 495 TFLOP/s, which bounds both stage-1 sets in
+    f32 by operations."""
+    n, cin, cmid, cout = 128, 64, 64, 256
+    flops = 2.0 * n * 56 * 56 * (cin * cmid + 9 * cmid * cmid + cmid * cout)
+    weights = cin * cmid + 9 * cmid * cmid + cmid * cout
+    bf = chip_smoke.block_bound(n, cin, cmid, cout)
+    f32 = chip_smoke.block_bound(n, cin, cmid, cout, torch.float32)
+    assert bf == chip_smoke.block_bound(n, cin, cmid, cout, torch.bfloat16)
+    assert bf["bytes"] == 2.0 * n * 56 * 56 * (cin + cout) + 2.0 * weights \
+        + 4.0 * 2 * 3 * cin
+    assert f32["bytes"] == 4.0 * n * 56 * 56 * (cin + cout) + 4.0 * weights \
+        + 4.0 * 2 * 3 * cin
+    assert bf["bound_by"] == "bytes"
+    assert f32["bound_by"] == "operations"
+    assert f32["bound_ms"] == 3 * flops / 495e12 * 1e3
+
+
+def test_chip_smoke_general_sets_take_the_general_route():
+    """chip_smoke's batch-2 sets for the general kernel lie outside the
+    wgmma kernel's range (in bf16) and inside the general one's, and the
+    f32 extras reach odd counts and cmid 256 (half rows in f32)."""
+    for channels in chip_smoke.K9_GENERAL_SETS:
+        assert not tool.kernel_takes(*channels)
+        assert tool.general_takes(*channels)
+    assert {(64, 80, 256), (24, 64, 256), (64, 64, 272),
+            (64, 128, 256)} <= set(chip_smoke.K9_GENERAL_SETS)
+    extra = chip_smoke.K9_GENERAL_F32_EXTRA
+    assert all(tool.general_takes(*c) for c in extra)
+    assert any(c[1] == tool.MAX_CMID for c in extra)
+    assert any(min(c) < 8 and all(v % 2 for v in c) for c in extra)
+    assert not tool.general_takes(64, 512, 256)

@@ -234,6 +234,70 @@ def test_bf16_kernel_is_one_hopper_design():
     assert 'static_assert(STAGES >= 3' in src
 
 
+def test_f32_route_is_split_tf32_on_the_tensor_cores():
+    """The f32 route: its own kernel template in matmul_stats.cu on the
+    m16n8k8 TF32 products of tf32_common.cuh (hi rounded by cvt.rna, three
+    products), fed by TMA (cp.async.bulk.tensor) through an mbarrier ring,
+    y stored by TMA, each stage's products summed in a zeroed accumulator
+    and added on the CUDA cores; the CUDA-core FMA kernel is gone."""
+    src, common = _k5_source()
+    tf32 = (Path(cuda_build.__file__).parent / "csrc"
+            / "tf32_common.cuh").read_text()
+    assert '#include "tf32_common.cuh"' in src
+    start = src.index("namespace f32 {")
+    f32 = src[start:src.index("}  // namespace f32", start)]
+    for used in ("matmul_stats_tf32_kernel", "tf32::mma3(p[m][n]",
+                 "tf32::split(", "tf32::ldsm_x4(", "tma_load_2d(",
+                 "tma_store_2d(", "mbar_wait(&full[s]", "mbar_arrive(&empty[s]",
+                 "acc[m][n][e] += p[m][n][e]", "__shfl_xor_sync"):
+        assert used in f32, used
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in tf32
+    assert "cvt.rna.tf32.f32" in tf32
+    assert "cp.async.bulk.tensor.2d.shared::cluster.global" in common
+    assert "cp.async.bulk.tensor.2d.global.shared::cta" in common
+    for gone in ("fmaf(", "matmul_stats_f32_kernel", "stage_f32",
+                 "atomicAdd"):
+        assert gone not in src, gone
+
+
+def test_partial_rows_match_the_persistent_grid(monkeypatch):
+    """Both dtypes run one block an SM: the wrapper hands the kernel the
+    SM count of partial rows, whatever M, and the f32 launcher takes its
+    rows by the bf16 route's rule (at most SM count / n-tiles, at most the
+    m-tiles), which never exceeds it."""
+    monkeypatch.setitem(tfused._SM_COUNT, 0, 132)
+    dev = torch.device("cuda", 0)
+    assert tfused._partial_rows(dev) == 132
+    src, _common = _k5_source()
+    launcher = src[src.index("int launch_tf32("):src.index("int launch_f32(")]
+    assert "bf16_rows(args.M, args.N, BN)" in launcher
+    assert "if (rows > part_rows) return (int)cudaErrorInvalidValue;" \
+        in launcher
+    for m, k, n in chip_smoke.K5_F32_SHAPES + chip_smoke.K5_ODD_SHAPES:
+        bn = 64 if n <= 64 else 128
+        n_tiles, m_tiles = -(-n // bn), -(-m // 128)
+        rows = max(1, min(132 // n_tiles, m_tiles))
+        assert rows * n_tiles <= 132 and rows <= tfused._partial_rows(dev)
+
+
+def test_chip_smoke_f32_k5_bound_is_the_split_tf32_route():
+    """f32 K5 runs 3 TF32 products a product: its bound is 3 x flops at
+    495 TFLOP/s or the bytes, with the CUDA-core bound beside it."""
+    m, k, n = 25088, 1024, 256
+    b = chip_smoke.k5_bound(m, k, n, torch.float32)
+    flops = 2.0 * m * n * k
+    nbytes = 4.0 * (m * k + n * k + m * n) + 4.0 * 3 * n
+    assert b["bound_ms"] == max(3 * flops / 495e12, nbytes / 3.35e12) * 1e3
+    assert b["bound_by"] == "operations"
+    assert b["bound_split_tf32_ms"] == b["bound_ms"]
+    assert b["bound_cuda_core_ms"] == max(flops / 67e12,
+                                          nbytes / 3.35e12) * 1e3
+    small = chip_smoke.k5_bound(401408, 64, 64, torch.float32)
+    assert small["bound_by"] == "bytes"
+    assert "bound_cuda_core_ms" not in chip_smoke.k5_bound(
+        m, k, n, torch.bfloat16)
+
+
 def test_k5_ptxas_summary_reads_each_instantiation():
     """chip_smoke's report of -Xptxas -v for matmul_stats.cu: registers,
     shared memory and spills per kernel instantiation."""
@@ -295,3 +359,28 @@ def test_bf16_shapes_tma_refuses_are_padded_on_card(cuda_device, shape):
     assert y.shape == (m, n) and y.is_contiguous() and s1.shape == (n,)
     assert tfused.matmul_stats.launches == 1
     assert tfused.matmul_stats.padded == (1 if k % 8 or n % 8 else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", [False, True])
+def test_f32_long_sum_keeps_f32_accuracy_on_card(cuda_device, prologue):
+    """K = 2048, the longest ResNet-50 depth: the tensor cores' truncating
+    accumulator would drift past 1e-5 of max |y| over such a sum; the
+    split-TF32 route sums each stage apart and adds it rounded to nearest,
+    and holds y to 1e-5 of max |plain| and the sums to 1e-4 by norm."""
+    m, k, n = 2048, 2048, 512
+    x, w, c = (torch.from_numpy(a).to(cuda_device)
+               for a in _inputs(m, k, n, seed=3))
+    if prologue:
+        scale = torch.rand(k, device=cuda_device) + 0.5
+        shift = torch.randn(k, device=cuda_device)
+        got = tfused.matmul_stats_prologue(x, w, scale, shift)
+        want = tfused.matmul_stats_prologue_plain(x, w, scale, shift)
+    else:
+        got = tfused.matmul_stats(x, w, c)
+        want = tfused.matmul_stats_plain(x, w, c)
+    torch.cuda.synchronize()
+    (y, s1, s2), (ry, rs1, rs2) = got, want
+    assert (y - ry).abs().max().item() <= 1e-5 * ry.abs().max().item()
+    for s, r in ((s1, rs1), (s2, rs2)):
+        assert (s - r).norm().item() <= 1e-4 * r.norm().item()
