@@ -46,7 +46,22 @@ Phases, one JSON line each:
    and batch 1, on ``gpu(0)`` and on the CPU from the same weights; the
    change in every parameter agrees within a stated relative tolerance,
    and the same step with TF32 matmuls, run as a control, must not;
-7. ``kernels`` of K5 (``matmul_stats``, the GEMM with the BatchNorm
+7. ``module_train``: ``train_lm.train()``'s Module route at full width
+   (the GPT with dropout 0.1, f32, TF32 off) on ``gpu(0)``:
+   ``Module.fit`` for one epoch of 8 batches of 16 sequences of a
+   permutation chain (next token = perm[token], on 256 of the 16384
+   tokens) through ``NDArrayIter``,
+   with Xavier, Adam at 3e-3, Perplexity and Speedometer; every batch's
+   perplexity finite and the last below the first, the flash forward,
+   backward and delta launched once per layer per ``forward_backward`` and
+   the forward once per layer per ``score`` batch; then ``score``,
+   ``save_checkpoint`` and ``Module.load`` on ``gpu(0)``, whose score must
+   equal the first within 1e-6; ms per batch, peak memory, and f32
+   ``ShardedTrainer`` steps at the same width and batch beside them;
+8. ``module_check``: train_check through the Module (one
+   ``forward_backward`` + ``update`` with SGD of the GPT cut to 2 layers
+   and batch 1, on ``gpu(0)`` and on the CPU, with the TF32 control);
+9. ``kernels`` of K5 (``matmul_stats``, the GEMM with the BatchNorm
    statistics epilogue) against its plain version at the 8 shapes one
    ResNet-50 training step gives it in bf16, at 2 of them in f32 and at
    the cuda tests' shapes (one of which the wrapper pads for TMA in both
@@ -56,7 +71,7 @@ Phases, one JSON line each:
    (split TF32 on the tensor cores) the card's time, cuBLAS's f32 product
    (TF32 off) and the bound of the product as split TF32 beside the
    CUDA-core one;
-8. ``resnet_train``: ResNet-50 v2 at ``tools/bench.py``'s configuration
+10. ``resnet_train``: ResNet-50 v2 at ``tools/bench.py``'s configuration
    (batch 128, 224x224, bf16, NHWC, block fusion, SGD momentum) on
    ``gpu(0)``: ten steps after a warm-up, every loss finite, the last
    below the first, every moving statistic moved, the fusion plan 50
@@ -64,23 +79,23 @@ Phases, one JSON line each:
    through the wrapper's padding; then ms/step,
    images/s, peak memory and a profile of one step (K5's share, and the
    count of cuDNN layout transposes);
-9. ``resnet_train_check``: one f32 SGD step of ResNet-50 at batch 8,
+11. ``resnet_train_check``: one f32 SGD step of ResNet-50 at batch 8,
    64x64, on ``gpu(0)`` and on the CPU; every parameter's and moving
    statistic's change agrees within a stated relative tolerance, and a
    TF32 control must not;
-10. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
+12. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
     package's ``tests/test_rtc.py`` written in CUDA C, abs written as a
     CUDA programmer writes it for this card (float4 in a grid-stride
     loop), and both abs bodies over an (8192, 8192) f32 array, and pushes
     each once; each output equals the callable (plain) form's exactly; the
     two full-size ones are timed against ``torch.abs`` and their byte
     bound;
-11. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
+13. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
     shapes at batch 128, then K7 (K5 with c = 0) and K8 (the prologue
     variant) against their plain versions at each shape, bit-identical
     across two launches, with the kernel (the card's, and with the host's
     share), plain, library, cuBLAS product and bound times;
-12. ``block_experiment``: the tool of that name at batch 128 with its
+14. ``block_experiment``: the tool of that name at batch 128 with its
     defaults (64, 64, 256, rows 8, bf16: the wgmma kernel) and again in
     f32 (the general kernel), then K9 against ``block_plain`` at both
     stage-1 channel sets, (64, 64, 256) and (256, 64, 256), batch 128, in
@@ -92,7 +107,9 @@ Phases, one JSON line each:
     256), (24, 64, 256), (64, 64, 272), which raised before it existed,
     and the Wide ResNet sets (64, 128, 256) and (256, 128, 256)) and on
     those and the range sets in f32; each bit-identical across two
-    launches; cmid 512 must raise in both dtypes.
+    launches; then the general kernel past cmid 256 at batch 1, cmid 512
+    and 1024 in both dtypes, each in the tile its shared memory allows;
+    cmid 4096 must raise in both dtypes.
 
 Then the kernel summary line and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -101,6 +118,7 @@ line.  With no CUDA device it exits 1 at once.
 from __future__ import annotations
 
 import json
+import logging
 import os
 import re
 import sys
@@ -138,6 +156,7 @@ from mxnet_tpu_torch.tools.bench import (                      # noqa: E402
 from mxnet_tpu_torch.tools import (                            # noqa: E402
     block_experiment, nvidia_smi)
 from mxnet_tpu_torch.tools import matmul_stats_experiment      # noqa: E402
+from mxnet_tpu_torch.tools import module_fit                   # noqa: E402
 
 #: the repo's benchmark configuration of the GPT LM
 #: (examples/transformer/train_lm.py, build_bench_trainer)
@@ -464,14 +483,16 @@ def attention_bound(b, t, h, d, dtype, causal, n_matmuls=2, n_tensors=4):
 
 #: the training path's attention: build_bench_trainer's batch 16, bf16
 TRAIN_SHAPE = (16, 1024, 16, 64, torch.bfloat16, True)
+#: the Module route's attention (module_train): the same shape in f32
+MODULE_SHAPE = (16, 1024, 16, 64, torch.float32, True)
 #: the flash cases of both kernels phases, each in both dtypes: the
 #: serving shape, T=4096, the other head dims (whose shared-memory layout
 #: and register budget differ: 64-byte bf16 rows at D=32, two 128-byte bf16
 #: boxes at D=128; one, two and four 128-byte f32 boxes at D = 32, 64, 128)
-#: and ragged T; and the training shape
+#: and ragged T; and the training shape in both
 FLASH_CASES = [(4, 1024, 16, 64, dt, causal)
                for dt in (torch.float32, torch.bfloat16)
-               for causal in (True, False)] + [TRAIN_SHAPE] + [
+               for causal in (True, False)] + [TRAIN_SHAPE, MODULE_SHAPE] + [
     case + (dt,) + causal
     for case, causal in (
         ((1, 4096, 16, 64), (True,)),
@@ -981,6 +1002,33 @@ def train_phase(ctx, cfg, batch=16, dtype="bfloat16", steps=10,
     return out
 
 
+def update_diff(delta, ref, each=False):
+    """Per parameter, ||delta - ref|| / ||ref|| of two updates (dicts of CPU
+    tensors): the worst, its name and the median (and all of them when
+    ``each``)."""
+    rel = {k: (delta[k] - d).norm().item() / max(d.norm().item(), 1e-30)
+           for k, d in ref.items()}
+    worst = max(rel, key=rel.get)
+    out = {"max_rel_update_diff": rel[worst], "worst_param": worst,
+           "median_rel_update_diff": float(np.median(list(rel.values())))}
+    if each:
+        out["rel_update_diff"] = rel
+    return out
+
+
+def flash_counts():
+    """The launch counts of the flash forward, backward and delta kernels."""
+    return {"flash_attention_fwd": flash_attention_fwd.launches,
+            "flash_attention_bwd": flash_attention_bwd.launches,
+            "flash_attention_delta": flash_attention_delta.launches}
+
+
+def zero_flash_counts():
+    flash_attention_fwd.launches = 0
+    flash_attention_bwd.launches = 0
+    flash_attention_delta.launches = 0
+
+
 def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
     """One f32 SGD step (no momentum) of the GPT at ``cfg``'s width with
     ``layers`` layers and batch 1, on ``ctx`` and on ``check_ctx`` (default:
@@ -1018,16 +1066,7 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
             "flash_attention_delta": flash_attention_delta.launches}
         return loss, {k: trainer.params[k].cpu() - before[k] for k in before}
 
-    def compare(delta, ref, each=False):
-        rel = {k: (delta[k] - d).norm().item() / max(d.norm().item(), 1e-30)
-               for k, d in ref.items()}
-        worst = max(rel, key=rel.get)
-        out = {"max_rel_update_diff": rel[worst], "worst_param": worst,
-               "median_rel_update_diff": float(np.median(list(rel.values())))}
-        if each:
-            out["rel_update_diff"] = rel
-        return out
-
+    compare = update_diff
     launches = {}
     loss, delta = one_step(ctx)
     ref_loss, ref_delta = one_step(check_ctx)
@@ -1056,6 +1095,234 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
     if out["control_tf32"] is not None and \
             out["control_tf32"]["max_rel_update_diff"] <= TOL_TRAIN_CHECK:
         raise SystemExit("train_check: the TF32 control passes the bound, "
+                         "so the bound cannot tell it from f32: %s"
+                         % json.dumps(out))
+    return out
+
+
+# ------------------------------------------------------------ Module API
+class _LogLines(logging.Handler):
+    """Keeps the messages logged while it is attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+#: the tokens module_train's chain walks, and its batches: at lr 3e-3 the
+#: full-width GPT learns the unigram of the chain in three batches and
+#: its bigram only on 64 tokens, below 64 from batch 10 and about 27 over
+#: batches 17 to 20; on 256 and 16384 tokens it did not in 32 batches, nor
+#: did the f32 ShardedTrainer on the same weights and draws (PERF.md)
+CHAIN_SUPPORT = module_fit.SUPPORT
+MODULE_BATCHES = module_fit.BATCHES
+
+
+def _tail_perplexity(per_batch, n=4):
+    """The geometric mean of the last ``n`` batches' perplexities."""
+    return float(np.exp(np.mean(np.log(per_batch[-n:]))))
+
+
+def module_train_phase(ctx, cfg, batch=16, batches=MODULE_BATCHES, lr=3e-3,
+                       trainer_steps=3):
+    """``train_lm.train()``'s Module route at ``cfg``'s width
+    (``tools.module_fit.fit``): the GPT with dropout 0.1 in f32,
+    ``Module(net, context=ctx).fit`` over an ``NDArrayIter`` of ``batches``
+    batches of the permutation chain on ``CHAIN_SUPPORT`` tokens (Xavier,
+    Adam at ``lr``, Perplexity, Speedometer(batch, 2)), the flash counts
+    set to 0 just before and read just after; each batch's perplexity
+    (finite, the last below the first) and time; then ``score``, the
+    checkpoint written and loaded by ``Module.load`` on ``ctx``, and a
+    second score equal to the first within 1e-6.  The bigram must be
+    learned, not only the unigram (a perplexity of ``CHAIN_SUPPORT``): the
+    last four batches' perplexity (their geometric mean) and the score
+    stay below ``CHAIN_SUPPORT``.  Beside it, on the card,
+    ``trainer_steps`` timed steps of ``ShardedTrainer`` in f32 at the same
+    width and batch (dropout 0), and peak memory.  Raises on any failed
+    check."""
+    on_card = ctx.device_type == "gpu"
+    layers = cfg["layers"]
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    log = _LogLines()
+    logging.getLogger().addHandler(log)
+    old_level = logging.getLogger().level
+    logging.getLogger().setLevel(logging.INFO)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    try:
+        zero_flash_counts()
+        run = module_fit.fit(ctx, cfg, batch, batches, lr, CHAIN_SUPPORT)
+        fit_launches = flash_counts()
+    finally:
+        logging.getLogger().removeHandler(log)
+        logging.getLogger().setLevel(old_level)
+    mod, it, per_batch = run["module"], run["iter"], run["batch_perplexity"]
+    first_ms, batch_ms, fit_s = (run["setup_and_first_batch_ms"],
+                                 run["batch_ms"], run["fit_s"])
+    peak_fit = torch.cuda.max_memory_allocated() if on_card else None
+
+    zero_flash_counts()
+    t0 = time.perf_counter()
+    score = mod.score(it, mx.metric.Perplexity(None))[0][1]
+    sync()
+    score_s = time.perf_counter() - t0
+    score_launches = flash_counts()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "gpt")
+        t0 = time.perf_counter()
+        mod.save_checkpoint(prefix, 1)
+        save_s = time.perf_counter() - t0
+        params_bytes = os.path.getsize(prefix + "-0001.params")
+        t0 = time.perf_counter()
+        loaded = mx.mod.Module.load(prefix, 1, context=ctx)
+        loaded.bind(data_shapes=it.provide_data,
+                    label_shapes=it.provide_label, for_training=False)
+        load_s = time.perf_counter() - t0
+    score2 = loaded.score(it, mx.metric.Perplexity(None))[0][1]
+    n_params = sum(int(v.size) for v in mod.get_params()[0].values())
+    del loaded, mod, run
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+
+    out = {"config": dict(cfg, dropout=0.1), "context": str(ctx),
+           "batch": batch, "batches": batches, "dtype": "float32",
+           "chain_support": CHAIN_SUPPORT, "optimizer": "adam",
+           "learning_rate": lr, "params": n_params,
+           "batch_perplexity": per_batch,
+           "tail_perplexity": _tail_perplexity(per_batch),
+           "setup_and_first_batch_ms": first_ms, "batch_ms": batch_ms,
+           "fit_s": fit_s, "fit_launches": fit_launches,
+           "launches_per_forward_backward": {
+               k: v / batches for k, v in fit_launches.items()},
+           "score": score, "score_s": score_s,
+           "score_launches": score_launches,
+           "forward_launches_per_score_batch":
+               score_launches["flash_attention_fwd"] / batches,
+           "checkpoint": {"params_bytes": params_bytes, "save_s": save_s,
+                          "load_bind_s": load_s, "score": score2,
+                          "rel_diff": abs(score2 - score) / score},
+           "speedometer": [ln for ln in log.lines if "Speed:" in ln],
+           "peak_mem_bytes_fit": peak_fit, "peak_mem_bytes": peak}
+    if on_card:
+        out["nvidia_smi"] = nvidia_smi()
+        out["ms_per_fit_batch_median"] = float(np.median(batch_ms))
+        torch.cuda.empty_cache()
+        trainer, staged = build_bench_trainer(
+            vocab=cfg["vocab"], seq=cfg["seq"], d_model=cfg["d_model"],
+            heads=cfg["heads"], layers=layers, batch=batch,
+            dtype="float32", ctx=ctx)
+        trainer.step(staged)
+        sync()
+        t0 = time.perf_counter()
+        trainer.run_steps(staged, trainer_steps)
+        sync()
+        out["sharded_trainer_f32_step_ms"] = \
+            (time.perf_counter() - t0) * 1e3 / trainer_steps
+        del trainer, staged
+        torch.cuda.empty_cache()
+
+    want = layers if on_card else 0
+    bad = []
+    if not all(np.isfinite(per_batch)) or not np.isfinite(score):
+        bad.append("non-finite perplexity")
+    if not per_batch[-1] < per_batch[0]:
+        bad.append("perplexity did not fall")
+    if not (out["tail_perplexity"] < CHAIN_SUPPORT
+            and score < CHAIN_SUPPORT):
+        bad.append("the bigram was not learned: the last batches read %r "
+                   "and the score %r, the unigram %d"
+                   % (out["tail_perplexity"], score, CHAIN_SUPPORT))
+    if any(v != want * batches for v in fit_launches.values()):
+        bad.append("flash launches %s over %d forward_backward; want %d "
+                   "each" % (fit_launches, batches, want * batches))
+    if score_launches != {"flash_attention_fwd": want * batches,
+                          "flash_attention_bwd": 0,
+                          "flash_attention_delta": 0}:
+        bad.append("score's flash launches %s over %d batches"
+                   % (score_launches, batches))
+    if not out["checkpoint"]["rel_diff"] <= 1e-6:
+        bad.append("the loaded checkpoint scores %r, the module %r"
+                   % (score2, score))
+    if bad:
+        raise SystemExit("module_train: %s: %s" % ("; ".join(bad),
+                                                    json.dumps(out)))
+    return out
+
+
+def module_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
+    """One ``forward_backward`` + ``update`` of ``Module`` with SGD (no
+    momentum, ``lr``) of the GPT at ``cfg``'s width with ``layers`` layers,
+    batch 1 and dropout 0, on ``ctx`` and on ``check_ctx`` (default: the
+    CPU) from the same seeded weights; per parameter the updates agree
+    within ``TOL_TRAIN_CHECK`` (:func:`update_diff`, as train_check), and
+    on the card the same step with TF32 matmuls, run as a control, must
+    miss it."""
+    check_ctx = check_ctx or mx.cpu()
+    seq = cfg["seq"]
+    net = gpt_symbol(cfg["vocab"], seq, cfg["d_model"], cfg["heads"],
+                     layers, dropout=0.0)
+    x = np.random.RandomState(2).randint(0, cfg["vocab"], (1, seq)) \
+        .astype(np.float32)
+    y = np.roll(x, -1, 1).copy()
+    weights = gpt_params(net, seq, seed=0)
+    launches = {}
+
+    def one_step(c, tf32=False):
+        it = mx.io.NDArrayIter(x, y, 1)
+        mod = mx.mod.Module(net, context=c)
+        mod.bind(data_shapes=it.provide_data, label_shapes=it.provide_label)
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in weights.items()})
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": lr, "momentum": 0.0})
+        b = next(it)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        zero_flash_counts()
+        try:
+            mod.forward_backward(b)
+            mod.update()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        launches[str(c) + (" tf32" if tf32 else "")] = flash_counts()
+        m = mx.metric.Perplexity(None)
+        m.update(b.label, mod.get_outputs())
+        after = mod.get_params()[0]
+        return float(np.log(m.get()[1])), {
+            k: torch.from_numpy(after[k].asnumpy() - w)
+            for k, w in weights.items()}
+
+    loss, delta = one_step(ctx)
+    ref_loss, ref_delta = one_step(check_ctx)
+    losses = [loss, ref_loss]
+    out = {"config": dict(cfg, layers=layers), "batch": 1,
+           "optimizer": "sgd", "learning_rate": lr, "dtype": "float32",
+           "contexts": [str(ctx), str(check_ctx)], "losses": losses,
+           "params": len(ref_delta), **update_diff(delta, ref_delta, True),
+           "tol": TOL_TRAIN_CHECK, "control_tf32": None,
+           "launches": launches}
+    del delta
+    if ctx.device_type == "gpu":
+        tf32_loss, tf32_delta = one_step(ctx, tf32=True)
+        losses.append(tf32_loss)
+        out["control_tf32"] = update_diff(tf32_delta, ref_delta)
+    if out["max_rel_update_diff"] > TOL_TRAIN_CHECK \
+            or not np.isfinite(losses).all():
+        raise SystemExit("module_check: %s" % json.dumps(out))
+    want = layers if ctx.device_type == "gpu" else 0
+    if any(n != want for n in launches[str(ctx)].values()):
+        raise SystemExit("module_check: flash launches %s in one step of %d "
+                         "layers; want %d each"
+                         % (launches[str(ctx)], layers, want))
+    if out["control_tf32"] is not None and \
+            out["control_tf32"]["max_rel_update_diff"] <= TOL_TRAIN_CHECK:
+        raise SystemExit("module_check: the TF32 control passes the bound, "
                          "so the bound cannot tell it from f32: %s"
                          % json.dumps(out))
     return out
@@ -1637,6 +1904,24 @@ K9_GENERAL_SETS = [(64, 80, 256), (24, 64, 256), (64, 64, 272),
 #: f32 sets besides those: odd counts everywhere, and cmid 256, whose t1
 #: rows in f32 leave room for half rows of 28 positions only
 K9_GENERAL_F32_EXTRA = [(3, 7, 5), (64, 256, 64)]
+#: the general kernel past cmid 256, at batch 1: cmid 512 and 1024 in both
+#: dtypes, in tiles of 28 (bf16 512), 14 (f32 512, bf16 1024) and 8 (f32
+#: 1024) positions
+K9_WIDE_SETS = [((512, 512, 256), torch.float32),
+                ((512, 512, 256), torch.bfloat16),
+                ((1024, 1024, 256), torch.float32),
+                ((1024, 1024, 256), torch.bfloat16)]
+#: the general kernel's own plan (``block_experiment.plan``) must take
+#: these tiles (output positions of a row): the widest divisor of 56 whose
+#: three haloed t1 rows, t2 row and chunk buffers fit a block's 227 KB
+K9_TILES = {(64, torch.float32): 56, (192, torch.float32): 56,
+            (256, torch.float32): 28, (512, torch.float32): 14,
+            (768, torch.float32): 14, (1024, torch.float32): 8,
+            (2048, torch.float32): 4, (256, torch.bfloat16): 56,
+            (512, torch.bfloat16): 28, (1024, torch.bfloat16): 14,
+            (2048, torch.bfloat16): 8}
+#: past the general kernel's limits: refused in both dtypes
+K9_REFUSED = (64, 4096, 256)
 
 
 def block_experiment_phase(batch=128, repeats=5, f32_repeats=2):
@@ -1655,9 +1940,12 @@ def block_experiment_phase(batch=128, repeats=5, f32_repeats=2):
     (``BANDS``) at (16, 16, 32) and both stage-1 sets; the channel sets of
     ``K9_RANGE_SETS``; the general kernel on ``K9_GENERAL_SETS`` in bf16
     and on those, ``K9_RANGE_SETS``, the tests' set and
-    ``K9_GENERAL_F32_EXTRA`` in f32; each against ``block_plain`` and
+    ``K9_GENERAL_F32_EXTRA`` in f32; at batch 1 the sets of
+    ``K9_WIDE_SETS`` (cmid 512 and 1024); each against ``block_plain`` and
     bit-identical across two launches, through the route it should take.
-    Last, cmid 512 must raise on the card in both dtypes."""
+    The general kernel's plan must take the tile of ``K9_TILES`` at each of
+    its (cmid, dtype).  Last, ``K9_REFUSED`` (cmid 4096) must raise on the
+    card in both dtypes."""
     tool = block_experiment
     block_kernel = tool.block_kernel
 
@@ -1761,11 +2049,32 @@ def block_experiment_phase(batch=128, repeats=5, f32_repeats=2):
                 args, "general", channels=[cin, cmid, cout],
                 dtype=str(dt).replace("torch.", ""),
                 plan=tool.plan(2, cin, cmid, cout, dtype=dt)))
+    for (cin, cmid, cout), dt in K9_WIDE_SETS:
+        args = tool.inputs(1, cin, cmid, cout, seed=6, dtype=dt)
+        case = routed(args, "general", channels=[cin, cmid, cout],
+                      dtype=str(dt).replace("torch.", ""), batch=1,
+                      plan=tool.plan(1, cin, cmid, cout, dtype=dt),
+                      kernel_ms=cuda_ms(lambda: block_kernel(*args), 3))
+        general.append(case)
+        del args
+    tiles = []
+    for (cmid, dt), want in K9_TILES.items():
+        got = tool.plan(1, cmid, cmid, 256, dtype=dt)
+        tiles.append({"cmid": cmid, "dtype": str(dt).replace("torch.", ""),
+                      "tile": got["tile"], "want": want, "smem": got["smem"],
+                      "ok": got["route"] == "general"
+                      and got["tile"] == want})
     refused = {}
+    cin, cmid, cout = K9_REFUSED
     for dt in (torch.bfloat16, torch.float32):
-        key = str(((64, 512, 256), str(dt).replace("torch.", "")))
+        key = str((K9_REFUSED, str(dt).replace("torch.", "")))
+        # the weights as views of one zero: the router reads shapes only
+        zero = torch.zeros(1, 1, 1, dtype=dt, device="cuda")
+        scales = torch.ones(3, max(cin, cmid), device="cuda")
         try:
-            block_kernel(*tool.inputs(1, 64, 512, 256, dtype=dt))
+            block_kernel(torch.zeros(1, 56, 56, cin, dtype=dt, device="cuda"),
+                         zero[0].expand(cin, cmid), zero.expand(9, cmid, cmid),
+                         zero[0].expand(cmid, cout), scales, scales)
             refused[key] = False
         except mx.base.MXNetError:
             refused[key] = True
@@ -1774,14 +2083,15 @@ def block_experiment_phase(batch=128, repeats=5, f32_repeats=2):
            "tool_run_f32": run_f32, "launches_f32": launches_f32,
            "tol": TOL_BLOCK, "tol_f32": TOL_BLOCK_F32, "sets": sets,
            "rows": rows_case, "bands": bands, "range_sets": ranges,
-           "general_sets": general, "refused": refused}
+           "general_sets": general, "tiles": tiles, "refused": refused}
     emit("block_experiment", **out)
-    bad = [e for e in sets + [rows_case] + bands + ranges + general
+    bad = [e for e in sets + [rows_case] + bands + ranges + general + tiles
            if not e["ok"]]
     if bad:
         raise SystemExit("block_experiment: K9 disagrees with block_plain, "
                          "differs between launches, took another route or "
-                         "its TF32 control passed: %s" % json.dumps(bad))
+                         "tile, or its TF32 control passed: %s"
+                         % json.dumps(bad))
     if not all(refused.values()):
         raise SystemExit("block_experiment: K9 took a shape past the "
                          "general kernel's limits: %s" % json.dumps(refused))
@@ -1942,6 +2252,10 @@ def main():
     emit("train", **train)
     train_check = train_check_phase(mx.gpu(0), FULL)
     emit("train_check", **train_check)
+    module = module_train_phase(mx.gpu(0), FULL)
+    emit("module_train", **module)
+    module_check = module_check_phase(mx.gpu(0), FULL)
+    emit("module_check", **module_check)
     k5 = resnet_kernels_phase()
     resnet = resnet_train_phase(mx.gpu(0))
     emit("resnet_train", **resnet)
@@ -1978,12 +2292,27 @@ def main():
                                        "float32")),
             "ptxas": ptxas[name]}
 
+    module_shape = list(MODULE_SHAPE[:4])
+
+    def module_launches(name):
+        """The Module route's launches of one flash kernel (module_train:
+        f32, full width)."""
+        per_score = module["score_launches"][name] / module["batches"]
+        return {"fit": module["fit_launches"][name],
+                "per_forward_backward":
+                    module["launches_per_forward_backward"][name],
+                "per_score_batch": per_score,
+                "module_check": module_check["launches"][str(mx.gpu(0))][
+                    name]}
+
     rtc_full, rtc_vec = (next(e for e in rtc["flows"] if e["name"] == n)
                          for n in ("rtc_abs_full", "rtc_abs_vec_full"))
     delta_train = next(e for e in delta if e["shape"] == list(
         TRAIN_SHAPE[:4]) and e["dtype"] == "bfloat16")
-    delta_f32 = next(e for e in delta if e["shape"] == [4, 1024, 16, 64]
-                     and e["dtype"] == "float32")
+    delta_f32, delta_module = (
+        next(e for e in delta if e["shape"] == shape
+             and e["dtype"] == "float32")
+        for shape in ([4, 1024, 16, 64], module_shape))
     print(json.dumps({"kernels": [
         # f32, the split-TF32 kernels: serving (K1) and the f32 train check
         kernel_summary(
@@ -1992,6 +2321,8 @@ def main():
             sources=fwd_src, train_shape=shape_fields(fwd_train),
             bound_cuda_core_ms=_case(fwd, [4, 1024, 16, 64],
                                      "float32")["bound_cuda_core_ms"],
+            module_launches=module_launches("flash_attention_fwd"),
+            module_shape=shape_fields(_case(fwd, module_shape, "float32")),
             **f32_fields(fwd, "flash_attention_fwd")),
         kernel_summary(
             "flash_attention_bwd", bwd_src["float32"], k3, k4,
@@ -2001,6 +2332,8 @@ def main():
             launches_from="train_check: one f32 step of 2 layers",
             bound_cuda_core_ms=_case(bwd, [4, 1024, 16, 64],
                                      "float32")["bound_cuda_core_ms"],
+            module_launches=module_launches("flash_attention_bwd"),
+            module_shape=shape_fields(_case(bwd, module_shape, "float32")),
             **f32_fields(bwd, "flash_attention_bwd")),
         # delta = rowsum(dO * O) for both backward routes
         {"name": "flash_attention_delta", "route": "cuda",
@@ -2017,6 +2350,10 @@ def main():
          "f32_serving_shape": {k: delta_f32[k] for k in (
              "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
              "bound_ms")},
+         "module_launches": module_launches("flash_attention_delta"),
+         "module_shape": {k: delta_module[k] for k in (
+             "shape", "max_abs_err", "kernel_ms", "plain_ms", "library_ms",
+             "bound_ms", "bound_by")},
          "ptxas": ptxas["flash_attention_delta"]},
         # bf16, the tensor-core kernels: GPT training (K1, K3)
         kernel_summary(

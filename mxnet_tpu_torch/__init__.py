@@ -8,9 +8,18 @@ Import convention mirrors the JAX package's::
 
 The port keeps the JAX package's Symbol JSON and ``.params`` formats, so a
 checkpoint written by either package loads in the other.
-``parallel.ShardedTrainer`` trains a Symbol on one device (the GPT of
-``models.gpt``; ``python -m mxnet_tpu_torch.tools.transformer_mfu`` times
-it).  ``mx.rtc`` compiles CUDA C kernels at run time.  Its entry points
+``mx.mod.Module`` trains a Symbol through ``Executor.backward`` and the
+imperative optimizer, fed by ``mx.io`` iterators and scored by
+``mx.metric``::
+
+    it = mx.io.NDArrayIter(x, y, batch_size=16)
+    mod = mx.mod.Module(net, context=mx.gpu(0))
+    mod.fit(it, num_epoch=1, optimizer="adam",
+            eval_metric=mx.metric.Perplexity(None))
+
+``parallel.ShardedTrainer`` trains a Symbol on one device in a fused step
+(the GPT of ``models.gpt``; ``python -m
+mxnet_tpu_torch.tools.transformer_mfu`` times it).  ``mx.rtc`` compiles CUDA C kernels at run time.  Its entry points
 run on the card unless the caller passes ``ctx=mx.cpu()``; without a CUDA
 device a GPU context raises.  It imports neither ``jax`` nor ``mxnet_tpu``.
 """
@@ -21,6 +30,7 @@ __version__ = "0.1.0"
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context, num_gpus
 from . import base
+from . import random
 from . import ndarray
 from . import ndarray as nd
 from . import ops
@@ -39,3 +49,12 @@ from . import lr_scheduler
 from . import optimizer
 from . import parallel
 from . import rtc
+from . import metric
+from . import io
+from . import callback
+from . import kvstore
+from . import kvstore as kv
+from . import model
+from . import module
+from . import module as mod
+from .module import Module

@@ -1,9 +1,29 @@
-"""Executor: a Symbol bound to argument arrays on one device, forward only.
+"""Executor: a Symbol bound to argument, gradient and auxiliary arrays on
+one device.
 
 The counterpart of ``mxnet_tpu/executor.py``.  Where the JAX executor
-compiles the graph into one XLA program, this one runs it op by op in
-PyTorch under ``torch.inference_mode()``; the hand-written kernels are
-reached through the ops that wrap them.  Gradients are not yet ported.
+compiles forward, vjp and the fused step into XLA programs, this one runs
+the graph op by op in PyTorch; the hand-written kernels are reached through
+the ops that wrap them (``_contrib_FlashAttention`` forward and backward).
+
+* ``forward(is_train=False)`` runs under ``torch.inference_mode()``, as
+  serving does.
+* ``forward(is_train=True)`` runs under autograd: every argument whose
+  ``grad_req`` is not ``'null'`` enters the graph as a leaf that shares its
+  argument's storage, stochastic ops draw from :mod:`.random`'s generator
+  of the device, and the graph is kept for :meth:`backward`.  BatchNorm's
+  new moving statistics replace the auxiliary arrays' tensors (fresh
+  tensors: the backward may still read the old ones, which autograd
+  saved), as the JAX executor returns ``new_aux``.
+* ``backward(out_grads=None)`` seeds loss heads with ones and the other
+  heads with zeros (or takes ``out_grads`` for every head) and sums the
+  gradients straight into the bound grad arrays, which autograd takes as
+  the leaves' ``.grad``: ``'write'`` zeroes them first, ``'add'`` adds to
+  what they hold, ``'null'`` has none.  No second copy of the gradients is
+  made.
+
+Block fusion (``ops.fused.block_fusion``) is captured at bind time and
+applied around every run of the graph, as in the JAX executor.
 """
 from __future__ import annotations
 
@@ -13,7 +33,9 @@ import torch
 from .base import MXNetError
 from .context import Context, current_context
 from .ndarray import NDArray, zeros as _nd_zeros
+from .ops import fused as _fused
 from .symbol import eval_graph, _classify_vars
+from . import random as _random
 
 __all__ = ["Executor"]
 
@@ -33,7 +55,11 @@ def _normalize(values, names, kind):
 
 
 class Executor:
-    def __init__(self, symbol, ctx, args, aux_states=None):
+    def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
+                 aux_states=None, group2ctx=None):
+        if group2ctx:
+            raise MXNetError("Executor: group2ctx (model-parallel placement) "
+                             "is not yet ported to mxnet_tpu_torch")
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else current_context()
         self._device = self._ctx.torch_device()
@@ -41,6 +67,7 @@ class Executor:
         self._arg_nodes, self._aux_nodes = _classify_vars(self._topo)
         self._arg_names = [n.name for n in self._arg_nodes]
         self._aux_names = [n.name for n in self._aux_nodes]
+        self._output_names = symbol.list_outputs()
 
         self.arg_dict = _normalize(args, self._arg_names, "args")
         missing = [n for n in self._arg_names if n not in self.arg_dict]
@@ -50,52 +77,187 @@ class Executor:
         for n in self._aux_names:
             if n not in self.aux_dict:
                 raise MXNetError("bind: missing auxiliary state %r" % n)
+
+        if isinstance(grad_req, str):
+            self._grad_req = {n: grad_req for n in self._arg_names}
+        elif isinstance(grad_req, (list, tuple)):
+            self._grad_req = dict(zip(self._arg_names, grad_req))
+        else:
+            self._grad_req = {n: grad_req.get(n, "null")
+                              for n in self._arg_names}
+        bad = {r for r in self._grad_req.values()
+               if r not in ("write", "add", "null")}
+        if bad:
+            raise MXNetError("grad_req must be 'write', 'add' or 'null', "
+                             "got %s" % sorted(bad))
+        self.grad_dict = _normalize(args_grad, self._arg_names, "args_grad")
+        for n, req in self._grad_req.items():
+            if req != "null" and self.grad_dict.get(n) is None:
+                src = self.arg_dict[n]
+                self.grad_dict[n] = _nd_zeros(src.shape, ctx=self._ctx,
+                                              dtype=src.data.dtype)
         for kind, d in (("argument", self.arg_dict),
-                        ("auxiliary state", self.aux_dict)):
+                        ("auxiliary state", self.aux_dict),
+                        ("gradient", self.grad_dict)):
             for n, arr in d.items():
-                if arr.data.device != self._device:
+                if arr is not None and arr.data.device != self._device:
                     raise MXNetError(
                         "bind: %s %r lies on %s, the executor on %s"
                         % (kind, n, arr.data.device, self._device))
-        self._outputs = None
 
+        # captured here and applied around every run of the graph
+        self._block_fusion = _fused.block_fusion_enabled()
+        self._head_is_loss = [bool(node.op is not None and node.op.is_loss)
+                              for (node, _i) in symbol._entries]
+        self._outputs = None
+        self._train_heads = None     # the heads of the last training forward
+        self._leaves = None          # and its leaves, until backward
+
+    # ------------------------------------------------------------ properties
     @property
     def outputs(self):
         if self._outputs is None:
             raise MXNetError("call forward() first")
         return self._outputs
 
-    def forward(self, is_train=False, **kwargs):
-        """Run the graph forward; ``kwargs`` update named input arrays in
-        place.  Training mode is not yet ported."""
-        if is_train:
-            raise MXNetError("forward(is_train=True) is not yet ported to "
-                             "mxnet_tpu_torch")
+    @property
+    def output_dict(self):
+        return dict(zip(self._output_names, self.outputs))
+
+    @property
+    def arg_arrays(self):
+        return [self.arg_dict[n] for n in self._arg_names]
+
+    @property
+    def grad_arrays(self):
+        return [self.grad_dict.get(n) if self._grad_req[n] != "null" else None
+                for n in self._arg_names]
+
+    @property
+    def aux_arrays(self):
+        return [self.aux_dict[n] for n in self._aux_names]
+
+    @property
+    def grad_req(self):
+        return dict(self._grad_req)
+
+    # ------------------------------------------------------------------ run
+    def _set_inputs(self, kwargs):
         for k, v in kwargs.items():
             if k not in self.arg_dict:
                 raise MXNetError("unknown input %r" % k)
-            self.arg_dict[k][:] = v.data if isinstance(v, NDArray) \
+            self.arg_dict[k][:] = v if isinstance(v, NDArray) \
                 else np.asarray(v)
-        var_values = {id(n): self.arg_dict[n.name].data
-                      for n in self._arg_nodes}
-        var_values.update({id(n): self.aux_dict[n.name].data
-                           for n in self._aux_nodes})
-        with torch.inference_mode():
-            heads, _aux = eval_graph(self._topo, self._symbol._entries,
-                                     var_values, is_train=False,
-                                     device=self._device)
-        self._outputs = [NDArray(h) for h in heads]
+
+    def _run(self, var_values, is_train):
+        with _fused.block_fusion(self._block_fusion):
+            return eval_graph(self._topo, self._symbol._entries, var_values,
+                              is_train=is_train, device=self._device,
+                              generator=_random.generator(self._device)
+                              if is_train else None)
+
+    def forward(self, is_train=False, **kwargs):
+        """Run the graph forward; ``kwargs`` update named input arrays in
+        place.  Returns the outputs."""
+        self._set_inputs(kwargs)
+        aux_values = {id(n): self.aux_dict[n.name].data
+                      for n in self._aux_nodes}
+        if not is_train:
+            self._train_heads = self._leaves = None
+            var_values = {id(n): self.arg_dict[n.name].data
+                          for n in self._arg_nodes}
+            var_values.update(aux_values)
+            with torch.inference_mode():
+                heads, _aux = self._run(var_values, False)
+            self._outputs = [NDArray(h) for h in heads]
+            return self._outputs
+        leaves = {}
+        var_values = dict(aux_values)
+        for n in self._arg_nodes:
+            t = self.arg_dict[n.name].data
+            if self._grad_req[n.name] != "null" and t.is_floating_point():
+                t = t.detach().requires_grad_(True)
+                leaves[n.name] = t
+            var_values[id(n)] = t
+        self._train_heads = self._leaves = None    # drop an unused graph
+        with torch.enable_grad():
+            heads, aux_upd = self._run(var_values, True)
+        for n in self._aux_nodes:
+            upd = aux_upd.get(id(n))
+            if upd is not None:
+                arr = self.aux_dict[n.name]
+                arr._data = upd.detach().to(arr.data.dtype)
+        self._train_heads, self._leaves = heads, leaves
+        self._outputs = [NDArray(h.detach()) for h in heads]
         return self._outputs
+
+    def backward(self, out_grads=None):
+        """Gradients of the last ``forward(is_train=True)`` into the bound
+        grad arrays.  ``out_grads``: one gradient per head (NDArrays or
+        tensors), else ones for loss heads and zeros for the others."""
+        if self._outputs is None:
+            raise MXNetError("call forward(is_train=True) before backward()")
+        if self._train_heads is None:
+            raise MXNetError("backward() requires forward(is_train=True)")
+        if out_grads is not None and not isinstance(out_grads, (list, tuple)):
+            out_grads = [out_grads]
+        heads, leaves = self._train_heads, self._leaves
+        self._train_heads = self._leaves = None
+        if out_grads is not None:
+            if len(out_grads) != len(heads):
+                raise MXNetError("backward: %d head gradients for %d heads"
+                                 % (len(out_grads), len(heads)))
+            cot = [g.data if isinstance(g, NDArray) else torch.as_tensor(g)
+                   for g in out_grads]
+            pairs = [(h, c.to(device=h.device, dtype=h.dtype))
+                     for h, c in zip(heads, cot) if h.requires_grad]
+        else:
+            pairs = [(h, torch.ones_like(h))
+                     for h, il in zip(heads, self._head_is_loss)
+                     if il and h.requires_grad]
+        for name, leaf in leaves.items():
+            grad = self.grad_dict[name].data
+            if self._grad_req[name] == "write":
+                grad.zero_()
+            leaf.grad = grad        # autograd sums into it in place
+        if pairs:
+            torch.autograd.backward([h for h, _c in pairs],
+                                    [c for _h, c in pairs])
+        for leaf in leaves.values():
+            leaf.grad = None
+
+    def forward_backward(self, **kwargs):
+        """``forward(is_train=True)`` then ``backward()``; returns the
+        outputs."""
+        self.forward(is_train=True, **kwargs)
+        self.backward()
+        return self._outputs
+
+    # -------------------------------------------------------------- utility
+    def copy_params_from(self, arg_params, aux_params=None,
+                         allow_extra_params=False):
+        for k, v in arg_params.items():
+            if k in self.arg_dict:
+                self.arg_dict[k][:] = v
+            elif not allow_extra_params:
+                raise MXNetError("unknown argument %r" % k)
+        for k, v in (aux_params or {}).items():
+            if k in self.aux_dict:
+                self.aux_dict[k][:] = v
+            elif not allow_extra_params:
+                raise MXNetError("unknown aux state %r" % k)
 
     def reshape(self, partial_shaping=False, allow_up_sizing=False, **kwargs):
         """A new Executor at new input shapes, sharing the arrays whose
-        shapes are unchanged."""
+        shapes are unchanged (and reshaping those whose size is)."""
         arg_shapes, _, aux_shapes = self._symbol.infer_shape(**kwargs)
-        new_args, new_aux = {}, {}
+        new_args, new_grads, new_aux = {}, {}, {}
         for n, s in zip(self._arg_names, arg_shapes):
-            cur = self.arg_dict[n]
+            cur, grad = self.arg_dict[n], self.grad_dict.get(n)
             if tuple(cur.shape) == tuple(s):
                 new_args[n] = cur
+                if grad is not None:
+                    new_grads[n] = grad
                 continue
             if not (partial_shaping or n in kwargs):
                 raise MXNetError("unexpected shape change for %r" % n)
@@ -104,14 +266,17 @@ class Executor:
                 raise MXNetError(
                     "new shape of arg %r larger than original; set "
                     "allow_up_sizing=True to allocate new arrays" % n)
-            if new_size == old_size:
-                new_args[n] = cur.reshape(s)
-            else:
-                new_args[n] = _nd_zeros(s, ctx=self._ctx,
-                                        dtype=cur.data.dtype)
+            same = new_size == old_size
+            new_args[n] = cur.reshape(s) if same else _nd_zeros(
+                s, ctx=self._ctx, dtype=cur.data.dtype)
+            if self._grad_req.get(n, "null") != "null":
+                new_grads[n] = grad.reshape(s) \
+                    if same and grad is not None else _nd_zeros(
+                        s, ctx=self._ctx, dtype=cur.data.dtype)
         for n, s in zip(self._aux_names, aux_shapes):
             cur = self.aux_dict[n]
             new_aux[n] = cur if tuple(cur.shape) == tuple(s) else \
                 _nd_zeros(s, ctx=self._ctx, dtype=cur.data.dtype)
-        return Executor(self._symbol, self._ctx, new_args,
-                        aux_states=new_aux)
+        return Executor(self._symbol, self._ctx, new_args, new_grads,
+                        self._grad_req, new_aux)
+

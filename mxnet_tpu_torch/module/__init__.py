@@ -1,0 +1,11 @@
+"""The Module API: ``BaseModule``, ``Module`` and
+``DataParallelExecutorGroup``.
+
+The counterpart of ``mxnet_tpu/module/``.  ``BucketingModule``,
+``SequentialModule`` and ``PythonModule`` come with the next slice.
+"""
+from .base_module import BaseModule
+from .module import Module
+from .executor_group import DataParallelExecutorGroup
+
+__all__ = ["BaseModule", "Module", "DataParallelExecutorGroup"]

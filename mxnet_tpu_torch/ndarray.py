@@ -1,8 +1,12 @@
 """NDArray: the imperative tensor, a handle over a ``torch.Tensor``.
 
 The counterpart of ``mxnet_tpu/ndarray.py``, reduced to what the serving
-path needs.  Unlike the JAX package, whose arrays are immutable, an NDArray
-here is a mutable tensor: ``arr[:] = v`` copies into the existing storage.
+path and the Module path need: creation, copies, slices along axis 0,
+``save``/``load``, and one function per registered op (``nd.<op>(...,
+out=)``, run without autograd) plus the optimizer update ops
+(``nd.sgd_mom_update(w, g, m, out=w, ...)``).  Unlike the JAX package,
+whose arrays are immutable, an NDArray here is a mutable tensor: ``arr[:] =
+v`` copies into the existing storage, and ``arr[a:b]`` is a view of it.
 
 ``save``/``load`` keep the reference's name-prefixed container layout
 (``u64 magic, u64 reserved, u64 n, arrays..., u64 n_names, names...``; each
@@ -22,7 +26,9 @@ from .base import (MXNetError, DTYPE_ID_TO_TORCH, dtype_id, dtype_np,
                    torch_dtype)
 from .context import context_of, current_context
 
-__all__ = ["NDArray", "array", "zeros", "save", "load", "load_buffer"]
+__all__ = ["NDArray", "array", "zeros", "ones", "empty", "waitall", "save",
+           "load", "load_buffer", "sgd_update", "sgd_mom_update",
+           "adam_update", "rmsprop_update", "rmspropalex_update"]
 
 
 def _device(ctx):
@@ -57,6 +63,7 @@ class NDArray:
     def size(self):
         return self._data.numel()
 
+
     @property
     def context(self):
         return context_of(self._data.device)
@@ -77,6 +84,34 @@ class NDArray:
         if self.context == ctx:
             return self
         return NDArray(self._data.to(ctx.torch_device()))
+
+    def copy(self):
+        """A copy on the same context."""
+        return NDArray(self._data.detach().clone())
+
+    def copyto(self, other):
+        """Copy into the NDArray ``other`` (returned), or into a new array
+        on the Context ``other``."""
+        if isinstance(other, NDArray):
+            if other is self:
+                return other
+            other[:] = self
+            return other
+        return NDArray(self._data.detach().to(other.torch_device(),
+                                              copy=True))
+
+    def __getitem__(self, key):
+        """An int or a slice along axis 0 (a view, as in the reference);
+        other keys index like the tensor and give a copy."""
+        if isinstance(key, int):
+            return NDArray(self._data[key])
+        if isinstance(key, slice):
+            if key.step not in (None, 1):
+                raise ValueError("NDArray slices take step 1")
+            return NDArray(self._data[key])
+        if isinstance(key, NDArray):
+            key = key._data
+        return NDArray(self._data[key].clone())
 
     def reshape(self, shape):
         if isinstance(shape, int):
@@ -109,10 +144,101 @@ def _from_numpy(arr):
     return torch.from_numpy(arr)
 
 
+def _shape(shape):
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
 def zeros(shape, ctx=None, dtype=None):
-    shape = (shape,) if isinstance(shape, int) else tuple(shape)
-    return NDArray(torch.zeros(shape, dtype=torch_dtype(dtype),
+    return NDArray(torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
                                device=_device(ctx)))
+
+
+def ones(shape, ctx=None, dtype=None):
+    return NDArray(torch.ones(_shape(shape), dtype=torch_dtype(dtype),
+                              device=_device(ctx)))
+
+
+def empty(shape, ctx=None, dtype=None):
+    return NDArray(torch.empty(_shape(shape), dtype=torch_dtype(dtype),
+                               device=_device(ctx)))
+
+
+def waitall():
+    """Wait for all work queued on every CUDA device."""
+    if torch.cuda.is_available() and torch.cuda.is_initialized():
+        for i in range(torch.cuda.device_count()):
+            torch.cuda.synchronize(i)
+
+
+# ------------------------------------------------------------ op functions
+def _tensor_of(v):
+    return v._data if isinstance(v, NDArray) else v
+
+
+def _write_out(out, results):
+    outs = out if isinstance(out, (list, tuple)) else [out]
+    for o, r in zip(outs, results):
+        o[:] = NDArray(r)
+    return out
+
+
+def _make_op_function(op):
+    """``nd.<op>(*inputs, out=None, **attrs)``: the op run once without
+    autograd on its inputs' device (the current context's when it has no
+    inputs); NDArray keyword arguments fill named inputs."""
+    def fn(*args, out=None, name=None, **kwargs):
+        from .ops.registry import OpContext, apply_op
+        from . import random as _random
+        attrs_in = {k: v for k, v in kwargs.items()
+                    if not isinstance(v, NDArray)}
+        attrs = op.parse_attrs(attrs_in)
+        names = op.get_arg_names(attrs) + op.get_aux_names(attrs)
+        slots = dict(zip(names, args))
+        slots.update({k: v for k, v in kwargs.items()
+                      if isinstance(v, NDArray)})
+        ins = [_tensor_of(slots[n]) for n in names if n in slots]
+        device = ins[0].device if ins else _device(None)
+        octx = OpContext(is_train=False, device=device,
+                         generator=_random.generator(device)
+                         if op.stochastic else None)
+        with torch.no_grad():
+            res = apply_op(op, attrs, octx, *ins)[:op.get_num_outputs(attrs)]
+        if out is not None:
+            return _write_out(out, res)
+        res = [NDArray(r) for r in res]
+        return res[0] if len(res) == 1 else res
+    fn.__name__ = op.name
+    fn.__doc__ = op.doc
+    return fn
+
+
+def _make_update_function(impl, n_states):
+    """``nd.<update>(weight, grad, *states, out=weight, **hyper)`` over
+    NDArrays: the tensor function of :mod:`.ops.optimizer_ops` in place."""
+    def fn(weight, grad, *states, out=None, **kwargs):
+        if len(states) != n_states:
+            raise MXNetError("%s takes %d state arrays, got %d"
+                             % (impl.__name__, n_states, len(states)))
+        impl(weight._data, _tensor_of(grad),
+             *[s._data for s in states],
+             out=None if out is None else out._data, **kwargs)
+        return weight if out is None else out
+    fn.__name__ = impl.__name__
+    fn.__doc__ = impl.__doc__
+    return fn
+
+
+def _register_functions():
+    from .ops import registry as _registry, optimizer_ops as _oo
+    g = globals()
+    for opname in _registry.list_ops():
+        g.setdefault(opname, _make_op_function(_registry.get_op(opname)))
+    for alias, target in _registry.aliases().items():
+        g.setdefault(alias, g[target])
+    for impl, n_states in ((_oo.sgd_update, 0), (_oo.sgd_mom_update, 1),
+                           (_oo.adam_update, 2), (_oo.rmsprop_update, 1),
+                           (_oo.rmspropalex_update, 3)):
+        g[impl.__name__] = _make_update_function(impl, n_states)
 
 
 # ------------------------------------------------------------------ save/load
@@ -207,3 +333,6 @@ def load(fname, ctx=None):
 def load_buffer(buf, ctx=None):
     """Load NDArrays from in-memory ``.params`` bytes."""
     return _load_stream(io.BytesIO(buf), "buffer", ctx)
+
+
+_register_functions()

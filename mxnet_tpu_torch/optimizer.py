@@ -1,19 +1,30 @@
-"""Optimizers: the hyperparameter objects the trainer reads.
+"""Optimizers: the hyperparameter objects and their imperative updates.
 
 The counterpart of ``mxnet_tpu/optimizer.py``: the ``create`` registry,
 ``rescale_grad``, ``clip_gradient``, ``lr_mult``/``wd_mult`` with the
 reference's defaults (no weight decay unless the name ends in ``_weight``
 or ``_gamma``), ``num_update``/``begin_num_update`` and an optional
-``lr_scheduler``.  The update arithmetic of each class lives in
-``parallel.trainer._make_update_rule``, which applies it in place to the f32
-masters.  The imperative ``update()`` and ``Updater`` of the Module path are
-not yet ported and raise.
+``lr_scheduler``.  ``create_state``/``update`` are the Module path's: each
+update runs the update ops of :mod:`.ops.optimizer_ops` (or, for NAG,
+AdaGrad and AdaDelta, the JAX package's arithmetic in PyTorch) in place on
+the weight's NDArray and its states, one parameter at a time; ``Updater``
+keeps the states by index and pickles them in the JAX package's format.
+``parallel.ShardedTrainer`` applies the same rules fused over its f32
+masters (``parallel.trainer._make_update_rule``).
 """
 from __future__ import annotations
 
 import logging
+import math
+import pickle
+
+import numpy as np
+import torch
 
 from .base import MXNetError
+from .context import cpu
+from .ndarray import NDArray, zeros, array as _nd_array
+from .ops import optimizer_ops as _ops
 
 __all__ = ["Optimizer", "SGD", "ccSGD", "NAG", "Adam", "AdaGrad", "RMSProp",
            "AdaDelta", "Updater", "get_updater", "create", "register"]
@@ -40,6 +51,7 @@ class Optimizer:
         self.wd_mult = {}
         self.begin_num_update = begin_num_update
         self.num_update = begin_num_update
+        self._index_update_count = {}
         self.clip_gradient = clip_gradient
         if param_idx2name is None:
             param_idx2name = {}
@@ -90,14 +102,55 @@ class Optimizer:
         self.wd_mult.update(args_wd_mult)
 
     def create_state(self, index, weight):
-        raise MXNetError("the imperative optimizer interface is not yet "
-                         "ported to mxnet_tpu_torch; train through "
-                         "parallel.ShardedTrainer")
+        """The optimizer's state for one parameter (None: none)."""
+        return None
 
     def update(self, index, weight, grad, state):
-        raise MXNetError("the imperative optimizer interface is not yet "
-                         "ported to mxnet_tpu_torch; train through "
-                         "parallel.ShardedTrainer")
+        """Update the NDArray ``weight`` in place from ``grad``."""
+        raise NotImplementedError()
+
+    # --------------------------------------------------------------- helpers
+    def _update_count(self, index):
+        if index not in self._index_update_count:
+            self._index_update_count[index] = self.begin_num_update
+        self._index_update_count[index] += 1
+        self.num_update = max(self._index_update_count[index],
+                              self.num_update)
+
+    def _get_lr(self, index):
+        lr = self.lr_scheduler(self.num_update) \
+            if self.lr_scheduler is not None else self.lr
+        if index in self.lr_mult:
+            lr *= self.lr_mult[index]
+        elif index in self.idx2name:
+            lr *= self.lr_mult.get(self.idx2name[index], 1.0)
+        return lr
+
+    def _get_wd(self, index):
+        wd = self.wd
+        if index in self.wd_mult:
+            wd *= self.wd_mult[index]
+        elif index in self.idx2name:
+            wd *= self.wd_mult.get(self.idx2name[index], 1.0)
+        return wd
+
+    def _scaled_grad(self, grad):
+        """grad * rescale_grad, clipped when ``clip_gradient`` is set (the
+        NDArray-arithmetic optimizers' first lines)."""
+        g = grad.data.float() * self.rescale_grad
+        if self.clip_gradient is not None:
+            g = g.clamp(-self.clip_gradient, self.clip_gradient)
+        return g
+
+    def _op_kwargs(self, lr, wd):
+        kwargs = {"rescale_grad": self.rescale_grad, "lr": lr, "wd": wd}
+        if self.clip_gradient:
+            kwargs["clip_gradient"] = self.clip_gradient
+        return kwargs
+
+
+def _zeros_like(weight):
+    return zeros(weight.shape, ctx=weight.context, dtype=weight.dtype)
 
 
 register = Optimizer.register
@@ -106,16 +159,46 @@ create = Optimizer.create_optimizer
 
 @register
 class SGD(Optimizer):
-    """SGD with optional momentum."""
+    """SGD with optional momentum, through ``sgd_update`` or
+    ``sgd_mom_update``."""
 
     def __init__(self, momentum=0.0, **kwargs):
         super().__init__(**kwargs)
         self.momentum = momentum
 
+    def create_state(self, index, weight):
+        return None if self.momentum == 0.0 else _zeros_like(weight)
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._update_count(index)
+        kwargs = self._op_kwargs(lr, wd)
+        if state is not None:
+            _ops.sgd_mom_update(weight.data, grad.data, state.data,
+                                momentum=self.momentum, **kwargs)
+        else:
+            _ops.sgd_update(weight.data, grad.data, **kwargs)
+
 
 @register
 class NAG(SGD):
     """Nesterov accelerated SGD."""
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._update_count(index)
+        g = self._scaled_grad(grad)
+        w = weight.data
+        if state is not None:
+            mom = state.data
+            mom.copy_(mom * self.momentum)
+            g = g + wd * w
+            mom.copy_(mom + g)
+            g = g + self.momentum * mom
+            w.copy_(w - lr * g)
+        else:
+            w.copy_(w - lr * (g + wd * w))
 
 
 @register
@@ -125,7 +208,8 @@ class ccSGD(SGD):
 
 @register
 class Adam(Optimizer):
-    """Adam; the learning rate is scaled by the bias correction."""
+    """Adam through ``adam_update``; the learning rate is scaled by the
+    bias correction of the parameter's own update count."""
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
@@ -134,6 +218,19 @@ class Adam(Optimizer):
         self.beta2 = beta2
         self.epsilon = epsilon
 
+    def create_state(self, index, weight):
+        return (_zeros_like(weight), _zeros_like(weight))
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._update_count(index)
+        t = self._index_update_count[index]
+        lr *= math.sqrt(1.0 - self.beta2 ** t) / (1.0 - self.beta1 ** t)
+        mean, var = state
+        _ops.adam_update(weight.data, grad.data, mean.data, var.data,
+                         beta1=self.beta1, beta2=self.beta2,
+                         epsilon=self.epsilon, **self._op_kwargs(lr, wd))
+
 
 @register
 class AdaGrad(Optimizer):
@@ -141,11 +238,26 @@ class AdaGrad(Optimizer):
         super().__init__(**kwargs)
         self.float_stable_eps = eps
 
+    def create_state(self, index, weight):
+        return zeros(weight.shape, ctx=weight.context)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._update_count(index)
+        g = self._scaled_grad(grad)
+        history, w = state.data, weight.data
+        history.copy_(history + g.square())
+        w.copy_(w - lr * (g / (history + self.float_stable_eps).sqrt()
+                          + wd * w))
+
 
 @register
 class RMSProp(Optimizer):
-    """RMSProp (Tieleman/Hinton); ``centered=True`` (Graves 2013) has no
-    trainer formulation, as in the JAX package."""
+    """RMSProp: Tieleman and Hinton's through ``rmsprop_update``, or with
+    ``centered=True`` the Graves (2013) variant through
+    ``rmspropalex_update``.  The trainer's fused rules take the first
+    only, as in the JAX package."""
 
     def __init__(self, learning_rate=0.001, gamma1=0.9, gamma2=0.9,
                  epsilon=1e-8, centered=False, clip_weights=None, **kwargs):
@@ -156,6 +268,27 @@ class RMSProp(Optimizer):
         self.epsilon = epsilon
         self.clip_weights = clip_weights
 
+    def create_state(self, index, weight):
+        n = 3 if self.centered else 1
+        return tuple(zeros(weight.shape, ctx=weight.context)
+                     for _ in range(n))
+
+    def update(self, index, weight, grad, state):
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._update_count(index)
+        kwargs = dict(self._op_kwargs(lr, wd), gamma1=self.gamma1,
+                      epsilon=self.epsilon)
+        if self.clip_weights:
+            kwargs["clip_weights"] = self.clip_weights
+        if not self.centered:
+            (n,) = state
+            _ops.rmsprop_update(weight.data, grad.data, n.data, **kwargs)
+        else:
+            n, g, delta = state
+            _ops.rmspropalex_update(weight.data, grad.data, n.data, g.data,
+                                    delta.data, gamma2=self.gamma2,
+                                    **kwargs)
+
 
 @register
 class AdaDelta(Optimizer):
@@ -164,13 +297,69 @@ class AdaDelta(Optimizer):
         self.rho = rho
         self.epsilon = epsilon
 
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, ctx=weight.context),
+                zeros(weight.shape, ctx=weight.context))
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        wd = self._get_wd(index)
+        self._update_count(index)
+        g = self._scaled_grad(grad)
+        acc_g, acc_delta = (s.data for s in state)
+        w = weight.data
+        acc_g.copy_(self.rho * acc_g + (1.0 - self.rho) * g * g)
+        delta = (acc_delta + self.epsilon).sqrt() \
+            / (acc_g + self.epsilon).sqrt() * g
+        acc_delta.copy_(self.rho * acc_delta
+                        + (1.0 - self.rho) * delta * delta)
+        w.copy_(w - delta - wd * w)
+
+
+def _state_map(state, fn):
+    """``fn`` over the NDArrays of a state (None, an NDArray or a tuple)."""
+    if isinstance(state, tuple):
+        return tuple(_state_map(s, fn) for s in state)
+    if isinstance(state, NDArray):
+        return fn(state)
+    return state
+
 
 class Updater:
-    """The worker-side update closure of the Module path: not yet ported."""
+    """The worker-side update closure of the Module path: ``updater(index,
+    grad, weight)`` makes the index's state on first use and updates the
+    weight in place.  ``get_states``/``set_states`` pickle ``{index: numpy
+    array, tuple of them, or None}``, the JAX package's format, so a
+    ``.states`` file loads in either package; restored states move to the
+    weight's device at their first update."""
 
     def __init__(self, optimizer):
-        raise MXNetError("Updater is not yet ported to mxnet_tpu_torch; "
-                         "train through parallel.ShardedTrainer")
+        self.optimizer = optimizer
+        self.states = {}
+
+    def __call__(self, index, grad, weight):
+        state = self.states.get(index)
+        if index not in self.states:
+            state = self.optimizer.create_state(index, weight)
+        else:
+            ctx = weight.context
+            state = _state_map(state, lambda s: s.as_in_context(ctx))
+        self.states[index] = state
+        self.optimizer.update(index, weight, grad, state)
+
+    def set_states(self, states):
+        def restore(v):
+            if isinstance(v, tuple):
+                return tuple(restore(x) for x in v)
+            if isinstance(v, np.ndarray):
+                return _nd_array(v, ctx=cpu())
+            return v
+        self.states = {k: restore(v)
+                       for k, v in pickle.loads(states).items()}
+
+    def get_states(self):
+        return pickle.dumps({k: _state_map(v, NDArray.asnumpy)
+                             for k, v in self.states.items()})
 
 
 def get_updater(optimizer):

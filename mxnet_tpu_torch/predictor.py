@@ -114,7 +114,8 @@ class Predictor:
                for name, shape in zip(symbol.list_auxiliary_states(),
                                       aux_shapes)}
         self._partial_rows = {}
-        self._executor = symbol.bind(ctx, args, aux_states=aux)
+        self._executor = symbol.bind(ctx, args, grad_req="null",
+                                     aux_states=aux)
 
     @staticmethod
     def _inert_labels(symbol, input_shapes):

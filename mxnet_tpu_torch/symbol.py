@@ -9,8 +9,10 @@ where tensors carry shapes and no data (the counterpart of
 
 The JSON layout (nodes / arg_nodes / node_row_ptr / heads) and the attribute
 strings are the JAX package's, so a graph saved by either package loads in
-the other.  ``bind`` gives an inference executor; training goes through
-``parallel.ShardedTrainer``, which runs ``eval_graph`` under autograd.
+the other.  ``bind``/``simple_bind`` give an
+:class:`~mxnet_tpu_torch.executor.Executor` (forward, and with grad arrays
+backward); ``parallel.ShardedTrainer`` runs ``eval_graph`` under autograd
+too.
 """
 from __future__ import annotations
 
@@ -221,6 +223,18 @@ class Symbol:
     def list_outputs(self):
         return [node.output_names()[idx] for (node, idx) in self._entries]
 
+    def attr_dict(self):
+        """``{node name: {attr: value string}}`` of every node with
+        attributes (the variables' meta attributes, an op's parameters)."""
+        out = {}
+        for node in self._topo():
+            d = dict(node.raw_attr)
+            if node.op is not None:
+                d.update({k: _attr_str(v) for k, v in node.attrs.items()})
+            if d:
+                out[node.name] = d
+        return out
+
     def get_internals(self):
         """All internal outputs as a group."""
         entries = []
@@ -308,13 +322,64 @@ class Symbol:
         out_shapes = [tuple(value(n, i).shape) for (n, i) in self._entries]
         return arg_shapes, out_shapes, aux_shapes
 
+    def infer_type(self, *args, **kwargs):
+        """``(arg_types, out_types, aux_types)`` as numpy dtypes: a given
+        type, else a variable's ``__dtype__``, else float32 (the ported ops
+        keep their inputs' float type)."""
+        import numpy as np
+        known = {a: np.dtype(t) for a, t in zip(self.list_arguments(), args)
+                 if t is not None}
+        known.update({k: np.dtype(v) for k, v in kwargs.items()
+                      if v is not None})
+        topo = self._topo()
+        arg_nodes, aux_nodes = _classify_vars(topo)
+
+        def of(node):
+            if node.name in known:
+                return known[node.name]
+            return np.dtype(node.raw_attr.get("__dtype__", "float32"))
+        return ([of(n) for n in arg_nodes],
+                [np.dtype(np.float32)] * len(self._entries),
+                [of(n) for n in aux_nodes])
+
     # ------------------------------------------------------------- binding
-    def bind(self, ctx=None, args=None, aux_states=None):
-        """An inference :class:`~mxnet_tpu_torch.executor.Executor` on
-        ``ctx`` (default: the current context, ``gpu(0)``).  Gradients are
-        not yet ported, so there is no ``args_grad``/``grad_req``."""
+    def bind(self, ctx=None, args=None, args_grad=None, grad_req="write",
+             aux_states=None, group2ctx=None):
+        """An :class:`~mxnet_tpu_torch.executor.Executor` on ``ctx``
+        (default: the current context, ``gpu(0)``) over ``args`` (a list in
+        ``list_arguments()`` order or a dict of NDArrays), with grad arrays
+        ``args_grad`` (made as zeros where ``grad_req`` asks for one and
+        none is given) and ``aux_states``.  ``grad_req`` is ``'write'``,
+        ``'add'`` or ``'null'``, or a list or dict of them."""
         from .executor import Executor
-        return Executor(self, ctx or current_context(), args, aux_states)
+        return Executor(self, ctx or current_context(), args, args_grad,
+                        grad_req, aux_states, group2ctx=group2ctx)
+
+    def simple_bind(self, ctx=None, grad_req="write", type_dict=None,
+                    group2ctx=None, **kwargs):
+        """Infer every shape from the input shapes in ``kwargs``, allocate
+        zero arrays (and grad arrays where ``grad_req`` asks) on ``ctx``, and
+        :meth:`bind` them."""
+        from .ndarray import zeros
+        ctx = ctx or current_context()
+        arg_shapes, _, aux_shapes = self.infer_shape(**kwargs)
+        arg_types, _, aux_types = self.infer_type(**(type_dict or {}))
+        names = self.list_arguments()
+        if isinstance(grad_req, str):
+            reqs = {n: grad_req for n in names}
+        elif isinstance(grad_req, (list, tuple)):
+            reqs = dict(zip(names, grad_req))
+        else:
+            reqs = {n: grad_req.get(n, "null") for n in names}
+        args = [zeros(s, ctx=ctx, dtype=t)
+                for s, t in zip(arg_shapes, arg_types)]
+        grads = {n: zeros(s, ctx=ctx, dtype=t)
+                 for n, s, t in zip(names, arg_shapes, arg_types)
+                 if reqs.get(n, "null") != "null"}
+        aux = [zeros(s, ctx=ctx, dtype=t)
+               for s, t in zip(aux_shapes, aux_types)]
+        return self.bind(ctx, args, args_grad=grads, grad_req=reqs,
+                         aux_states=aux, group2ctx=group2ctx)
 
     # -------------------------------------------------------------- ser/de
     def tojson(self):

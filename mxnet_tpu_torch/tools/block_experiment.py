@@ -80,14 +80,14 @@ BANDS = tuple(r for r in ROWS if r % 2 == 0)
 #: and the two after it (mxnet_tpu/models/resnet.py, filter_list)
 STAGE1_SETS = ((64, 64, 256), (256, 64, 256))
 #: the general route's limits: its t1 rows and t2 of one row live in
-#: shared memory, and at cmid 256 in f32 (half rows) they take 153184 of
-#: a block's 232448 bytes; the weights stream, so cin and cout do not touch
-#: it
+#: shared memory, in tiles of the widest divisor of 56 positions that fits
+#: (14 at cmid 512 in f32, 4 at cmid 2048); the weights stream, so cin and
+#: cout do not touch it
 MAX_C = 2048
-MAX_CMID = 256
-_GENERAL_RANGE = ("cin and cout 1 to %d and cmid 1 to %d (t1's three rows "
-                  "and t2 live in the 227 KB of shared memory a block may "
-                  "have)" % (MAX_C, MAX_CMID))
+MAX_CMID = 2048
+_GENERAL_RANGE = ("cin, cmid and cout 1 to %d (t1's three rows and t2 "
+                  "live in the 227 KB of shared memory a block may have)"
+                  % MAX_C)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -317,8 +317,8 @@ def plan(n, cin=64, cmid=64, cout=256, band=0, dtype=torch.bfloat16):
     """The plan of a launch on this card by the kernel that takes it: for
     sm90 its band height, items, x stages a consumer, t1 rows, dynamic
     shared memory and grid; for the general kernel its band height, items,
-    positions a tile (56 or 28), dynamic shared memory, grid, blocks an SM
-    and positions computed a tile."""
+    positions a tile (a divisor of 56), dynamic shared memory, grid, blocks
+    an SM and positions computed a tile."""
     if dtype == torch.bfloat16 and kernel_takes(cin, cmid, cout):
         lib, _fn = _kernel()
         entry, keys = lib.mxtt_bottleneck_block_plan, (

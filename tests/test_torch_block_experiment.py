@@ -185,11 +185,13 @@ def test_block_kernel_refuses_other_shapes():
         args = tool.inputs(1, cin, cmid, 32, device="cpu")
         assert tool.route(*args) == "general"
     # past the general kernel's limits, and mixed dtypes, raise before
-    # anything is built
-    for cin, cmid, cout in ((16, 512, 32), (4096, 16, 32), (16, 16, 4096)):
-        args = tool.inputs(1, cin, cmid, cout, device="cpu")
-        with pytest.raises(MXNetError, match="cmid 1 to 256"):
-            tool._launch(*args)
+    # anything is built (w2 at cmid 4096 as a view of one zero)
+    for cin, cmid, cout in ((16, 4096, 32), (4096, 16, 32), (16, 16, 4096)):
+        x4, w14 = torch.zeros(1, 56, 56, cin), torch.zeros(cin, cmid)
+        w24 = torch.zeros(1, 1, 1).expand(9, cmid, cmid)
+        s4 = torch.ones(3, max(cin, cmid))
+        with pytest.raises(MXNetError, match="cmid and cout 1 to 2048"):
+            tool._launch(x4, w14, w24, torch.zeros(cmid, cout), s4, s4)
     with pytest.raises(MXNetError, match="one dtype"):
         tool._launch(x.float(), w1, w2, w3, s, b)
     with pytest.raises(MXNetError, match="one dtype"):
@@ -233,24 +235,26 @@ def test_kernel_takes_its_range(channels, takes):
     ((64, 128, 256), "general"), ((256, 128, 256), "general"),
     ((1, 1, 1), "general"), ((3, 7, 5), "general"),
     ((2048, 256, 2048), "general"), ((64, 256, 64), "general"),
-    ((64, 257, 64), None), ((2049, 64, 64), None), ((64, 64, 2049), None)],
+    ((64, 257, 64), "general"), ((512, 512, 64), "general"),
+    ((64, 2048, 64), "general"), ((64, 2049, 64), None),
+    ((64, 4096, 64), None), ((2049, 64, 64), None), ((64, 64, 2049), None)],
     ids=str)
 def test_route_chooser(channels, route_bf16, dtype):
     """bf16 within the wgmma kernel's range goes there; f32 everywhere, and
-    bf16 outside that range, to the general kernel up to cin and cout 2048
-    and cmid 256; past that the router raises, naming the limits.  The
-    router builds nothing, so it runs on CPU tensors."""
+    bf16 outside that range, to the general kernel up to cin, cmid and cout
+    2048; past that the router raises, naming the limits.  The router
+    builds nothing, so it runs on CPU tensors (w2 a view of one zero)."""
     cin, cmid, cout = channels
     dt = getattr(torch, dtype)
     x = torch.zeros(1, 56, 56, cin, dtype=dt)
-    w1, w2 = torch.zeros(cin, cmid, dtype=dt), torch.zeros(9, cmid, cmid,
-                                                           dtype=dt)
+    w1 = torch.zeros(cin, cmid, dtype=dt)
+    w2 = torch.zeros(1, 1, 1, dtype=dt).expand(9, cmid, cmid)
     w3 = torch.zeros(cmid, cout, dtype=dt)
     s = torch.ones(3, max(cin, cmid))
     want = route_bf16 if dt == torch.bfloat16 or route_bf16 is None \
         else "general"
     if want is None:
-        with pytest.raises(MXNetError, match="cmid 1 to 256"):
+        with pytest.raises(MXNetError, match="cmid and cout 1 to 2048"):
             tool.route(x, w1, w2, w3, s, s)
     else:
         assert tool.route(x, w1, w2, w3, s, s) == want
@@ -413,11 +417,16 @@ def test_kernel_is_the_same_at_every_band_on_card(cuda_device, channels,
 
 @pytest.mark.cuda
 def test_kernel_refuses_other_shapes_on_card(cuda_device):
-    """cmid 512 lies past the general kernel's limit in both dtypes; (64,
-    80, 256), which raised before the general kernel, now runs."""
+    """cmid 4096 lies past the general kernel's limit in both dtypes."""
     for dtype in (torch.bfloat16, torch.float32):
-        args = tool.inputs(1, 64, 512, 256, device=cuda_device, dtype=dtype)
-        with pytest.raises(MXNetError, match="cmid 1 to 256"):
+        args = list(tool.inputs(1, 64, 64, 256, device=cuda_device,
+                                dtype=dtype))
+        args[1] = torch.zeros(64, 4096, dtype=dtype, device=cuda_device)
+        args[2] = torch.zeros(1, 1, 1, dtype=dtype,
+                              device=cuda_device).expand(9, 4096, 4096)
+        args[3] = torch.zeros(4096, 256, dtype=dtype, device=cuda_device)
+        args[4] = args[5] = torch.ones(3, 4096, device=cuda_device)
+        with pytest.raises(MXNetError, match="cmid and cout 1 to 2048"):
             tool.block_kernel(*args)
 
 
@@ -468,8 +477,9 @@ def test_chip_smoke_block_bound_takes_the_dtype():
 
 def test_chip_smoke_general_sets_take_the_general_route():
     """chip_smoke's batch-2 sets for the general kernel lie outside the
-    wgmma kernel's range (in bf16) and inside the general one's, and the
-    f32 extras reach odd counts and cmid 256 (half rows in f32)."""
+    wgmma kernel's range (in bf16) and inside the general one's, the f32
+    extras reach odd counts and cmid 256 (half rows in f32), and the wide
+    sets cmid 512 in both dtypes and 1024, tiles narrower than 28."""
     for channels in chip_smoke.K9_GENERAL_SETS:
         assert not tool.kernel_takes(*channels)
         assert tool.general_takes(*channels)
@@ -477,6 +487,54 @@ def test_chip_smoke_general_sets_take_the_general_route():
             (64, 128, 256)} <= set(chip_smoke.K9_GENERAL_SETS)
     extra = chip_smoke.K9_GENERAL_F32_EXTRA
     assert all(tool.general_takes(*c) for c in extra)
-    assert any(c[1] == tool.MAX_CMID for c in extra)
+    assert any(c[1] == 256 for c in extra)
     assert any(min(c) < 8 and all(v % 2 for v in c) for c in extra)
-    assert not tool.general_takes(64, 512, 256)
+    wide = chip_smoke.K9_WIDE_SETS
+    assert all(tool.general_takes(*c) for c, _dt in wide)
+    assert {(c[1], dt) for c, dt in wide} >= {
+        (512, torch.float32), (512, torch.bfloat16)}
+    assert any(c[1] == 1024 for c, _dt in wide)
+    assert {chip_smoke.K9_TILES[c[1], dt] for c, dt in wide} \
+        >= {28, 14, 8}
+    assert not tool.general_takes(64, 4096, 256)
+    assert chip_smoke.K9_REFUSED == (64, 4096, 256)
+
+
+#: the general kernel's wide sets: cmid 512 (in both dtypes through the JAX
+#: tool, which takes cin >= cmid)
+WIDE_SETS = [(512, 512, 64)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("channels", WIDE_SETS, ids=str)
+def test_plain_matches_the_pallas_kernel_at_cmid_512(channels, dtype):
+    """cmid 512, which the general kernel took only from its tiles of 14
+    positions on: block_plain against the Pallas kernel in interpret mode
+    at batch 1, rows 8 (f32 1e-5, bf16 1e-2 of max |y|)."""
+    dt = getattr(torch, dtype)
+    args, jargs = _both(*channels, seed=8, dtype=dt)
+    want = JTOOL.pallas_block(*jargs, rows=8, interpret=True)
+    y = tool.block_plain(*args)
+    assert y.dtype == dt and y.shape == (1, 56, 56, channels[2])
+    assert _rel(y, want) <= (1e-5 if dt == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("cmid,dtype,tile", [
+    (cmid, str(dt).replace("torch.", ""), tile)
+    for (cmid, dt), tile in chip_smoke.K9_TILES.items()])
+def test_tile_plan_takes_the_widest_tile_that_fits(cmid, dtype, tile):
+    """The tiles chip_smoke holds the general kernel's own plan to: whole
+    rows while three haloed t1 rows, a t2 row and the chunk buffers (the
+    tile's 16, 32 or 64 product rows and 64 of the weights, 32 deep) fit a
+    block's 232448 bytes, else the widest narrower divisor of 56 that
+    fits."""
+    dt = getattr(torch, dtype)
+    pad = 4 if dt == torch.float32 else 8
+    row = (cmid + 63) // 64 * 64 + pad
+
+    def smem(tw):
+        rows = 64 if tw == 56 else 32 if tw == 28 else 16
+        return dt.itemsize * ((3 * (tw + 2) + tw) * row
+                              + (rows + 64) * (32 + pad))
+    widths = [w for w in range(56, 0, -1) if 56 % w == 0]
+    assert tile == next(w for w in widths if smem(w) <= 232448)

@@ -373,7 +373,8 @@ def test_chip_smoke_flash_cases_cover_both_dtypes():
     import chip_smoke
     cases = {c[:4] + (c[5],) for c in chip_smoke.FLASH_CASES
              if c[4] == torch.float32}
-    for shape in [(4, 1024, 16, 64, True), (4, 1024, 16, 64, False),
+    for shape in [(16, 1024, 16, 64, True),
+                  (4, 1024, 16, 64, True), (4, 1024, 16, 64, False),
                   (1, 4096, 16, 64, True), (4, 1024, 8, 32, True),
                   (4, 1024, 8, 128, True), (2, 1000, 4, 64, True),
                   (2, 1000, 4, 64, False), (3, 257, 5, 64, True)]:

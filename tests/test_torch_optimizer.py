@@ -84,11 +84,15 @@ def test_wd_mult_defaults_and_symbol_multipliers():
 
 
 def test_imperative_update_is_not_yet_ported():
-    opt = tmx.optimizer.create("sgd")
-    with pytest.raises(MXNetError):
-        opt.update(0, None, None, None)
-    with pytest.raises(MXNetError):
-        tmx.optimizer.get_updater(opt)
+    """The imperative update of the Module path: one SGD step through the
+    Updater is w - lr * g, and the base class has no rule of its own."""
+    opt = tmx.optimizer.create("sgd", learning_rate=0.5)
+    upd = tmx.optimizer.get_updater(opt)
+    w = tmx.nd.array(np.ones(3, np.float32), ctx=tmx.cpu())
+    upd(0, tmx.nd.array(np.full(3, 2.0, np.float32), ctx=tmx.cpu()), w)
+    np.testing.assert_array_equal(w.asnumpy(), np.zeros(3, np.float32))
+    with pytest.raises(NotImplementedError):
+        tmx.optimizer.Optimizer().update(0, w, w, None)
 
 
 @pytest.mark.parametrize("make", [
