@@ -61,7 +61,33 @@ Phases, one JSON line each:
 8. ``module_check``: train_check through the Module (one
    ``forward_backward`` + ``update`` with SGD of the GPT cut to 2 layers
    and batch 1, on ``gpu(0)`` and on the CPU, with the TF32 control);
-9. ``kernels`` of K5 (``matmul_stats``, the GEMM with the BatchNorm
+9. ``bucketing_train``: ``BucketingModule.fit`` of the lstm_bucketing LSTM
+   LM at the example's full width (2 LSTMCell layers of 200, embedding
+   200, vocabulary 10000, batch 32, buckets 10 to 60, SGD lr 0.01, Xavier,
+   Perplexity) on ``gpu(0)`` through ``tools/lstm_bucketing.py``:
+   ``LSTM_EPOCHS`` epochs over a seeded corpus on a chain of 100 of the
+   10000 tokens, in the iterator's order, with validation; 6 binds, all in
+   the first epoch; every bucket on the default bucket's parameter,
+   gradient and auxiliary storage, optimizer and Updater; the train
+   perplexity falling and, in the last epoch, the train and validation
+   perplexities below ``TOL_LSTM_PERPLEXITY`` (under the unigram's 100:
+   the chain's successor learned); ms per ``fit`` batch and per
+   ``forward_backward`` + ``update`` for each bucket, peak memory; every
+   kernel's count, set to
+   0 before and read after, must stay 0 (no kernel lies on this path);
+10. ``bucketing_check``: four SGD steps of the same LM at 2 layers of 64,
+   one batch of each of four buckets, on ``gpu(0)`` and on the CPU from
+   the same weights and batches, with a TF32 control;
+11. ``rnn_ops``: the ``RNN`` op (``FusedRNNCell``) against the same weights
+   unfused into step cells, outputs and gradients: the LSTM at full width
+   and the longest bucket with both routes' times, then GRU,
+   bidirectional LSTM and GRU and the vanilla modes at a small size;
+12. ``module_api``: ``examples/module_api/python_loss.py`` (an MLP
+   ``Module`` in a ``SequentialModule`` with a ``PythonLossModule`` of
+   the numpy hinge gradient) trained for 20 batches with its loss
+   falling, and a ``Monitor`` on one bucket's executor of a bucketing LM
+   giving a statistic for every op output of one batch;
+13. ``kernels`` of K5 (``matmul_stats``, the GEMM with the BatchNorm
    statistics epilogue) against its plain version at the 8 shapes one
    ResNet-50 training step gives it in bf16, at 2 of them in f32 and at
    the cuda tests' shapes (one of which the wrapper pads for TMA in both
@@ -71,7 +97,7 @@ Phases, one JSON line each:
    (split TF32 on the tensor cores) the card's time, cuBLAS's f32 product
    (TF32 off) and the bound of the product as split TF32 beside the
    CUDA-core one;
-10. ``resnet_train``: ResNet-50 v2 at ``tools/bench.py``'s configuration
+14. ``resnet_train``: ResNet-50 v2 at ``tools/bench.py``'s configuration
    (batch 128, 224x224, bf16, NHWC, block fusion, SGD momentum) on
    ``gpu(0)``: ten steps after a warm-up, every loss finite, the last
    below the first, every moving statistic moved, the fusion plan 50
@@ -79,23 +105,23 @@ Phases, one JSON line each:
    through the wrapper's padding; then ms/step,
    images/s, peak memory and a profile of one step (K5's share, and the
    count of cuDNN layout transposes);
-11. ``resnet_train_check``: one f32 SGD step of ResNet-50 at batch 8,
+15. ``resnet_train_check``: one f32 SGD step of ResNet-50 at batch 8,
    64x64, on ``gpu(0)`` and on the CPU; every parameter's and moving
    statistic's change agrees within a stated relative tolerance, and a
    TF32 control must not;
-12. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
+16. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
     package's ``tests/test_rtc.py`` written in CUDA C, abs written as a
     CUDA programmer writes it for this card (float4 in a grid-stride
     loop), and both abs bodies over an (8192, 8192) f32 array, and pushes
     each once; each output equals the callable (plain) form's exactly; the
     two full-size ones are timed against ``torch.abs`` and their byte
     bound;
-13. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
+17. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
     shapes at batch 128, then K7 (K5 with c = 0) and K8 (the prologue
     variant) against their plain versions at each shape, bit-identical
     across two launches, with the kernel (the card's, and with the host's
     share), plain, library, cuBLAS product and bound times;
-14. ``block_experiment``: the tool of that name at batch 128 with its
+18. ``block_experiment``: the tool of that name at batch 128 with its
     defaults (64, 64, 256, rows 8, bf16: the wgmma kernel) and again in
     f32 (the general kernel), then K9 against ``block_plain`` at both
     stage-1 channel sets, (64, 64, 256) and (256, 64, 256), batch 128, in
@@ -111,15 +137,18 @@ Phases, one JSON line each:
     and 1024 in both dtypes, each in the tile its shared memory allows;
     cmid 4096 must raise in both dtypes.
 
-Then the kernel summary line and, last, ``{"ok": true, "device": ...}``.
+Then the kernel summary line (each kernel with its count over
+``bucketing_train`` beside the others) and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line.  With no CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
+import gc
 import json
 import logging
 import os
+import random
 import re
 import sys
 import tempfile
@@ -157,6 +186,8 @@ from mxnet_tpu_torch.tools import (                            # noqa: E402
     block_experiment, nvidia_smi)
 from mxnet_tpu_torch.tools import matmul_stats_experiment      # noqa: E402
 from mxnet_tpu_torch.tools import module_fit                   # noqa: E402
+from mxnet_tpu_torch.tools import lstm_bucketing               # noqa: E402
+from mxnet_tpu_torch.ops.rnn import rnn_param_size             # noqa: E402
 
 #: the repo's benchmark configuration of the GPT LM
 #: (examples/transformer/train_lm.py, build_bench_trainer)
@@ -1328,6 +1359,461 @@ def module_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
     return out
 
 
+# -------------------------------------------------- BucketingModule, RNN
+#: the lstm_bucketing configuration (examples/rnn/lstm_bucketing.py:24-40):
+#: 2 LSTMCell layers, 200 hidden, embedding 200, batch 32, buckets 10 to
+#: 60, SGD lr 0.01 momentum 0 wd 1e-5, PTB's vocabulary of 10000
+LSTM_FULL = {"vocab": 10000, "num_hidden": 200, "num_embed": 200,
+             "num_layers": 2, "batch_size": 32}
+#: bucketing_train's corpus (lstm_bucketing.successor_corpus: a chain that
+#: cycles SUPPORT tokens of the 10000) and its epochs
+LSTM_SENTENCES = lstm_bucketing.SENTENCES
+LSTM_VAL_SENTENCES = 400
+LSTM_EPOCHS = 8
+# bucketing_train fails unless the last epoch's train and validation
+# perplexities are below this bound: the uniform model reads 10000 and a
+# model of the chain's unigram alone the support, 100, so the bound needs
+# the successor learned.  On the H100 the tool's run of the same seeds
+# read, after the eighth epoch, 10.12 in training and 12.24 in validation
+# (after the fifth 99.67 and 94.60: the unigram's plateau, left in the
+# sixth); the bound is twice the larger
+TOL_LSTM_PERPLEXITY = 25.0
+# bucketing_check: ||d_gpu - d_cpu|| / ||d_cpu|| per parameter, d the
+# change of the parameter over BUCKET_CHECK_STEPS SGD steps of the
+# bucketing LM at 2 layers and a narrow width (no ReLU: no mask flips).
+# On the H100 the f32 steps read 7.4e-7 at worst and the same steps with
+# TF32 matmuls, run as a control, 8.1e-4: the bound lies between, near
+# their geometric mean, and the control must exceed it
+TOL_BUCKETING_CHECK = 2e-5
+BUCKET_CHECK = {"vocab": 500, "num_hidden": 64, "num_embed": 64,
+                "num_layers": 2, "batch_size": 8}
+BUCKET_CHECK_STEPS = 4
+# rnn_ops: the RNN op against its unfused cells on the same weights and
+# inputs, max |fused - unfused| over max |unfused| for the outputs and
+# every gradient (f32, TF32 off: the same products in another grouping)
+TOL_RNN_OPS = 1e-5
+
+
+def all_counts():
+    """The launch counts of every hand-written kernel of the port."""
+    from mxnet_tpu_torch.rtc import Rtc
+    bk = block_experiment.block_kernel
+    return dict(flash_counts(), matmul_stats=matmul_stats.launches,
+                matmul_stats_prologue=matmul_stats_prologue.launches,
+                rtc=Rtc.launches, bottleneck_block=bk.launches,
+                bottleneck_block_general=bk.general_launches)
+
+
+def zero_all_counts():
+    from mxnet_tpu_torch.rtc import Rtc
+    bk = block_experiment.block_kernel
+    zero_flash_counts()
+    matmul_stats.launches = matmul_stats_prologue.launches = 0
+    Rtc.launches = 0
+    bk.launches = bk.general_launches = 0
+
+
+def _first_batches(batches):
+    """Each bucket's first batch's ms in the first epoch (its bind
+    included)."""
+    out = {}
+    for b in batches:
+        out.setdefault(str(b["bucket"]), b["ms"])
+    return dict(sorted(out.items()))
+
+
+def bucketing_train_phase(ctx, cfg=LSTM_FULL, sentences=LSTM_SENTENCES,
+                          val_sentences=LSTM_VAL_SENTENCES,
+                          epochs=LSTM_EPOCHS, bound=TOL_LSTM_PERPLEXITY,
+                          lr=0.01):
+    """``BucketingModule.fit`` of the lstm_bucketing LM at ``cfg``'s width
+    on ``ctx`` (``tools.lstm_bucketing.fit``, SGD at ``lr``, the
+    example's 0.01): ``epochs`` epochs over the seeded successor corpus in the iterator's order, with validation, the
+    kernel counts set to 0 just before and read just after (no kernel lies
+    on this path).  Checks: 6 binds, all in the first epoch, none while
+    each bucket is timed again after; every bucket holds the default
+    bucket's parameter, gradient and auxiliary storage, host parameters,
+    optimizer and Updater; the train perplexity finite and falling from
+    epoch to epoch, the last epoch's train and validation perplexities
+    below ``bound``.  Reports for each bucket the median ms of a ``fit``
+    batch past the first epoch and of ``forward_backward`` + ``update``
+    timed again after the fit, each epoch's perplexities, peak memory
+    and, on the card, a profile of one step of the longest bucket."""
+    on_card = ctx.device_type == "gpu"
+    log = _LogLines()
+    logging.getLogger().addHandler(log)
+    old_level = logging.getLogger().level
+    logging.getLogger().setLevel(logging.INFO)
+    if on_card:
+        # free what earlier phases left for the collector, so that the
+        # fit's peak is measured above what is still held
+        gc.collect()
+        torch.cuda.empty_cache()
+    try:
+        zero_all_counts()
+        mod, it, run = lstm_bucketing.fit(
+            ctx, cfg["vocab"], cfg["num_hidden"], cfg["num_embed"],
+            cfg["num_layers"], cfg["batch_size"], epochs, lr=lr,
+            sentences=sentences, val_sentences=val_sentences,
+            disp_batches=40)
+        launches = all_counts()
+    finally:
+        logging.getLogger().removeHandler(log)
+        logging.getLogger().setLevel(old_level)
+    if on_card:
+        # one step of the longest bucket under the profiler, after fit
+        longest = next(b for b in it
+                       if b.bucket_key == lstm_bucketing.BUCKETS[-1])
+
+        def step():
+            mod.forward_backward(longest)
+            mod.update()
+        run["profile_longest_bucket"] = profile_device(step, marks={
+            "gemm": ("gemm", "Gemm", "cutlass", "xmma"),
+            "elementwise": ("elementwise", "vectorized", "reduce")})
+    del mod
+    batches = run.pop("batches")
+    ppl = [e["train_perplexity"] for e in run["epochs"]]
+    val = [e.get("validation_perplexity") for e in run["epochs"]]
+    by_bucket = {}
+    for b in batches[len(batches) // epochs:]:     # past the first epoch
+        by_bucket.setdefault(str(b["bucket"]), []).append(b["ms"])
+    out = dict(run, train_perplexity=ppl, validation_perplexity=val,
+               speedometer=[ln for ln in log.lines if "Speed:" in ln],
+               fit_batch_ms_median={k: float(np.median(v))
+                                    for k, v in sorted(by_bucket.items())},
+               first_batch_ms_with_bind=_first_batches(batches),
+               kernel_launches=launches, tol_perplexity=bound)
+    if on_card:
+        out["nvidia_smi"] = nvidia_smi()
+        torch.cuda.empty_cache()
+    n_buckets = len(lstm_bucketing.BUCKETS)
+    bad = []
+    if run["binds"] != n_buckets or run["buckets_bound"] != \
+            lstm_bucketing.BUCKETS:
+        bad.append("%d binds of buckets %s; want one for each of %s"
+                   % (run["binds"], run["buckets_bound"],
+                      lstm_bucketing.BUCKETS))
+    if run["epochs"][0]["binds_so_far"] != run["binds"] or \
+            run["binds_while_timing"]:
+        bad.append("binds after the first epoch")
+    if not all(run["sharing"].values()):
+        bad.append("buckets do not share %s" % [
+            k for k, v in run["sharing"].items() if not v])
+    if not np.isfinite(ppl).all() or not all(
+            b < a for a, b in zip(ppl, ppl[1:])):
+        bad.append("the perplexity did not fall from epoch to epoch")
+    if not (ppl[-1] < bound and val[-1] is not None and val[-1] < bound):
+        bad.append("the last epoch's train and validation perplexities "
+                   "%r and %r are not below %r" % (ppl[-1], val[-1], bound))
+    if any(launches.values()):
+        bad.append("kernels launched on the bucketing path: %s" % launches)
+    if bad:
+        raise SystemExit("bucketing_train: %s: %s" % ("; ".join(bad),
+                                                       json.dumps(out)))
+    return out
+
+
+def _bucket_batches(cfg, n, seed=1):
+    """The iterator of a seeded successor corpus at ``cfg``'s vocabulary
+    and batch, and its first batches of ``n`` different buckets."""
+    corpus = lstm_bucketing.successor_corpus(
+        cfg["batch_size"] * 30, cfg["vocab"], lstm_bucketing.SUPPORT, seed)
+    random.seed(seed)
+    np.random.seed(seed)
+    it = mx.rnn.BucketSentenceIter(corpus, cfg["batch_size"],
+                                   buckets=list(lstm_bucketing.BUCKETS),
+                                   invalid_label=lstm_bucketing.INVALID_LABEL)
+    picked = {}
+    for b in it:
+        picked.setdefault(b.bucket_key, b)
+        if len(picked) == n:
+            break
+    return it, list(picked.values())
+
+
+def _bucketing_module(cfg, it, ctx):
+    mod = mx.mod.BucketingModule(
+        lstm_bucketing.lstm_sym_gen(cfg["vocab"], cfg["num_hidden"],
+                                    cfg["num_embed"], cfg["num_layers"]),
+        default_bucket_key=it.default_bucket_key, context=ctx)
+    mod.bind(it.provide_data, it.provide_label)
+    return mod
+
+
+def bucketing_check_phase(ctx, cfg=BUCKET_CHECK, steps=BUCKET_CHECK_STEPS,
+                          lr=0.1, check_ctx=None):
+    """``steps`` SGD steps (momentum 0.9, wd 1e-5) of the bucketing LM at
+    ``cfg``'s narrow width, one batch of each of ``steps`` buckets, on
+    ``ctx`` and on ``check_ctx`` (default: the CPU) from the same Xavier
+    weights and batches; per parameter the changes agree within
+    ``TOL_BUCKETING_CHECK`` (:func:`update_diff`), and on the card the same
+    steps with TF32 matmuls, run as a control, must miss it."""
+    check_ctx = check_ctx or mx.cpu()
+    it, batches = _bucket_batches(cfg, steps)
+    ref = _bucketing_module(cfg, it, mx.cpu())
+    ref.init_params(initializer=mx.init.Xavier(factor_type="in",
+                                               magnitude=2.34, rng=0))
+    weights = {k: v.asnumpy().copy() for k, v in ref.get_params()[0].items()}
+    del ref
+
+    def run(c, tf32=False):
+        mod = _bucketing_module(cfg, it, c)
+        mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                    for k, v in weights.items()})
+        mod.init_optimizer(optimizer="sgd", optimizer_params={
+            "learning_rate": lr, "momentum": 0.9, "wd": 1e-5})
+        ppl = []
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            for b in batches:
+                mod.forward_backward(b)
+                mod.update()
+                m = mx.metric.Perplexity(lstm_bucketing.INVALID_LABEL)
+                m.update(b.label, mod.get_outputs())
+                ppl.append(m.get()[1])
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        after = mod.get_params()[0]
+        return ppl, {k: torch.from_numpy(after[k].asnumpy() - w)
+                     for k, w in weights.items()}
+
+    ppl, delta = run(ctx)
+    ref_ppl, ref_delta = run(check_ctx)
+    out = {"config": cfg, "steps": steps,
+           "buckets": [b.bucket_key for b in batches], "optimizer": "sgd",
+           "learning_rate": lr, "momentum": 0.9,
+           "contexts": [str(ctx), str(check_ctx)],
+           "perplexity": [ppl, ref_ppl],
+           **update_diff(delta, ref_delta, True),
+           "tol": TOL_BUCKETING_CHECK, "control_tf32": None}
+    if ctx.device_type == "gpu":
+        tf32_ppl, tf32_delta = run(ctx, tf32=True)
+        out["control_tf32"] = dict(update_diff(tf32_delta, ref_delta),
+                                   perplexity=tf32_ppl)
+    if out["max_rel_update_diff"] > TOL_BUCKETING_CHECK \
+            or not np.isfinite(ppl + ref_ppl).all():
+        raise SystemExit("bucketing_check: %s" % json.dumps(out))
+    if out["control_tf32"] is not None and \
+            out["control_tf32"]["max_rel_update_diff"] <= TOL_BUCKETING_CHECK:
+        raise SystemExit("bucketing_check: the TF32 control passes the "
+                         "bound, so the bound cannot tell it from f32: %s"
+                         % json.dumps(out))
+    return out
+
+
+def _rel_err(x, ref):
+    return (x - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+
+
+def fused_vs_unfused(ctx, mode, hidden, layers, bidirectional, batch, seq,
+                     in_size, seed=0, repeats=0):
+    """The RNN op (``FusedRNNCell``) and its ``unfuse()``'d cells on the
+    same random flat weights, input and head gradient on ``ctx``: the
+    largest relative error of the output, the input gradient and the
+    weight gradient (the cells' packed into the flat layout), and with
+    ``repeats`` the median ms of forward + backward of each."""
+    fused = mx.rnn.FusedRNNCell(hidden, num_layers=layers, mode=mode,
+                                bidirectional=bidirectional,
+                                prefix="%s_" % mode)
+    unfused = fused.unfuse()
+    data = mx.sym.Variable("data")
+    graphs = {"fused": fused.unroll(seq, data, merge_outputs=True)[0],
+              "unfused": unfused.unroll(seq, data, merge_outputs=True)[0]}
+    rng = np.random.RandomState(seed)
+    pname = "%s_parameters" % mode
+    vec = rng.uniform(-1, 1, rnn_param_size(
+        mode, in_size, hidden, layers, bidirectional)).astype(np.float32) \
+        / np.sqrt(hidden)
+    x = rng.normal(0, 1, (batch, seq, in_size)).astype(np.float32)
+    args = {"fused": {pname: vec},
+            "unfused": {k: v.asnumpy() for k, v in unfused.pack_weights(
+                fused.unpack_weights({pname: vec})).items()}}
+    dirs = 2 if bidirectional else 1
+    head = rng.normal(0, 1, (batch, seq, hidden * dirs)).astype(np.float32)
+    res, ms = {}, {}
+    for kind, net in graphs.items():
+        given = dict(args[kind], data=x)
+        arrays = {n: mx.nd.array(given[n], ctx=ctx)
+                  for n in net.list_arguments()}
+        exe = net.bind(ctx, arrays)
+
+        def step():
+            exe.forward(is_train=True)
+            exe.backward([mx.nd.array(head, ctx=ctx)])
+        step()
+        res[kind] = (exe.outputs[0].data.cpu(),
+                     {n: g.data.cpu() for n, g in exe.grad_dict.items()})
+        if repeats:
+            times = []
+            for _ in range(repeats):
+                if ctx.device_type == "gpu":
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                step()
+                if ctx.device_type == "gpu":
+                    torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[kind] = float(np.median(times))
+    (fo, fg), (uo, ug) = res["fused"], res["unfused"]
+    packed = fused.pack_weights(unfused.unpack_weights(
+        {n: mx.nd.NDArray(g) for n, g in ug.items() if n != "data"}))
+    out = {"mode": mode, "hidden": hidden, "layers": layers,
+           "bidirectional": bidirectional, "batch": batch, "seq": seq,
+           "input": in_size,
+           "err_out": _rel_err(fo, uo),
+           "err_grad_data": _rel_err(fg["data"], ug["data"]),
+           "err_grad_weights": _rel_err(fg[pname],
+                                        packed[pname].data.reshape(-1))}
+    if repeats:
+        out["fwd_bwd_ms"] = ms
+    return out
+
+
+#: rnn_ops' small cases: GRU, bidirectional and the vanilla modes
+RNN_SMALL_CASES = [("gru", 16, 2, False), ("gru", 16, 2, True),
+                   ("lstm", 16, 2, True), ("rnn_tanh", 16, 2, True),
+                   ("rnn_relu", 16, 1, False)]
+
+
+def rnn_ops_phase(ctx, cfg=LSTM_FULL, seq=60, small_seq=12, repeats=3):
+    """The RNN op against the same weights unfused into step cells
+    (:func:`fused_vs_unfused`): the lstm_bucketing LSTM at ``cfg``'s full
+    width and the longest bucket, with both routes' times, then
+    ``RNN_SMALL_CASES`` at batch 4; each within ``TOL_RNN_OPS``."""
+    cases = [fused_vs_unfused(ctx, "lstm", cfg["num_hidden"],
+                              cfg["num_layers"], False, cfg["batch_size"],
+                              seq, cfg["num_embed"], repeats=repeats)]
+    cases += [fused_vs_unfused(ctx, mode, h, layers, bi, 4, small_seq, 8,
+                               seed=i + 1)
+              for i, (mode, h, layers, bi) in enumerate(RNN_SMALL_CASES)]
+    out = {"cases": cases, "tol": TOL_RNN_OPS}
+    if ctx.device_type == "gpu":
+        out["nvidia_smi"] = nvidia_smi()
+    bad = [c for c in cases if not max(
+        c["err_out"], c["err_grad_data"], c["err_grad_weights"])
+        <= TOL_RNN_OPS]
+    if bad:
+        raise SystemExit("rnn_ops: %s" % json.dumps(out))
+    return out
+
+
+def _hinge_margins(scores, labels):
+    """Per row, 1 + s_j - s_label for every class j, 0 at the label."""
+    s = scores.asnumpy()
+    lab = labels.asnumpy().astype(np.int64)
+    rows = np.arange(s.shape[0])
+    margin = 1 + s - s[rows, lab][:, None]
+    margin[rows, lab] = 0
+    return margin, rows, lab
+
+
+def mc_hinge_grad(scores, labels):
+    """The Crammer-Singer multiclass hinge subgradient of
+    ``examples/module_api/python_loss.py``, over the batch at once."""
+    margin, rows, lab = _hinge_margins(scores, labels)
+    grad = np.zeros_like(margin)
+    grad[rows, lab] -= 1
+    np.add.at(grad, (rows, margin.argmax(1)), 1)
+    return grad / len(rows)
+
+
+def hinge_loss(scores, labels):
+    """The batch's mean multiclass hinge loss."""
+    return float(_hinge_margins(scores, labels)[0].max(1).mean())
+
+
+#: the Monitor's outputs in module_api: each LSTM layer's tanh(c) at every
+#: step, the head and the softmax
+MONITOR_PATTERN = r"lstm_l\d+_t\d+_state_output|pred_output|softmax_output"
+
+
+def module_api_phase(ctx, n=2000, batch=100, dim=196, monitor_cfg=
+                     BUCKET_CHECK):
+    """``examples/module_api/python_loss.py`` on ``ctx``: an MLP ``Module``
+    chained by ``SequentialModule`` into a ``PythonLossModule`` whose
+    gradient is the numpy hinge subgradient, ``fit`` for one epoch of
+    ``n / batch`` batches (Xavier, SGD lr 0.1 momentum 0.9); the hinge loss
+    of each batch's outputs must fall (the last four batches' mean below the
+    first's).  Then a ``Monitor`` on ``MONITOR_PATTERN`` installed on one
+    bucket's executor of a bucketing LM at ``monitor_cfg``'s width gives
+    its statistics for one batch, all of them in the phase's line: one for
+    every op output of that bucket's graph the pattern matches, all
+    finite, and none from another bucket's batch."""
+    protos = np.random.RandomState(42).rand(10, dim).astype("f")
+    rng = np.random.RandomState(0)
+    y = rng.randint(0, 10, n)
+    x = (protos[y] + 0.25 * rng.randn(n, dim).astype("f")).astype("f")
+    data = mx.sym.Variable("data")
+    fc1 = mx.sym.FullyConnected(data, name="fc1", num_hidden=128)
+    act1 = mx.sym.Activation(fc1, name="relu1", act_type="relu")
+    fc2 = mx.sym.FullyConnected(act1, name="fc2", num_hidden=64)
+    act2 = mx.sym.Activation(fc2, name="relu2", act_type="relu")
+    fc3 = mx.sym.FullyConnected(act2, name="fc3", num_hidden=10)
+    mlp = mx.mod.Module(fc3, label_names=[], context=ctx)
+    loss = mx.mod.PythonLossModule(grad_func=mc_hinge_grad)
+    seq = mx.mod.SequentialModule().add(mlp).add(
+        loss, take_labels=True, auto_wiring=True)
+    np.random.seed(0)
+    it = mx.io.NDArrayIter(x, y.astype("f"), batch, shuffle=True)
+    losses, stamps = [], [time.perf_counter()]
+
+    def record(param):
+        b = param.locals["batch"]
+        losses.append(hinge_loss(seq.get_outputs()[0], b.label[0]))
+        stamps.append(time.perf_counter())
+    seq.fit(it, num_epoch=1, initializer=mx.init.Xavier(rng=0),
+            optimizer="sgd",
+            optimizer_params={"learning_rate": 0.1, "momentum": 0.9},
+            batch_end_callback=record)
+    out = {"batches": len(losses), "batch": batch, "hinge_loss": losses,
+           "batch_ms": [(b - a) * 1e3 for a, b in
+                        zip(stamps[1:], stamps[2:])],
+           "output_context": str(seq.get_outputs()[0].context)}
+
+    mit, batches = _bucket_batches(monitor_cfg, 2)
+    mod = _bucketing_module(monitor_cfg, mit, ctx)
+    mod.init_params(initializer=mx.init.Xavier(rng=0))
+    mod.init_optimizer(optimizer="sgd")
+    watched, other = batches
+    mod.prepare(watched)
+    mon = mx.Monitor(1, pattern=MONITOR_PATTERN)
+    mon.install(mod._buckets[watched.bucket_key]._exec_group.execs[0])
+    mon.tic()
+    mod.forward_backward(watched)
+    mod.update()
+    mod.forward_backward(other)
+    mod.update()
+    stats = mon.toc()
+    for step, name, value in stats:
+        logging.info("Batch: %7d %30s %s", step, name, value)
+    graph = mod._buckets[watched.bucket_key].symbol
+    pattern = re.compile(MONITOR_PATTERN)
+    n_ops = sum(1 for node in graph._topo() if node.op is not None
+                for name in node.output_names() if pattern.match(name))
+    values = [float(v.split("\t")[0]) for _s, _n, v in stats]
+    out["monitor"] = {"pattern": MONITOR_PATTERN,
+                      "bucket": watched.bucket_key,
+                      "other_bucket": other.bucket_key,
+                      "stats": len(stats), "op_outputs": n_ops,
+                      "triples": stats}
+    if ctx.device_type == "gpu":
+        out["nvidia_smi"] = nvidia_smi()
+    bad = []
+    if not (np.isfinite(losses).all()
+            and np.mean(losses[-4:]) < losses[0]):
+        bad.append("the hinge loss did not fall")
+    if out["output_context"] != str(ctx):
+        bad.append("the outputs lie on %s" % out["output_context"])
+    if len(stats) != n_ops or not np.isfinite(values).all():
+        bad.append("%d monitor statistics for %d op outputs"
+                   % (len(stats), n_ops))
+    if bad:
+        raise SystemExit("module_api: %s: %s" % ("; ".join(bad),
+                                                  json.dumps(out)))
+    return out
+
+
 # ------------------------------------------------------------- ResNet-50
 def k5_bound(m, k, n, dtype, f32_values=None):
     """Least time for one K5 launch on this card: the larger of 2MNK
@@ -2256,6 +2742,10 @@ def main():
     emit("module_train", **module)
     module_check = module_check_phase(mx.gpu(0), FULL)
     emit("module_check", **module_check)
+    emit("bucketing_train", **bucketing_train_phase(mx.gpu(0)))
+    emit("bucketing_check", **bucketing_check_phase(mx.gpu(0)))
+    emit("rnn_ops", **rnn_ops_phase(mx.gpu(0)))
+    emit("module_api", **module_api_phase(mx.gpu(0)))
     k5 = resnet_kernels_phase()
     resnet = resnet_train_phase(mx.gpu(0))
     emit("resnet_train", **resnet)

@@ -17,6 +17,11 @@ imperative optimizer, fed by ``mx.io`` iterators and scored by
     mod.fit(it, num_epoch=1, optimizer="adam",
             eval_metric=mx.metric.Perplexity(None))
 
+``mx.mod.BucketingModule`` trains sequences of several lengths, one
+executor a bucket sharing one parameter set, on graphs written by the
+cells of ``mx.rnn`` (``python -m mxnet_tpu_torch.tools.lstm_bucketing``);
+``mx.Monitor`` reads statistics of intermediate outputs.
+
 ``parallel.ShardedTrainer`` trains a Symbol on one device in a fused step
 (the GPT of ``models.gpt``; ``python -m
 mxnet_tpu_torch.tools.transformer_mfu`` times it).  ``mx.rtc`` compiles CUDA C kernels at run time.  Its entry points
@@ -58,3 +63,7 @@ from . import model
 from . import module
 from . import module as mod
 from .module import Module
+from . import monitor
+from . import monitor as mon
+from .monitor import Monitor
+from . import rnn

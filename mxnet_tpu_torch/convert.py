@@ -6,7 +6,12 @@ Convolution weight OIHW, BatchNorm statistics ``(C,)``), so converting is
 placing arrays on a device.  The file route needs no code:
 a ``.params`` file written by ``mxnet_tpu.nd.save`` loads with
 ``mxnet_tpu_torch.nd.load``, and the reverse.  A training state carries
-over with :func:`from_jax_trainer_state`.
+over with :func:`from_jax_trainer_state`, a module's parameters (a
+``Module``'s or a ``BucketingModule``'s) with :func:`from_jax_module`.
+A ``FusedRNNCell``'s flat ``parameters`` vector has the same layout in
+both packages (per layer and direction the input then the recurrent
+weights, gate-major, then all biases; LSTM gates i, f, g, o, GRU r, z,
+n), so it carries over as it is.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ from .base import MXNetError
 from .ndarray import NDArray, _from_numpy
 from .context import current_context
 
-__all__ = ["from_jax_params", "from_jax_trainer_state"]
+__all__ = ["from_jax_params", "from_jax_module", "from_jax_trainer_state"]
 
 
 def from_jax_params(params, ctx=None):
@@ -32,6 +37,16 @@ def from_jax_params(params, ctx=None):
         name = k.split(":", 1)[1] if k.startswith(("arg:", "aux:")) else k
         out[name] = NDArray(_from_numpy(np.asarray(v)).to(device))
     return out
+
+
+def from_jax_module(module, ctx=None):
+    """``(arg_params, aux_params)`` of a JAX package module (anything with
+    ``get_params()``), as NDArrays on ``ctx`` (default: the host, where a
+    module's ``set_params``/``init_params`` take them)."""
+    from .context import cpu
+    args, auxs = module.get_params()
+    ctx = ctx or cpu()
+    return from_jax_params(args, ctx), from_jax_params(auxs, ctx)
 
 
 def from_jax_trainer_state(trainer, params, opt_state=None, aux=None):

@@ -24,6 +24,10 @@ the ops that wrap them (``_contrib_FlashAttention`` forward and backward).
 
 Block fusion (``ops.fused.block_fusion``) is captured at bind time and
 applied around every run of the graph, as in the JAX executor.
+
+``set_monitor_callback(callback)`` calls ``callback(name, NDArray)`` with
+every op output of each forward (the graph then runs unfused): the JAX
+executor's eager monitor route, which is the port's only one.
 """
 from __future__ import annotations
 
@@ -55,6 +59,9 @@ def _normalize(values, names, kind):
 
 
 class Executor:
+    #: Executors made so far in the process (binds, ``reshape`` included)
+    binds = 0
+
     def __init__(self, symbol, ctx, args, args_grad=None, grad_req="write",
                  aux_states=None, group2ctx=None):
         if group2ctx:
@@ -112,6 +119,8 @@ class Executor:
         self._outputs = None
         self._train_heads = None     # the heads of the last training forward
         self._leaves = None          # and its leaves, until backward
+        self._monitor_callback = None
+        Executor.binds += 1
 
     # ------------------------------------------------------------ properties
     @property
@@ -150,11 +159,29 @@ class Executor:
                 else np.asarray(v)
 
     def _run(self, var_values, is_train):
+        first = self.arg_dict[self._arg_names[0]] if self._arg_names \
+            else None
+        batch = first.shape[0] if first is not None and first.shape \
+            else None
+        monitor = None
+        if self._monitor_callback is not None:
+            cb = self._monitor_callback
+
+            def monitor(name, val):
+                cb(name, NDArray(val.detach()))
         with _fused.block_fusion(self._block_fusion):
             return eval_graph(self._topo, self._symbol._entries, var_values,
                               is_train=is_train, device=self._device,
                               generator=_random.generator(self._device)
-                              if is_train else None)
+                              if is_train else None, batch_size=batch,
+                              monitor=monitor)
+
+    def set_monitor_callback(self, callback, monitor_all=False):
+        """Call ``callback(name, NDArray)`` with every op output of each
+        later forward, or stop with ``callback=None``.  ``monitor_all`` is
+        accepted, as by the JAX executor, which also passes op outputs
+        only."""
+        self._monitor_callback = callback
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph forward; ``kwargs`` update named input arrays in
@@ -277,6 +304,8 @@ class Executor:
             cur = self.aux_dict[n]
             new_aux[n] = cur if tuple(cur.shape) == tuple(s) else \
                 _nd_zeros(s, ctx=self._ctx, dtype=cur.data.dtype)
-        return Executor(self._symbol, self._ctx, new_args, new_grads,
-                        self._grad_req, new_aux)
+        exe = Executor(self._symbol, self._ctx, new_args, new_grads,
+                       self._grad_req, new_aux)
+        exe.set_monitor_callback(self._monitor_callback)
+        return exe
 

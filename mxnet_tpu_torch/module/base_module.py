@@ -4,8 +4,9 @@
 The counterpart of ``mxnet_tpu/module/base_module.py``: ``fit`` binds and
 initializes from the iterator's shapes, then per epoch runs
 ``forward_backward``, ``update``, ``update_metric`` and the batch-end
-callbacks over every batch, logs the epoch's metric and time, hands the
-parameters to the epoch-end callbacks and scores ``eval_data``.  The JAX
+callbacks over every batch (between a ``Monitor``'s ``tic`` and
+``toc_print`` when one is given), logs the epoch's metric and time, hands
+the parameters to the epoch-end callbacks and scores ``eval_data``.  The JAX
 loop's telemetry and mid-epoch resume hooks belong to ROADMAP Queue A
 items 7 and 8.
 """
@@ -165,9 +166,13 @@ class BaseModule:
             started = time.time()
             eval_metric.reset()
             for nbatch, batch in enumerate(train_data):
+                if monitor is not None:
+                    monitor.tic()
                 self.forward_backward(batch)
                 self.update()
                 self.update_metric(eval_metric, batch.label)
+                if monitor is not None:
+                    monitor.toc_print()
                 if batch_end_callback is not None:
                     info = BatchEndParam(epoch=epoch, nbatch=nbatch,
                                          eval_metric=eval_metric,

@@ -225,5 +225,5 @@ class DataParallelExecutorGroup:
         eval_metric.update(labels, self.execs[0].outputs)
 
     def install_monitor(self, mon):
-        raise MXNetError("install_monitor: monitor.py is not yet ported to "
-                         "mxnet_tpu_torch (the next slice)")
+        for exe in self.execs:
+            mon.install(exe)

@@ -7,8 +7,11 @@ parameters between the host copies (``cpu()``) and the device,
 and an ``Updater`` (one device needs no kvstore), and
 ``forward``/``backward``/``update`` run the executor and the imperative
 update.  ``save_checkpoint``/``load`` write and read the JAX package's
-files, the optimizer states included.  ``install_monitor`` waits for
-``monitor.py`` (the next slice).
+files, the optimizer states included.  ``install_monitor`` hooks a
+``Monitor`` into the executor.  A Module bound with ``shared_module=``
+takes that module's parameter, gradient and auxiliary arrays, lists its
+parameters in that module's order and, once it has one, takes its
+optimizer and Updater (``BucketingModule``'s buckets).
 """
 from __future__ import annotations
 
@@ -233,6 +236,12 @@ class Module(BaseModule):
                 raise MXNetError("shared_module must be a bound, "
                                  "initialized Module")
             shared_group = shared_module._exec_group
+            # the borrowed Updater keys its states by a parameter's position
+            # in param_names: list the shared parameters in the shared
+            # module's order, any others after them
+            order = {n: i for i, n in enumerate(shared_module._param_names)}
+            self._param_names = sorted(
+                self._param_names, key=lambda n: order.get(n, len(order)))
         self._exec_group = DataParallelExecutorGroup(
             self._symbol, self._context, self._work_load_list,
             self._data_shapes, self._label_shapes, self._param_names,
@@ -395,8 +404,10 @@ class Module(BaseModule):
                 self._updater.set_states(f.read())
 
     def install_monitor(self, mon):
-        raise MXNetError("install_monitor: monitor.py is not yet ported to "
-                         "mxnet_tpu_torch (the next slice)")
+        """Hook ``mon`` (a :class:`~mxnet_tpu_torch.monitor.Monitor`) into
+        the bound executor."""
+        assert self.binded
+        self._exec_group.install_monitor(mon)
 
 
 def _parse_data_desc(data_names, label_names, data_shapes, label_shapes):

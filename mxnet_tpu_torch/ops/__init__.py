@@ -11,6 +11,7 @@ from .registry import OpContext, Operator, apply_op, get_op, list_ops, \
 from . import tensor as _tensor              # noqa: F401
 from . import nn as _nn                      # noqa: F401
 from . import flash_attention as _flash      # noqa: F401
+from . import rnn as _rnn                    # noqa: F401
 
 __all__ = ["OpContext", "Operator", "register", "get_op", "list_ops",
            "apply_op"]

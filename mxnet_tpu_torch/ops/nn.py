@@ -1,5 +1,5 @@
-"""Neural-network ops: the subset of ``mxnet_tpu/ops/nn.py`` that the GPT
-and ResNet serve and train with.  Parameter names and defaults are the JAX
+"""Neural-network ops: the subset of ``mxnet_tpu/ops/nn.py`` that the GPT,
+the ResNet and the RNN cells serve and train with.  Parameter names and defaults are the JAX
 package's.  The dense products and convolutions stay ``F.linear`` and
 ``F.conv2d``: the JAX package left them to XLA, and the port leaves them to
 PyTorch.  Gradients come from autograd, except SoftmaxOutput's and
@@ -358,13 +358,25 @@ def layer_norm(attrs, ctx, data, gamma, beta):
             + beta.float().reshape(bshape)).to(data.dtype)
 
 
+_ACTIVATIONS = {
+    "relu": torch.relu,
+    "sigmoid": torch.sigmoid,
+    "tanh": torch.tanh,
+    # log(1 + e^x) without overflow, as jax.nn.softplus; F.softplus's
+    # linear branch past its threshold would differ in the last bits
+    "softrelu": lambda x: torch.logaddexp(x, torch.zeros((), dtype=x.dtype,
+                                                         device=x.device)),
+    "softsign": lambda x: x / (1 + x.abs()),
+}
+
+
 @register("Activation", params={"act_type": "relu"}, aliases=("activation",))
 def activation(attrs, ctx, data):
-    """relu; the other act_types are not yet ported."""
-    if attrs["act_type"] != "relu":
-        raise MXNetError("Activation act_type=%r is not yet ported to "
-                         "mxnet_tpu_torch" % attrs["act_type"])
-    return torch.relu(data)
+    """relu, sigmoid, tanh, softrelu (softplus) or softsign."""
+    fn = _ACTIVATIONS.get(attrs["act_type"])
+    if fn is None:
+        raise MXNetError("unknown act_type %s" % attrs["act_type"])
+    return fn(data)
 
 
 @register("Dropout", params={"p": 0.5, "mode": "training"}, stochastic=True,
@@ -470,3 +482,41 @@ def embedding(attrs, ctx, data, weight):
 def flatten_op(attrs, ctx, data):
     """(N, ...) -> (N, prod(...))."""
     return data.reshape(data.shape[0], -1)
+
+
+@register("Concat",
+          arg_names=lambda a: tuple("arg%d" % i
+                                    for i in range(int(a["num_args"]))),
+          params={"num_args": 1, "dim": 1}, key_var_num_args="num_args",
+          aliases=("concat",))
+def concat(attrs, ctx, *args):
+    """The inputs joined along ``dim`` (the channel axis 3 when every
+    input is an NHWC activation and ``dim`` is 1)."""
+    dim = int(attrs["dim"])
+    if dim == 1 and all(_is_nhwc(a) for a in args):
+        dim = 3
+    return torch.cat(args, dim=dim)
+
+
+@register("SliceChannel", num_outputs=lambda a: int(a["num_outputs"]),
+          params={"num_outputs": 1, "axis": 1, "squeeze_axis": False},
+          aliases=("split",))
+def slice_channel(attrs, ctx, data):
+    """``num_outputs`` equal parts along ``axis``, each without that axis
+    under ``squeeze_axis``."""
+    axis = int(attrs["axis"])
+    if axis == 1 and _is_nhwc(data):
+        axis = 3
+    n = int(attrs["num_outputs"])
+    if data.shape[axis] % n:
+        raise MXNetError("SliceChannel: axis %d of size %d does not split "
+                         "into %d parts" % (axis, data.shape[axis], n))
+    parts = torch.chunk(data, n, dim=axis)
+    if attrs["squeeze_axis"]:
+        parts = [p.squeeze(axis) for p in parts]
+    return tuple(parts)
+
+
+@register("SwapAxis", params={"dim1": 0, "dim2": 0}, aliases=("swapaxes",))
+def swapaxis(attrs, ctx, data):
+    return data.transpose(int(attrs["dim1"]), int(attrs["dim2"]))

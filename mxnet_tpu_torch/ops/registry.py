@@ -53,6 +53,7 @@ class Operator:
     params: dict = field(default_factory=dict)
     stochastic: bool = False             # eval_graph hands it the generator
     is_loss: bool = False                # output op: a gradient source
+    key_var_num_args: Optional[str] = None  # 'num_args' of Concat
     doc: str = ""
 
     def get_arg_names(self, attrs):
@@ -108,9 +109,11 @@ def parse_attrs(param_spec, raw, op_name="<op>"):
 
 def register(name, arg_names=("data",), aux_names=(), num_outputs=1,
              params=None, stochastic=False, is_loss=False, aliases=(),
-             doc=""):
+             key_var_num_args=None, doc=""):
     """Decorator: register ``fcompute`` under ``name`` and its aliases.  A
-    name or alias registered twice is an error."""
+    name or alias registered twice is an error.  ``key_var_num_args``
+    names the parameter that counts a variadic op's inputs, which
+    ``mx.sym.<op>`` fills from the inputs it is given."""
     def deco(fn):
         for n in (name,) + tuple(aliases):
             if n in _OP_REGISTRY or n in _ALIASES:
@@ -119,7 +122,8 @@ def register(name, arg_names=("data",), aux_names=(), num_outputs=1,
             name=name, fcompute=fn, arg_names=arg_names,
             aux_names=aux_names, num_outputs=num_outputs,
             params=dict(params or {}), stochastic=stochastic,
-            is_loss=is_loss, doc=doc or fn.__doc__ or "")
+            is_loss=is_loss, key_var_num_args=key_var_num_args,
+            doc=doc or fn.__doc__ or "")
         for a in aliases:
             _ALIASES[a] = name
         return fn

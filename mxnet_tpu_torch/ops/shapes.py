@@ -11,6 +11,7 @@ maps the already-inferred input names (normally ``data``) to shapes.
 from __future__ import annotations
 
 from .nn import current_image_layout
+from .rnn import rnn_param_size
 
 _PARAM_SHAPE_HOOKS = {}
 
@@ -100,3 +101,23 @@ def _softmax_out(attrs, known):
     if attrs.get("multi_output"):
         return {"label": (int(data[0]),) + tuple(int(d) for d in data[2:])}
     return {"label": (int(data[0]),)}
+
+
+@register_param_shapes("RNN")
+def _rnn(attrs, known):
+    data = known.get("data")
+    if data is None:
+        return {}
+    # time-major data: (seq_len, batch, input_size)
+    batch, input_size = int(data[1]), int(data[2])
+    mode = attrs["mode"]
+    hidden = int(attrs["state_size"])
+    layers = int(attrs["num_layers"])
+    bi = bool(attrs["bidirectional"])
+    state = (layers * (2 if bi else 1), batch, hidden)
+    out = {"parameters": (rnn_param_size(mode, input_size, hidden, layers,
+                                         bi),),
+           "state": state}
+    if mode == "lstm":
+        out["state_cell"] = state
+    return out

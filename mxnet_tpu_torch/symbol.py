@@ -30,7 +30,7 @@ from .ops.nn import current_image_layout
 from .analysis import fusion as _fusion
 
 __all__ = ["Symbol", "Variable", "var", "Group", "load", "load_json",
-           "arange", "eval_graph"]
+           "arange", "zeros", "ones", "eval_graph"]
 
 _META_PREFIX = "__"
 # generated op functions land in this module's globals; a ported op named
@@ -106,13 +106,33 @@ def _classify_vars(topo):
     return args, aux
 
 
+def source_attrs(node, batch_size):
+    """``node``'s attributes with a 0 in the ``shape`` of an op without
+    inputs (``sym.zeros((0, H))``, the RNN cells' begin state) replaced by
+    ``batch_size``; ops with inputs give a 0 its own meaning (Reshape's
+    "copy this dim") and keep it."""
+    shp = node.attrs.get("shape")
+    if node.inputs or not isinstance(shp, (tuple, list)) \
+            or not any(d == 0 for d in shp):
+        return node.attrs
+    if batch_size is None:
+        raise MXNetError("node %r has a deferred (0) dim in shape %s but no "
+                         "batch size is known" % (node.name, tuple(shp)))
+    attrs = dict(node.attrs)
+    attrs["shape"] = tuple(batch_size if d == 0 else int(d) for d in shp)
+    return attrs
+
+
 def eval_graph(topo, entries, var_values, is_train=False, device=None,
-               generator=None):
+               generator=None, batch_size=None, monitor=None):
     """Run the DAG forward.  ``var_values``: id(variable node) -> tensor.
     ``device`` is where ops without inputs allocate; ``generator`` is the
     ``torch.Generator`` that the ops registered ``stochastic`` draw from
     when ``is_train``; the other ops get none, as in the JAX package only
-    stochastic ops get a PRNG key.
+    stochastic ops get a PRNG key.  ``batch_size`` fills the 0 dims of ops
+    without inputs (:func:`source_attrs`).  ``monitor(name, tensor)``, when
+    given, is called with every output of every op node as it is computed
+    (the graph then runs unfused).
 
     Returns ``(heads, aux_updates)``: the head tensors and, for every
     auxiliary variable an op updates (BatchNorm's moving statistics),
@@ -129,7 +149,7 @@ def eval_graph(topo, entries, var_values, is_train=False, device=None,
     sctx = OpContext(is_train=is_train, device=device, generator=generator)
     vals, aux_updates = {}, {}
     block_plan = None
-    if _fused.block_fusion_enabled():
+    if _fused.block_fusion_enabled() and monitor is None:
         block_plan = _fusion.plan_block_fusion(
             topo, entries, layout=current_image_layout(), is_train=is_train)
 
@@ -159,11 +179,14 @@ def eval_graph(topo, entries, var_values, is_train=False, device=None,
                     thread_aux(bn_node, bn_aux)
                 continue
         ins = [vals[id(src)][idx] for (src, idx) in node.inputs]
-        outs = apply_op(node.op, node.attrs,
+        outs = apply_op(node.op, source_attrs(node, batch_size),
                         sctx if node.op.stochastic else octx, *ins)
         n_vis = node.num_outputs()
         vals[id(node)] = outs[:n_vis]
         thread_aux(node, outs[n_vis:])
+        if monitor is not None:
+            for oname, val in zip(node.output_names(), outs[:n_vis]):
+                monitor(oname, val)
     heads = [vals[id(n)][i] for (n, i) in entries]
     return heads, aux_updates
 
@@ -200,13 +223,47 @@ class Symbol:
             return Symbol(self._entries[index])
         return Symbol([self._entries[index]])
 
+    def __len__(self):
+        return len(self._entries)
+
+    def __iter__(self):
+        return (Symbol([e]) for e in self._entries)
+
+    # ----------------------------------------------------------- arithmetic
+    def _binary(self, other, op_ss, op_s):
+        if isinstance(other, Symbol):
+            return _create(op_ss, None, None, [self, other], {})
+        if isinstance(other, (int, float)):
+            return _create(op_s, None, None, [self], {"scalar": float(other)})
+        raise TypeError("unsupported operand type %r" % type(other).__name__)
+
     def __add__(self, other):
-        if not isinstance(other, Symbol):
-            raise TypeError("Symbol + %s is not yet ported"
-                            % type(other).__name__)
-        return _create("elemwise_add", None, None, [self, other], {})
+        return self._binary(other, "elemwise_add", "_plus_scalar")
 
     __radd__ = __add__
+
+    def __sub__(self, other):
+        return self._binary(other, "elemwise_sub", "_minus_scalar")
+
+    def __rsub__(self, other):
+        return self._binary(other, "elemwise_sub", "_rminus_scalar")
+
+    def __mul__(self, other):
+        return self._binary(other, "elemwise_mul", "_mul_scalar")
+
+    __rmul__ = __mul__
+
+    def __truediv__(self, other):
+        return self._binary(other, "elemwise_div", "_div_scalar")
+
+    def __rtruediv__(self, other):
+        return self._binary(other, "elemwise_div", "_rdiv_scalar")
+
+    def __pow__(self, other):
+        return self._binary(other, "_power", "_power_scalar")
+
+    def __neg__(self):
+        return _create("negative", None, None, [self], {})
 
     # -------------------------------------------------------------- listing
     def _topo(self):
@@ -272,6 +329,11 @@ class Symbol:
                 shapes[id(node)] = tuple(
                     json.loads(node.raw_attr["__shape__"]))
 
+        # the batch dimension of the graph's 0-dim sources: the first
+        # argument's leading dim, as the JAX package takes it
+        batch_size = next((shapes[id(n)][0] for n in arg_nodes
+                           if len(shapes.get(id(n), ())) > 0), None)
+
         # one pass in topological order on the meta device: a node's
         # parameter shapes come from its hook once its data shape is known,
         # then the node itself runs to give its output shapes
@@ -307,8 +369,9 @@ class Symbol:
                         shapes[id(src)] = tuple(shp)
             ins = [value(src, idx) for (src, idx) in node.inputs]
             if all(v is not None for v in ins):
-                vals[id(node)] = apply_op(node.op, node.attrs, octx,
-                                          *ins)[:node.num_outputs()]
+                vals[id(node)] = apply_op(
+                    node.op, source_attrs(node, batch_size), octx,
+                    *ins)[:node.num_outputs()]
 
         missing = [n.name for n in arg_nodes + aux_nodes
                    if id(n) not in shapes]
@@ -436,19 +499,27 @@ def _attr_str(v):
 
 
 # ---------------------------------------------------------------- creation
-def Variable(name, attr=None, shape=None, dtype=None, **kwargs):
+def Variable(name, attr=None, shape=None, lr_mult=None, wd_mult=None,
+             dtype=None, init=None, **kwargs):
     """Create a variable symbol; ``shape`` and ``dtype`` are stored as the
-    ``__shape__``/``__dtype__`` attributes that shape inference reads.
-    The training options of the JAX package (``lr_mult``, ``wd_mult``,
-    ``init``) are not yet ported."""
+    ``__shape__``/``__dtype__`` attributes that shape inference reads,
+    ``lr_mult``/``wd_mult`` as the attributes the optimizer reads, and
+    ``init`` (an initializer or its ``dumps()`` string) as ``__init__``,
+    which the initializers obey."""
     if not isinstance(name, str):
         raise TypeError("expect a string for variable name")
     raw = attribute.current().get(attr)
     if shape is not None:
         raw["__shape__"] = json.dumps(list(shape))
+    if lr_mult is not None:
+        raw["__lr_mult__"] = str(lr_mult)
+    if wd_mult is not None:
+        raw["__wd_mult__"] = str(wd_mult)
     if dtype is not None:
         import numpy as np
         raw["__dtype__"] = np.dtype(dtype).name
+    if init is not None:
+        raw["__init__"] = init if isinstance(init, str) else init.dumps()
     for k, v in kwargs.items():
         if k.startswith("__") and k.endswith("__"):
             raw[k] = str(v)
@@ -474,6 +545,10 @@ def _create(op_name, name, attr, sym_args, attr_kwargs, sym_kwargs=None):
     """Compose a new op node (the generated ``mx.sym.<op>`` body)."""
     op = get_op(op_name)
     sym_kwargs = sym_kwargs or {}
+    if op.key_var_num_args and op.key_var_num_args not in attr_kwargs:
+        attr_kwargs = dict(attr_kwargs)
+        attr_kwargs[op.key_var_num_args] = \
+            (len(sym_args) + len(sym_kwargs)) or 1
     attrs = op.parse_attrs(attr_kwargs)
     arg_names = op.get_arg_names(attrs)
     all_names = arg_names + op.get_aux_names(attrs)
@@ -534,6 +609,24 @@ def _register_sym_functions():
 
 
 _register_sym_functions()
+
+
+def zeros(shape, dtype="float32", name=None, **kwargs):
+    """A zeros source node; a 0 in ``shape`` is the batch dimension, filled
+    in when the graph runs (the RNN cells' begin state).  Meta keyword
+    arguments (``__layout__``) become node attributes."""
+    attr = {k: str(v) for k, v in kwargs.items()
+            if k.startswith("__") and k.endswith("__")}
+    return _create("_zeros", name, attr or None, [],
+                   {"shape": tuple(shape), "dtype": dtype})
+
+
+def ones(shape, dtype="float32", name=None, **kwargs):
+    """As :func:`zeros`, with ones."""
+    attr = {k: str(v) for k, v in kwargs.items()
+            if k.startswith("__") and k.endswith("__")}
+    return _create("_ones", name, attr or None, [],
+                   {"shape": tuple(shape), "dtype": dtype})
 
 
 def arange(start, stop=None, step=1.0, repeat=1, dtype="float32", name=None):

@@ -40,7 +40,10 @@ def test_scan_covers_the_package():
                 ("models", "resnet.py"), ("tools", "bench.py"),
                 ("rtc.py",), ("autotune", "search.py"),
                 ("tools", "matmul_stats_experiment.py"),
-                ("tools", "block_experiment.py")):
+                ("tools", "block_experiment.py"), ("ops", "rnn.py"),
+                ("rnn", "rnn_cell.py"), ("monitor.py",),
+                ("module", "bucketing_module.py"),
+                ("tools", "lstm_bucketing.py")):
         assert os.path.join("mxnet_tpu_torch", *rel) in names
 
 
@@ -64,6 +67,7 @@ def test_package_imports_with_jax_blocked():
             "import mxnet_tpu_torch.rtc, mxnet_tpu_torch.autotune\n"
             "import mxnet_tpu_torch.tools.matmul_stats_experiment\n"
             "import mxnet_tpu_torch.tools.block_experiment\n"
+            "import mxnet_tpu_torch.tools.lstm_bucketing\n"
             "assert not any(m in sys.modules and sys.modules[m] is not None"
             " for m in %r)\n" % (FORBIDDEN, FORBIDDEN))
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -25,7 +25,8 @@ softmax removes), so both packages update it from rounding noise alone:
 those entries are held to 2 lr a step.
 Then ``score``/``predict``, checkpoints and ``.states`` written by either
 package and loaded by the other (the same score, the same states),
-``FeedForward``, and ``install_monitor``, which waits for the next slice.
+``FeedForward``, and ``install_monitor``, which hooks a ``Monitor`` into the
+bound executor.
 """
 import logging
 import os
@@ -260,13 +261,15 @@ def test_feedforward_fit_and_predict_match_jax():
 
 
 def test_module_surface(mlp_pair):
-    """Shapes, outputs, get_input_grads, reshape, and the pieces that wait
-    for later slices."""
+    """Shapes, outputs, get_input_grads, reshape, install_monitor, and the
+    pieces that wait for later slices."""
     _j, (tm, ti, _t), (x, y, batch) = mlp_pair
     assert tm.data_shapes[0].shape == (batch, 784)
     assert tm.output_shapes == [("softmax_output", (batch, 10))]
-    with pytest.raises(MXNetError, match="monitor.py.*next slice"):
-        tm.install_monitor(object())
+    mon = tmx.Monitor(1)
+    tm.install_monitor(mon)
+    assert mon.exes == [tm._exec_group.execs[0]]
+    tm._exec_group.execs[0].set_monitor_callback(None)
     mod = tmx.mod.Module(tm.symbol, context=tmx.cpu())
     mod.bind(data_shapes=ti.provide_data, label_shapes=ti.provide_label,
              inputs_need_grad=True)

@@ -74,7 +74,34 @@ CASES = [
      [_n(2, 3, 4, 4), _pos(3), _n(3), _n(3), _pos(3)]),
     ("flatten", "Flatten", {}, [_n(2, 3, 2, 2)]),
     ("identity", "identity", {}, [_n(3, 4)]),
-]
+    # the RNN family's (gradients in test_torch_cell_ops.py and
+    # test_torch_rnn.py)
+    ("elemwise_sub", "elemwise_sub", {}, [_n(2, 3), _n(2, 3)]),
+    ("elemwise_mul", "elemwise_mul", {}, [_n(2, 3), _n(2, 3)]),
+    ("elemwise_div", "elemwise_div", {}, [_n(2, 3), _pos(2, 3)]),
+    ("power", "_power", {}, [_pos(2, 3), _n(2, 3)]),
+    ("negative", "negative", {}, [_n(2, 3)]),
+    ("where", "where", {}, [_ids(2, 2, 3), _n(2, 3), _n(2, 3)]),
+    ("zeros", "_zeros", {"shape": (2, 3)}, []),
+    ("ones", "_ones", {"shape": (3,)}, []),
+    ("zeros_like", "zeros_like", {}, [_n(2, 3)]),
+    ("ones_like", "ones_like", {}, [_n(2, 3)]),
+    ("concat", "Concat", {"num_args": 2, "dim": 1}, [_n(2, 3), _n(2, 4)]),
+    ("slice_channel", "SliceChannel", {"num_outputs": 2, "axis": 1,
+                                       "squeeze_axis": False}, [_n(2, 4)]),
+    ("swap_axis", "SwapAxis", {"dim1": 0, "dim2": 1}, [_n(2, 3, 4)]),
+    ("rnn_lstm", "RNN", {"state_size": 3, "num_layers": 2, "mode": "lstm",
+                         "state_outputs": True},
+     [_n(4, 2, 5), _n(4 * 3 * (5 + 3) + 4 * 3 * (3 + 3) + 4 * 4 * 3),
+      _n(2, 2, 3), _n(2, 2, 3)]),
+] + [("scalar" + name, name, {"scalar": 0.5}, [_pos(2, 3)])
+     for name in ("_plus_scalar", "_minus_scalar", "_rminus_scalar",
+                  "_mul_scalar", "_div_scalar", "_rdiv_scalar",
+                  "_power_scalar", "_rpower_scalar", "_maximum_scalar",
+                  "_minimum_scalar", "_mod_scalar", "_equal_scalar",
+                  "_not_equal_scalar", "_greater_scalar",
+                  "_greater_equal_scalar", "_lesser_scalar",
+                  "_lesser_equal_scalar")]
 
 
 def test_every_ported_op_has_a_case():
