@@ -109,19 +109,42 @@ Phases, one JSON line each:
    64x64, on ``gpu(0)`` and on the CPU; every parameter's and moving
    statistic's change agrees within a stated relative tolerance, and a
    TF32 control must not;
-16. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
+16. ``image_io``: the records of the ImageNet path made on the card from
+    seeds (``io_train_bench.make_class_rec``: 2048 train, 512 validation
+    and 128 Module-route 256-px JPEGs of 4 colour classes); the JPEG
+    decoders the host offers, the port's native library built from
+    ``mxnet_tpu_torch/csrc/host`` (its compiler line and time), the native
+    pipeline's images/s at 1, 2, 4 and all cores' decode threads, the
+    validation records at one thread against all cores as multisets, and
+    the decode against PIL's on the same records;
+17. ``imagenet_train``: ``tools.train_imagenet``'s fused route (ResNet-50
+    v2, batch 128, 224x224, bf16, NHWC, block fusion, SGD momentum 0.9, lr
+    0.1, wd 1e-4) for two epochs of the train records through the native
+    pipeline, raw uint8 normalized on the card, and a
+    ``DevicePrefetchIter`` of depth 2, with validation; every loss finite
+    and the last below the first, every moving statistic moved, 50 blocks
+    with 16 on K5 and K5 launched 16 times a step (every other kernel 0),
+    the last validation accuracy above ``TOL_VAL_ACCURACY``; then
+    ``io_train_bench.train_loop`` sequential and prefetched (images/s,
+    per-stage walls) beside ``resnet_train``'s staged-batch images/s, and
+    three steps through the queue equal to the same three staged inline,
+    to the bit;
+18. ``imagenet_module``: the ``--fused 0`` route (``Module.fit``, f32
+    NCHW, batch 32) on the Module records under ``MXNET_FUSE_BLOCKS=1``:
+    the plan's blocks, none on K5 and every count 0, ms per batch;
+19. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
     package's ``tests/test_rtc.py`` written in CUDA C, abs written as a
     CUDA programmer writes it for this card (float4 in a grid-stride
     loop), and both abs bodies over an (8192, 8192) f32 array, and pushes
     each once; each output equals the callable (plain) form's exactly; the
     two full-size ones are timed against ``torch.abs`` and their byte
     bound;
-17. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
+20. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
     shapes at batch 128, then K7 (K5 with c = 0) and K8 (the prologue
     variant) against their plain versions at each shape, bit-identical
     across two launches, with the kernel (the card's, and with the host's
     share), plain, library, cuBLAS product and bound times;
-18. ``block_experiment``: the tool of that name at batch 128 with its
+21. ``block_experiment``: the tool of that name at batch 128 with its
     defaults (64, 64, 256, rows 8, bf16: the wgmma kernel) and again in
     f32 (the general kernel), then K9 against ``block_plain`` at both
     stage-1 channel sets, (64, 64, 256) and (256, 64, 256), batch 128, in
@@ -2136,6 +2159,407 @@ def resnet_train_check_phase(ctx, batch=8, image=64, check_ctx=None,
     return out
 
 
+# ------------------------------------------------- the ImageNet input path
+#: the record sets made on the card (``io_train_bench.make_class_rec``):
+#: (records, seed) of 256-px JPEGs (quality 90) of 4 classes a network can
+#: learn, for training, validation and the Module route
+IMAGENET_CLASSES = 4
+IMAGENET_SIZE = 256
+IMAGENET_RECORDS = {"train": (4096, 0), "val": (512, 1), "module": (128, 2)}
+#: the 4:4:4 JPEGs (no chroma subsampling) the decode is also held on
+IMAGENET_444_RECORDS = (64, 3)
+IMAGENET_EPOCHS = 2
+IMAGENET_PARITY_STEPS = 3
+#: the last epoch's validation accuracy must exceed this: a one-class
+#: guess scores 0.25.  On an NVIDIA H100 80GB HBM3 at 700.00 W the first
+#: runs read 0.518 and 0.5 after the first epoch and 1.0 after the second
+#: (an earlier set of 2048 records, 16 steps an epoch, read 0.25 and
+#: 0.531: the moving statistics lag)
+TOL_VAL_ACCURACY = 0.75
+#: the native decode against PIL's libjpeg on the same records: the mean
+#: absolute pixel difference must stay below these, on the 4:2:0 records
+#: (where decoders may upsample chroma differently) and on 4:4:4 ones (the
+#: IDCT and colour conversion alone); the same decode with its channels
+#: reversed, run as a control, must exceed them.  nvJPEG on the host of
+#: an NVIDIA H100 80GB HBM3 at 700.00 W read 5.41 (max 47) and 0.50 (max
+#: 4), the control 71.9 and 73.2
+TOL_DECODE_MEAN = 10.0
+TOL_DECODE_MEAN_444 = 2.0
+#: batches timed through PIL's ``ImageIter`` (after a first one)
+IMAGE_ITER_BATCHES = 4
+
+
+def make_image_records(workdir, records=None, size=IMAGENET_SIZE):
+    """``({name: path}, seconds)``: the record sets of ``records`` (default
+    ``IMAGENET_RECORDS``) written under ``workdir``."""
+    from mxnet_tpu_torch.tools.io_train_bench import make_class_rec
+    t0 = time.perf_counter()
+    paths = {}
+    for name, (n, seed) in (records or IMAGENET_RECORDS).items():
+        paths[name] = os.path.join(workdir, name + ".rec")
+        make_class_rec(paths[name], n, size=size, classes=IMAGENET_CLASSES,
+                       seed=seed)
+    return paths, time.perf_counter() - t0
+
+
+def _pipeline_images(rec, threads, image, batch):
+    """Every image of ``rec`` through the native pipeline (raw uint8, no
+    augmentation) as a sorted list of (label, sha1 of its bytes)."""
+    import hashlib
+    it = mx.io.ImageRecordIter(path_imgrec=rec, data_shape=(3, image, image),
+                               batch_size=batch, preprocess_threads=threads,
+                               raw_uint8=True)
+    out = []
+    for b in it:
+        raw, lab = b.data[0].data.numpy(), b.label[0].data.numpy()
+        for i in range(batch - b.pad):
+            out.append((float(lab[i]), hashlib.sha1(raw[i]).hexdigest()))
+    it.close()
+    return sorted(out)
+
+
+def _decode_against_pil(rec, size, batch=64):
+    """The pipeline's decode at the images' own size (no resize: a copy)
+    against PIL's (libjpeg-turbo) decode of the same records in order, one
+    decode thread: mean and max absolute pixel difference, and the mean
+    with the pipeline's channels reversed (a control)."""
+    import io as _pyio
+    from PIL import Image
+    it = mx.io.ImageRecordIter(path_imgrec=rec, data_shape=(3, size, size),
+                               batch_size=batch, preprocess_threads=1,
+                               raw_uint8=True)
+    reader = mx.recordio.MXRecordIO(rec, "r")
+    total, swapped, count, worst = 0.0, 0.0, 0, 0
+    for b in it:
+        raw = b.data[0].data.numpy().astype(np.int16)
+        for i in range(batch - b.pad):
+            _h, payload = mx.recordio.unpack(reader.read())
+            ref = np.asarray(Image.open(_pyio.BytesIO(payload))
+                             .convert("RGB")).astype(np.int16)
+            d = np.abs(raw[i] - ref)
+            total += float(d.sum())
+            swapped += float(np.abs(raw[i][..., ::-1] - ref).sum())
+            count += d.size
+            worst = max(worst, int(d.max()))
+    it.close()
+    reader.close()
+    return {"mean_abs": total / count, "max_abs": worst,
+            "control_channels_reversed_mean_abs": swapped / count}
+
+
+def _image_iter_rate(rec, image, batch, batches=IMAGE_ITER_BATCHES):
+    """Images/s of PIL's ``ImageIter`` as ``train_imagenet.get_rec_iter``
+    builds it for training when the native pipeline is not taken
+    (``MXNET_USE_NATIVE_REC=0``): ``batches`` batches after a first one."""
+    from mxnet_tpu_torch.tools import train_imagenet
+    idx = os.path.splitext(rec)[0] + ".idx"   # ImageIter shuffles by it
+    reader = mx.recordio.MXRecordIO(rec, "r")
+    with open(idx, "w") as fout:
+        key = 0
+        while True:
+            pos = reader.tell()
+            if reader.read() is None:
+                break
+            fout.write("%d\t%d\n" % (key, pos))
+            key += 1
+    reader.close()
+    args = _imagenet_args(rec, mx.cpu(), 50, image, "--batch-size",
+                          str(batch), "--data-train-idx", idx)
+    before = os.environ.get("MXNET_USE_NATIVE_REC")
+    os.environ["MXNET_USE_NATIVE_REC"] = "0"
+    try:
+        it, _val = train_imagenet.get_rec_iter(args, mx.kvstore.create())
+    finally:
+        if before is None:
+            del os.environ["MXNET_USE_NATIVE_REC"]
+        else:
+            os.environ["MXNET_USE_NATIVE_REC"] = before
+    if type(it).__name__ != "ImageIter":
+        raise SystemExit("image_io: get_rec_iter gave %s, not ImageIter"
+                         % type(it).__name__)
+    it.reset()
+    next(it)
+    t0 = time.perf_counter()
+    for _ in range(batches):
+        next(it)
+    return batches * batch / (time.perf_counter() - t0)
+
+
+def image_io_phase(recs, image=224, batch=128, size=IMAGENET_SIZE):
+    """The decoders this host offers (PIL, libjpeg's headers, nvJPEG), the
+    port's native library built from ``csrc/host`` (its compiler line and
+    time), the native pipeline's images/s (raw uint8, ``image`` square,
+    page cache warm) at 1, 2, 4 and the host's core count of decode
+    threads, the validation records at one thread against all cores as
+    multisets of (label, image), the decode against PIL's on the same
+    records, and the images/s of PIL's ``ImageIter``, the tool's route
+    where the native pipeline has no decoder."""
+    from mxnet_tpu_torch import io_native
+    from mxnet_tpu_torch.tools.io_train_bench import decoder_scaling
+    try:
+        import PIL
+        pil = PIL.__version__
+    except ImportError:
+        pil = None
+    probe = dict(io_native.probe(), pil=pil)
+    build = io_native.build_info()
+    decoder = io_native.decoder()
+    if build is None or not io_native.jpeg_available():
+        raise SystemExit("image_io: the native pipeline has no JPEG decoder "
+                         "(%s, probe %s)" % (build, probe))
+    cores = os.cpu_count() or 1
+    rates, loads = decoder_scaling(recs["train"], image, batch)
+    one = _pipeline_images(recs["val"], 1, image, batch)
+    many = _pipeline_images(recs["val"], cores, image, batch)
+    n_val = sum(1 for _ in _records(recs["val"]))
+    if len(one) != n_val or one != many:
+        raise SystemExit("image_io: %d of %d images at 1 thread, %d at %d; "
+                         "the multisets differ"
+                         % (len(one), n_val, len(many), cores))
+    from mxnet_tpu_torch.tools.io_train_bench import make_class_rec
+    rec444 = os.path.join(os.path.dirname(recs["val"]), "val444.rec")
+    make_class_rec(rec444, IMAGENET_444_RECORDS[0], size=size,
+                   classes=IMAGENET_CLASSES, seed=IMAGENET_444_RECORDS[1],
+                   subsampling=0)
+    vs_pil = {"4:2:0": _decode_against_pil(recs["val"], size),
+              "4:4:4": _decode_against_pil(rec444, size)}
+    for key, tol in (("4:2:0", TOL_DECODE_MEAN),
+                     ("4:4:4", TOL_DECODE_MEAN_444)):
+        got = vs_pil[key]
+        if not got["mean_abs"] <= tol \
+                < got["control_channels_reversed_mean_abs"]:
+            raise SystemExit("image_io: the %s decode against PIL's on %s "
+                             "JPEGs: %s, bound %s" % (decoder, key, got, tol))
+    image_iter = _image_iter_rate(recs["train"], image, batch)
+    return {"probe": probe, "decoder": decoder,
+            "build": {k: build[k] for k in ("cmd", "seconds", "cached")},
+            "cores": cores, "image": image, "batch": batch,
+            "decode_images_per_s": rates, "decode_cpu_per_wall": loads,
+            "image_iter_images_per_s": image_iter,
+            "multiset_images": len(one), "multiset_equal": True,
+            "multiset_threads": [1, cores], "vs_pil": vs_pil,
+            "tol_decode_mean": {"4:2:0": TOL_DECODE_MEAN,
+                                "4:4:4": TOL_DECODE_MEAN_444}}
+
+
+def _records(rec):
+    reader = mx.recordio.MXRecordIO(rec, "r")
+    try:
+        while True:
+            r = reader.read()
+            if r is None:
+                return
+            yield r
+    finally:
+        reader.close()
+
+
+def _imagenet_args(train, ctx, layers, image, *extra):
+    from mxnet_tpu_torch.tools import train_imagenet
+    return train_imagenet.parser().parse_args(
+        ["--network", "resnet", "--num-layers", str(layers),
+         "--data-train", train, "--image-shape", "3,%d,%d" % (image, image),
+         "--num-classes", "1000", "--data-nthreads",
+         str(os.cpu_count() or 1), "--disp-batches", "8"]
+        + (["--cpu", "1"] if ctx.device_type == "cpu" else [])
+        + list(extra))
+
+
+def _queue_parity(rec, ctx, layers, image, batch,
+                  steps=IMAGENET_PARITY_STEPS):
+    """The first ``steps`` batches of ``rec`` (one decode thread, in
+    order) through two trainers built alike: one fed by a
+    ``DevicePrefetchIter`` (pinned memory, its copy stream and event on the
+    card), one staged inline by ``put_batch``.  Losses and every parameter
+    and moving statistic must agree to the bit; cuDNN's deterministic
+    algorithms are on for both, so that only the staging differs."""
+    from mxnet_tpu_torch.tools.io_train_bench import build_trainer
+    it = mx.io.ImageRecordIter(path_imgrec=rec,
+                               data_shape=(3, image, image),
+                               batch_size=batch, preprocess_threads=1,
+                               raw_uint8=True)
+    batches = [next(it) for _ in range(steps)]
+    it.close()
+    source = mx.io.NDArrayIter(
+        np.concatenate([b.data[0].asnumpy() for b in batches]),
+        np.concatenate([b.label[0].asnumpy() for b in batches]),
+        batch_size=batch)
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = []
+        for queued in (True, False):
+            trainer = build_trainer(batch, image, layers, ctx=ctx)
+            if queued:
+                source.reset()
+                losses = [trainer.step(b) for b in mx.io.DevicePrefetchIter(
+                    source, trainer.put_batch, depth=2)]
+            else:
+                losses = [trainer.step(trainer.put_batch(
+                    {"data": b.data[0].data,
+                     "softmax_label": b.label[0].data})) for b in batches]
+            state = {k: v.clone() for k, v in
+                     list(trainer.params.items()) + list(trainer.aux.items())}
+            runs.append((torch.stack(losses).tolist(), state))
+            del trainer
+            gc.collect()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lq, sq), (li, si) = runs
+    differ = [k for k in sq if not torch.equal(sq[k], si[k])]
+    out = {"steps": steps, "losses_queue": lq, "losses_inline": li,
+           "bit_identical": lq == li and not differ,
+           "differing_tensors": differ[:5]}
+    if not out["bit_identical"]:
+        raise SystemExit("imagenet_train: the queued steps differ from the "
+                         "inline ones: %s" % json.dumps(out))
+    return out
+
+
+def imagenet_train_phase(ctx, recs, layers=50, image=224, batch=128,
+                         epochs=IMAGENET_EPOCHS, dtype="bfloat16",
+                         k5_blocks=16, blocks=50, timed_batches=24,
+                         tol_accuracy=TOL_VAL_ACCURACY, lr=0.1):
+    """``tools.train_imagenet``'s fused route on ``ctx``: ResNet-``layers``
+    v2, ``batch``, ``image`` square, ``dtype``, NHWC, block fusion, SGD
+    momentum 0.9, ``lr`` (0.1), wd 1e-4, ``epochs`` epochs of the train records
+    through the native pipeline (raw uint8, normalized on the device) and
+    a ``DevicePrefetchIter`` of depth 2, validation on the held-out
+    records after each.  Every count set to 0 before and read after: K5
+    launched ``k5_blocks`` times a step on the card (0 on the CPU), every
+    other kernel 0 times.  Every loss finite and the last below the first,
+    every moving statistic moved, the plan ``blocks`` blocks with
+    ``k5_blocks`` on K5, the last validation accuracy above
+    ``tol_accuracy``.  Then ``io_train_bench.train_loop`` sequential and
+    prefetched on the fit's trainer (end-to-end images/s, per-stage
+    walls; prefetched again with 2 decode threads, where the others take
+    the host's cores), and the queue against inline staging to the bit."""
+    from mxnet_tpu_torch.models import get_model
+    from mxnet_tpu_torch.tools import fit, train_imagenet
+    from mxnet_tpu_torch.tools.io_train_bench import train_loop
+    on_card = ctx.device_type == "gpu"
+    args = _imagenet_args(
+        recs["train"], ctx, layers, image, "--data-val", recs["val"],
+        "--batch-size", str(batch), "--dtype", dtype, "--fused", "1",
+        "--num-epochs", str(epochs), "--lr", str(lr), "--mom", "0.9",
+        "--wd", "1e-4", "--top-k", "2", "--device-queue", "1")
+    net = get_model("resnet", num_classes=1000, num_layers=layers,
+                    image_shape="3,%d,%d" % (image, image))
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    history = {}
+    zero_all_counts()
+    t0 = time.perf_counter()
+    trainer = fit.fit(args, net, train_imagenet.get_rec_iter,
+                      history=history)
+    wall = time.perf_counter() - t0
+    counts = all_counts()
+    losses = history["losses"]
+    steps = len(losses)
+    want = k5_blocks * steps if on_card else 0
+    if counts["matmul_stats"] != want or any(
+            v for k, v in counts.items() if k != "matmul_stats"):
+        raise SystemExit("imagenet_train: launches %s over %d steps; want "
+                         "matmul_stats %d, the rest 0"
+                         % (counts, steps, want))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit("imagenet_train: losses %s" % losses)
+    still = [k for k, v in trainer.aux.items() if torch.equal(
+        v, torch.ones_like(v) if k.endswith("moving_var")
+        else torch.zeros_like(v))]
+    if still:
+        raise SystemExit("imagenet_train: moving statistics unchanged: %s"
+                         % still)
+    fusion = history.get("fusion")
+    if fusion is None or fusion["blocks"] != blocks \
+            or fusion["pallas_blocks"] != k5_blocks:
+        raise SystemExit("imagenet_train: fusion plan %s; want %d blocks, "
+                         "%d on K5" % (fusion, blocks, k5_blocks))
+    val = history["epochs"][-1]["val"]
+    if not val["accuracy"] > tol_accuracy:
+        raise SystemExit("imagenet_train: validation accuracy %s, bound %s"
+                         % (val, tol_accuracy))
+    out = {"network": "resnet%d" % layers, "batch": batch, "image": image,
+           "dtype": dtype, "layout": "NHWC", "fuse_blocks": True,
+           "context": str(ctx), "queue_depth": 2, "optimizer": "sgd",
+           "learning_rate": lr, "momentum": 0.9, "weight_decay": 1e-4,
+           "epochs": epochs, "decoder": mx.io_native.decoder(),
+           "steps": steps, "losses": losses,
+           "epochs_detail": history["epochs"],
+           "stage_walls_s": history["timings"], "fusion": fusion,
+           "launches": {"matmul_stats": counts["matmul_stats"]},
+           "launches_per_step": counts["matmul_stats"] / steps,
+           "tol_val_accuracy": tol_accuracy, "fit_wall_s": wall}
+    if on_card:
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    out["sequential"], out["prefetched"], out["prefetched_2_threads"] = (
+        train_loop(recs["train"], image, batch, timed_batches, trainer,
+                   prefetch_depth=d, threads=t)
+        for d, t in ((0, None), (2, None), (2, 2)))
+    del trainer
+    gc.collect()
+    out["queue_parity"] = _queue_parity(recs["train"], ctx, layers, image,
+                                        batch)
+    return out
+
+
+def imagenet_module_phase(ctx, recs, layers=50, image=224, batch=32):
+    """``tools.train_imagenet --fused 0`` (``Module.fit``) on ``ctx`` with
+    ``MXNET_FUSE_BLOCKS=1``: ResNet-``layers`` in f32 NCHW at ``batch``
+    for one epoch of the module records (float NCHW batches from the
+    native pipeline).  The executors' plan (read after the fit) has blocks
+    and none on K5, whose count, like every kernel's, stays 0 (K5 is an
+    NHWC route); ms per batch between batch ends, each after a
+    synchronize."""
+    from mxnet_tpu_torch.analysis import fusion as _fusion
+    from mxnet_tpu_torch.models import get_model
+    from mxnet_tpu_torch.tools import fit, train_imagenet
+    on_card = ctx.device_type == "gpu"
+    args = _imagenet_args(
+        recs["module"], ctx, layers, image, "--batch-size", str(batch),
+        "--dtype", "float32", "--fused", "0", "--num-epochs", "1",
+        "--lr", "0.1")
+    net = get_model("resnet", num_classes=1000, num_layers=layers,
+                    image_shape="3,%d,%d" % (image, image))
+    marks = []
+
+    def batch_end(param):
+        if on_card:
+            torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    prev = os.environ.get("MXNET_FUSE_BLOCKS")
+    os.environ["MXNET_FUSE_BLOCKS"] = "1"
+    zero_all_counts()
+    try:
+        t0 = time.perf_counter()
+        fit.fit(args, net, train_imagenet.get_rec_iter,
+                batch_end_callback=batch_end)
+        wall = time.perf_counter() - t0
+    finally:
+        if prev is None:
+            del os.environ["MXNET_FUSE_BLOCKS"]
+        else:
+            os.environ["MXNET_FUSE_BLOCKS"] = prev
+    counts = all_counts()
+    plan = _fusion.last_plan_summary()
+    if any(counts.values()):
+        raise SystemExit("imagenet_module: launches %s; want 0 (K5 takes "
+                         "NHWC only)" % counts)
+    if plan is None or not plan["blocks"] or plan["pallas_blocks"] \
+            or plan["layout"] != "NCHW":
+        raise SystemExit("imagenet_module: fusion plan %s" % plan)
+    ms = np.diff(marks) * 1e3
+    return {"network": "resnet%d" % layers, "batch": batch,
+            "image": image, "dtype": "float32", "layout": "NCHW",
+            "context": str(ctx), "MXNET_FUSE_BLOCKS": "1",
+            "batches": len(marks), "fusion": plan,
+            "launches": {"matmul_stats": counts["matmul_stats"]},
+            "ms_per_batch": ms.tolist(),
+            "median_ms_per_batch": float(np.median(ms)),
+            "fit_wall_s": wall}
+
+
 # ------------------------------------------------- mx.rtc and experiments
 #: the flows of the JAX package's tests/test_rtc.py in CUDA C, with their
 #: callable (plain) forms: (name, CUDA C body, inputs, output shape, grid,
@@ -2615,7 +3039,7 @@ def experiment_summary(name, source, replaces, entries, launches, **extra):
                    for e in entries]}, **extra)
 
 
-def k5_summary(entries, launches, ptxas):
+def k5_summary(entries, launches, ptxas, **extra):
     """K5's entry of the kernel summary line: the bf16 cases summed over
     one training step's 16 launches (each shape times its launches per
     step), so ``ms`` (the card's time, ``device_ms``), ``wall_ms`` (with
@@ -2630,7 +3054,7 @@ def k5_summary(entries, launches, ptxas):
         / PEAK_FLOPS[torch.bfloat16] * 1e3
     t_bytes = sum(e["bytes"] * e["launches_per_step"] for e in step) \
         / HBM_BYTES_PER_S * 1e3
-    return {
+    return dict({
         "name": "matmul_stats", "route": "cuda",
         "source": "mxnet_tpu_torch/csrc/matmul_stats.cu",
         "replaces": "mxnet_tpu/ops/fused.py:169", "launches": launches,
@@ -2643,7 +3067,7 @@ def k5_summary(entries, launches, ptxas):
         "%d launches, bf16" % K5_PER_STEP, "ptxas": ptxas,
         "shapes": [{k: e[k] for k in ("dtype", "launches_per_step",
                                       "padded") + K5_SHAPE_KEYS if k in e}
-                   for e in entries]}
+                   for e in entries]}, **extra)
 
 
 def k5_f32_summary(entries, launches):
@@ -2751,6 +3175,13 @@ def main():
     emit("resnet_train", **resnet)
     resnet_check = resnet_train_check_phase(mx.gpu(0))
     emit("resnet_train_check", **resnet_check)
+    with tempfile.TemporaryDirectory() as workdir:
+        recs, records_s = make_image_records(workdir)
+        emit("image_io", records_s=records_s, **image_io_phase(recs))
+        imagenet = imagenet_train_phase(mx.gpu(0), recs)
+        emit("imagenet_train", staged_images_per_s=resnet["images_per_s"],
+             **imagenet)
+        emit("imagenet_module", **imagenet_module_phase(mx.gpu(0), recs))
     rtc = rtc_phase()
     mse = matmul_stats_experiment_phase()
     blk = block_experiment_phase()
@@ -2859,7 +3290,9 @@ def main():
             t4096=shape_fields(_case(bwd, [1, 4096, 16, 64], "bfloat16")),
             ptxas=ptxas["flash_attention_bwd_sm90"]),
         k5_summary(k5, resnet["launches"]["matmul_stats"],
-                   ptxas["matmul_stats"]),
+                   ptxas["matmul_stats"],
+                   imagenet_launches=imagenet["launches"]["matmul_stats"],
+                   imagenet_steps=imagenet["steps"]),
         k5_f32_summary(k5, resnet_check["k5_launches"]),
         {"name": "rtc", "route": "cuda", "source": "mxnet_tpu_torch/rtc.py",
          "generated": "build/kernels/rtc_rtc_abs_full-<hash>.cu",

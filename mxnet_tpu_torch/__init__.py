@@ -20,7 +20,11 @@ imperative optimizer, fed by ``mx.io`` iterators and scored by
 ``mx.mod.BucketingModule`` trains sequences of several lengths, one
 executor a bucket sharing one parameter set, on graphs written by the
 cells of ``mx.rnn`` (``python -m mxnet_tpu_torch.tools.lstm_bucketing``);
-``mx.Monitor`` reads statistics of intermediate outputs.
+``mx.Monitor`` reads statistics of intermediate outputs.  ``mx.recordio``
+reads and writes the reference's ``.rec`` files, ``mx.io.ImageRecordIter``
+decodes JPEG records on the port's native pipeline and ``mx.image.ImageIter``
+with PIL; ``mx.io.DevicePrefetchIter`` stages batches on the card ahead of
+the step (``python -m mxnet_tpu_torch.tools.train_imagenet``).
 
 ``parallel.ShardedTrainer`` trains a Symbol on one device in a fused step
 (the GPT of ``models.gpt``; ``python -m
@@ -55,7 +59,11 @@ from . import optimizer
 from . import parallel
 from . import rtc
 from . import metric
+from . import config
 from . import io
+from . import recordio
+from . import io_native
+from . import image
 from . import callback
 from . import kvstore
 from . import kvstore as kv

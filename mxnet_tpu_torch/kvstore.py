@@ -75,7 +75,11 @@ class KVStore:
 
     def push(self, key, value, priority=0):
         """Sum the values of each key (on the first value's device); with
-        an updater, update the stored weight from the sum, else store it."""
+        an updater, update the stored weight from the sum, else store it.
+        Where the sum and the stored weight lie on different devices, the
+        weight moves to the sum's device, once: ``local`` and ``device``
+        coincide, as in the reference, and the update runs where the
+        gradients are."""
         for k, group in zip(*_group(*_key_value(key, value))):
             with torch.no_grad():
                 first = group[0].data
@@ -86,7 +90,11 @@ class KVStore:
             if self._updater is not None:
                 if k not in self._store:
                     raise MXNetError("key %s has not been inited" % str(k))
-                self._updater(k, merged, self._store[k])
+                stored = self._store[k]
+                if stored.data.device != merged.data.device:
+                    stored = NDArray(stored.data.to(merged.data.device))
+                    self._store[k] = stored
+                self._updater(k, merged, stored)
             else:
                 self._store[k] = merged
 

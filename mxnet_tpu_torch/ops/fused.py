@@ -41,6 +41,7 @@ import ctypes
 
 import torch
 
+from .. import config as _config
 from .. import cuda_build
 from ..base import MXNetError
 from .nn import BNCore, bn_apply, bn_backward, bn_forward, bn_moments, \
@@ -52,17 +53,18 @@ __all__ = ["block_fusion", "block_fusion_enabled", "matmul_stats",
            "fused_block_conv_bn_act", "fused_block_bn_act",
            "fused_block_fc_act", "conv_eligible"]
 
-_BLOCK_FUSION = {"v": False}
+_BLOCK_FUSION = {"v": None}
 
 
 class block_fusion:
     """Context manager switching the block-granularity fusion pass
     (:mod:`mxnet_tpu_torch.analysis.fusion`) on or off for the graphs run
-    inside it.  Off by default; there is no environment default, the
-    trainer's ``fuse_blocks`` decides."""
+    inside it.  A tri-state flag, as the JAX package's: inside no context
+    (or a context of ``None``) ``MXNET_FUSE_BLOCKS=1`` turns it on, through
+    :mod:`mxnet_tpu_torch.config`; ``True``/``False`` force it."""
 
     def __init__(self, enable):
-        self.enable = bool(enable)
+        self.enable = None if enable is None else bool(enable)
 
     def __enter__(self):
         self._prev = _BLOCK_FUSION["v"]
@@ -75,7 +77,9 @@ class block_fusion:
 
 
 def block_fusion_enabled():
-    return _BLOCK_FUSION["v"]
+    if _BLOCK_FUSION["v"] is not None:
+        return _BLOCK_FUSION["v"]
+    return _config.get("MXNET_FUSE_BLOCKS") == "1"
 
 
 # ------------------------------------------------------------- K5

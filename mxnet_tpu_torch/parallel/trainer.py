@@ -27,7 +27,12 @@ host images on the device, and 4-d weights keep their OIHW shape in
 ``channels_last`` memory format in the compute view, which is what cuDNN
 reads for an NHWC convolution.  ``fuse_blocks=True`` runs it under
 ``block_fusion(True)``: conv->BN->ReLU chains become single regions, and
-the 1x1 ones take K5 (``ops.fused.matmul_stats``).
+the 1x1 ones take K5 (``ops.fused.matmul_stats``); ``fuse_blocks=None``
+reads ``MXNET_FUSE_BLOCKS``, as the JAX trainer does.  ``input_mean`` and
+``input_std`` normalize uint8 data batches on the device, after their
+bytes land: ``put_batch`` casts them to f32, subtracts the mean, divides by
+the std and casts to the compute dtype (the native pipeline's
+``raw_uint8`` batches, which move a quarter of the bytes of f32 images).
 
 Dropout draws from one ``torch.Generator`` per trainer, seeded from
 ``seed``; initial weights come from ``numpy.random.RandomState(seed)``.
@@ -44,7 +49,7 @@ import torch
 
 from ..base import MXNetError, torch_dtype
 from ..initializer import InitDesc, Xavier
-from ..ops.fused import block_fusion
+from ..ops.fused import block_fusion, block_fusion_enabled
 from ..ops.nn import NHWC_UNAWARE_OPS, image_layout
 from ..symbol import _classify_vars, eval_graph
 from ..analysis import fusion as _fusion
@@ -180,16 +185,22 @@ class ShardedTrainer:
             image activations; host batches stay NCHW and are transposed
             on the device).  Weights keep their reference shapes.
         fuse_blocks: run the block-fusion plan (analysis.fusion) in the
-            step and the forward; None means off.
+            step and the forward; None means ``MXNET_FUSE_BLOCKS`` decides
+            (off unless it is 1).
+        input_mean/input_std: per-channel sequences (or scalars) applied
+            on the device to uint8 data inputs staged by
+            :meth:`put_batch`: ``(x - mean) / std`` in f32 (as the f32
+            reciprocal), then the compute dtype.  Other uint8 inputs, and any input when both are None,
+            reach the graph unchanged.
         auto_layouts: XLA-chosen state layouts, which have no counterpart
             in eager PyTorch; only the default False is accepted.
         elide_input_bn_grad: gradients are taken with respect to parameters
             only, never batch inputs; only the default True is accepted.
         fuse_conv_bn, stem_space_to_depth, strided_bwd_phase,
         conv1x1_as_dot, pipeline_stages > 1,
-        sequence_parallel, tp_rules, native_weight_layout, strict,
-        input_mean/input_std: not yet ported; setting one raises (None
-        means off, there being no environment defaults here).
+        sequence_parallel, tp_rules, native_weight_layout, strict: not
+        yet ported; setting one raises (None means off, there being no
+        environment defaults for them here).
         """
         if auto_layouts or not elide_input_bn_grad:
             raise MXNetError(
@@ -209,8 +220,6 @@ class ShardedTrainer:
             "tp_rules": tp_rules is not None,
             "native_weight_layout": bool(native_weight_layout),
             "strict": bool(strict),
-            "input_mean/input_std": (input_mean is not None
-                                     or input_std is not None),
         }
         bad = [k for k, on in unported.items() if on]
         if bad:
@@ -223,7 +232,12 @@ class ShardedTrainer:
         self._device = mesh.device
         self._compute_dtype = torch_dtype(dtype)
         self._layout = layout or "NCHW"
+        if fuse_blocks is None:
+            fuse_blocks = block_fusion_enabled()
         self._fuse_blocks = bool(fuse_blocks)
+        self._input_mean = input_mean
+        self._input_std = input_std
+        self._input_stats = {}
         self._topo = symbol._topo()
         if self._layout == "NHWC":
             self._check_nhwc_safe()
@@ -371,22 +385,49 @@ class ShardedTrainer:
         the dtypes and layout the step takes: data inputs in the compute
         dtype; labels and index inputs (token ids) in float32, which is
         exact for ids below 2^24.  Under ``layout="NHWC"`` an image batch
-        is transposed on the device, after its host bytes land.  Reuse the
-        result across :meth:`step` calls to move it once."""
+        is transposed on the device, after its host bytes land (a raw NHWC
+        uint8 batch is already in the step's layout); under NCHW a raw
+        NHWC uint8 data batch (the native iterators' ``raw_uint8``) is
+        permuted to NCHW there.  A uint8 data batch is then normalized
+        there by ``input_mean``/``input_std`` when the trainer has them:
+        ``(x - mean) * (1 / std)`` in f32, the JAX staging program's
+        arithmetic to the bit.  A pinned host tensor is copied without
+        blocking, on the current stream.  Reuse the result across
+        :meth:`step` calls to move it once."""
         out = {}
+        normalize = (self._input_mean is not None
+                     or self._input_std is not None)
         for k, v in batch.items():
             t = v if isinstance(v, torch.Tensor) \
                 else torch.from_numpy(np.ascontiguousarray(v))
-            t = t.to(self._device)
+            t = t.to(self._device, non_blocking=True)
             # the batch dim may differ (a partial tail batch): compare the
             # feature dims only.  A batch that also reads as NHWC (C == H
             # == W) follows the documented NCHW host convention.
             feat = tuple(t.shape[1:])
-            if k in self._nhwc_inputs and t.dim() == 4 and (
-                    feat != tuple(self._input_shapes[k][1:])
-                    or feat == tuple(self._host_input_shapes[k][1:])):
+            transpose = k in self._nhwc_inputs and t.dim() == 4 and (
+                feat != tuple(self._input_shapes[k][1:])
+                or feat == tuple(self._host_input_shapes[k][1:]))
+            if transpose:
                 t = t.permute(0, 2, 3, 1).contiguous()
-            if t.is_floating_point():
+            elif t.dtype == torch.uint8 and k in self._data_names \
+                    and t.dim() == 4 == len(self._input_shapes[k]):
+                c, h, w = self._input_shapes[k][1:]
+                if feat != (c, h, w) and feat == (h, w, c):
+                    t = t.permute(0, 3, 1, 2).contiguous()
+            if t.dtype == torch.uint8 and k in self._data_names \
+                    and normalize:
+                ch_axis = -1 if (self._layout == "NHWC" or transpose) \
+                    else 1
+                t = t.float()
+                if self._input_mean is not None:
+                    t = t - self._input_stat("mean", ch_axis, t.dim())
+                if self._input_std is not None:
+                    # times the f32 reciprocal: the JAX staging program's
+                    # division by a constant, as XLA compiles it
+                    t = t * self._input_stat("std", ch_axis, t.dim())
+                t = t.to(self._compute_dtype)
+            elif t.is_floating_point():
                 if "label" not in k and k not in self._int_inputs:
                     t = t.to(self._compute_dtype)
                 elif t.dtype == torch.float64:
@@ -394,9 +435,33 @@ class ShardedTrainer:
             out[k] = t
         return out
 
+    def _input_stat(self, which, ch_axis, ndim):
+        """``input_mean``, or the reciprocal of ``input_std`` (``"std"``),
+        as an f32 tensor on the device, shaped to broadcast along the
+        channel axis; made once a shape."""
+        key = (which, ch_axis, ndim)
+        hit = self._input_stats.get(key)
+        if hit is None:
+            src = np.asarray(self._input_mean, np.float32) \
+                if which == "mean" \
+                else np.float32(1) / np.asarray(self._input_std, np.float32)
+            hit = torch.tensor(src, device=self._device)
+            if hit.dim():
+                shape = [1] * ndim
+                shape[ch_axis] = hit.shape[0]
+                hit = hit.reshape(shape)
+            self._input_stats[key] = hit
+        return hit
+
     def _stage(self, batch):
+        """``batch`` as it is when it was staged already (tensors on the
+        device, no uint8 data left to normalize), else :meth:`put_batch`."""
+        normalize = (self._input_mean is not None
+                     or self._input_std is not None)
         if all(isinstance(v, torch.Tensor) and v.device == self._device
-               for v in batch.values()):
+               and not (normalize and v.dtype == torch.uint8
+                        and k in self._data_names)
+               for k, v in batch.items()):
             return batch
         return self.put_batch(batch)
 

@@ -158,7 +158,7 @@ def test_dropout_trains_from_the_trainer_generator():
     {"stem_space_to_depth": True}, {"conv1x1_as_dot": True},
     {"pipeline_stages": 2},
     {"sequence_parallel": True}, {"tp_rules": {}}, {"strict": True},
-    {"input_mean": 0.5}, {"native_weight_layout": True}])
+    {"fuse_conv_bn": True}, {"native_weight_layout": True}])
 def test_unported_trainer_options_raise(option):
     with pytest.raises(MXNetError, match="not yet ported"):
         _port("sgd", **option)
