@@ -87,7 +87,39 @@ Phases, one JSON line each:
    the numpy hinge gradient) trained for 20 batches with its loss
    falling, and a ``Monitor`` on one bucket's executor of a bucketing LM
    giving a statistic for every op output of one batch;
-13. ``kernels`` of K5 (``matmul_stats``, the GEMM with the BatchNorm
+13. ``op_corpus``: every op of ``tools/op_corpus.py``'s corpus (the dense
+   ops: element-wise, broadcast, reductions, indexing, ordering, the nn
+   ops, the update ops; 1-d and 3-d Convolution and Pooling) on the card
+   and on the CPU from the same seeded inputs in f32, TF32 off: outputs
+   and the gradient of ``sum(out * cot)`` within ``TOL_OP_CORPUS``, the
+   indices, 0/1 results and sorted values to the bit with ties planted;
+   each sampler's bits equal from one seed twice, its moments within
+   ``TOL_SAMPLER_Z`` standard errors; the worst five ops printed; then
+   ``test_utils.check_consistency`` of a Deconvolution-BatchNorm-
+   LeakyReLU-Convolution block on both devices, its worst reading within
+   ``TOL_CONSISTENCY``; the TF32 controls of both must miss their bounds;
+14. ``autograd_check``: the imperative loop of ``mx.autograd``
+   (``mark_variables``, ``record``, FullyConnected/Activation/
+   SoftmaxOutput, ``nd.sgd_update``) at ``train_mnist.py``'s MLP widths,
+   batch 100, 20 steps, on the card and the CPU from the same weights
+   within ``TOL_AUTOGRAD_CHECK`` (a TF32 control must miss it); then
+   ``nd._contrib_FlashAttention`` recorded in f32 at B=4, T=1024, H=16,
+   D=64 causal and differentiated: the f32 K1 and K3 launch once each and
+   their bf16 (sm90) sources never, counted by source, and dQ, dK and dV
+   equal the Executor route's bits;
+15. ``dcgan_train``: ``tools/dcgan.py`` (the Module API: Deconvolution,
+   LeakyReLU, LogisticRegressionOutput, ``+=`` on gradient arrays, input
+   gradients into the generator's backward) at the reference MXNet
+   example's widths (a 512-256-128-64-3 generator, a 64-128-256-512-1
+   discriminator, 64x64x3, z 100, batch 64, Adam 2e-4) for two epochs of
+   2048 made images: parameter counts, the median ms of an iteration past
+   the first epoch and images/s, peak memory, the discriminator's
+   accuracy, every count 0 (no kernel lies on this path);
+16. ``dcgan_check``: three iterations of the same loop at size 16 on the
+   card and the CPU from the same parameters, noise and images: each
+   leaf's change and each moving statistic's within their bounds, and a
+   control with TF32 in cuBLAS and cuDNN both must miss one;
+17. ``kernels`` of K5 (``matmul_stats``, the GEMM with the BatchNorm
    statistics epilogue) against its plain version at the 8 shapes one
    ResNet-50 training step gives it in bf16, at 2 of them in f32 and at
    the cuda tests' shapes (one of which the wrapper pads for TMA in both
@@ -97,7 +129,7 @@ Phases, one JSON line each:
    (split TF32 on the tensor cores) the card's time, cuBLAS's f32 product
    (TF32 off) and the bound of the product as split TF32 beside the
    CUDA-core one;
-14. ``resnet_train``: ResNet-50 v2 at ``tools/bench.py``'s configuration
+18. ``resnet_train``: ResNet-50 v2 at ``tools/bench.py``'s configuration
    (batch 128, 224x224, bf16, NHWC, block fusion, SGD momentum) on
    ``gpu(0)``: ten steps after a warm-up, every loss finite, the last
    below the first, every moving statistic moved, the fusion plan 50
@@ -105,11 +137,11 @@ Phases, one JSON line each:
    through the wrapper's padding; then ms/step,
    images/s, peak memory and a profile of one step (K5's share, and the
    count of cuDNN layout transposes);
-15. ``resnet_train_check``: one f32 SGD step of ResNet-50 at batch 8,
+19. ``resnet_train_check``: one f32 SGD step of ResNet-50 at batch 8,
    64x64, on ``gpu(0)`` and on the CPU; every parameter's and moving
    statistic's change agrees within a stated relative tolerance, and a
    TF32 control must not;
-16. ``image_io``: the records of the ImageNet path made on the card from
+20. ``image_io``: the records of the ImageNet path made on the card from
     seeds (``io_train_bench.make_class_rec``: 2048 train, 512 validation
     and 128 Module-route 256-px JPEGs of 4 colour classes); the JPEG
     decoders the host offers, the port's native library built from
@@ -117,7 +149,7 @@ Phases, one JSON line each:
     pipeline's images/s at 1, 2, 4 and all cores' decode threads, the
     validation records at one thread against all cores as multisets, and
     the decode against PIL's on the same records;
-17. ``imagenet_train``: ``tools.train_imagenet``'s fused route (ResNet-50
+21. ``imagenet_train``: ``tools.train_imagenet``'s fused route (ResNet-50
     v2, batch 128, 224x224, bf16, NHWC, block fusion, SGD momentum 0.9, lr
     0.1, wd 1e-4) for two epochs of the train records through the native
     pipeline, raw uint8 normalized on the card, and a
@@ -129,22 +161,22 @@ Phases, one JSON line each:
     per-stage walls) beside ``resnet_train``'s staged-batch images/s, and
     three steps through the queue equal to the same three staged inline,
     to the bit;
-18. ``imagenet_module``: the ``--fused 0`` route (``Module.fit``, f32
+22. ``imagenet_module``: the ``--fused 0`` route (``Module.fit``, f32
     NCHW, batch 32) on the Module records under ``MXNET_FUSE_BLOCKS=1``:
     the plan's blocks, none on K5 and every count 0, ms per batch;
-19. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
+23. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
     package's ``tests/test_rtc.py`` written in CUDA C, abs written as a
     CUDA programmer writes it for this card (float4 in a grid-stride
     loop), and both abs bodies over an (8192, 8192) f32 array, and pushes
     each once; each output equals the callable (plain) form's exactly; the
     two full-size ones are timed against ``torch.abs`` and their byte
     bound;
-20. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
+24. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
     shapes at batch 128, then K7 (K5 with c = 0) and K8 (the prologue
     variant) against their plain versions at each shape, bit-identical
     across two launches, with the kernel (the card's, and with the host's
     share), plain, library, cuBLAS product and bound times;
-21. ``block_experiment``: the tool of that name at batch 128 with its
+25. ``block_experiment``: the tool of that name at batch 128 with its
     defaults (64, 64, 256, rows 8, bf16: the wgmma kernel) and again in
     f32 (the general kernel), then K9 against ``block_plain`` at both
     stage-1 channel sets, (64, 64, 256) and (256, 64, 256), batch 128, in
@@ -160,13 +192,15 @@ Phases, one JSON line each:
     and 1024 in both dtypes, each in the tile its shared memory allows;
     cmid 4096 must raise in both dtypes.
 
-Then the kernel summary line (each kernel with its count over
-``bucketing_train`` beside the others) and, last, ``{"ok": true, "device": ...}``.
+Then the kernel summary line (each kernel with its launches on its main
+path, and on the DCGAN path and in autograd_check's recorded attention
+beside them, the flash kernels' by source) and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line.  With no CUDA device it exits 1 at once.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import logging
@@ -210,6 +244,8 @@ from mxnet_tpu_torch.tools import (                            # noqa: E402
 from mxnet_tpu_torch.tools import matmul_stats_experiment      # noqa: E402
 from mxnet_tpu_torch.tools import module_fit                   # noqa: E402
 from mxnet_tpu_torch.tools import lstm_bucketing               # noqa: E402
+from mxnet_tpu_torch.tools import dcgan, op_corpus             # noqa: E402
+from mxnet_tpu_torch import test_utils                         # noqa: E402
 from mxnet_tpu_torch.ops.rnn import rnn_param_size             # noqa: E402
 
 #: the repo's benchmark configuration of the GPT LM
@@ -568,14 +604,18 @@ FLASH_SOURCES = {
         "bfloat16": "mxnet_tpu_torch/csrc/flash_attention_bwd_sm90.cu"}}
 
 
-def with_tf32(fn):
-    """``fn()`` with TF32 matmuls (cuBLAS only: the flash kernels read no
-    such switch), the setting restored after."""
-    torch.backends.cuda.matmul.allow_tf32 = True
+@contextlib.contextmanager
+def tf32_mode(on=True):
+    """TF32 in cuBLAS and cuDNN both (a conv-only graph reads only cuDNN's
+    switch; the flash kernels read neither) while the block runs, both off
+    after, as :func:`env_phase` sets them."""
+    torch.backends.cuda.matmul.allow_tf32 = on
+    torch.backends.cudnn.allow_tf32 = on
     try:
-        return fn()
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
 
 
 def control_misses(control, held):
@@ -620,7 +660,8 @@ def kernels_phase():
         }
         entry.update(attention_bound(b, t, h, d, dt, causal))
         if dt == torch.float32:
-            co, cl = with_tf32(lambda: flash_attention_plain(q, k, v, causal))
+            with tf32_mode():
+                co, cl = flash_attention_plain(q, k, v, causal)
             control = {"err_o": (co - ro).abs().max().item(),
                        "err_lse": (cl - rl).abs().max().item()}
             entry["control_tf32"] = dict(control, passes=control_misses(
@@ -676,8 +717,8 @@ def kernels_bwd_phase():
                 / ref_norm}
         control = None
         if f32:
-            ctrl = with_tf32(lambda: flash_attention_bwd_plain(
-                q, k, v, o, lse, do, causal))
+            with tf32_mode():
+                ctrl = flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
             control = {}
             for name, c, r in zip(("dq", "dk", "dv"), ctrl, ref):
                 control[name + "_err"] = (c - r).abs().max().item()
@@ -1077,10 +1118,22 @@ def flash_counts():
             "flash_attention_delta": flash_attention_delta.launches}
 
 
+def flash_source_counts():
+    """The flash forward's and backward's launches by source: the f32
+    (``flash_attention_fwd``) and the bf16 (``flash_attention_fwd_sm90``)
+    kernels apart, keyed as the kernels line names them."""
+    return dict(flash_attention_fwd.source_launches,
+                **flash_attention_bwd.source_launches)
+
+
 def zero_flash_counts():
     flash_attention_fwd.launches = 0
     flash_attention_bwd.launches = 0
     flash_attention_delta.launches = 0
+    for counts in (flash_attention_fwd.source_launches,
+                   flash_attention_bwd.source_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
@@ -1106,14 +1159,11 @@ def train_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
             learning_rate=lr, momentum=0.0, dtype="float32", seed=0)
         before = {k: v.to("cpu", copy=True)
                   for k, v in trainer.params.items()}
-        torch.backends.cuda.matmul.allow_tf32 = tf32
         flash_attention_fwd.launches = 0
         flash_attention_bwd.launches = 0
         flash_attention_delta.launches = 0
-        try:
+        with tf32_mode(tf32):
             loss = float(trainer.step(batch))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
         launches[str(c) + (" tf32" if tf32 else "")] = {
             "flash_attention_fwd": flash_attention_fwd.launches,
             "flash_attention_bwd": flash_attention_bwd.launches,
@@ -1337,13 +1387,10 @@ def module_check_phase(ctx, cfg, layers=2, lr=1.0, check_ctx=None):
         mod.init_optimizer(optimizer="sgd", optimizer_params={
             "learning_rate": lr, "momentum": 0.0})
         b = next(it)
-        torch.backends.cuda.matmul.allow_tf32 = tf32
         zero_flash_counts()
-        try:
+        with tf32_mode(tf32):
             mod.forward_backward(b)
             mod.update()
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
         launches[str(c) + (" tf32" if tf32 else "")] = flash_counts()
         m = mx.metric.Perplexity(None)
         m.update(b.label, mod.get_outputs())
@@ -1587,16 +1634,13 @@ def bucketing_check_phase(ctx, cfg=BUCKET_CHECK, steps=BUCKET_CHECK_STEPS,
         mod.init_optimizer(optimizer="sgd", optimizer_params={
             "learning_rate": lr, "momentum": 0.9, "wd": 1e-5})
         ppl = []
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        try:
+        with tf32_mode(tf32):
             for b in batches:
                 mod.forward_backward(b)
                 mod.update()
                 m = mx.metric.Perplexity(lstm_bucketing.INVALID_LABEL)
                 m.update(b.label, mod.get_outputs())
                 ppl.append(m.get()[1])
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
         after = mod.get_params()[0]
         return ppl, {k: torch.from_numpy(after[k].asnumpy() - w)
                      for k, w in weights.items()}
@@ -1834,6 +1878,390 @@ def module_api_phase(ctx, n=2000, batch=100, dim=196, monitor_cfg=
     if bad:
         raise SystemExit("module_api: %s: %s" % ("; ".join(bad),
                                                   json.dumps(out)))
+    return out
+
+
+# ------------------------------------------ the imperative surface and DCGAN
+#: op_corpus: the worst relative error (of max |CPU's|) an op's outputs or
+#: gradient may show on the card against the CPU in f32 with TF32 off;
+#: exact cases (indices, 0/1 results, sorted values) must agree in every
+#: bit
+TOL_OP_CORPUS = 1e-5
+#: a sampler's mean and variance within this many standard errors
+TOL_SAMPLER_Z = 6.0
+#: the corpus's ops that reach cuBLAS or cuDNN: run again with TF32 on as
+#: op_corpus's control, their worst error must exceed TOL_OP_CORPUS
+TF32_CONTROL_OPS = ("dot", "batch_dot", "Convolution", "Deconvolution",
+                    "LSoftmax")
+#: op_corpus's ``test_utils.check_consistency`` of a DCGAN block: every
+#: output and gradient, element by element (rtol = atol); the same check
+#: with TF32 in cuBLAS and cuDNN, run as a control, must miss it
+TOL_CONSISTENCY = 1e-4
+#: the block's input (N, C, H, W): 64 channels, so that each output sums
+#: hundreds of products and TF32's rounding shows; parameters drawn at
+#: this scale, the moving variance 1 (with check_consistency's default of
+#: 0 the inference BatchNorm scales by 1/sqrt(eps), and cancellation in
+#: the f32 sums alone reads 3.7e-4 on the card)
+CONSISTENCY_SHAPE = (8, 64, 8, 8)
+CONSISTENCY_SCALE = 0.1
+#: autograd_check (a): the imperative MLP's losses and weight changes on
+#: the card against the CPU after AUTOGRAD_STEPS steps, relative
+TOL_AUTOGRAD_CHECK = 1e-4
+AUTOGRAD_WIDTHS = (784, 128, 64, 10)       # train_mnist.py's MLP
+AUTOGRAD_BATCH = 100
+AUTOGRAD_STEPS = 20
+AUTOGRAD_FLASH = (4, 1024, 16, 64)         # B, T, H, D: K1's serving shape
+#: the reference MXNet example/gan/dcgan.py's widths: a 512-256-128-64-3
+#: generator (ngf 32 in make_dcgan_sym: its top layer is 16 ngf at size 64)
+#: and a 64-128-256-512-1 discriminator, 64x64x3, z 100, batch 64, Adam
+#: 2e-4 with beta1 0.5; trained two epochs of 2048 made images
+DCGAN_FULL = {"size": 64, "ngf": 32, "ndf": 64, "nc": 3, "z": 100,
+              "batch_size": 64, "images": 2048, "epochs": 2}
+DCGAN_PARAMS = (3576704, 2765568)           # generator, discriminator
+#: dcgan_check: three iterations at size 16 on the card and the CPU
+DCGAN_CHECK = {"size": 16, "ngf": 8, "ndf": 8, "nc": 3, "z": 16,
+               "batch_size": 8, "iterations": 3}
+TOL_DCGAN_CHECK = 1e-4
+TOL_DCGAN_CHECK_AUX = 1e-4
+
+
+def dcgan_block():
+    """Deconvolution -> BatchNorm -> LeakyReLU -> Convolution, as the DCGAN
+    stacks them (64 channels in, 32 after the Deconvolution, 16 out)."""
+    x = mx.sym.Variable("x")
+    y = mx.sym.Deconvolution(x, name="dc", kernel=(4, 4), stride=(2, 2),
+                             pad=(1, 1), num_filter=32)
+    y = mx.sym.BatchNorm(y, name="bn", fix_gamma=False)
+    y = mx.sym.LeakyReLU(y, name="act", act_type="leaky", slope=0.2)
+    return mx.sym.Convolution(y, name="cv", kernel=(3, 3), pad=(1, 1),
+                              num_filter=16)
+
+
+def op_corpus_phase(device="cuda", check_device="cpu"):
+    """Every case of ``tools/op_corpus.py`` (each op this slice registers,
+    the 1-d and 3-d Convolution and Pooling, ``LayerNorm
+    output_mean_var``; ties planted) on ``device`` and on ``check_device``
+    from the same seeded inputs in f32, TF32 off: the outputs and the
+    gradient of ``sum(out * cot)`` within ``TOL_OP_CORPUS``, the exact
+    cases to the bit (sort, argsort and topk indices included); then each
+    sampler twice from one seed (the same bits) with its mean and
+    variance within ``TOL_SAMPLER_Z`` standard errors.  No kernel is
+    launched.  On the card the cases of ``TF32_CONTROL_OPS`` run again
+    with TF32 in cuBLAS and cuDNN as a control, which must miss the
+    bound.  Last, ``test_utils.check_consistency`` binds
+    :func:`dcgan_block` on both devices from the same parameters and
+    holds every output and gradient within ``TOL_CONSISTENCY``; on the
+    card its TF32 control must miss that bound."""
+    t0 = time.perf_counter()
+    zero_all_counts()
+    rows = op_corpus.card_vs_cpu(device, check_device=check_device)
+    samplers = op_corpus.sampler_check(device)
+    counts = all_counts()
+    ctxs = [mx.context.context_of(torch.device(d))
+            for d in (device, check_device)]
+
+    def consistency(raise_on_err=True):
+        return test_utils.check_consistency(
+            dcgan_block(), [dict(ctx=c, x=CONSISTENCY_SHAPE) for c in ctxs],
+            scale=CONSISTENCY_SCALE, tol=TOL_CONSISTENCY,
+            aux_params={"bn_moving_mean": np.zeros(32),
+                        "bn_moving_var": np.ones(32)},
+            raise_on_err=raise_on_err)["max_err"]
+
+    consistency_err = consistency()
+    control = consistency_control = None
+    if torch.device(device).type == "cuda":
+        with tf32_mode():
+            control = op_corpus.card_vs_cpu(
+                device, check_device=check_device, ops=TF32_CONTROL_OPS)
+            consistency_control = consistency(raise_on_err=False)
+
+    def worst(r):
+        return max(r["out_err"], r["grad_err"] or 0.0)
+
+    over = [r for r in rows if worst(r) > TOL_OP_CORPUS]
+    bad_samplers = [s for s in samplers if not s["same_bits"]
+                    or s["mean_z"] > TOL_SAMPLER_Z
+                    or s["var_z"] > TOL_SAMPLER_Z]
+    by_op = {}
+    for r in rows:
+        by_op[r["op"]] = max(by_op.get(r["op"], 0.0), worst(r))
+    out = {"devices": [str(device), str(check_device)],
+           "ops": len(by_op) + len({s["op"] for s in samplers}),
+           "cases": len(rows), "exact_cases": sum(r["exact"] for r in rows),
+           "worst5": sorted(by_op.items(), key=lambda kv: -kv[1])[:5],
+           "over": over, "tol": TOL_OP_CORPUS, "samplers": samplers,
+           "consistency": {"graph": "dcgan_block",
+                           "x": list(CONSISTENCY_SHAPE),
+                           "scale": CONSISTENCY_SCALE,
+                           "max_err": consistency_err,
+                           "tol": TOL_CONSISTENCY,
+                           "control_tf32_max_err": consistency_control},
+           "sampler_tol_z": TOL_SAMPLER_Z, "kernel_launches": counts,
+           "control_tf32": None if control is None else {
+               "cases": len(control), "worst": max(worst(r)
+                                                   for r in control)},
+           "seconds": time.perf_counter() - t0}
+    if over or bad_samplers or any(counts.values()):
+        raise SystemExit("op_corpus: %s" % json.dumps(out))
+    if control is not None and out["control_tf32"]["worst"] \
+            <= TOL_OP_CORPUS:
+        raise SystemExit("op_corpus: the TF32 control passes the bound, "
+                         "so it cannot tell TF32 from f32: %s"
+                         % json.dumps(out))
+    if consistency_control is not None \
+            and consistency_control <= TOL_CONSISTENCY:
+        raise SystemExit("op_corpus: check_consistency's TF32 control "
+                         "passes its bound: %s" % json.dumps(out))
+    return out
+
+
+def _mlp_weights(widths, seed=0):
+    rng = np.random.RandomState(seed)
+    out = []
+    for fan_in, fan_out in zip(widths[:-1], widths[1:]):
+        out.append(rng.normal(0, fan_in ** -0.5, (fan_out, fan_in))
+                   .astype(np.float32))
+        out.append(np.zeros(fan_out, np.float32))
+    return out
+
+
+def imperative_mlp(ctx, widths=AUTOGRAD_WIDTHS, batch=AUTOGRAD_BATCH,
+                   steps=AUTOGRAD_STEPS, lr=0.01, seed=0):
+    """The verify skill's imperative loop: ``mark_variables``, then each
+    step ``autograd.record()`` over FullyConnected/Activation/
+    SoftmaxOutput, ``autograd.backward`` and ``nd.sgd_update(out=w)``, on
+    made data (one batch of ``batch`` rows, labels from a fixed linear
+    map).  Returns (losses, weight changes)."""
+    rng = np.random.RandomState(seed + 1)
+    x0 = rng.normal(0, 1, (batch, widths[0])).astype(np.float32)
+    y0 = np.argmax(x0 @ rng.normal(0, 1, (widths[0], widths[-1])), 1) \
+        .astype(np.float32)
+    init = _mlp_weights(widths, seed)
+    params = [mx.nd.array(w, ctx=ctx) for w in init]
+    grads = [mx.nd.zeros_like(p) for p in params]
+    mx.autograd.mark_variables(params, grads)
+    x, y = mx.nd.array(x0, ctx=ctx), mx.nd.array(y0, ctx=ctx)
+    losses = []
+    for _ in range(steps):
+        with mx.autograd.record():
+            h = x
+            for i in range(len(widths) - 1):
+                h = mx.nd.FullyConnected(h, params[2 * i], params[2 * i + 1],
+                                         num_hidden=widths[i + 1])
+                if i < len(widths) - 2:
+                    h = mx.nd.Activation(h, act_type="relu")
+            out = mx.nd.SoftmaxOutput(h, y)
+        mx.autograd.backward([out])
+        p = out.asnumpy()[np.arange(batch), y0.astype(int)]
+        losses.append(float(-np.log(np.maximum(p, 1e-30)).mean()))
+        for w, g in zip(params, grads):
+            mx.nd.sgd_update(w, g, out=w, lr=lr)
+    return losses, {"p%d" % i: torch.from_numpy(w.asnumpy() - w0)
+                    for i, (w, w0) in enumerate(zip(params, init))}
+
+
+def autograd_check_phase(ctx, check_ctx=None, widths=AUTOGRAD_WIDTHS,
+                         batch=AUTOGRAD_BATCH, steps=AUTOGRAD_STEPS,
+                         flash=AUTOGRAD_FLASH):
+    """(a) :func:`imperative_mlp` at ``train_mnist.py``'s widths on
+    ``ctx`` and ``check_ctx`` (default: the CPU) from the same weights:
+    losses and each weight's change within ``TOL_AUTOGRAD_CHECK``, and on
+    the card the same loop with TF32 matmuls, run as a control, must miss
+    it.  (b) ``nd._contrib_FlashAttention`` recorded in f32 on ``flash``
+    (B, T, H, D) causal and differentiated by ``autograd.backward`` with a
+    seeded head gradient: on the card K1 and K3 launch once each (the
+    delta kernel once), nothing else; dQ, dK and dV equal, bit for bit,
+    the Executor route's on the same inputs."""
+    check_ctx = check_ctx or mx.cpu()
+    on_card = ctx.device_type == "gpu"
+    t0 = time.perf_counter()
+    losses, delta = imperative_mlp(ctx, widths, batch, steps)
+    ref_losses, ref_delta = imperative_mlp(check_ctx, widths, batch, steps)
+    loss_diff = float(np.max(np.abs(np.subtract(losses, ref_losses))
+                             / np.abs(ref_losses)))
+    mlp = {"widths": list(widths), "batch": batch, "steps": steps,
+           "losses": [losses, ref_losses], "max_rel_loss_diff": loss_diff,
+           **update_diff(delta, ref_delta), "tol": TOL_AUTOGRAD_CHECK,
+           "control_tf32": None}
+    if on_card:
+        with tf32_mode():
+            tf32_losses, tf32_delta = imperative_mlp(ctx, widths, batch,
+                                                     steps)
+        mlp["control_tf32"] = dict(
+            update_diff(tf32_delta, ref_delta), max_rel_loss_diff=float(
+                np.max(np.abs(np.subtract(tf32_losses, ref_losses))
+                       / np.abs(ref_losses))))
+
+    b, t, h, d = flash
+    rng = np.random.RandomState(3)
+    qkv = [rng.normal(0, 1, (b, t, h, d)).astype(np.float32)
+           for _ in range(3)]
+    dout = rng.normal(0, 1, (b, t, h, d)).astype(np.float32)
+    arrs = [mx.nd.array(v, ctx=ctx) for v in qkv]
+    for a in arrs:
+        a.attach_grad()
+    zero_all_counts()
+    with mx.autograd.record():
+        o = mx.nd._contrib_FlashAttention(*arrs, causal=True)
+    mx.autograd.backward([o], [mx.nd.array(dout, ctx=ctx)])
+    mx.nd.waitall()
+    counts = all_counts()
+    by_source = flash_source_counts()
+    names = ("q", "k", "v")
+    sym = mx.sym._contrib_FlashAttention(
+        *[mx.sym.Variable(n) for n in names], causal=True)
+    exe = sym.bind(ctx, {n: mx.nd.array(v, ctx=ctx)
+                         for n, v in zip(names, qkv)})
+    exe.forward(is_train=True)
+    exe.backward([mx.nd.array(dout, ctx=ctx)])
+    same = {n: bool(torch.equal(a.grad.data, exe.grad_dict[n].data))
+            for n, a in zip(names, arrs)}
+    out_same = bool(torch.equal(o.data, exe.outputs[0].data))
+    flash_out = {"shape": list(flash), "dtype": "float32", "causal": True,
+                 "launches": counts, "source_launches": by_source,
+                 "grads_equal_executor": same,
+                 "output_equal_executor": out_same}
+    out = {"contexts": [str(ctx), str(check_ctx)], "mlp": mlp,
+           "flash": flash_out, "seconds": time.perf_counter() - t0}
+    bad = []
+    if max(loss_diff, mlp["max_rel_update_diff"]) > TOL_AUTOGRAD_CHECK \
+            or not np.isfinite(losses + ref_losses).all() \
+            or not losses[-1] < losses[0]:
+        bad.append("the imperative loop")
+    control = mlp["control_tf32"]
+    if control is not None and max(
+            control["max_rel_update_diff"],
+            control["max_rel_loss_diff"]) <= TOL_AUTOGRAD_CHECK:
+        bad.append("the TF32 control passes the bound")
+    want = dict.fromkeys(counts, 0)
+    if on_card:
+        want.update(flash_attention_fwd=1, flash_attention_bwd=1,
+                    flash_attention_delta=1)
+    if counts != want:
+        bad.append("launches %s, want %s" % (counts, want))
+    want_source = dict.fromkeys(by_source, 0)
+    if on_card:
+        want_source.update(flash_attention_fwd=1, flash_attention_bwd=1)
+    if by_source != want_source:
+        bad.append("launches by source %s, want %s" % (by_source,
+                                                        want_source))
+    if not all(same.values()) or not out_same:
+        bad.append("the autograd route differs from the Executor's")
+    if bad:
+        raise SystemExit("autograd_check: %s: %s" % ("; ".join(bad),
+                                                      json.dumps(out)))
+    return out
+
+
+def _dcgan_args(cfg, **over):
+    cfg = dict(cfg, **over)
+    return dcgan.parse_args([
+        "--size", str(cfg["size"]), "--ngf", str(cfg["ngf"]),
+        "--ndf", str(cfg["ndf"]), "--nc", str(cfg["nc"]),
+        "--z", str(cfg["z"]), "--batch-size", str(cfg["batch_size"]),
+        "--images", str(cfg["images"]), "--epochs", str(cfg["epochs"]),
+        "--log-every", "8"])
+
+
+def dcgan_train_phase(ctx, cfg=DCGAN_FULL, params=DCGAN_PARAMS):
+    """The DCGAN of ``tools/dcgan.py`` (the Module API: Deconvolution,
+    BatchNorm, LeakyReLU, LogisticRegressionOutput, ``+=`` on gradient
+    arrays, input gradients into the generator's backward) at ``cfg``'s
+    widths on ``ctx`` for its epochs, the kernel counts set to 0 just
+    before and read just after (no kernel lies on this path).  Checks:
+    the parameter counts (``params``, when given), every parameter finite,
+    every iteration run, every count 0.  Reports the median ms of an
+    iteration past the first epoch (synchronized), images/s, peak memory
+    and the discriminator's accuracy history."""
+    if ctx.device_type == "gpu":
+        gc.collect()
+        torch.cuda.empty_cache()
+    args = _dcgan_args(cfg)
+    t0 = time.perf_counter()
+    zero_all_counts()
+    out, _g, _d = dcgan.run(args, ctx)
+    out["kernel_launches"] = counts = all_counts()
+    out["flash_source_launches"] = by_source = flash_source_counts()
+    out["seconds"] = time.perf_counter() - t0
+    if ctx.device_type == "gpu":
+        out["nvidia_smi"] = nvidia_smi()
+    bad = []
+    if params is not None and (out["generator_params"],
+                               out["discriminator_params"]) != params:
+        bad.append("parameters %d + %d, want %d + %d" % (
+            out["generator_params"], out["discriminator_params"], *params))
+    if not out["finite"]:
+        bad.append("a parameter is not finite")
+    if out["iterations"] != cfg["epochs"] * (cfg["images"]
+                                             // cfg["batch_size"]):
+        bad.append("%d iterations" % out["iterations"])
+    if any(counts.values()) or any(by_source.values()):
+        bad.append("a kernel launched: %s %s" % (counts, by_source))
+    if bad:
+        raise SystemExit("dcgan_train: %s: %s" % ("; ".join(bad),
+                                                   json.dumps(out)))
+    return out
+
+
+def dcgan_check_phase(ctx, cfg=DCGAN_CHECK, check_ctx=None):
+    """``cfg["iterations"]`` iterations of ``tools/dcgan.py``'s loop at
+    ``cfg``'s size in f32 on ``ctx`` and on ``check_ctx`` (default: the
+    CPU) from the same initial parameters, noise and images: per leaf of
+    the generator and the discriminator ||change - CPU's|| / ||CPU's||
+    within ``TOL_DCGAN_CHECK``, and per BatchNorm moving statistic within
+    ``TOL_DCGAN_CHECK_AUX``; on the card the same iterations with TF32 in
+    cuBLAS and cuDNN both, run as a control, must miss a bound."""
+    check_ctx = check_ctx or mx.cpu()
+    t0 = time.perf_counter()
+    args = _dcgan_args(dict(cfg, epochs=1,
+                            images=cfg["batch_size"] * cfg["iterations"]))
+    kw = dict(batch_size=args.batch_size, size=args.size, ngf=args.ngf,
+              ndf=args.ndf, nc=args.nc, z=args.z, lr=args.lr,
+              beta1=args.beta1, n_images=args.images, log_every=1)
+    g0, d0, _h = dcgan.train(epochs=0, ctx=mx.cpu(), **kw)
+    init = [{k: v.asnumpy() for k, v in d.items()}
+            for m in (g0, d0) for d in m.get_params()]
+
+    def run(c, tf32=False):
+        with tf32_mode(tf32):
+            g, d, hist = dcgan.train(epochs=1, ctx=c, init=init, **kw)
+        now = [{k: v.asnumpy() for k, v in p.items()}
+               for m in (g, d) for p in m.get_params()]
+        arg = {k: torch.from_numpy(v - i[k])
+               for n, i in zip(now[0::2], init[0::2]) for k, v in n.items()}
+        aux = {k: torch.from_numpy(v - i[k])
+               for n, i in zip(now[1::2], init[1::2]) for k, v in n.items()}
+        return hist, arg, aux
+
+    hist, arg, aux = run(ctx)
+    ref_hist, ref_arg, ref_aux = run(check_ctx)
+    moved = {k for k, v in ref_arg.items() if v.norm().item() > 0}
+    out = {"config": cfg, "contexts": [str(ctx), str(check_ctx)],
+           "d_accuracy": [hist, ref_hist],
+           "params": update_diff({k: arg[k] for k in moved},
+                                 {k: ref_arg[k] for k in moved}, True),
+           "aux": update_diff(aux, ref_aux, True),
+           "tol": TOL_DCGAN_CHECK, "tol_aux": TOL_DCGAN_CHECK_AUX,
+           "control_tf32": None}
+    if ctx.device_type == "gpu":
+        _h, t_arg, t_aux = run(ctx, tf32=True)
+        out["control_tf32"] = {
+            "params": update_diff({k: t_arg[k] for k in moved},
+                                  {k: ref_arg[k] for k in moved}),
+            "aux": update_diff(t_aux, ref_aux)}
+    out["seconds"] = time.perf_counter() - t0
+
+    def within(o):
+        return o["params"]["max_rel_update_diff"] <= TOL_DCGAN_CHECK \
+            and o["aux"]["max_rel_update_diff"] <= TOL_DCGAN_CHECK_AUX
+
+    if not within(out):
+        raise SystemExit("dcgan_check: %s" % json.dumps(out))
+    if out["control_tf32"] is not None and within(out["control_tf32"]):
+        raise SystemExit("dcgan_check: the TF32 control passes both bounds, "
+                         "so they cannot tell it from f32: %s"
+                         % json.dumps(out))
     return out
 
 
@@ -2097,14 +2525,9 @@ def resnet_train_check_phase(ctx, batch=8, image=64, check_ctx=None,
                                                dtype="float32", ctx=c)
         before = {k: v.to("cpu", copy=True) for k, v in
                   list(trainer.params.items()) + list(trainer.aux.items())}
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
         matmul_stats.launches = 0
-        try:
+        with tf32_mode(tf32):
             loss = float(trainer.step(staged))
-        finally:
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
         now = dict(trainer.params, **trainer.aux)
         return loss, matmul_stats.launches, \
             {k: now[k].cpu() - before[k] for k in before}
@@ -2899,7 +3322,8 @@ def block_experiment_phase(batch=128, repeats=5, f32_repeats=2):
         case["launches"] = n
         case["ok"] = case["ok"] and n[want_route] == 2
         if y.dtype == torch.float32:
-            control = with_tf32(lambda: tool.block_plain(*args)).float()
+            with tf32_mode():
+                control = tool.block_plain(*args).float()
             case["control_tf32_rel_err"] = \
                 (control - ref).abs().max().item() / case["y_ref_max"]
             case["ok"] = case["ok"] and \
@@ -3124,6 +3548,22 @@ def block_summary(name, source, launches, sets, ptxas, **extra):
         "ptxas": ptxas}, **extra)
 
 
+#: the launch counter (:func:`all_counts`) of each summary entry's kernel
+COUNTER_OF = {
+    "flash_attention_fwd": "flash_attention_fwd",
+    "flash_attention_fwd_sm90": "flash_attention_fwd",
+    "flash_attention_bwd": "flash_attention_bwd",
+    "flash_attention_bwd_sm90": "flash_attention_bwd",
+    "flash_attention_delta": "flash_attention_delta",
+    "matmul_stats": "matmul_stats", "matmul_stats_f32": "matmul_stats",
+    "rtc": "rtc",
+    "matmul_stats_experiment.matmul_stats": "matmul_stats",
+    "matmul_stats_experiment.matmul_stats_prologue":
+        "matmul_stats_prologue",
+    "bottleneck_block": "bottleneck_block",
+    "bottleneck_block_general": "bottleneck_block_general"}
+
+
 def kernel_summary(name, source, replaces, also_replaces, case, launches,
                    **extra):
     """One entry of the kernel summary line, from a kernels-phase case and
@@ -3170,6 +3610,12 @@ def main():
     emit("bucketing_check", **bucketing_check_phase(mx.gpu(0)))
     emit("rnn_ops", **rnn_ops_phase(mx.gpu(0)))
     emit("module_api", **module_api_phase(mx.gpu(0)))
+    emit("op_corpus", **op_corpus_phase())
+    autograd = autograd_check_phase(mx.gpu(0))
+    emit("autograd_check", **autograd)
+    dcgan_run = dcgan_train_phase(mx.gpu(0))
+    emit("dcgan_train", **dcgan_run)
+    emit("dcgan_check", **dcgan_check_phase(mx.gpu(0)))
     k5 = resnet_kernels_phase()
     resnet = resnet_train_phase(mx.gpu(0))
     emit("resnet_train", **resnet)
@@ -3234,7 +3680,7 @@ def main():
         next(e for e in delta if e["shape"] == shape
              and e["dtype"] == "float32")
         for shape in ([4, 1024, 16, 64], module_shape))
-    print(json.dumps({"kernels": [
+    kernels = [
         # f32, the split-TF32 kernels: serving (K1) and the f32 train check
         kernel_summary(
             "flash_attention_fwd", fwd_src["float32"], k1, k2,
@@ -3334,7 +3780,20 @@ def main():
             general_sets=[{k: e[k] for k in (
                 "channels", "dtype", "rel_err", "bit_identical", "plan")}
                 for e in blk["general_sets"]]),
-    ]}), flush=True)
+    ]
+    # each kernel's launches on the DCGAN path and in autograd_check's
+    # recorded f32 attention: the flash forward and backward by source
+    # (f32 and bf16 apart), the rest by their wrapper's counter
+    for e in kernels:
+        counter = COUNTER_OF[e["name"]]
+        for key, run, by_source in (
+                ("dcgan_launches", dcgan_run["kernel_launches"],
+                 dcgan_run["flash_source_launches"]),
+                ("autograd_launches", autograd["flash"]["launches"],
+                 autograd["flash"]["source_launches"])):
+            e[key] = by_source[e["name"]] if e["name"] in by_source \
+                else run[counter]
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -20,7 +20,15 @@ imperative optimizer, fed by ``mx.io`` iterators and scored by
 ``mx.mod.BucketingModule`` trains sequences of several lengths, one
 executor a bucket sharing one parameter set, on graphs written by the
 cells of ``mx.rnn`` (``python -m mxnet_tpu_torch.tools.lstm_bucketing``);
-``mx.Monitor`` reads statistics of intermediate outputs.  ``mx.recordio``
+``mx.Monitor`` reads statistics of intermediate outputs.  ``mx.nd`` arrays
+take the reference's operators and every registered op, and
+``mx.autograd`` differentiates imperative code through torch's autograd::
+
+    w = mx.nd.array(np.ones((4, 3)))
+    w.attach_grad()
+    with mx.autograd.record():
+        loss = (mx.nd.dot(x, w) ** 2).sum()
+    loss.backward()          # w.grad holds d loss / d w  ``mx.recordio``
 reads and writes the reference's ``.rec`` files, ``mx.io.ImageRecordIter``
 decodes JPEG records on the port's native pipeline and ``mx.image.ImageIter``
 with PIL; ``mx.io.DevicePrefetchIter`` stages batches on the card ahead of
@@ -40,6 +48,7 @@ from .base import MXNetError
 from .context import Context, cpu, gpu, current_context, num_gpus
 from . import base
 from . import random
+from . import autograd
 from . import ndarray
 from . import ndarray as nd
 from . import ops
@@ -75,3 +84,5 @@ from . import monitor
 from . import monitor as mon
 from .monitor import Monitor
 from . import rnn
+from . import contrib
+from . import test_utils

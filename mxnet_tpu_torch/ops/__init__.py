@@ -10,6 +10,7 @@ from .registry import OpContext, Operator, apply_op, get_op, list_ops, \
     register
 from . import tensor as _tensor              # noqa: F401
 from . import nn as _nn                      # noqa: F401
+from . import optimizer_ops as _opt          # noqa: F401
 from . import flash_attention as _flash      # noqa: F401
 from . import rnn as _rnn                    # noqa: F401
 

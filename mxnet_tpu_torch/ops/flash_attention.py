@@ -17,7 +17,10 @@ stream.
 * :func:`flash_attention_fwd`, :func:`flash_attention_bwd` and
   :func:`flash_attention_delta` are the wrappers: a CUDA tensor launches
   the kernel of its dtype or raises; a CPU (or meta) tensor takes the plain
-  version.  ``.launches`` on each counts launches of either route.
+  version.  ``.launches`` on each counts launches of either route, and
+  ``.source_launches`` on the forward and the backward counts them by
+  kernel library (``flash_attention_fwd`` for f32,
+  ``flash_attention_fwd_sm90`` for bf16, and so for the backward).
 * :func:`flash_attention_plain`, :func:`flash_attention_bwd_plain` and
   :func:`flash_attention_delta_plain` compute the same results in PyTorch,
   the TPU kernels' panel arithmetic in f32.  The tests and
@@ -212,6 +215,7 @@ def _launch(q, k, v, causal):
         raise MXNetError("flash_attention_fwd: CUDA launch failed (%s): %s "
                          "(%d)" % (route[0], err(rc).decode(), rc))
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.source_launches[route[0]] += 1
     return o, lse
 
 
@@ -228,6 +232,8 @@ def flash_attention_fwd(q, k, v, causal):
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.source_launches = {r[0]: 0
+                                       for r in _FWD_ROUTES.values()}
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, do, causal):
@@ -356,6 +362,7 @@ def _launch_bwd(q, k, v, o, lse, do, causal):
         raise MXNetError("%s: CUDA launch failed (%s): %s (%d)"
                          % (name, route[0], err(rc).decode(), rc))
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.source_launches[route[0]] += 1
     return dq, dk, dv
 
 
@@ -373,6 +380,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal):
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.source_launches = {r[0]: 0
+                                       for r in _BWD_ROUTES.values()}
 
 
 class FlashAttention(torch.autograd.Function):

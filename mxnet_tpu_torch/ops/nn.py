@@ -107,13 +107,29 @@ def conv2d(x, w, bias, stride, pad, dilate, groups, nhwc):
 
 
 def conv_statics(attrs):
-    """(kernel, stride, dilate, pad, groups) of a 2-d Convolution, with
+    """(kernel, stride, dilate, pad, groups) of a Convolution, with
     the reference's defaults filled in."""
     kernel = tuple(attrs["kernel"])
     nd = len(kernel)
     return (kernel, tuple(attrs["stride"]) or (1,) * nd,
             tuple(attrs["dilate"]) or (1,) * nd,
             tuple(attrs["pad"]) or (0,) * nd, int(attrs["num_group"]))
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+_CONV_T = {1: F.conv_transpose1d, 2: F.conv_transpose2d,
+           3: F.conv_transpose3d}
+
+
+def _pinned_layout(attrs, op):
+    layout = attrs.get("layout") or _IMAGE_LAYOUT
+    if attrs.get("layout") and _IMAGE_LAYOUT == "NHWC" \
+            and attrs["layout"] != "NHWC":
+        raise MXNetError(
+            "%s node pins layout=%r but the trainer runs "
+            "image_layout('NHWC'); drop the explicit layout attr or train "
+            "in NCHW" % (op, attrs["layout"]))
+    return layout
 
 
 @register("Convolution", arg_names=lambda a: ("data", "weight")
@@ -124,50 +140,80 @@ def conv_statics(attrs):
                   "layout": None},
           aliases=("convolution", "Convolution_v1"))
 def convolution(attrs, ctx, data, weight, bias=None):
-    """2-d convolution, NCHW or (under ``image_layout("NHWC")`` or a
-    ``layout="NHWC"`` attr) NHWC; weight (num_filter, C/group, kh, kw).
-    1-d and 3-d convolutions are not yet ported."""
+    """1-d, 2-d or 3-d convolution, NCW/NCHW/NCDHW or (2-d, under
+    ``image_layout("NHWC")`` or a ``layout="NHWC"`` attr) NHWC; weight
+    (num_filter, C/group, *kernel)."""
     kernel, stride, dilate, pad, groups = conv_statics(attrs)
-    if len(kernel) != 2:
-        raise MXNetError("Convolution with a %d-d kernel is not yet ported "
-                         "to mxnet_tpu_torch" % len(kernel))
-    layout = attrs.get("layout") or _IMAGE_LAYOUT
-    if attrs.get("layout") and _IMAGE_LAYOUT == "NHWC" \
-            and attrs["layout"] != "NHWC":
-        raise MXNetError(
-            "Convolution node pins layout=%r but the trainer runs "
-            "image_layout('NHWC'); drop the explicit layout attr or train "
-            "in NCHW" % (attrs["layout"],))
-    y = conv2d(data, weight, bias, stride, pad, dilate, groups,
-               layout == "NHWC")
+    layout = _pinned_layout(attrs, "Convolution")
+    if len(kernel) == 2:
+        y = conv2d(data, weight, bias, stride, pad, dilate, groups,
+                   layout == "NHWC")
+    elif len(kernel) in _CONV:
+        y = _CONV[len(kernel)](data, weight, bias, stride, pad, dilate,
+                               groups)
+    else:
+        raise MXNetError("Convolution with a %d-d kernel" % len(kernel))
+    return y.to(data.dtype)
+
+
+@register("Deconvolution", arg_names=lambda a: ("data", "weight")
+          if a["no_bias"] else ("data", "weight", "bias"),
+          params={"kernel": (1, 1), "stride": (), "dilate": (), "pad": (),
+                  "adj": (), "target_shape": (), "num_filter": 0,
+                  "num_group": 1, "no_bias": True, "workspace": 512,
+                  "cudnn_tune": None, "cudnn_off": False, "layout": None})
+def deconvolution(attrs, ctx, data, weight, bias=None):
+    """1-d, 2-d or 3-d transposed convolution; weight (C_in, C_out/group,
+    *kernel), the output (in - 1) * stride - 2 * pad + kernel + adj.  As
+    in the JAX package, ``dilate`` and ``target_shape`` are not read (the
+    reference reads both); 2-d activations may be NHWC, as for
+    Convolution."""
+    kernel = tuple(int(k) for k in attrs["kernel"])
+    nd = len(kernel)
+    if nd not in _CONV_T:
+        raise MXNetError("Deconvolution with a %d-d kernel" % nd)
+    stride = tuple(attrs["stride"]) or (1,) * nd
+    pad = tuple(attrs["pad"]) or (0,) * nd
+    adj = tuple(attrs["adj"]) or (0,) * nd
+    groups = int(attrs["num_group"])
+    nhwc = nd == 2 and _is_nhwc(data)
+    x = data.permute(0, 3, 1, 2) if nhwc else data
+    y = _CONV_T[nd](x, weight, bias, stride, pad, adj, groups)
+    if nhwc:
+        y = y.permute(0, 2, 3, 1)
     return y.to(data.dtype)
 
 
 # ------------------------------------------------------------------- pooling
+_POOL = {1: (F.max_pool1d, F.avg_pool1d), 2: (F.max_pool2d, F.avg_pool2d),
+         3: (F.max_pool3d, F.avg_pool3d)}
+
+
 @register("Pooling",
           params={"kernel": (1, 1), "pool_type": "max", "global_pool": False,
                   "stride": (), "pad": (), "pooling_convention": "valid",
                   "cudnn_off": False},
           aliases=("pooling", "Pooling_v1"))
 def pooling(attrs, ctx, data):
-    """2-d max/avg/sum pooling, NCHW or NHWC.  Padding reads -inf for max
-    and 0 otherwise; the stride defaults to 1 (the reference's, not the
-    kernel); ``pooling_convention="full"`` pads the high side up to a
-    whole window; avg divides by the full window, padding included."""
-    if data.dim() != 4:
-        raise MXNetError("Pooling of a %d-d input is not yet ported to "
-                         "mxnet_tpu_torch" % data.dim())
-    nhwc = _IMAGE_LAYOUT == "NHWC"
+    """1-d, 2-d or 3-d max/avg/sum pooling, NCW/NCHW/NCDHW or (2-d) NHWC.
+    Padding reads -inf for max and 0 otherwise; the stride defaults to 1
+    (the reference's, not the kernel); ``pooling_convention="full"`` pads
+    the high side up to a whole window; avg divides by the full window,
+    padding included."""
+    nd = data.dim() - 2
+    if nd not in _POOL:
+        raise MXNetError("Pooling of a %d-d input" % data.dim())
+    nhwc = nd == 2 and _IMAGE_LAYOUT == "NHWC"
     x = data.permute(0, 3, 1, 2) if nhwc else data
     if attrs["global_pool"]:
-        kernel, stride, pad = tuple(x.shape[2:]), (1, 1), (0, 0)
+        kernel, stride, pad = tuple(x.shape[2:]), (1,) * nd, (0,) * nd
     else:
-        kernel = _pair(attrs["kernel"])
-        stride = tuple(attrs["stride"]) or (1, 1)
-        pad = tuple(attrs["pad"]) or (0, 0)
-    extra = [0, 0]
+        kernel = _pair(attrs["kernel"], nd)
+        stride = tuple(attrs["stride"]) or (1,) * nd
+        pad = tuple(attrs["pad"]) or (0,) * nd
+    extra = [0] * nd
     if attrs.get("pooling_convention", "valid") == "full":
-        for i in range(2):
+        for i in range(nd):
             rem = (x.shape[2 + i] + 2 * pad[i] - kernel[i]) % stride[i]
             if rem:
                 extra[i] = stride[i] - rem
@@ -177,15 +223,18 @@ def pooling(attrs, ctx, data):
     fill = float("-inf") if ptype == "max" else 0.0
     if any(extra) or any(p > k // 2 for p, k in zip(pad, kernel)):
         # asymmetric or wide padding: pad explicitly, pool unpadded
-        x = F.pad(x, (pad[1], pad[1] + extra[1], pad[0], pad[0] + extra[0]),
-                  value=fill)
-        pad = (0, 0)
+        widths = []
+        for i in reversed(range(nd)):
+            widths += [pad[i], pad[i] + extra[i]]
+        x = F.pad(x, widths, value=fill)
+        pad = (0,) * nd
+    max_pool, avg_pool = _POOL[nd]
     if ptype == "max":
-        y = F.max_pool2d(x, kernel, stride, pad)
+        y = max_pool(x, kernel, stride, pad)
     else:
-        y = F.avg_pool2d(x, kernel, stride, pad, count_include_pad=True)
+        y = avg_pool(x, kernel, stride, pad, count_include_pad=True)
         if ptype == "sum":
-            y = y * (kernel[0] * kernel[1])
+            y = y * math.prod(kernel)
     y = y.to(data.dtype)
     return y.permute(0, 2, 3, 1) if nhwc else y
 
@@ -338,14 +387,12 @@ def batch_norm(attrs, ctx, data, gamma, beta, moving_mean, moving_var):
 
 
 @register("LayerNorm", arg_names=("data", "gamma", "beta"),
+          num_outputs=lambda a: 3 if a.get("output_mean_var") else 1,
           params={"axis": -1, "eps": 1e-5, "output_mean_var": False})
 def layer_norm(attrs, ctx, data, gamma, beta):
     """Layer normalization over ``axis``; statistics in f32, the result
-    cast back to the input's dtype.  ``output_mean_var`` is not yet
-    ported."""
-    if attrs["output_mean_var"]:
-        raise MXNetError("LayerNorm output_mean_var=True is not yet ported "
-                         "to mxnet_tpu_torch")
+    cast back to the input's dtype.  ``output_mean_var`` adds the mean and
+    the standard deviation sqrt(var + eps), without ``axis`` (f32)."""
     axis = int(attrs["axis"])
     eps = float(attrs["eps"])
     xf = data.float()
@@ -354,8 +401,11 @@ def layer_norm(attrs, ctx, data, gamma, beta):
     inv = torch.rsqrt(var + eps)
     bshape = tuple(data.shape[axis] if i == (axis % data.dim()) else 1
                    for i in range(data.dim()))
-    return ((xf - mean) * inv * gamma.float().reshape(bshape)
-            + beta.float().reshape(bshape)).to(data.dtype)
+    out = ((xf - mean) * inv * gamma.float().reshape(bshape)
+           + beta.float().reshape(bshape)).to(data.dtype)
+    if attrs["output_mean_var"]:
+        return out, mean.squeeze(axis), torch.sqrt(var + eps).squeeze(axis)
+    return out
 
 
 _ACTIVATIONS = {
@@ -520,3 +570,443 @@ def slice_channel(attrs, ctx, data):
 @register("SwapAxis", params={"dim1": 0, "dim2": 0}, aliases=("swapaxes",))
 def swapaxis(attrs, ctx, data):
     return data.transpose(int(attrs["dim1"]), int(attrs["dim2"]))
+
+
+# ------------------------------------------------------------ normalization
+@register("InstanceNorm", arg_names=("data", "gamma", "beta"),
+          params={"eps": 1e-3})
+def instance_norm(attrs, ctx, data, gamma, beta):
+    """Each sample's channels normalized over their spatial axes (biased
+    variance, in the input's dtype), then scaled by ``gamma`` and shifted
+    by ``beta``."""
+    ch = _ch_axis(data)
+    red = [i for i in range(1, data.dim()) if i != ch]
+    mean = data.mean(red, keepdim=True)
+    var = (data - mean).square().mean(red, keepdim=True)
+    bshape = [-1 if i == ch else 1 for i in range(data.dim())]
+    out = (data - mean) * torch.rsqrt(var + float(attrs["eps"]))
+    return out * gamma.reshape(bshape) + beta.reshape(bshape)
+
+
+@register("L2Normalization", params={"eps": 1e-10, "mode": "instance"})
+def l2_normalization(attrs, ctx, data):
+    """``data / sqrt(sum(data^2) + eps)`` over each sample
+    (``"instance"``), its channels (``"channel"``) or its spatial axes
+    (``"spatial"``)."""
+    mode = attrs["mode"]
+    if mode == "instance":
+        red = list(range(1, data.dim()))
+    elif mode == "channel":
+        red = [1]
+    elif mode == "spatial":
+        red = list(range(2, data.dim()))
+    else:
+        raise MXNetError("unknown mode %s" % mode)
+    return data / torch.sqrt(data.square().sum(red, keepdim=True)
+                             + float(attrs["eps"]))
+
+
+@register("LRN", params={"alpha": 1e-4, "beta": 0.75, "knorm": 2.0,
+                         "nsize": 5})
+def lrn(attrs, ctx, data):
+    """Local response normalization across ``nsize`` channels:
+    ``x * (knorm + alpha / nsize * sum(x^2))^-beta``, the sum in f32 over
+    the window centred on each channel (zeros past the edges)."""
+    nsize = int(attrs["nsize"])
+    ch = _ch_axis(data)
+    sq = data.float().square()
+    pre = nsize // 2
+    widths = [0, 0] * (data.dim() - 1 - ch) + [pre, nsize - pre - 1]
+    padded = F.pad(sq, widths)
+    acc = 0
+    for i in range(nsize):
+        acc = acc + padded.narrow(ch, i, data.shape[ch])
+    scale = float(attrs["knorm"]) + (float(attrs["alpha"]) / nsize) * acc
+    return (data * scale ** (-float(attrs["beta"]))).to(data.dtype)
+
+
+# ------------------------------------------------------- activations, more
+@register("LeakyReLU", arg_names=lambda a: ("data", "gamma")
+          if a["act_type"] == "prelu" else ("data",),
+          params={"act_type": "leaky", "slope": 0.25,
+                  "lower_bound": 0.125, "upper_bound": 0.334},
+          stochastic=lambda a: a["act_type"] == "rrelu")
+def leaky_relu(attrs, ctx, data, gamma=None):
+    """x where x > 0, else: ``slope * x`` (leaky), ``gamma[c] * x``
+    (prelu, per channel), ``slope * (e^x - 1)`` (elu) or, for rrelu, x
+    times a slope drawn per element from U(lower_bound, upper_bound) in
+    training and their mean at inference."""
+    t = attrs["act_type"]
+    pos = data > 0
+    if t == "leaky":
+        return torch.where(pos, data, data * float(attrs["slope"]))
+    if t == "prelu":
+        ch = _ch_axis(data)
+        g = gamma.reshape([-1 if i == ch else 1 for i in range(data.dim())])
+        return torch.where(pos, data, data * g)
+    if t == "elu":
+        return torch.where(pos, data,
+                           float(attrs["slope"]) * (torch.exp(data) - 1))
+    if t == "rrelu":
+        lo, hi = float(attrs["lower_bound"]), float(attrs["upper_bound"])
+        if ctx.is_train:
+            slope = torch.rand(data.shape, generator=ctx.require_generator(),
+                               device=data.device).to(data.dtype) \
+                * (hi - lo) + lo
+        else:
+            slope = (lo + hi) / 2.0
+        return torch.where(pos, data, data * slope)
+    raise MXNetError("unknown act_type %s" % t)
+
+
+def _softmax(x, axis):
+    return torch.softmax(x.float(), dim=axis).to(x.dtype)
+
+
+@register("softmax", params={"axis": -1, "temperature": None})
+def softmax_op(attrs, ctx, data):
+    """Softmax over ``axis`` in f32 (of ``data / temperature`` when a
+    temperature is given)."""
+    x = data
+    if attrs.get("temperature"):
+        x = x / float(attrs["temperature"])
+    return _softmax(x, int(attrs["axis"]))
+
+
+@register("log_softmax", params={"axis": -1})
+def log_softmax_op(attrs, ctx, data):
+    return torch.log_softmax(data.float(), dim=int(attrs["axis"])) \
+        .to(data.dtype)
+
+
+@register("SoftmaxActivation", params={"mode": "instance"})
+def softmax_activation(attrs, ctx, data):
+    """Softmax over the channels (``"channel"``) or over each sample's
+    flattened values (``"instance"``)."""
+    if attrs["mode"] == "channel":
+        return _softmax(data, _ch_axis(data))
+    return _softmax(data.reshape(data.shape[0], -1), -1).reshape(data.shape)
+
+
+# -------------------------------------------------------------- loss heads
+def _label_grad(ctx, label):
+    return torch.zeros_like(label) if ctx.needs_input_grad[1] else None
+
+
+class _HeadOutput(torch.autograd.Function):
+    """A loss head: forward ``data`` (``sigmoid(data)`` for the logistic
+    head); the backward ignores the head gradient and returns the
+    reference's gradient for ``data`` and zeros for ``label``, as the JAX
+    package's ``custom_vjp`` heads do: pred - label (linear), sign(pred -
+    label) (MAE), sigmoid(data) - label (logistic), the hinge's (SVM)."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, cfg):
+        ctx.save_for_backward(data, label)
+        ctx.kind, ctx.cfg = kind, cfg
+        return torch.sigmoid(data) if kind == "logistic" else data.clone()
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        data, label = ctx.saved_tensors
+        kind = ctx.kind
+        if kind == "svm":
+            grad = svm_grad(data, label, *ctx.cfg)
+        else:
+            lab = label.reshape(data.shape)
+            if kind == "linear":
+                grad = data - lab
+            elif kind == "mae":
+                grad = torch.sign(data - lab)
+            else:
+                grad = torch.sigmoid(data) - lab
+        return grad.to(data.dtype), _label_grad(ctx, label), None, None
+
+
+def svm_grad(x, label, margin, reg, use_linear):
+    """The SVMOutput gradient: for the L1 hinge (``use_linear``) -y * reg
+    where y * x < margin (y = +1 for the label's class, -1 else); for the
+    squared-margin form each class that violates the margin against the
+    label's score gets reg and the label's class minus reg times their
+    count."""
+    n = x.shape[-1]
+    onehot = (label.long().unsqueeze(-1) == torch.arange(
+        n, device=x.device)).to(x.dtype)
+    sign = 2 * onehot - 1
+    if use_linear:
+        viol = ((margin - sign * x) > 0).to(x.dtype)
+        return -sign * viol * reg
+    correct = (x * onehot).sum(-1, keepdim=True)
+    viol = ((x - correct + margin) > 0).to(x.dtype) * (1 - onehot)
+    return (viol - onehot * viol.sum(-1, keepdim=True)) * reg
+
+
+def _head(kind):
+    def fc(attrs, ctx, data, label):
+        return _HeadOutput.apply(data, label, kind, None)
+    return fc
+
+
+for _n, _k in [("LinearRegressionOutput", "linear"),
+               ("MAERegressionOutput", "mae"),
+               ("LogisticRegressionOutput", "logistic")]:
+    register(_n, arg_names=("data", "label"), params={"grad_scale": 1.0},
+             is_loss=True,
+             doc="forward %s; backward the reference's gradient whatever the "
+             "head gradient (``grad_scale`` is not read, as in the JAX "
+             "package)" % ("sigmoid(data)" if _k == "logistic" else "data"))(
+        _head(_k))
+
+
+@register("SVMOutput", arg_names=("data", "label"),
+          params={"margin": 1.0, "regularization_coefficient": 1.0,
+                  "use_linear": False}, is_loss=True)
+def svm_output(attrs, ctx, data, label):
+    """Forward ``data``; backward :func:`svm_grad`."""
+    return _HeadOutput.apply(
+        data, label, "svm", (float(attrs["margin"]),
+                             float(attrs["regularization_coefficient"]),
+                             bool(attrs["use_linear"])))
+
+
+class _MakeLoss(torch.autograd.Function):
+    """Forward ``data``; the backward is ``grad_scale`` everywhere, divided
+    by the batch (``"batch"``) or by the count of entries above
+    ``valid_thresh`` (``"valid"``, at least 1)."""
+
+    @staticmethod
+    def forward(ctx, data, scale, norm, thresh):
+        ctx.save_for_backward(data)
+        ctx.cfg = (scale, norm, thresh)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, _head_grad):
+        (x,) = ctx.saved_tensors
+        scale, norm, thresh = ctx.cfg
+        s = torch.full((), scale, dtype=x.dtype, device=x.device)
+        if norm == "batch":
+            s = s / x.shape[0]
+        elif norm == "valid":
+            s = s / (x > thresh).sum().clamp_min(1).to(x.dtype)
+        return s.expand(x.shape).to(x.dtype), None, None, None
+
+
+@register("MakeLoss", params={"grad_scale": 1.0, "valid_thresh": 0.0,
+                              "normalization": "null"}, is_loss=True)
+def make_loss(attrs, ctx, data):
+    return _MakeLoss.apply(data, float(attrs["grad_scale"]),
+                           attrs["normalization"],
+                           float(attrs["valid_thresh"]))
+
+
+@register("BlockGrad", aliases=("stop_gradient",))
+def block_grad(attrs, ctx, data):
+    """``data``, through which no gradient flows."""
+    return data.detach()
+
+
+class _KLSparse(torch.autograd.Function):
+    """Forward ``data``; the backward adds the KL sparseness penalty
+    ``penalty * (-s / ma + (1 - s) / (1 - ma))`` of each unit's running
+    mean activation ``ma`` to the head gradient."""
+
+    @staticmethod
+    def forward(ctx, data, ma, s, penalty):
+        ctx.save_for_backward(ma)
+        ctx.cfg = (s, penalty)
+        return data.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        (ma,) = ctx.saved_tensors
+        s, penalty = ctx.cfg
+        reg = penalty * (-s / ma + (1 - s) / (1 - ma))
+        g2 = g.reshape(g.shape[0], -1)
+        return (g2 + reg).reshape(g.shape).to(g.dtype), None, None, None
+
+
+@register("IdentityAttachKLSparseReg", arg_names=("data",),
+          aux_names=("moving_avg",),
+          params={"sparseness_target": 0.1, "penalty": 0.001,
+                  "momentum": 0.9})
+def identity_attach_kl_sparse_reg(attrs, ctx, data, moving_avg):
+    """Identity forward whose backward adds a KL sparseness penalty against
+    the running mean activation ``moving_avg`` (pair with sigmoids).  The
+    running mean moves on the training forward by ``1 - momentum`` toward
+    the batch's mean, and the penalty reads the moved value, as in the JAX
+    package (the reference moves it in the backward).  Returns ``(data,
+    new_moving_avg)``."""
+    momentum = float(attrs["momentum"])
+    ma = moving_avg.detach().float()
+    if ctx.is_train:
+        avg = data.detach().reshape(data.shape[0], -1).float().mean(0)
+        ma = momentum * ma + (1 - momentum) * avg
+    out = _KLSparse.apply(data, ma, float(attrs["sparseness_target"]),
+                          float(attrs["penalty"]))
+    return out, ma.to(moving_avg.dtype)
+
+
+@register("LSoftmax", arg_names=("data", "weight", "label"),
+          params={"num_hidden": 0, "margin": 2, "beta": 1.0,
+                  "beta_min": 0.0, "scale": 1.0, "verbose": False})
+def lsoftmax(attrs, ctx, data, weight, label):
+    """Large-margin softmax's inner product in f32: ``x W^T``, and in
+    training the label's column replaced by ``(beta f + |x||w| psi) / (1 +
+    beta)`` with ``psi(theta) = (-1)^k cos(m theta) - 2k`` on the
+    monotone extension of the cosine."""
+    m = int(attrs["margin"])
+    beta = float(attrs["beta"])
+    x, w = data.float(), weight.float()
+    out = x @ w.t()
+    if m == 1 or not ctx.is_train:
+        return out.to(data.dtype)
+    n = x.shape[0]
+    y = label.long().clamp(0, w.shape[0] - 1)
+    wy = w[y]
+    xn, wn = x.norm(dim=1), wy.norm(dim=1)
+    rows = torch.arange(n, device=x.device)
+    fy = out[rows, y]
+    cos = (fy / (xn * wn).clamp_min(1e-12)).clamp(-1.0, 1.0)
+    j = torch.arange(1, m + 1, dtype=torch.float32, device=x.device)
+    thresholds = torch.cos(j * math.pi / m)
+    k = (cos.detach()[:, None] < thresholds[None, :]).sum(1).float()
+    cos_m = torch.cos(m * torch.acos(cos))
+    psi = torch.pow(-1.0, k) * cos_m - 2.0 * k
+    fy_new = (beta * fy + xn * wn * psi) / (1.0 + beta)
+    return out.index_put((rows, y), fy_new).to(data.dtype)
+
+
+# ---------------------------------------------------------------- shape ops
+@register("Pad", params={"mode": "constant", "pad_width": (),
+                         "constant_value": 0.0})
+def pad_op(attrs, ctx, data):
+    """``pad_width`` (before, after) pairs in the reference's NCHW axis
+    order (permuted for NHWC activations); ``"constant"``, ``"edge"`` or
+    ``"reflect"``.  The last two pad only the spatial axes."""
+    pw = tuple(int(p) for p in attrs["pad_width"])
+    pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
+    if len(pairs) == 4 and _is_nhwc(data):
+        pairs = [pairs[0], pairs[2], pairs[3], pairs[1]]
+    mode = attrs["mode"]
+    if mode == "constant":
+        widths = [w for p in reversed(pairs) for w in p]
+        return F.pad(data, widths, value=float(attrs["constant_value"]))
+    if mode not in ("edge", "reflect"):
+        raise MXNetError("unknown pad mode %s" % mode)
+    if any(p != (0, 0) for p in pairs[:2]):
+        raise MXNetError("Pad %s pads only the spatial axes" % mode)
+    widths = [w for p in reversed(pairs[2:]) for w in p]
+    return F.pad(data, widths,
+                 mode="replicate" if mode == "edge" else "reflect")
+
+
+@register("UpSampling", arg_names=lambda a: tuple(
+    "arg%d" % i for i in range(int(a["num_args"]))),
+          params={"scale": 1, "num_filter": 0, "sample_type": "nearest",
+                  "multi_input_mode": "concat", "num_args": 1,
+                  "workspace": 512},
+          key_var_num_args="num_args")
+def upsampling(attrs, ctx, *args):
+    """Nearest-neighbour upsampling by ``scale``; several inputs are each
+    brought to the first's size times ``scale`` and summed or joined on
+    the channels."""
+    scale = int(attrs["scale"])
+    h_ax = 1 if _is_nhwc(args[0]) else 2
+    target = args[0].shape[h_ax] * scale
+    outs = []
+    for a in args:
+        s = target // a.shape[h_ax]
+        outs.append(a.repeat_interleave(s, dim=h_ax)
+                    .repeat_interleave(s, dim=h_ax + 1))
+    if len(outs) == 1:
+        return outs[0]
+    if attrs["multi_input_mode"] == "sum":
+        out = outs[0]
+        for o in outs[1:]:
+            out = out + o
+        return out
+    return torch.cat(outs, dim=3 if _is_nhwc(args[0]) else 1)
+
+
+@register("Crop", arg_names=lambda a: tuple(
+    "arg%d" % i for i in range(int(a["num_args"]))),
+          params={"num_args": 1, "offset": (0, 0), "h_w": (0, 0),
+                  "center_crop": False},
+          key_var_num_args="num_args")
+def crop(attrs, ctx, *args):
+    """A (h, w) window of ``data``: ``h_w``, or the second input's spatial
+    size; at ``offset`` or centred."""
+    data = args[0]
+    h_ax = 1 if _is_nhwc(data) else 2
+    if len(args) == 2:
+        h, w = args[1].shape[h_ax], args[1].shape[h_ax + 1]
+    else:
+        h, w = (int(v) for v in attrs["h_w"])
+    if attrs["center_crop"]:
+        oh = (data.shape[h_ax] - h) // 2
+        ow = (data.shape[h_ax + 1] - w) // 2
+    else:
+        oh, ow = (int(v) for v in attrs["offset"])
+    return data.narrow(h_ax, oh, h).narrow(h_ax + 1, ow, w)
+
+
+# -------------------------------------------------------------- sequence ops
+def _seq_args(a):
+    return ("data", "sequence_length") if a["use_sequence_length"] \
+        else ("data",)
+
+
+def _lengths(length, data):
+    """The lengths as a (1, B, 1, ...) long tensor against a time-major
+    ``data``."""
+    return length.long().reshape((1, -1) + (1,) * (data.dim() - 2))
+
+
+@register("SequenceMask", arg_names=_seq_args,
+          params={"use_sequence_length": False, "value": 0.0, "axis": 0})
+def sequence_mask(attrs, ctx, data, sequence_length=None):
+    """Time-major (T, B, ...) ``data`` with the steps past each sequence's
+    length set to ``value``."""
+    if sequence_length is None:
+        return data
+    steps = torch.arange(data.shape[0], device=data.device).reshape(
+        (-1,) + (1,) * (data.dim() - 1))
+    return torch.where(steps < _lengths(sequence_length, data), data,
+                       torch.full((), float(attrs["value"]),
+                                  dtype=data.dtype, device=data.device))
+
+
+@register("SequenceLast", arg_names=_seq_args,
+          params={"use_sequence_length": False, "axis": 0})
+def sequence_last(attrs, ctx, data, sequence_length=None):
+    """Each sequence's last step (T, B, ...) -> (B, ...)."""
+    if sequence_length is None:
+        return data[-1]
+    idx = (_lengths(sequence_length, data) - 1).expand(
+        (1,) + tuple(data.shape[1:]))
+    return data.gather(0, idx)[0]
+
+
+@register("SequenceReverse", arg_names=_seq_args,
+          params={"use_sequence_length": False, "axis": 0})
+def sequence_reverse(attrs, ctx, data, sequence_length=None):
+    """Each sequence's first ``length`` steps reversed, the rest kept."""
+    if sequence_length is None:
+        return data.flip(0)
+    t = data.shape[0]
+    steps = torch.arange(t, device=data.device).reshape(
+        (t,) + (1,) * (data.dim() - 1))
+    lens = _lengths(sequence_length, data)
+    src = torch.where(steps < lens, lens - 1 - steps, steps)
+    return data.gather(0, src.expand(data.shape))
+
+
+@register("softmax_cross_entropy", arg_names=("data", "label"))
+def softmax_cross_entropy(attrs, ctx, data, label):
+    """``-sum(log_softmax(data)[i, label[i]])`` in f32, shape (1,); a label
+    out of range clips."""
+    logp = torch.log_softmax(data.float(), dim=-1)
+    idx = label.long().clamp(0, data.shape[-1] - 1)
+    picked = logp.gather(-1, idx[:, None])
+    return (-picked.sum()).reshape(1).to(data.dtype)

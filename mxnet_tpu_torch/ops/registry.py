@@ -51,10 +51,17 @@ class Operator:
     aux_names: object = ()               # tuple or callable(attrs)->tuple
     num_outputs: object = 1              # int or callable(attrs)->int
     params: dict = field(default_factory=dict)
-    stochastic: bool = False             # eval_graph hands it the generator
+    stochastic: object = False           # bool or callable(attrs)->bool:
+                                         # it is handed the generator
     is_loss: bool = False                # output op: a gradient source
     key_var_num_args: Optional[str] = None  # 'num_args' of Concat
+    mutate: tuple = ()                   # inputs the op updates (their new
+                                         # values follow the aux updates)
     doc: str = ""
+
+    def is_stochastic(self, attrs):
+        s = self.stochastic
+        return bool(s(attrs) if callable(s) else s)
 
     def get_arg_names(self, attrs):
         a = self.arg_names
@@ -109,11 +116,13 @@ def parse_attrs(param_spec, raw, op_name="<op>"):
 
 def register(name, arg_names=("data",), aux_names=(), num_outputs=1,
              params=None, stochastic=False, is_loss=False, aliases=(),
-             key_var_num_args=None, doc=""):
+             key_var_num_args=None, mutate=(), doc=""):
     """Decorator: register ``fcompute`` under ``name`` and its aliases.  A
     name or alias registered twice is an error.  ``key_var_num_args``
     names the parameter that counts a variadic op's inputs, which
-    ``mx.sym.<op>`` fills from the inputs it is given."""
+    ``mx.sym.<op>`` fills from the inputs it is given; ``mutate`` names the
+    inputs whose new values fcompute returns after its outputs (the
+    optimizer ops' states), which ``mx.nd.<op>`` writes back."""
     def deco(fn):
         for n in (name,) + tuple(aliases):
             if n in _OP_REGISTRY or n in _ALIASES:
@@ -123,7 +132,7 @@ def register(name, arg_names=("data",), aux_names=(), num_outputs=1,
             aux_names=aux_names, num_outputs=num_outputs,
             params=dict(params or {}), stochastic=stochastic,
             is_loss=is_loss, key_var_num_args=key_var_num_args,
-            doc=doc or fn.__doc__ or "")
+            mutate=tuple(mutate), doc=doc or fn.__doc__ or "")
         for a in aliases:
             _ALIASES[a] = name
         return fn

@@ -69,6 +69,21 @@ def _conv(attrs, known):
     return out
 
 
+@register_param_shapes("Deconvolution")
+def _deconv(attrs, known):
+    data = known.get("data")
+    if data is None:
+        return {}
+    kernel = tuple(int(k) for k in attrs["kernel"])
+    num_filter = int(attrs["num_filter"])
+    # (C_in, num_filter / group, *kernel), as the reference infers it
+    out = {"weight": (_channels(data), num_filter // int(attrs["num_group"]))
+           + kernel}
+    if not attrs["no_bias"]:
+        out["bias"] = (num_filter,)
+    return out
+
+
 @register_param_shapes("BatchNorm")
 def _bn(attrs, known):
     data = known.get("data")
@@ -77,6 +92,23 @@ def _bn(attrs, known):
     axis = int(attrs.get("axis", 1))
     c = (_channels(data) if axis == 1 else int(data[axis]),)
     return {"gamma": c, "beta": c, "moving_mean": c, "moving_var": c}
+
+
+@register_param_shapes("InstanceNorm")
+def _in(attrs, known):
+    data = known.get("data")
+    if data is None:
+        return {}
+    c = (_channels(data),)
+    return {"gamma": c, "beta": c}
+
+
+@register_param_shapes("LeakyReLU")
+def _prelu(attrs, known):
+    data = known.get("data")
+    if data is None or attrs["act_type"] != "prelu":
+        return {}
+    return {"gamma": (_channels(data),)}
 
 
 @register_param_shapes("LayerNorm")
@@ -101,6 +133,22 @@ def _softmax_out(attrs, known):
     if attrs.get("multi_output"):
         return {"label": (int(data[0]),) + tuple(int(d) for d in data[2:])}
     return {"label": (int(data[0]),)}
+
+
+@register_param_shapes("SVMOutput")
+def _svm_out(attrs, known):
+    data = known.get("data")
+    return {} if data is None else {"label": (int(data[0]),)}
+
+
+def _same_as_data(attrs, known):
+    data = known.get("data")
+    return {} if data is None else {"label": tuple(data)}
+
+
+for _nm in ("LinearRegressionOutput", "MAERegressionOutput",
+            "LogisticRegressionOutput"):
+    register_param_shapes(_nm)(_same_as_data)
 
 
 @register_param_shapes("RNN")

@@ -180,7 +180,8 @@ def eval_graph(topo, entries, var_values, is_train=False, device=None,
                 continue
         ins = [vals[id(src)][idx] for (src, idx) in node.inputs]
         outs = apply_op(node.op, source_attrs(node, batch_size),
-                        sctx if node.op.stochastic else octx, *ins)
+                        sctx if node.op.is_stochastic(node.attrs) else octx,
+                        *ins)
         n_vis = node.num_outputs()
         vals[id(node)] = outs[:n_vis]
         thread_aux(node, outs[n_vis:])

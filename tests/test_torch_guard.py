@@ -48,7 +48,10 @@ def test_scan_covers_the_package():
                 ("tools", "lstm_bucketing.py"), ("config.py",),
                 ("recordio.py",), ("io_native.py",), ("image.py",),
                 ("tools", "fit.py"), ("tools", "train_imagenet.py"),
-                ("tools", "io_train_bench.py"), ("tools", "im2rec.py")):
+                ("tools", "io_train_bench.py"), ("tools", "im2rec.py"),
+                ("autograd.py",), ("test_utils.py",),
+                ("contrib", "autograd.py"), ("tools", "dcgan.py"),
+                ("tools", "op_corpus.py")):
         assert os.path.join("mxnet_tpu_torch", *rel) in names
 
 
