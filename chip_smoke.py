@@ -119,7 +119,31 @@ Phases, one JSON line each:
    card and the CPU from the same parameters, noise and images: each
    leaf's change and each moving statistic's within their bounds, and a
    control with TF32 in cuBLAS and cuDNN both must miss one;
-17. ``kernels`` of K5 (``matmul_stats``, the GEMM with the BatchNorm
+17. ``detection_ops``: the ten ops of the detection path on the card
+   against the CPU: the op corpus's cases of them (gradients included);
+   MultiBoxPrior, MultiBoxTarget (hard negatives 3:1) and
+   MultiBoxDetection (NMS over the 400 best) at SSD300's 8108 anchors,
+   batch 32, padded labels (the masks, class targets and detected class
+   ids equal, boxes within ``TOL_DETECTION``); Proposal and ROIPooling at
+   the R-CNN's shapes; each MultiBox op's ms and the NMS loop's, and
+   MultiBoxTarget, MultiBoxDetection and Proposal under
+   ``torch.cuda.set_sync_debug_mode("error")``: no host sync;
+18. ``ssd_train``: ``tools/ssd.py`` at ``examples/ssd/train.py``'s defaults
+   (SSD300 over VGG16 reduced, 20 classes, batch 32, SGD 0.004) for two
+   epochs of 512 made 300-px records through ``DetRecordIter`` and
+   ``Module.fit``: the parameter count, every parameter finite, the
+   CrossEntropy and SmoothL1 falling, the median ms of a batch, images/s,
+   the share of ``DetRecordIter.next``, peak memory, every count 0;
+19. ``ssd_check``: one f32 step of ``ssd_mini`` (96 px, batch 8) on the
+   card and the CPU from the same parameters, within ``TOL_SSD_CHECK`` (a
+   TF32 control must miss it); then ``ssd_mini`` trained on the card as
+   ``tests/test_ssd_e2e.py`` trains it, to a VOC07 mAP above
+   ``TOL_SSD_MAP`` through ``evaluate_net``;
+20. ``rcnn_train``: ``tools/rcnn.py`` (Faster R-CNN end to end: Proposal,
+   the ``proposal_target`` Custom op on the host, ROIPooling) for one
+   epoch of its 200 images, then ``evaluate`` on its 50: losses, mAP, ms a
+   step, the Custom op's host round trips a step, every count 0;
+21. ``kernels`` of K5 (``matmul_stats``, the GEMM with the BatchNorm
    statistics epilogue) against its plain version at the 8 shapes one
    ResNet-50 training step gives it in bf16, at 2 of them in f32 and at
    the cuda tests' shapes (one of which the wrapper pads for TMA in both
@@ -129,7 +153,7 @@ Phases, one JSON line each:
    (split TF32 on the tensor cores) the card's time, cuBLAS's f32 product
    (TF32 off) and the bound of the product as split TF32 beside the
    CUDA-core one;
-18. ``resnet_train``: ResNet-50 v2 at ``tools/bench.py``'s configuration
+22. ``resnet_train``: ResNet-50 v2 at ``tools/bench.py``'s configuration
    (batch 128, 224x224, bf16, NHWC, block fusion, SGD momentum) on
    ``gpu(0)``: ten steps after a warm-up, every loss finite, the last
    below the first, every moving statistic moved, the fusion plan 50
@@ -137,11 +161,11 @@ Phases, one JSON line each:
    through the wrapper's padding; then ms/step,
    images/s, peak memory and a profile of one step (K5's share, and the
    count of cuDNN layout transposes);
-19. ``resnet_train_check``: one f32 SGD step of ResNet-50 at batch 8,
+23. ``resnet_train_check``: one f32 SGD step of ResNet-50 at batch 8,
    64x64, on ``gpu(0)`` and on the CPU; every parameter's and moving
    statistic's change agrees within a stated relative tolerance, and a
    TF32 control must not;
-20. ``image_io``: the records of the ImageNet path made on the card from
+24. ``image_io``: the records of the ImageNet path made on the card from
     seeds (``io_train_bench.make_class_rec``: 2048 train, 512 validation
     and 128 Module-route 256-px JPEGs of 4 colour classes); the JPEG
     decoders the host offers, the port's native library built from
@@ -149,7 +173,7 @@ Phases, one JSON line each:
     pipeline's images/s at 1, 2, 4 and all cores' decode threads, the
     validation records at one thread against all cores as multisets, and
     the decode against PIL's on the same records;
-21. ``imagenet_train``: ``tools.train_imagenet``'s fused route (ResNet-50
+25. ``imagenet_train``: ``tools.train_imagenet``'s fused route (ResNet-50
     v2, batch 128, 224x224, bf16, NHWC, block fusion, SGD momentum 0.9, lr
     0.1, wd 1e-4) for two epochs of the train records through the native
     pipeline, raw uint8 normalized on the card, and a
@@ -161,22 +185,22 @@ Phases, one JSON line each:
     per-stage walls) beside ``resnet_train``'s staged-batch images/s, and
     three steps through the queue equal to the same three staged inline,
     to the bit;
-22. ``imagenet_module``: the ``--fused 0`` route (``Module.fit``, f32
+26. ``imagenet_module``: the ``--fused 0`` route (``Module.fit``, f32
     NCHW, batch 32) on the Module records under ``MXNET_FUSE_BLOCKS=1``:
     the plan's blocks, none on K5 and every count 0, ms per batch;
-23. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
+27. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
     package's ``tests/test_rtc.py`` written in CUDA C, abs written as a
     CUDA programmer writes it for this card (float4 in a grid-stride
     loop), and both abs bodies over an (8192, 8192) f32 array, and pushes
     each once; each output equals the callable (plain) form's exactly; the
     two full-size ones are timed against ``torch.abs`` and their byte
     bound;
-24. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
+28. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
     shapes at batch 128, then K7 (K5 with c = 0) and K8 (the prologue
     variant) against their plain versions at each shape, bit-identical
     across two launches, with the kernel (the card's, and with the host's
     share), plain, library, cuBLAS product and bound times;
-25. ``block_experiment``: the tool of that name at batch 128 with its
+29. ``block_experiment``: the tool of that name at batch 128 with its
     defaults (64, 64, 256, rows 8, bf16: the wgmma kernel) and again in
     f32 (the general kernel), then K9 against ``block_plain`` at both
     stage-1 channel sets, (64, 64, 256) and (256, 64, 256), batch 128, in
@@ -193,8 +217,9 @@ Phases, one JSON line each:
     cmid 4096 must raise in both dtypes.
 
 Then the kernel summary line (each kernel with its launches on its main
-path, and on the DCGAN path and in autograd_check's recorded attention
-beside them, the flash kernels' by source) and, last, ``{"ok": true, "device": ...}``.
+path, and on the DCGAN path, in autograd_check's recorded attention and
+on the detection path (ssd_train and rcnn_train) beside them, the flash
+kernels' by source) and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line.  With no CUDA device it exits 1 at once.
 """
@@ -245,6 +270,7 @@ from mxnet_tpu_torch.tools import matmul_stats_experiment      # noqa: E402
 from mxnet_tpu_torch.tools import module_fit                   # noqa: E402
 from mxnet_tpu_torch.tools import lstm_bucketing               # noqa: E402
 from mxnet_tpu_torch.tools import dcgan, op_corpus             # noqa: E402
+from mxnet_tpu_torch.tools import rcnn, ssd                    # noqa: E402
 from mxnet_tpu_torch import test_utils                         # noqa: E402
 from mxnet_tpu_torch.ops.rnn import rnn_param_size             # noqa: E402
 
@@ -1938,8 +1964,9 @@ def dcgan_block():
 
 
 def op_corpus_phase(device="cuda", check_device="cpu"):
-    """Every case of ``tools/op_corpus.py`` (each op this slice registers,
-    the 1-d and 3-d Convolution and Pooling, ``LayerNorm
+    """Every case of ``tools/op_corpus.py`` but the detection path's
+    (``detection_ops_phase`` holds those; each op the dense corpus
+    registers, the 1-d and 3-d Convolution and Pooling, ``LayerNorm
     output_mean_var``; ties planted) on ``device`` and on ``check_device``
     from the same seeded inputs in f32, TF32 off: the outputs and the
     gradient of ``sum(out * cot)`` within ``TOL_OP_CORPUS``, the exact
@@ -1954,7 +1981,8 @@ def op_corpus_phase(device="cuda", check_device="cpu"):
     card its TF32 control must miss that bound."""
     t0 = time.perf_counter()
     zero_all_counts()
-    rows = op_corpus.card_vs_cpu(device, check_device=check_device)
+    rows = op_corpus.card_vs_cpu(device, check_device=check_device,
+                                 exclude=op_corpus.DETECTION_OPS)
     samplers = op_corpus.sampler_check(device)
     counts = all_counts()
     ctxs = [mx.context.context_of(torch.device(d))
@@ -2262,6 +2290,476 @@ def dcgan_check_phase(ctx, cfg=DCGAN_CHECK, check_ctx=None):
         raise SystemExit("dcgan_check: the TF32 control passes both bounds, "
                          "so they cannot tell it from f32: %s"
                          % json.dumps(out))
+    return out
+
+
+# ------------------------------------------------------- the detection path
+#: SSD300's feature maps (relu4_3, relu7 and four more) and its anchors:
+#: 37^2*4 + 18^2*6 + 9^2*6 + 5^2*6 + 3^2*4 + 2^2*4
+SSD300_MAPS = (37, 18, 9, 5, 3, 2)
+SSD300_ANCHORS = 8108
+#: the batch and the padded label rows of the MultiBox ops' checks
+DET_BATCH = 32
+DET_LABEL_ROWS = 4
+#: the R-CNN's Proposal and ROIPooling: (1, 2A, 12, 12) scores at stride 8
+#: of a 96x96 image, anchors of scales 2 and 4, 400 boxes kept before NMS
+#: and 64 after; 32 rois pooled to 4x4 from 64 channels
+RCNN_PROPOSAL = {"feature_stride": 8, "scales": (2, 4), "ratios": (1.0,),
+                 "rpn_pre_nms_top_n": 400, "rpn_post_nms_top_n": 64,
+                 "threshold": 0.7, "rpn_min_size": 4}
+#: the largest absolute difference of a float output of the detection ops
+#: on the card from the CPU's (boxes in [0, 1] units or, for Proposal, in
+#: pixels of a 96-pixel image; the card's exp and log differ from the
+#: CPU's in the last bits); integer-valued outputs (class targets, masks,
+#: class ids, the survivors of NMS) must be equal
+TOL_DETECTION = 1e-4
+TOL_PROPOSAL = 1e-3
+#: ssd_train: SSD300 over VGG16 reduced at examples/ssd/train.py's
+#: defaults (20 classes, 300x300, batch 32, SGD 0.004, momentum 0.9, wd
+#: 5e-4, clip 4, Xavier gaussian out 2) for two epochs of 512 made
+#: 300-px records
+SSD_FULL = {"network": "vgg16_reduced", "num_classes": 20,
+            "data_shape": 300, "batch_size": 32, "images": 512,
+            "image_size": 300, "epochs": 2}
+SSD_PARAMS = 26284974
+#: ssd_check: one f32 step of ssd_mini at 96 px, batch 8, card against
+#: CPU; then ssd_mini trained as tests/test_ssd_e2e.py:132-152 trains it
+#: (24 made 96-px images, batch 8, 40 epochs, lr 0.05, no mirror, mean
+#: 128) to a VOC07 mAP above TOL_SSD_MAP through evaluate_net
+SSD_CHECK = {"data_shape": 96, "batch_size": 8, "images": 24,
+             "epochs": 40, "lr": 0.05}
+#: the step's worst leaf, ||card's change - CPU's|| / ||CPU's||: the card
+#: read 2.46e-3 (a BatchNorm beta, whose gradient is a sum that cancels;
+#: the median leaf 5.2e-7) and its TF32 control 6.0e-2; a convolution's
+#: bias ahead of a BatchNorm, in units of lr: 2.8e-8
+TOL_SSD_CHECK = 1e-2
+TOL_SSD_CHECK_LR = 1e-4
+TOL_SSD_MAP = 0.35
+#: rcnn_train: tools/rcnn.py at the example's configuration, one epoch of
+#: its 200 images, then evaluate on its 50
+RCNN_FULL = {"epochs": 1, "images": 200, "test_images": 50}
+
+
+def _prior_anchors(device, maps=SSD300_MAPS, sizes=None, ratios=None):
+    """The anchors MultiBoxPrior gives SSD300's feature maps, concatenated
+    as the training symbol concatenates them: (1, A, 4)."""
+    sizes = sizes or ssd.DEFAULT_SIZES
+    ratios = ratios or ssd.DEFAULT_RATIOS
+    op = get_op("_contrib_MultiBoxPrior")
+    out = []
+    for m, s, r in zip(maps, sizes, ratios):
+        attrs = op.parse_attrs({"sizes": str(tuple(s)),
+                                "ratios": str(tuple(r))})
+        out.append(op.fcompute(attrs, OpContext(), torch.zeros(
+            1, 1, m, m, device=device)))
+    return torch.cat(out, dim=1)
+
+
+def _det_inputs(batch, anchors, classes=21, rows=DET_LABEL_ROWS, seed=0):
+    """MultiBoxTarget's and MultiBoxDetection's inputs at SSD's shapes:
+    padded labels (1 to ``rows`` objects an image), class scores and
+    location offsets drawn from ``seed``."""
+    rng = np.random.RandomState(seed)
+    label = np.full((batch, rows, 6), -1.0, np.float32)
+    for b in range(batch):
+        for m in range(rng.randint(1, rows + 1)):
+            c = rng.uniform(0.15, 0.85, 2)
+            wh = rng.uniform(0.05, 0.5, 2)
+            label[b, m] = [rng.randint(0, classes - 1), *(c - wh / 2),
+                           *(c + wh / 2), 0]
+    cls_pred = rng.normal(0, 1, (batch, classes, anchors)).astype(np.float32)
+    logits = rng.normal(0, 2, (batch, classes, anchors))
+    prob = np.exp(logits - logits.max(1, keepdims=True))
+    prob = (prob / prob.sum(1, keepdims=True)).astype(np.float32)
+    loc = rng.normal(0, 0.5, (batch, anchors * 4)).astype(np.float32)
+    return label, cls_pred, prob, loc
+
+
+def _run_op(name, attrs, device, *inputs):
+    op = get_op(name)
+    out = op.fcompute(op.parse_attrs({k: str(v) for k, v in attrs.items()}),
+                      OpContext(device=torch.device(device)),
+                      *[x if torch.is_tensor(x) else torch.from_numpy(x)
+                        .to(device) for x in inputs])
+    return out if isinstance(out, tuple) else (out,)
+
+
+def _max_abs(a, b):
+    return float((a.double().cpu() - b.double().cpu()).abs().max())
+
+
+def _sync_free(fn):
+    """None when ``fn()`` makes no host sync on the card (sync-debug mode
+    "error" around it), else the error's first line."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as e:
+        return str(e).splitlines()[0]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return None
+
+
+SSD_TARGET = {"overlap_threshold": 0.5, "ignore_label": -1,
+              "negative_mining_ratio": 3, "minimum_negative_samples": 0,
+              "negative_mining_thresh": 0.5,
+              "variances": (0.1, 0.1, 0.2, 0.2)}
+SSD_DETECTION = {"nms_threshold": 0.45, "force_suppress": False,
+                 "variances": (0.1, 0.1, 0.2, 0.2), "nms_topk": 400}
+
+
+def detection_ops_phase(device="cuda", check_device="cpu", batch=DET_BATCH,
+                        maps=SSD300_MAPS, repeats=5):
+    """The ten ops of the detection path on ``device`` against
+    ``check_device``: (a) the op corpus's cases of them (TOL_OP_CORPUS,
+    the exact cases to the bit, gradients included); (b) MultiBoxPrior,
+    MultiBoxTarget (hard negative mining 3:1) and MultiBoxDetection (NMS
+    over the 400 best) at SSD300's 8108 anchors and batch ``batch`` with
+    padded labels: anchors, offsets and boxes within TOL_DETECTION, the
+    masks, class targets and detected class ids equal; (c) Proposal and
+    ROIPooling at the R-CNN's shapes, the rois within TOL_PROPOSAL, the
+    pooled values and their gradient within TOL_OP_CORPUS.  On the card
+    each MultiBox op's ms and the NMS loop's (CUDA events), and one
+    forward each of MultiBoxTarget, MultiBoxDetection and Proposal under
+    ``torch.cuda.set_sync_debug_mode("error")`` after a warm call: none
+    may sync the host.  No kernel is launched."""
+    t0 = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    zero_all_counts()
+    rows = op_corpus.card_vs_cpu(device, check_device=check_device,
+                                 ops=op_corpus.DETECTION_OPS)
+    over = [r for r in rows
+            if max(r["out_err"], r["grad_err"] or 0.0) > TOL_OP_CORPUS]
+
+    anchors = _prior_anchors(device, maps)
+    ref_anchors = _prior_anchors(check_device, maps)
+    n_anchors = anchors.shape[1]
+    label, cls_pred, prob, loc = _det_inputs(batch, n_anchors)
+    tgt = _run_op("_contrib_MultiBoxTarget", SSD_TARGET, device, anchors,
+                  label, cls_pred)
+    ref_tgt = _run_op("_contrib_MultiBoxTarget", SSD_TARGET, check_device,
+                      ref_anchors, label, cls_pred)
+    det = _run_op("_contrib_MultiBoxDetection", SSD_DETECTION, device, prob,
+                  loc, anchors)[0]
+    ref_det = _run_op("_contrib_MultiBoxDetection", SSD_DETECTION,
+                      check_device, prob, loc, ref_anchors)[0]
+    multibox = {
+        "batch": batch, "anchors": n_anchors,
+        "label_rows": DET_LABEL_ROWS,
+        "prior_max_abs": _max_abs(anchors, ref_anchors),
+        "target_loc_max_abs": _max_abs(tgt[0], ref_tgt[0]),
+        "target_mask_equal": bool(torch.equal(tgt[1].cpu(),
+                                              ref_tgt[1].cpu())),
+        "target_cls_equal": bool(torch.equal(tgt[2].cpu(),
+                                             ref_tgt[2].cpu())),
+        "positives": int((ref_tgt[2] > 0).sum()),
+        "negatives": int((ref_tgt[2] == 0).sum()),
+        "detection_ids_equal": bool(torch.equal(det[..., 0].cpu(),
+                                                ref_det[..., 0].cpu())),
+        "detection_max_abs": _max_abs(det[..., 1:], ref_det[..., 1:]),
+        "kept": int((ref_det[..., 0] >= 0).sum())}
+
+    rng = np.random.RandomState(1)
+    a = len(RCNN_PROPOSAL["scales"]) * len(RCNN_PROPOSAL["ratios"])
+    fg = rng.uniform(0, 1, (1, a, 12, 12)).astype(np.float32)
+    rpn = [np.concatenate([1 - fg, fg], 1),
+           rng.normal(0, 0.1, (1, 4 * a, 12, 12)).astype(np.float32),
+           np.array([[96, 96, 1.0]], np.float32)]
+    rois = _run_op("_contrib_Proposal", RCNN_PROPOSAL, device, *rpn)[0]
+    ref_rois = _run_op("_contrib_Proposal", RCNN_PROPOSAL, check_device,
+                       *rpn)[0]
+    feat = np.maximum(rng.normal(0, 1, (1, 64, 12, 12)), 0).astype(
+        np.float32)
+    cot = rng.normal(0, 1, (32, 64, 4, 4)).astype(np.float32)
+
+    def pooled(dev, r):
+        x = torch.from_numpy(feat).to(dev).requires_grad_()
+        out = _run_op("ROIPooling", {"pooled_size": (4, 4),
+                                     "spatial_scale": 1.0 / 8}, dev, x,
+                      r[:32].to(dev))[0]
+        (out * torch.from_numpy(cot).to(dev)).sum().backward()
+        return out.detach(), x.grad
+    pool, pool_grad = pooled(device, ref_rois)
+    ref_pool, ref_pool_grad = pooled(check_device, ref_rois)
+    rcnn_ops = {"proposal_rois_max_abs": _max_abs(rois, ref_rois),
+                "roi_pooling_max_abs": _max_abs(pool, ref_pool),
+                "roi_pooling_grad_max_abs": _max_abs(pool_grad,
+                                                     ref_pool_grad)}
+    out = {"devices": [str(device), str(check_device)],
+           "corpus": {"cases": len(rows), "ops": sorted(
+               {get_op(c["op"]).name for c in rows}), "over": over,
+               "worst": max(max(r["out_err"], r["grad_err"] or 0.0)
+                            for r in rows)},
+           "multibox": multibox, "rcnn_ops": rcnn_ops,
+           "tol": TOL_DETECTION, "tol_proposal": TOL_PROPOSAL}
+    if on_card:
+        t_anchors = _prior_anchors(device, maps)
+        tl, tc, tp, tloc = (torch.from_numpy(x).to(device)
+                            for x in (label, cls_pred, prob, loc))
+        target_op = get_op("_contrib_MultiBoxTarget")
+        target_attrs = target_op.parse_attrs(SSD_TARGET)
+        det_op = get_op("_contrib_MultiBoxDetection")
+        det_attrs = det_op.parse_attrs(SSD_DETECTION)
+        prop_op = get_op("_contrib_Proposal")
+        prop_attrs = prop_op.parse_attrs(RCNN_PROPOSAL)
+        rpn_t = [torch.from_numpy(x).to(device) for x in rpn]
+        ctx = OpContext(device=torch.device(device))
+        calls = {
+            "multibox_prior": lambda: _prior_anchors(device, maps),
+            "multibox_target": lambda: target_op.fcompute(
+                target_attrs, ctx, t_anchors, tl, tc),
+            "multibox_detection": lambda: det_op.fcompute(
+                det_attrs, ctx, tp, tloc, t_anchors),
+            "proposal": lambda: prop_op.fcompute(prop_attrs, ctx, *rpn_t)}
+        out["ms"] = {k: cuda_ms(f, repeats) for k, f in calls.items()}
+        k = SSD_DETECTION["nms_topk"]
+        alive = torch.rand(batch, k, device=device) < 0.5
+        sup = torch.rand(batch, k, k, device=device).triu(1) > 0.9
+        from mxnet_tpu_torch.ops.contrib import suppress_greedy
+        out["ms"]["nms_loop"] = cuda_ms(lambda: suppress_greedy(alive, sup),
+                                        repeats)
+        out["sync_debug"] = {k: _sync_free(calls[k]) for k in (
+            "multibox_target", "multibox_detection", "proposal")}
+        out["nvidia_smi"] = nvidia_smi()
+    out["kernel_launches"] = counts = all_counts()
+    out["seconds"] = time.perf_counter() - t0
+    bad = []
+    if over:
+        bad.append("corpus cases over the bound")
+    if max(multibox["prior_max_abs"], multibox["target_loc_max_abs"],
+           multibox["detection_max_abs"]) > TOL_DETECTION:
+        bad.append("a MultiBox float output")
+    if not (multibox["target_mask_equal"] and multibox["target_cls_equal"]
+            and multibox["detection_ids_equal"]):
+        bad.append("a MultiBox integer output")
+    if rcnn_ops["proposal_rois_max_abs"] > TOL_PROPOSAL:
+        bad.append("Proposal's rois")
+    if max(rcnn_ops["roi_pooling_max_abs"],
+           rcnn_ops["roi_pooling_grad_max_abs"]) > TOL_OP_CORPUS:
+        bad.append("ROIPooling")
+    if any(out.get("sync_debug", {}).values()):
+        bad.append("a host sync")
+    if any(counts.values()):
+        bad.append("a kernel launched")
+    if bad:
+        raise SystemExit("detection_ops: %s: %s" % ("; ".join(bad),
+                                                     json.dumps(out)))
+    return out
+
+
+def _ssd_args(cfg, **over):
+    cfg = dict(cfg, **over)
+    return ssd.parse_args([
+        "--network", cfg["network"], "--num-classes",
+        str(cfg["num_classes"]), "--data-shape", str(cfg["data_shape"]),
+        "--batch-size", str(cfg["batch_size"]), "--images",
+        str(cfg["images"]), "--image-size", str(cfg["image_size"]),
+        "--num-epochs", str(cfg["epochs"])])
+
+
+def ssd_train_phase(ctx, workdir, cfg=SSD_FULL):
+    """``tools/ssd.py`` (``train_net``: DetRecordIter, the MultiBox ops,
+    Module.fit) at ``cfg`` on ``ctx`` from records made in ``workdir``,
+    the kernel counts set to 0 just before and read just after (no kernel
+    lies on this path).  Checks: the parameter count (``cfg["params"]``,
+    default SSD_PARAMS, when not None), every parameter finite, the
+    second epoch's CrossEntropy and SmoothL1 below the first's, every
+    count 0.  Reports the tool's JSON fields: the median ms of a batch
+    past the first epoch, images/s, the share of a batch in
+    ``DetRecordIter.next``, peak memory."""
+    if ctx.device_type == "gpu":
+        gc.collect()
+        torch.cuda.empty_cache()
+    params = cfg.get("params", SSD_PARAMS)
+    args = _ssd_args(cfg)
+    rec = os.path.join(workdir, "ssd_train.rec")
+    t0 = time.perf_counter()
+    ssd.make_record_file(rec, args.images, args.image_size, args.max_objects,
+                         seed=args.seed, num_classes=args.num_classes)
+    records_s = time.perf_counter() - t0
+    zero_all_counts()
+    calls = mx.operator.Custom.host_calls
+    out, _mod = ssd.run(args, ctx, rec)
+    out["kernel_launches"] = counts = all_counts()
+    out["flash_source_launches"] = by_source = flash_source_counts()
+    out["custom_host_calls"] = mx.operator.Custom.host_calls - calls
+    out["records_s"] = records_s
+    out["seconds"] = time.perf_counter() - t0
+    if ctx.device_type == "gpu":
+        out["nvidia_smi"] = nvidia_smi()
+    losses = out["epoch_losses"]
+    bad = []
+    if params is not None and out["params"] != params:
+        bad.append("%d parameters, want %d" % (out["params"], params))
+    if not out["finite"]:
+        bad.append("a parameter is not finite")
+    if not all(losses[-1][k] < losses[0][k]
+               for k in ("CrossEntropy", "SmoothL1")):
+        bad.append("the losses did not fall")
+    if any(counts.values()) or any(by_source.values()):
+        bad.append("a kernel launched: %s %s" % (counts, by_source))
+    if bad:
+        raise SystemExit("ssd_train: %s: %s" % ("; ".join(bad),
+                                                 json.dumps(out)))
+    return out
+
+
+def _ssd_step(ctx, init, batch, tf32=False):
+    """One f32 SGD step of ssd_mini on ``ctx`` from ``init`` (arg, aux);
+    the outputs and each parameter's and moving statistic's change."""
+    x, y = batch
+    mod = mx.mod.Module(ssd.get_mini_symbol_train(num_classes=3),
+                        data_names=("data",), label_names=("label",),
+                        context=ctx)
+    mod.bind(data_shapes=[("data", x.shape)], label_shapes=[("label",
+                                                              y.shape)])
+    mod.init_params(arg_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in init[0].items()},
+                    aux_params={k: mx.nd.array(v, ctx=mx.cpu())
+                                for k, v in init[1].items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": SSD_CHECK["lr"], "momentum": 0.9, "wd": 5e-4,
+        "rescale_grad": 1.0 / x.shape[0], "clip_gradient": 4.0})
+    with tf32_mode(tf32):
+        mod.forward_backward(mx.io.DataBatch(
+            data=[mx.nd.array(x, ctx=mx.cpu())],
+            label=[mx.nd.array(y, ctx=mx.cpu())]))
+        mod.update()
+    outs = [o.asnumpy() for o in mod.get_outputs()]
+    arg, aux = mod.get_params()
+    delta = {k: torch.from_numpy(v.asnumpy() - init[0][k])
+             for k, v in arg.items()}
+    delta.update({k: torch.from_numpy(v.asnumpy() - init[1][k])
+                  for k, v in aux.items()})
+    return outs, delta
+
+
+def ssd_check_phase(ctx, workdir, cfg=SSD_CHECK, check_ctx=None):
+    """(a) One f32 SGD step of ``ssd_mini`` at ``cfg``'s size on ``ctx``
+    and on ``check_ctx`` (default: the CPU) from the same parameters (the
+    port's Xavier from a seed) and batch: the image a normal draw (the
+    made images' flat rectangles leave max-pool windows of values within
+    rounding of each other, where rounding routes the gradient), the
+    labels the made records'.  The class targets equal, and each
+    parameter's change within TOL_SSD_CHECK of the CPU's, a convolution's
+    bias ahead of a BatchNorm (true gradient 0) within TOL_SSD_CHECK_LR of
+    lr; on the card the step with TF32 in cuBLAS and cuDNN, run as a
+    control, must miss the bound.  (b) ``ssd_mini`` trained on ``ctx``
+    through ``train_net`` as ``tests/test_ssd_e2e.py`` trains it, scored by
+    ``evaluate_net``: the VOC07 mAP above TOL_SSD_MAP."""
+    check_ctx = check_ctx or mx.cpu()
+    t0 = time.perf_counter()
+    size, batch = cfg["data_shape"], cfg["batch_size"]
+    rec = os.path.join(workdir, "ssd_check.rec")
+    ssd.make_record_file(rec, cfg["images"], size, seed=0)
+    it = mx.image_det.DetRecordIter(rec, batch, (3, size, size),
+                                    mean_pixels=(128, 128, 128))
+    label = next(iter(it)).label[0].asnumpy()
+    x = np.random.RandomState(1).normal(0, 50, (batch, 3, size, size)) \
+        .astype(np.float32)
+    probe = mx.mod.Module(ssd.get_mini_symbol_train(num_classes=3),
+                          data_names=("data",), label_names=("label",),
+                          context=mx.cpu())
+    probe.bind(data_shapes=[("data", x.shape)],
+               label_shapes=[("label", label.shape)])
+    probe.init_params(initializer=mx.init.Xavier(
+        rnd_type="gaussian", factor_type="out", magnitude=2, rng=0))
+    init = tuple({k: v.asnumpy().copy() for k, v in d.items()}
+                 for d in probe.get_params())
+    outs, delta = _ssd_step(ctx, init, (x, label))
+    ref_outs, ref_delta = _ssd_step(check_ctx, init, (x, label))
+    ahead_of_bn = {k for k in init[0]
+                   if k.startswith("convm") and k.endswith("_bias")}
+
+    def readings(d):
+        held = update_diff({k: v for k, v in d.items()
+                            if k not in ahead_of_bn},
+                           {k: v for k, v in ref_delta.items()
+                            if k not in ahead_of_bn and v.norm() > 0})
+        held["bias_ahead_of_bn_in_lr"] = max(
+            float((d[k] - ref_delta[k]).abs().max()) / SSD_CHECK["lr"]
+            for k in ahead_of_bn)
+        return held
+
+    step = dict(readings(delta), cls_target_equal=bool(
+        np.array_equal(outs[2], ref_outs[2])),
+        cls_prob_max_abs=float(np.abs(outs[0] - ref_outs[0]).max()),
+        loc_loss_max_abs=float(np.abs(outs[1] - ref_outs[1]).max()))
+    control = None
+    if ctx.device_type == "gpu":
+        _o, t_delta = _ssd_step(ctx, init, (x, label), tf32=True)
+        control = readings(t_delta)
+
+    args = ssd.parse_args([])
+    mod = ssd.train_net(rec, network="mini", num_classes=3,
+                        batch_size=batch, data_shape=(3, size, size),
+                        num_epochs=cfg["epochs"], lr=cfg["lr"], ctx=ctx,
+                        seed=args.seed, rand_mirror=False,
+                        mean_pixels=(128, 128, 128), frequent=10000)
+    res = dict(ssd.evaluate_net(mod, rec, 3, network="mini",
+                                batch_size=batch,
+                                data_shape=(3, size, size), ctx=ctx,
+                                class_names=list(ssd.CLASS_NAMES),
+                                mean_pixels=(128, 128, 128)))
+    out = {"config": cfg, "contexts": [str(ctx), str(check_ctx)],
+           "step": step, "tol": TOL_SSD_CHECK, "tol_lr": TOL_SSD_CHECK_LR,
+           "control_tf32": control, "mAP": res["mAP"], "aps": res,
+           "tol_map": TOL_SSD_MAP, "seconds": time.perf_counter() - t0}
+
+    def within(r):
+        return r["max_rel_update_diff"] <= TOL_SSD_CHECK \
+            and r["bias_ahead_of_bn_in_lr"] <= TOL_SSD_CHECK_LR
+
+    bad = []
+    if not within(step) or not step["cls_target_equal"]:
+        bad.append("the step differs from the CPU's")
+    if control is not None and within(control):
+        bad.append("the TF32 control passes the bound")
+    if ctx.device_type == "gpu" and not res["mAP"] > TOL_SSD_MAP:
+        bad.append("mAP %.4f" % res["mAP"])
+    if bad:
+        raise SystemExit("ssd_check: %s: %s" % ("; ".join(bad),
+                                                 json.dumps(out)))
+    return out
+
+
+def rcnn_train_phase(ctx, cfg=RCNN_FULL):
+    """``tools/rcnn.py`` (Proposal, the proposal_target Custom op,
+    ROIPooling, Module.fit) for ``cfg``'s epochs on ``ctx``, then
+    ``evaluate``; the kernel counts set to 0 just before and read just
+    after (no kernel lies on this path).  Checks: every parameter finite,
+    the RPN's and the head's log losses of the last ten steps below the
+    first ten's, one Custom host round trip a step, an mAP in [0, 1],
+    every count 0."""
+    args = rcnn.parse_args(["--epochs", str(cfg["epochs"]), "--images",
+                            str(cfg["images"]), "--test-images",
+                            str(cfg["test_images"])])
+    t0 = time.perf_counter()
+    zero_all_counts()
+    out, _mod = rcnn.run(args, ctx)
+    out["kernel_launches"] = counts = all_counts()
+    out["flash_source_launches"] = by_source = flash_source_counts()
+    out["seconds"] = time.perf_counter() - t0
+    if ctx.device_type == "gpu":
+        out["nvidia_smi"] = nvidia_smi()
+    first, last = out["first_losses"], out["last_losses"]
+    bad = []
+    if not out["finite"]:
+        bad.append("a parameter is not finite")
+    if not (last[0] < first[0] and last[2] < first[2]):
+        bad.append("the log losses did not fall")
+    if out["custom_round_trips_per_step"] != 1.0:
+        bad.append("Custom round trips a step")
+    if not 0.0 <= out["mAP"] <= 1.0:
+        bad.append("mAP %r" % out["mAP"])
+    if any(counts.values()) or any(by_source.values()):
+        bad.append("a kernel launched: %s %s" % (counts, by_source))
+    if bad:
+        raise SystemExit("rcnn_train: %s: %s" % ("; ".join(bad),
+                                                  json.dumps(out)))
     return out
 
 
@@ -3616,6 +4114,18 @@ def main():
     dcgan_run = dcgan_train_phase(mx.gpu(0))
     emit("dcgan_train", **dcgan_run)
     emit("dcgan_check", **dcgan_check_phase(mx.gpu(0)))
+    detection = detection_ops_phase()
+    emit("detection_ops", **detection)
+    with tempfile.TemporaryDirectory() as workdir:
+        ssd_run = ssd_train_phase(mx.gpu(0), workdir)
+        ssd_run["detection_share_of_batch"] = \
+            detection["ms"]["multibox_detection"] / ssd_run["median_batch_ms"]
+        ssd_run["nms_loop_share_of_batch"] = \
+            detection["ms"]["nms_loop"] / ssd_run["median_batch_ms"]
+        emit("ssd_train", **ssd_run)
+        emit("ssd_check", **ssd_check_phase(mx.gpu(0), workdir))
+    rcnn_run = rcnn_train_phase(mx.gpu(0))
+    emit("rcnn_train", **rcnn_run)
     k5 = resnet_kernels_phase()
     resnet = resnet_train_phase(mx.gpu(0))
     emit("resnet_train", **resnet)
@@ -3781,16 +4291,25 @@ def main():
                 "channels", "dtype", "rel_err", "bit_identical", "plan")}
                 for e in blk["general_sets"]]),
     ]
-    # each kernel's launches on the DCGAN path and in autograd_check's
-    # recorded f32 attention: the flash forward and backward by source
-    # (f32 and bf16 apart), the rest by their wrapper's counter
+    # each kernel's launches on the DCGAN path, in autograd_check's
+    # recorded f32 attention and on the detection path (ssd_train and
+    # rcnn_train summed): the flash forward and backward by source (f32
+    # and bf16 apart), the rest by their wrapper's counter
+    detection_counts = {k: ssd_run["kernel_launches"][k]
+                        + rcnn_run["kernel_launches"][k]
+                        for k in ssd_run["kernel_launches"]}
+    detection_by_source = {k: ssd_run["flash_source_launches"][k]
+                           + rcnn_run["flash_source_launches"][k]
+                           for k in ssd_run["flash_source_launches"]}
     for e in kernels:
         counter = COUNTER_OF[e["name"]]
         for key, run, by_source in (
                 ("dcgan_launches", dcgan_run["kernel_launches"],
                  dcgan_run["flash_source_launches"]),
                 ("autograd_launches", autograd["flash"]["launches"],
-                 autograd["flash"]["source_launches"])):
+                 autograd["flash"]["source_launches"]),
+                ("detection_launches", detection_counts,
+                 detection_by_source)):
             e[key] = by_source[e["name"]] if e["name"] in by_source \
                 else run[counter]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -52,6 +52,7 @@ from . import autograd
 from . import ndarray
 from . import ndarray as nd
 from . import ops
+from . import operator
 from . import name
 from .attribute import AttrScope
 from . import symbol
@@ -73,6 +74,7 @@ from . import io
 from . import recordio
 from . import io_native
 from . import image
+from . import image_det
 from . import callback
 from . import kvstore
 from . import kvstore as kv

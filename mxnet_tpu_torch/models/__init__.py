@@ -8,13 +8,17 @@ import importlib
 
 from ..base import MXNetError
 
-_MODELS = ("resnet",)
+_MODELS = ("resnet", "vgg")
 
 
 def get_model(name, **kwargs):
-    """Build a symbol by model name: ``resnet`` with ``num_layers``, or
-    ``resnet50`` / ``resnet-50`` spelling the depth in the name."""
+    """Build a symbol by model name: ``resnet`` or ``vgg`` with
+    ``num_layers``, or ``resnet50`` / ``resnet-50`` / ``vgg16`` spelling
+    the depth in the name."""
     name = name.replace("-", "_")
+    if name.startswith("vgg") and name != "vgg":
+        kwargs.setdefault("num_layers", int(name[len("vgg"):].lstrip("_")))
+        name = "vgg"
     if name.startswith("resnet") and name != "resnet":
         kwargs.setdefault("num_layers",
                           int(name[len("resnet"):].lstrip("_")))

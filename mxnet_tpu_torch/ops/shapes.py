@@ -169,3 +169,26 @@ def _rnn(attrs, known):
     if mode == "lstm":
         out["state_cell"] = state
     return out
+
+
+@register_param_shapes("Custom")
+def _custom(attrs, known):
+    """A ``CustomOpProp``'s ``infer_shape`` fills its argument shapes (the
+    props derive their label shapes from the data's).  With every input
+    known, an error in the prop's ``infer_shape`` propagates; with some
+    unknown, the hook gives up."""
+    from .. import operator as _op
+    prop = _op._make_prop(attrs)
+    args = prop.list_arguments()
+    in_shapes = [list(known[nm]) if nm in known else None for nm in args]
+    if not in_shapes or in_shapes[0] is None:
+        return {}
+    if any(s is None for s in in_shapes):
+        try:
+            arg_shapes, _, _ = prop.infer_shape(in_shapes)
+        except (TypeError, IndexError, ValueError):
+            return {}
+    else:
+        arg_shapes, _, _ = prop.infer_shape(in_shapes)
+    return {nm: tuple(s) for nm, s in zip(args, arg_shapes)
+            if s is not None}

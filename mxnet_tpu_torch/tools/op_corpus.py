@@ -22,7 +22,8 @@ from collections import namedtuple
 
 import numpy as np
 
-__all__ = ["Case", "CASES", "SAMPLERS", "inputs_of", "run", "cotangents",
+__all__ = ["Case", "CASES", "SAMPLERS", "DETECTION_OPS", "CUSTOM_OP_TYPE",
+           "custom_affine_classes", "inputs_of", "run", "cotangents",
            "rel_err", "compare", "sampler_check", "card_vs_cpu"]
 
 Case = namedtuple("Case", "id op attrs makers diff exact train")
@@ -419,6 +420,169 @@ CASES = (
              [_n(3, 4), _n(3, 4), _u(2.0, 3.0, 3, 4), _u(-0.1, 0.1, 3, 4),
               _n(3, 4)], diff=())])
 
+# ---------------------------------------------------- the detection path
+def _corner_boxes(n, lo=0.05, hi=0.4, batch=None):
+    """``n`` corner boxes in [0, 1] (a leading 1, or ``batch``, axis)."""
+    def make(r):
+        c = r.uniform(0.1, 0.9, (batch or 1, n, 2))
+        wh = r.uniform(lo, hi, (batch or 1, n, 2))
+        return np.concatenate([c - wh / 2, c + wh / 2], -1) \
+            .astype(np.float32)
+    return make
+
+
+def _det_labels(batch, rows, objects):
+    """(batch, rows, 6) detection labels padded with -1 rows, ``objects``
+    valid rows an image (an image of none included)."""
+    def make(r):
+        lab = np.full((batch, rows, 6), -1.0, np.float32)
+        for b in range(batch):
+            for m in range(objects[b]):
+                c = r.uniform(0.2, 0.8, 2)
+                wh = r.uniform(0.1, 0.5, 2)
+                lab[b, m] = [r.randint(0, 3), *(c - wh / 2), *(c + wh / 2), 0]
+        return lab
+    return make
+
+
+def _class_probs(batch, classes, anchors):
+    """Softmax class probabilities with every third anchor background
+    (class 0), whose detection score is then exactly 0: ties."""
+    def make(r):
+        z = r.normal(0, 2, (batch, classes, anchors))
+        z[:, 0, ::3] = 20.0
+        p = np.exp(z - z.max(1, keepdims=True))
+        return (p / p.sum(1, keepdims=True)).astype(np.float32)
+    return make
+
+
+def _rois(r):
+    return np.array([[0, 0, 0, 7, 7], [0, 2, 2, 6, 6], [1, 1, 0, 5, 3],
+                     [1, 4, 4, 4, 4], [0, 3.5, 2.5, 5.5, 6.5]], np.float32)
+
+
+def _relu_ties(*shape):
+    """Non-negative values with many exact zeros (after a ReLU), ties of
+    a max."""
+    return lambda r: np.maximum(r.randint(-3, 4, shape) / 2.0, 0.0) \
+        .astype(np.float32)
+
+
+def _im_info(h, w, scale=1.0):
+    return lambda r: np.array([[h, w, scale]], np.float32)
+
+
+def custom_affine_classes(operator):
+    """A small ``CustomOp`` and its prop over ``operator`` (either
+    package's module): y = scale * x + 1, whose backward gives scale *
+    dy."""
+    class Affine(operator.CustomOp):
+        def __init__(self, scale):
+            self.scale = scale
+
+        def forward(self, is_train, req, in_data, out_data, aux):
+            self.assign(out_data[0], req[0],
+                        in_data[0].asnumpy() * self.scale + 1.0)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            self.assign(in_grad[0], req[0],
+                        out_grad[0].asnumpy() * self.scale)
+
+    class AffineProp(operator.CustomOpProp):
+        def __init__(self, scale="2.0"):
+            super().__init__(need_top_grad=True)
+            self.scale = float(scale)
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Affine(np.float32(self.scale))
+
+    return Affine, AffineProp
+
+
+#: the op_type of the corpus's Custom case
+CUSTOM_OP_TYPE = "corpus_affine"
+
+
+def _register_custom():
+    from mxnet_tpu_torch import operator
+    operator.register(CUSTOM_OP_TYPE)(custom_affine_classes(operator)[1])
+
+
+_register_custom()
+
+#: the ops of the detection path (chip_smoke holds them in their own phase)
+DETECTION_OPS = frozenset([
+    "_contrib_MultiBoxPrior", "_contrib_MultiBoxTarget",
+    "_contrib_MultiBoxDetection", "_contrib_Proposal", "ROIPooling",
+    "Custom", "GridGenerator", "BilinearSampler", "SpatialTransformer",
+    "Correlation"])
+
+CASES = CASES + [
+    _case("multibox_prior", "_contrib_MultiBoxPrior",
+          {"sizes": (0.2, 0.272), "ratios": (1, 2, 0.5, 3, 1.0 / 3)},
+          [_n(2, 3, 5, 7)], diff=()),
+    _case("multibox_prior_clip_steps", "_contrib_MultiBoxPrior",
+          {"sizes": (0.9,), "ratios": (1, 2), "clip": True,
+           "steps": (0.1, 0.125)}, [_n(1, 2, 4, 6)], diff=()),
+    _case("multibox_target", "_contrib_MultiBoxTarget",
+          {"negative_mining_ratio": 3, "minimum_negative_samples": 2},
+          [_corner_boxes(60), _det_labels(3, 5, (1, 4, 0)),
+           _n(3, 4, 60)], diff=()),
+    _case("multibox_target_plain", "_contrib_MultiBoxTarget",
+          {"overlap_threshold": 0.4},
+          [_corner_boxes(60), _det_labels(3, 5, (2, 5, 1)),
+           _n(3, 4, 60)], diff=()),
+    _case("multibox_detection_topk", "_contrib_MultiBoxDetection",
+          {"nms_threshold": 0.45, "nms_topk": 20},
+          [_class_probs(2, 4, 50), _n(2, 200), _corner_boxes(50)],
+          diff=()),
+    _case("multibox_detection_force", "_contrib_MultiBoxDetection",
+          {"nms_threshold": 0.3, "force_suppress": True},
+          [_class_probs(2, 4, 50), _n(2, 200), _corner_boxes(50)],
+          diff=()),
+    _case("proposal", "_contrib_Proposal",
+          {"scales": (2.0, 4.0), "ratios": (0.5, 1.0, 2.0),
+           "feature_stride": 8, "rpn_pre_nms_top_n": 30,
+           "rpn_post_nms_top_n": 8, "rpn_min_size": 4},
+          [_u(0, 1, 1, 12, 4, 4), _u(-0.2, 0.2, 1, 24, 4, 4),
+           _im_info(32, 32)], diff=()),
+    _case("proposal_score_padded", "_contrib_Proposal",
+          {"scales": (4.0, 8.0), "ratios": (0.5, 1.0),
+           "feature_stride": 16, "rpn_pre_nms_top_n": 20,
+           "rpn_post_nms_top_n": 12, "rpn_min_size": 2,
+           "output_score": True, "threshold": 0.3},
+          [_u(0, 1, 1, 8, 3, 3), _u(-0.1, 0.1, 1, 16, 3, 3),
+           _im_info(40, 36)], diff=()),
+    _case("roi_pooling_ties", "ROIPooling",
+          {"pooled_size": (2, 2), "spatial_scale": 1.0},
+          [_relu_ties(2, 3, 8, 8), _rois]),
+    _case("roi_pooling_scale", "ROIPooling",
+          {"pooled_size": (3, 3), "spatial_scale": 0.5},
+          [_n(2, 2, 6, 6), _rois]),
+    _case("grid_affine", "GridGenerator",
+          {"transform_type": "affine", "target_shape": (4, 5)},
+          [_u(-1, 1, 2, 6)]),
+    _case("grid_warp", "GridGenerator", {"transform_type": "warp"},
+          [_u(-1, 1, 2, 2, 3, 4)]),
+    _case("bilinear_sampler", "BilinearSampler", {},
+          [_u(-1, 1, 2, 3, 5, 6), _u(-1.3, 1.3, 2, 2, 4, 4)],
+          diff=(0, 1)),
+    _case("spatial_transformer", "SpatialTransformer",
+          {"target_shape": (5, 5)},
+          [_u(-1, 1, 2, 3, 6, 6), lambda r: (np.array(
+              [0.9, 0.05, 0.0, -0.05, 0.9, 0.0], np.float32)
+              + r.uniform(-0.3, 0.3, (2, 6))).astype(np.float32)],
+          diff=(0, 1)),
+    _case("correlation", "Correlation",
+          {"kernel_size": 3, "max_displacement": 2, "pad_size": 2},
+          [_u(-1, 1, 2, 3, 7, 7), _u(-1, 1, 2, 3, 7, 7)], diff=(0, 1)),
+    _case("correlation_abs_strided", "Correlation",
+          {"kernel_size": 1, "max_displacement": 2, "stride1": 2,
+           "stride2": 2, "is_multiply": False},
+          [_u(-1, 1, 1, 2, 10, 10), _u(-1, 1, 1, 2, 10, 10)], diff=(0, 1)),
+    _case("custom_affine", "Custom",
+          {"op_type": CUSTOM_OP_TYPE, "scale": 3.0}, [_n(3, 4)])]
+
 #: the samplers: (op, attrs, mean, variance) of the distribution drawn
 SAMPLERS = [
     ("_random_uniform", {"low": -1.0, "high": 3.0}, 1.0, 16.0 / 12),
@@ -545,13 +709,14 @@ def sampler_check(device, n=200000, seed=7, samplers=None):
     return out
 
 
-def card_vs_cpu(device="cuda", seed=0, check_device="cpu", ops=None):
-    """Every case (of the ops ``ops``, when given) on ``device`` and on
-    ``check_device``: one dict a case with the worst relative error of the
-    outputs and of the gradients."""
+def card_vs_cpu(device="cuda", seed=0, check_device="cpu", ops=None,
+                exclude=()):
+    """Every case (of the ops ``ops``, when given; not of ``exclude``) on
+    ``device`` and on ``check_device``: one dict a case with the worst
+    relative error of the outputs and of the gradients."""
     rows = []
     for case in CASES:
-        if ops is not None and case.op not in ops:
+        if ops is not None and case.op not in ops or case.op in exclude:
             continue
         outs, grads = run(case, device, seed)
         ref_outs, ref_grads = run(case, check_device, seed)
