@@ -180,7 +180,8 @@ Phases, one JSON line each:
     ``DevicePrefetchIter`` of depth 2, with validation; every loss finite
     and the last below the first, every moving statistic moved, 50 blocks
     with 16 on K5 and K5 launched 16 times a step (every other kernel 0),
-    the last validation accuracy above ``TOL_VAL_ACCURACY``; then
+    the validation accuracy above ``TOL_VAL_ACCURACY`` once the moving
+    statistics are re-estimated at the final weights; then
     ``io_train_bench.train_loop`` sequential and prefetched (images/s,
     per-stage walls) beside ``resnet_train``'s staged-batch images/s, and
     three steps through the queue equal to the same three staged inline,
@@ -188,19 +189,56 @@ Phases, one JSON line each:
 26. ``imagenet_module``: the ``--fused 0`` route (``Module.fit``, f32
     NCHW, batch 32) on the Module records under ``MXNET_FUSE_BLOCKS=1``:
     the plan's blocks, none on K5 and every count 0, ms per batch;
-27. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
+27. ``zoo_kernels``: K5 against its plain version at each of the 19
+    distinct shapes of Inception-v3's 40 K5 blocks (batch 128, 299x299,
+    bf16; ``inception_k5_shapes`` reads them from the plan), bit-identical
+    across two launches and never padded, with the card's time, the
+    wrapper's host time, cuBLAS's bare product, plain, library and bound
+    times, and their sums over one step;
+28. ``inception_train``: ``tools.train_imagenet --network inception-v3
+    --image-shape 3,299,299 --fused 1 --dtype bfloat16`` (batch 128, 1000
+    classes, SGD momentum 0.9, lr ``INCEPTION_LR``, wd 1e-4) for one epoch
+    of 2048 made 320-px records through the native pipeline and a
+    ``DevicePrefetchIter``, with validation: every loss finite and the
+    last below the first, every moving statistic moved, 94 blocks with 40
+    on K5 and K5 launched 40 times a step (every other kernel 0); then ms
+    a staged step, images/s, peak memory and a profile of one step (the
+    device's busy share); ``inception_check``: one f32 SGD step of an
+    ``Inception7A`` block with a head (2312 rows, not a multiple of K5's
+    tiles) on the fused route on the card (its 4 1x1 heads on the f32 K5)
+    against the Executor route (``Module``) on the CPU, within
+    resnet_train_check's bounds;
+29. ``zoo_score``: ``tools.benchmark_score`` over the ten zoo networks on
+    the Executor route (f32 NCHW) and the fused route (bf16 NHWC) at batch
+    1 and 32: images/s each, every count 0;
+30. ``zoo_serve``: the serving CLI's ``--model inception-bn`` route
+    (fresh Xavier weights from its seed) behind the batch ladder: six
+    one-image requests from threads and one of two images over HTTP, each
+    answer within ``TOL_ZOO_SERVE`` of a CPU Predictor on the same weights;
+31. ``ring_gpt``: one full-width GPT training step with
+    ``attention="ring"`` (``_contrib_RingAttention``) and one with
+    ``"flash"`` from the same weights: losses, parameters and Adam states
+    equal to the bit, the bf16 K1 and K3 launched 12 times each;
+32. ``contrib_ops``: the op corpus's cases of CTCLoss, quantize,
+    dequantize, fft, ifft, count_sketch, SwitchMoE and RingAttention on
+    the card against the CPU, forward and gradient, and each under
+    ``set_sync_debug_mode("error")``: no host sync;
+33. ``ctc_ocr``: ``tools.lstm_ocr`` (LSTMCell, FullyConnected, CTCLoss
+    through the Module API) for 10 epochs of 384 strips at lr 0.015, batch
+    32: exact-match above ``TOL_CTC_ACCURACY``, every count 0;
+34. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
     package's ``tests/test_rtc.py`` written in CUDA C, abs written as a
     CUDA programmer writes it for this card (float4 in a grid-stride
     loop), and both abs bodies over an (8192, 8192) f32 array, and pushes
     each once; each output equals the callable (plain) form's exactly; the
     two full-size ones are timed against ``torch.abs`` and their byte
     bound;
-28. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
+35. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
     shapes at batch 128, then K7 (K5 with c = 0) and K8 (the prologue
     variant) against their plain versions at each shape, bit-identical
     across two launches, with the kernel (the card's, and with the host's
     share), plain, library, cuBLAS product and bound times;
-29. ``block_experiment``: the tool of that name at batch 128 with its
+36. ``block_experiment``: the tool of that name at batch 128 with its
     defaults (64, 64, 256, rows 8, bf16: the wgmma kernel) and again in
     f32 (the general kernel), then K9 against ``block_plain`` at both
     stage-1 channel sets, (64, 64, 256) and (256, 64, 256), batch 128, in
@@ -217,9 +255,11 @@ Phases, one JSON line each:
     cmid 4096 must raise in both dtypes.
 
 Then the kernel summary line (each kernel with its launches on its main
-path, and on the DCGAN path, in autograd_check's recorded attention and
-on the detection path (ssd_train and rcnn_train) beside them, the flash
-kernels' by source) and, last, ``{"ok": true, "device": ...}``.
+path, and on the DCGAN path, in autograd_check's recorded attention, on
+the detection path (ssd_train and rcnn_train), on Inception-v3's path, in
+ring_gpt and on the zoo's other paths (zoo_score, zoo_serve, contrib_ops,
+ctc_ocr) beside them, the flash kernels' by source; K5's entry with its
+Inception-v3 step) and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line.  With no CUDA device it exits 1 at once.
 """
@@ -252,7 +292,8 @@ from mxnet_tpu_torch.ops.flash_attention import (              # noqa: E402
     attention_plain, flash_attention_bwd, flash_attention_bwd_plain,
     flash_attention_delta, flash_attention_delta_plain, flash_attention_fwd,
     flash_attention_plain)
-from mxnet_tpu_torch.ops.registry import OpContext, get_op     # noqa: E402
+from mxnet_tpu_torch.ops.registry import (                      # noqa: E402
+    OpContext, apply_op, get_op)
 from mxnet_tpu_torch.ops.fused import (                        # noqa: E402
     matmul_stats, matmul_stats_plain, matmul_stats_prologue,
     matmul_stats_prologue_plain)
@@ -1495,6 +1536,7 @@ def all_counts():
     from mxnet_tpu_torch.rtc import Rtc
     bk = block_experiment.block_kernel
     return dict(flash_counts(), matmul_stats=matmul_stats.launches,
+                matmul_stats_f32=matmul_stats.f32_launches,
                 matmul_stats_prologue=matmul_stats_prologue.launches,
                 rtc=Rtc.launches, bottleneck_block=bk.launches,
                 bottleneck_block_general=bk.general_launches)
@@ -1505,6 +1547,7 @@ def zero_all_counts():
     bk = block_experiment.block_kernel
     zero_flash_counts()
     matmul_stats.launches = matmul_stats_prologue.launches = 0
+    matmul_stats.f32_launches = 0
     Rtc.launches = 0
     bk.launches = bk.general_launches = 0
 
@@ -1964,8 +2007,9 @@ def dcgan_block():
 
 
 def op_corpus_phase(device="cuda", check_device="cpu"):
-    """Every case of ``tools/op_corpus.py`` but the detection path's
-    (``detection_ops_phase`` holds those; each op the dense corpus
+    """Every case of ``tools/op_corpus.py`` but the detection path's and
+    the dense contrib ops' (``detection_ops_phase`` and
+    ``contrib_ops_phase`` hold those; each op the dense corpus
     registers, the 1-d and 3-d Convolution and Pooling, ``LayerNorm
     output_mean_var``; ties planted) on ``device`` and on ``check_device``
     from the same seeded inputs in f32, TF32 off: the outputs and the
@@ -1981,8 +2025,9 @@ def op_corpus_phase(device="cuda", check_device="cpu"):
     card its TF32 control must miss that bound."""
     t0 = time.perf_counter()
     zero_all_counts()
-    rows = op_corpus.card_vs_cpu(device, check_device=check_device,
-                                 exclude=op_corpus.DETECTION_OPS)
+    rows = op_corpus.card_vs_cpu(
+        device, check_device=check_device,
+        exclude=op_corpus.DETECTION_OPS | op_corpus.CONTRIB_OPS)
     samplers = op_corpus.sampler_check(device)
     counts = all_counts()
     ctxs = [mx.context.context_of(torch.device(d))
@@ -3091,12 +3136,18 @@ IMAGENET_RECORDS = {"train": (4096, 0), "val": (512, 1), "module": (128, 2)}
 IMAGENET_444_RECORDS = (64, 3)
 IMAGENET_EPOCHS = 2
 IMAGENET_PARITY_STEPS = 3
-#: the last epoch's validation accuracy must exceed this: a one-class
-#: guess scores 0.25.  On an NVIDIA H100 80GB HBM3 at 700.00 W the first
-#: runs read 0.518 and 0.5 after the first epoch and 1.0 after the second
-#: (an earlier set of 2048 records, 16 steps an epoch, read 0.25 and
-#: 0.531: the moving statistics lag)
+#: the validation accuracy after the fit, its moving statistics
+#: re-estimated at the final weights, must exceed this: a one-class guess
+#: scores 0.25.  The fit's own validation (moving statistics as trained)
+#: is not gated: after 64 steps at lr 0.1 they still lag the weights, and
+#: on an NVIDIA H100 80GB HBM3 at 700.00 W it read from 0.4746 to 1.0
+#: after the second epoch, where each batch's own statistics and the
+#: re-estimated ones read 1.0 in 16 of 16 fits
+#: (``tools.imagenet_val_probe``)
 TOL_VAL_ACCURACY = 0.75
+#: train batches that re-estimate the moving statistics (one epoch's
+#: worth; the momentum of 0.9 leaves 0.9**32 = 0.03 of the trained ones)
+IMAGENET_REESTIMATE_BATCHES = 32
 #: the native decode against PIL's libjpeg on the same records: the mean
 #: absolute pixel difference must stay below these, on the 4:2:0 records
 #: (where decoders may upsample chroma differently) and on 4:4:4 ones (the
@@ -3349,13 +3400,19 @@ def imagenet_train_phase(ctx, recs, layers=50, image=224, batch=128,
     launched ``k5_blocks`` times a step on the card (0 on the CPU), every
     other kernel 0 times.  Every loss finite and the last below the first,
     every moving statistic moved, the plan ``blocks`` blocks with
-    ``k5_blocks`` on K5, the last validation accuracy above
-    ``tol_accuracy``.  Then ``io_train_bench.train_loop`` sequential and
+    ``k5_blocks`` on K5.  Then the moving statistics re-estimated at the
+    final weights from ``IMAGENET_REESTIMATE_BATCHES`` train batches (no
+    weight update) and the validation accuracy through ``trainer.forward``
+    above ``tol_accuracy``; the fit's own last validation is reported
+    beside it.  Then ``io_train_bench.train_loop`` sequential and
     prefetched on the fit's trainer (end-to-end images/s, per-stage
     walls; prefetched again with 2 decode threads, where the others take
     the host's cores), and the queue against inline staging to the bit."""
+    from mxnet_tpu_torch import kvstore
     from mxnet_tpu_torch.models import get_model
     from mxnet_tpu_torch.tools import fit, train_imagenet
+    from mxnet_tpu_torch.tools.imagenet_val_probe import (
+        accuracy, reestimate_moving_stats)
     from mxnet_tpu_torch.tools.io_train_bench import train_loop
     on_card = ctx.device_type == "gpu"
     args = _imagenet_args(
@@ -3396,10 +3453,20 @@ def imagenet_train_phase(ctx, recs, layers=50, image=224, batch=128,
             or fusion["pallas_blocks"] != k5_blocks:
         raise SystemExit("imagenet_train: fusion plan %s; want %d blocks, "
                          "%d on K5" % (fusion, blocks, k5_blocks))
-    val = history["epochs"][-1]["val"]
-    if not val["accuracy"] > tol_accuracy:
-        raise SystemExit("imagenet_train: validation accuracy %s, bound %s"
-                         % (val, tol_accuracy))
+    train_it, val_it = train_imagenet.get_rec_iter(
+        args, kvstore.create(args.kv_store))
+    reestimation = reestimate_moving_stats(trainer, train_it,
+                                           IMAGENET_REESTIMATE_BATCHES)
+    val_accuracy = accuracy(trainer, val_it)
+    for it in (train_it, val_it):
+        if hasattr(it, "close"):
+            it.close()
+    if not val_accuracy > tol_accuracy:
+        raise SystemExit("imagenet_train: validation accuracy %s after the "
+                         "moving statistics were re-estimated (the fit's "
+                         "own: %s), bound %s"
+                         % (val_accuracy, history["epochs"][-1]["val"],
+                            tol_accuracy))
     out = {"network": "resnet%d" % layers, "batch": batch, "image": image,
            "dtype": dtype, "layout": "NHWC", "fuse_blocks": True,
            "context": str(ctx), "queue_depth": 2, "optimizer": "sgd",
@@ -3410,6 +3477,7 @@ def imagenet_train_phase(ctx, recs, layers=50, image=224, batch=128,
            "stage_walls_s": history["timings"], "fusion": fusion,
            "launches": {"matmul_stats": counts["matmul_stats"]},
            "launches_per_step": counts["matmul_stats"] / steps,
+           "val_reestimated": val_accuracy, "reestimation": reestimation,
            "tol_val_accuracy": tol_accuracy, "fit_wall_s": wall}
     if on_card:
         out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
@@ -3930,6 +3998,567 @@ def block_experiment_phase(batch=128, repeats=5, f32_repeats=2):
     return out
 
 
+# -------------------------------------------------------------- the model zoo
+#: the zoo's ten networks, as ``tools.benchmark_score`` names them
+ZOO_NETWORKS = ("mlp", "lenet", "alexnet", "vgg16", "resnet50",
+                "inception-bn", "inception-v3", "inception-resnet-v2",
+                "googlenet", "resnext")
+ZOO_SCORE_BATCHES = (1, 32)
+ZOO_SCORE_FORWARDS = 5
+#: Inception-v3 at 299x299 on the fused route: the plan's blocks, 40 of
+#: them on K5 (every 1x1 stride-1 Conv->BN->ReLU head)
+INCEPTION_BLOCKS = 94
+INCEPTION_K5_BLOCKS = 40
+INCEPTION_BATCH = 128
+INCEPTION_IMAGE = 299
+#: the inception_train records: (records, seed) of 4-class JPEGs at
+#: INCEPTION_RECORD_SIZE px, cropped to 299 at random
+INCEPTION_RECORDS = {"train": (2048, 5), "val": (256, 6)}
+INCEPTION_RECORD_SIZE = 320
+INCEPTION_LR = 0.05
+#: the zoo_serve model and the ladder it is served behind
+ZOO_SERVE = {"model": "inception-bn", "data_shape": (3, 224, 224),
+             "classes": 1000, "rungs": "1,4"}
+#: served against the CPU: max |d log p| over the answers (serve_phase's)
+TOL_ZOO_SERVE = 1e-3
+#: tests/test_ctc_example.py's run and bound: 10 epochs of 384 strips
+CTC_OCR = {"epochs": 10, "batch_size": 32, "n_train": 384, "lr": 0.015}
+TOL_CTC_ACCURACY = 0.3
+
+
+def inception_k5_shapes(batch=INCEPTION_BATCH, image=INCEPTION_IMAGE):
+    """``{(M, K, N): convolutions}`` of Inception-v3's blocks on K5 at
+    ``batch`` x ``image``: each 1x1 head's input rows (batch x H x W), its
+    input and its output channels, read from the plan and the shapes
+    ``infer_shape`` gives every internal output (on ``meta``)."""
+    from mxnet_tpu_torch.analysis.fusion import plan_block_fusion
+    from mxnet_tpu_torch.models import get_model
+    net = get_model("inception-v3", num_classes=1000,
+                    image_shape="3,%d,%d" % (image, image))
+    plan = plan_block_fusion(net._topo(), net._entries, layout="NHWC",
+                             is_train=True)
+    internals = net.get_internals()
+    _, outs, _ = internals.infer_shape(data=(batch, 3, image, image))
+    shapes = dict(zip(internals.list_outputs(), outs))
+    counts = {}
+    for blk in plan.blocks.values():
+        if not blk.pallas:
+            continue
+        src, idx = blk.conv.inputs[0]
+        name = "%s_output" % src.name
+        s = shapes[name if name in shapes else "%s_output%d"
+                   % (src.name, idx)]
+        key = (s[0] * s[2] * s[3], s[1], int(blk.conv.attrs["num_filter"]))
+        counts[key] = counts.get(key, 0) + 1
+    return dict(sorted(counts.items()))
+
+
+def zoo_kernels_phase(shapes=None):
+    """K5 against ``matmul_stats_plain`` at each distinct shape of
+    Inception-v3's 40 K5 blocks (batch 128, 299x299, bf16): y within one
+    bf16 ulp plus ``TOL_K5_Y_F32``, s1 and s2 by relative norm
+    ``TOL_K5_SUMS``, two launches bit-identical, no padding (every K and N
+    is a multiple of 8); per shape the card's time, the wrapper's host
+    time, cuBLAS's bare product, the plain and library times and the
+    bound, as the ResNet-50 rows have them."""
+    shapes = shapes or inception_k5_shapes()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    entries = []
+    for (m, k, n), count in shapes.items():
+        x = torch.randn(m, k, generator=gen, device="cuda") \
+            .to(torch.bfloat16)
+        w_nk = (torch.randn(n, k, generator=gen, device="cuda")
+                / k ** 0.5).to(torch.bfloat16)
+        w2d = w_nk.t()
+        c = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        matmul_stats.padded = 0
+        out = matmul_stats(x, w2d, c)
+        torch.cuda.synchronize()
+        entry = {"shape": [m, k, n], "dtype": "bfloat16",
+                 "launches_per_step": count, "padded": matmul_stats.padded,
+                 "bit_identical": identical(out, matmul_stats(x, w2d, c))}
+        entry.update(k5_check(*out, *matmul_stats_plain(x, w2d, c)))
+        del out
+        entry["ok"] = entry["ok"] and entry["bit_identical"] \
+            and entry["padded"] == 0
+        entry["tol_sums"] = TOL_K5_SUMS
+        entry.update(k5_times(lambda: matmul_stats(x, w2d, c),
+                              lambda: x @ w2d))
+        entry.update(
+            plain_ms=cuda_ms(lambda: matmul_stats_plain(x, w2d, c), 3),
+            library_ms=cuda_ms(lambda: k5_library(x, w_nk, c), 20))
+        entry.update(k5_bound(m, k, n, torch.bfloat16))
+        entries.append(entry)
+        del x, w_nk, w2d, c
+    out = {"network": "inception-v3", "batch": INCEPTION_BATCH,
+           "image": INCEPTION_IMAGE, "shapes": len(entries),
+           "launches_per_step": sum(shapes.values()), "entries": entries}
+    for key in ("device_ms", "kernel_ms", "dot_ms", "plain_ms",
+                "library_ms", "bound_ms"):
+        out["step_" + key] = sum(e[key] * e["launches_per_step"]
+                                 for e in entries)
+    bad = [e for e in entries if not e["ok"]]
+    if bad:
+        raise SystemExit("zoo_kernels: matmul_stats disagrees with its "
+                         "plain version, differs between two launches or "
+                         "was padded: %s" % json.dumps(bad))
+    return out
+
+
+def _inception_args(recs, ctx, image, batch, epochs, dtype, lr):
+    from mxnet_tpu_torch.tools import train_imagenet
+    return train_imagenet.parser().parse_args(
+        ["--network", "inception-v3", "--data-train", recs["train"],
+         "--data-val", recs["val"], "--image-shape",
+         "3,%d,%d" % (image, image), "--num-classes", "1000",
+         "--data-nthreads", str(os.cpu_count() or 1), "--disp-batches", "8",
+         "--batch-size", str(batch), "--dtype", dtype, "--fused", "1",
+         "--num-epochs", str(epochs), "--lr", str(lr), "--mom", "0.9",
+         "--wd", "1e-4", "--top-k", "2", "--device-queue", "1"]
+        + (["--cpu", "1"] if ctx.device_type == "cpu" else []))
+
+
+def inception_train_phase(ctx, recs, image=INCEPTION_IMAGE,
+                          batch=INCEPTION_BATCH, epochs=1, dtype="bfloat16",
+                          lr=INCEPTION_LR, blocks=INCEPTION_BLOCKS,
+                          k5_blocks=INCEPTION_K5_BLOCKS, timed_steps=3):
+    """``tools.train_imagenet --network inception-v3 --image-shape
+    3,299,299 --fused 1 --dtype bfloat16`` on ``ctx``: ``epochs`` of the
+    train records through the native pipeline (raw uint8 normalized on the
+    card) and a ``DevicePrefetchIter``, SGD momentum 0.9, wd 1e-4, NHWC,
+    block fusion, validation on the held-out records.  Every count set to
+    0 before and read after: K5 launched as many times a step as the plan
+    has K5 blocks (0 on the CPU), every other kernel 0.  Every loss finite
+    and the last below the first, every moving statistic moved, the plan
+    ``blocks`` blocks with ``k5_blocks`` on K5.  Then, on a staged
+    synthetic batch, the ms of a step and images/s (the best of two
+    chains of ``timed_steps``), peak memory and a profile of one step
+    (the device's busy share, K5's and cuDNN's shares)."""
+    from mxnet_tpu_torch.models import get_model
+    from mxnet_tpu_torch.tools import fit, train_imagenet
+    on_card = ctx.device_type == "gpu"
+    args = _inception_args(recs, ctx, image, batch, epochs, dtype, lr)
+    net = get_model("inception-v3", num_classes=1000,
+                    image_shape="3,%d,%d" % (image, image))
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    history = {}
+    zero_all_counts()
+    t0 = time.perf_counter()
+    trainer = fit.fit(args, net, train_imagenet.get_rec_iter,
+                      history=history)
+    wall = time.perf_counter() - t0
+    counts = all_counts()
+    by_source = flash_source_counts()
+    losses = history["losses"]
+    steps = len(losses)
+    fusion = history.get("fusion")
+    want = k5_blocks * steps if on_card else 0
+    if counts["matmul_stats"] != want or any(
+            v for k, v in counts.items() if k != "matmul_stats"):
+        raise SystemExit("inception_train: launches %s over %d steps; want "
+                         "matmul_stats %d, the rest 0"
+                         % (counts, steps, want))
+    if fusion is None or fusion["blocks"] != blocks \
+            or fusion["pallas_blocks"] != k5_blocks:
+        raise SystemExit("inception_train: fusion plan %s; want %d blocks, "
+                         "%d on K5" % (fusion, blocks, k5_blocks))
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise SystemExit("inception_train: losses %s" % losses)
+    still = [k for k, v in trainer.aux.items() if torch.equal(
+        v, torch.ones_like(v) if k.endswith("moving_var")
+        else torch.zeros_like(v))]
+    if still:
+        raise SystemExit("inception_train: moving statistics unchanged: %s"
+                         % still)
+    out = {"network": "inception-v3", "batch": batch, "image": image,
+           "classes": 1000, "dtype": dtype, "layout": "NHWC",
+           "fuse_blocks": True, "context": str(ctx), "queue_depth": 2,
+           "optimizer": "sgd", "learning_rate": lr, "momentum": 0.9,
+           "weight_decay": 1e-4, "epochs": epochs,
+           "decoder": mx.io_native.decoder(),
+           "params": sum(int(v.numel()) for v in trainer.params.values()),
+           "steps": steps, "losses": losses,
+           "epochs_detail": history["epochs"],
+           "stage_walls_s": history["timings"], "fusion": fusion,
+           "kernel_launches": counts, "flash_source_launches": by_source,
+           "launches": {"matmul_stats": counts["matmul_stats"]},
+           "launches_per_step": counts["matmul_stats"] / steps,
+           "fit_wall_s": wall}
+    if on_card:
+        out["peak_mem_bytes"] = torch.cuda.max_memory_allocated()
+    rng = np.random.RandomState(0)
+    staged = trainer.put_batch({
+        "data": rng.uniform(-1, 1, (batch, 3, image, image))
+        .astype(np.float32),
+        "softmax_label": rng.randint(0, 1000, batch).astype(np.float32)})
+    trainer.step(staged)
+    times = [time_chains(trainer, staged, timed_steps, timed_steps)[1]
+             for _ in range(2)]
+    step_s = min(times) / timed_steps
+    out.update(timed_steps=timed_steps, repeats_s=times,
+               step_ms=step_s * 1e3, images_per_s=batch / step_s)
+    if on_card:
+        # after the launch counts were read: these steps are not counted
+        out["profile"] = profile_device(
+            lambda: trainer.step(staged), top=12,
+            marks={"k5": ("matmul_stats",),
+                   "library_convs_gemms": (
+                       "xmma", "cudnn", "cutlass", "implicit", "nvjet",
+                       "gemm", "conv", "dgrad", "wgrad"),
+                   "pytorch_elementwise_reductions": (
+                       "elementwise_kernel", "reduce_kernel")})
+    del trainer, staged
+    gc.collect()
+    return out
+
+
+def reduced_inception(classes=10):
+    """An ``Inception7A`` block (Inception-v3's mixed_0 widths) with a
+    global-pool and FullyConnected head."""
+    from mxnet_tpu_torch.models import inception_v3
+    with mx.name.NameManager():
+        data = mx.sym.Variable("data")
+        x = inception_v3.Inception7A(data, 64, 64, 96, 96, 48, 64, "avg",
+                                     32, "mixed")
+        x = mx.sym.Pooling(x, kernel=(1, 1), global_pool=True,
+                           pool_type="avg", name="global_pool")
+        x = mx.sym.FullyConnected(mx.sym.Flatten(x), num_hidden=classes,
+                                  name="fc")
+        return mx.sym.SoftmaxOutput(x, name="softmax")
+
+
+def inception_check_phase(ctx, batch=8, image=17, channels=64,
+                          check_ctx=None, k5_blocks=4, lr=0.1):
+    """One f32 SGD step (momentum 0.9, wd 1e-4) of :func:`reduced_inception`
+    at ``batch`` x ``channels`` x ``image``^2 (M = 2312 rows, not a
+    multiple of K5's tiles) on the fused route on ``ctx`` (NHWC, block
+    fusion, its ``k5_blocks`` 1x1 heads on the f32 K5) against the
+    Executor route (``Module``, NCHW, unfused) on ``check_ctx`` (default:
+    the CPU) from the same weights and batch: each parameter's and
+    moving statistic's change within ``TOL_RESNET_CHECK`` and
+    ``TOL_RESNET_CHECK_AUX`` (resnet_train_check's bounds)."""
+    from mxnet_tpu_torch.io import DataBatch
+    check_ctx = check_ctx or mx.cpu()
+    shape = (batch, channels, image, image)
+    rng = np.random.RandomState(4)
+    host = {"data": rng.uniform(-1, 1, shape).astype(np.float32),
+            "softmax_label": rng.randint(0, 10, batch).astype(np.float32)}
+    trainer = ShardedTrainer(
+        reduced_inception(), build_mesh(devices=[ctx]),
+        data_shapes={"data": shape},
+        label_shapes={"softmax_label": (batch,)}, layout="NHWC",
+        fuse_blocks=True, dtype="float32", optimizer="sgd",
+        learning_rate=lr, momentum=0.9, weight_decay=1e-4, seed=4)
+    before = {k: v.to("cpu", copy=True) for k, v in
+              list(trainer.params.items()) + list(trainer.aux.items())}
+    matmul_stats.launches = 0
+    loss = float(trainer.step(host))
+    launches = matmul_stats.launches
+    delta = {k: v.cpu() - before[k] for k, v in
+             list(trainer.params.items()) + list(trainer.aux.items())}
+    summary = trainer.fusion_summary()
+    mod = mx.mod.Module(reduced_inception(), context=check_ctx)
+    mod.bind(data_shapes=[("data", shape)],
+             label_shapes=[("softmax_label", (batch,))])
+    mod.init_params(
+        arg_params={k: mx.nd.array(before[k].numpy(), ctx=check_ctx)
+                    for k in trainer.params},
+        aux_params={k: mx.nd.array(before[k].numpy(), ctx=check_ctx)
+                    for k in trainer.aux})
+    mod.init_optimizer(optimizer="sgd", optimizer_params={
+        "learning_rate": lr, "momentum": 0.9, "wd": 1e-4})
+    mod.forward(DataBatch([mx.nd.array(host["data"], ctx=check_ctx)],
+                          [mx.nd.array(host["softmax_label"],
+                                       ctx=check_ctx)]), is_train=True)
+    mod.backward()
+    mod.update()
+    arg, aux = mod.get_params()
+    ref = {k: torch.from_numpy(v.asnumpy()) - before[k]
+           for k, v in list(arg.items()) + list(aux.items())}
+    rel = {k: (delta[k] - d).norm().item() / max(d.norm().item(), 1e-30)
+           for k, d in ref.items()}
+    par = {k: v for k, v in rel.items()
+           if not k.endswith(("moving_mean", "moving_var"))}
+    aux_rel = {k: v for k, v in rel.items() if k not in par}
+    out = {"model": "Inception7A + head", "data": list(shape),
+           "rows": batch * image * image, "dtype": "float32",
+           "contexts": [str(ctx), str(check_ctx)],
+           "routes": ["fused NHWC ShardedTrainer", "Module (Executor)"],
+           "loss": loss, "fusion": summary, "k5_launches": launches,
+           "max_rel_update_diff": max(par.values()),
+           "worst": max(par, key=par.get),
+           "max_rel_aux_diff": max(aux_rel.values()),
+           "worst_aux": max(aux_rel, key=aux_rel.get),
+           "compared": len(rel), "tol": TOL_RESNET_CHECK,
+           "tol_aux": TOL_RESNET_CHECK_AUX}
+    want = k5_blocks if ctx.device_type == "gpu" else 0
+    if launches != want or summary["pallas_blocks"] != k5_blocks:
+        raise SystemExit("inception_check: matmul_stats launched %d times, "
+                         "plan %s; want %d" % (launches, summary, want))
+    if not (out["max_rel_update_diff"] <= TOL_RESNET_CHECK
+            and out["max_rel_aux_diff"] <= TOL_RESNET_CHECK_AUX
+            and np.isfinite(loss)):
+        raise SystemExit("inception_check: %s" % json.dumps(out))
+    return out
+
+
+def zoo_score_phase(ctx, networks=ZOO_NETWORKS, batches=ZOO_SCORE_BATCHES,
+                    num_batches=ZOO_SCORE_FORWARDS, dtype="bfloat16"):
+    """``tools.benchmark_score`` over ``networks`` on both routes at each
+    of ``batches``: the Executor (f32 NCHW, Xavier weights) and the fused
+    ``ShardedTrainer.forward`` (``dtype``, NHWC); images/s each, every
+    count 0 (inference takes no kernel of the port)."""
+    from mxnet_tpu_torch.tools import benchmark_score
+    t0 = time.perf_counter()
+    zero_all_counts()
+    rates = {}
+    for net in networks:
+        shape = benchmark_score.image_shape_of(net)
+        rates[net] = {"executor": {}, "fused": {}}
+        for b in batches:
+            rates[net]["executor"][str(b)] = benchmark_score.score(
+                net, b, image_shape=shape, num_batches=num_batches, ctx=ctx)
+            rates[net]["fused"][str(b)] = benchmark_score.score_fused(
+                net, b, image_shape=shape, num_batches=num_batches,
+                dtype=dtype, ctx=ctx)
+            gc.collect()
+    counts = all_counts()
+    out = {"context": str(ctx), "networks": list(networks),
+           "batches": list(batches), "forwards": num_batches,
+           "routes": {"executor": "float32 NCHW",
+                      "fused": "%s NHWC" % dtype},
+           "images_per_s": rates, "kernel_launches": counts,
+           "seconds": time.perf_counter() - t0}
+    bad = [(n, r, b) for n, by in rates.items() for r, v in by.items()
+           for b, x in v.items() if not (np.isfinite(x) and x > 0)]
+    if bad or any(counts.values()):
+        raise SystemExit("zoo_score: %s" % json.dumps(out))
+    return out
+
+
+def zoo_serve_phase(ctx, model=ZOO_SERVE["model"],
+                    data_shape=ZOO_SERVE["data_shape"],
+                    classes=ZOO_SERVE["classes"], rungs=ZOO_SERVE["rungs"],
+                    requests=6, check_ctx=None):
+    """The serving CLI's ``--model`` route (``serving.__main__``'s
+    ``parser`` and ``_build_predictor``: the zoo model with fresh Xavier
+    weights from seed 0) on ``ctx`` behind ``BatchLadder``, ``Batcher`` and
+    ``Server``: ``requests`` one-image requests from threads and one of
+    two images over HTTP; every answer finite, its rows summing to 1, and
+    within ``TOL_ZOO_SERVE`` (max |d log p|) of a Predictor on
+    ``check_ctx`` (default: the CPU) over the same weights."""
+    from mxnet_tpu_torch.serving.__main__ import _build_predictor, parser
+    check_ctx = check_ctx or mx.cpu()
+    opts = parser().parse_args(
+        ["--model", model, "--classes", str(classes), "--data-shape",
+         ",".join(map(str, data_shape)), "--ladder", rungs]
+        + (["--cpu", "1"] if ctx.device_type == "cpu" else []))
+    rng = np.random.RandomState(2)
+    images = rng.uniform(-1, 1, (requests + 2,) + tuple(data_shape)) \
+        .astype(np.float32)
+    zero_all_counts()
+    t0 = time.perf_counter()
+    pred = _build_predictor(opts)
+    ladder = BatchLadder(pred, rungs=opts.ladder)
+    batcher = Batcher(ladder, window_ms=50, queue_depth=64,
+                      default_deadline_ms=600000)
+    server = Server(ladder, batcher=batcher, port=0,
+                    host="127.0.0.1").start()
+    results, errors = {}, []
+
+    def go(i):
+        try:
+            results[i] = batcher.submit({"data": images[i:i + 1]})[0]
+        except Exception as e:  # collected and raised below
+            errors.append(repr(e))
+
+    try:
+        threads = [threading.Thread(target=go, args=(i,))
+                   for i in range(requests)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600)
+        req = urllib.request.Request(
+            "http://127.0.0.1:%d/predict" % server.port,
+            data=json.dumps({"data": images[requests:].tolist()}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            results["http"] = np.asarray(json.loads(r.read())["outputs"][0],
+                                         np.float32)
+    finally:
+        server.close()
+    serve_s = time.perf_counter() - t0
+    counts = all_counts()
+    if errors or len(results) != requests + 1:
+        raise SystemExit("zoo_serve: requests failed or were shed: %s"
+                         % errors)
+    exe = pred._executor
+    weights = {k: v.asnumpy() for k, v in exe.arg_dict.items()
+               if k not in ("data", "softmax_label")}
+    weights.update({k: v.asnumpy() for k, v in exe.aux_dict.items()})
+    ref = mx.Predictor(
+        pred._symbol.tojson(),
+        {k: mx.nd.array(v, ctx=check_ctx) for k, v in weights.items()},
+        {"data": (requests + 2,) + tuple(data_shape)}, ctx=check_ctx)
+    want = ref.forward(data=images).get_output(0)
+    got = np.concatenate([results[i] for i in range(requests)]
+                         + [results["http"]])
+    finite = bool(np.isfinite(got).all())
+    row_err = float(np.abs(got.sum(-1, dtype=np.float64) - 1).max())
+    dlogp = float(np.abs(np.log(np.maximum(got, 1e-30))
+                         - np.log(np.maximum(want, 1e-30))).max())
+    out = {"model": model, "data_shape": list(data_shape),
+           "classes": classes, "context": str(ctx), "rungs": rungs,
+           "answered": len(results), "request_images": [1] * requests + [2],
+           "dispatches_per_rung": {str(k): v for k, v in
+                                   batcher.dispatch_counts().items()},
+           "warm_wall_ms": ladder.describe()["wall_ms"], "serve_s": serve_s,
+           "cross_check": str(check_ctx), "max_abs_dlogp": dlogp,
+           "row_sum_err": row_err, "tol": TOL_ZOO_SERVE,
+           "kernel_launches": counts}
+    if not finite or row_err > 1e-4 or dlogp > TOL_ZOO_SERVE \
+            or any(counts.values()):
+        raise SystemExit("zoo_serve: %s" % json.dumps(out))
+    return out
+
+
+def ring_gpt_phase(ctx, cfg=FULL, batch=16, dtype="bfloat16"):
+    """One training step of ``build_bench_trainer`` at ``cfg`` with
+    ``attention="ring"`` (``_contrib_RingAttention``) and one with
+    ``"flash"``, each from the same seeded weights and batch, under
+    PyTorch's deterministic algorithms: the losses and every parameter
+    and optimizer state equal to the bit; on the card the bf16 K1 and K3
+    launch once per layer in each step (by source)."""
+    on_card = ctx.device_type == "gpu"
+    runs = {}
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for attention in ("ring", "flash"):
+            trainer, staged = build_bench_trainer(
+                vocab=cfg["vocab"], seq=cfg["seq"], d_model=cfg["d_model"],
+                heads=cfg["heads"], layers=cfg["layers"], batch=batch,
+                dtype=dtype, ctx=ctx, attention=attention)
+            zero_all_counts()
+            loss = float(trainer.step(staged))
+            state = {k: v.clone() for k, v in trainer.params.items()}
+            state.update({"%s:%d" % (k, i): s.clone() for k, v in
+                          trainer.opt_state.items() for i, s in enumerate(v)})
+            runs[attention] = (loss, state, all_counts(),
+                               flash_source_counts())
+            del trainer, staged
+            gc.collect()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (rl, rs, rc, rsrc), (fl, fs, fc, fsrc) = runs["ring"], runs["flash"]
+    differ = [k for k in fs if not torch.equal(rs[k], fs[k])]
+    want = cfg["layers"] if on_card else 0
+    src = "flash_attention_fwd_sm90" if dtype == "bfloat16" \
+        else "flash_attention_fwd"
+    out = {"config": cfg, "batch": batch, "dtype": dtype,
+           "context": str(ctx), "losses": {"ring": rl, "flash": fl},
+           "compared": len(fs), "differing": differ[:5],
+           "bit_identical": rl == fl and not differ,
+           "kernel_launches": rc, "flash_source_launches": rsrc,
+           "flash_step_launches": fc}
+    fwd = rsrc[src]
+    bwd = rsrc[src.replace("fwd", "bwd")]
+    if not out["bit_identical"] or rc != fc or fwd != want or bwd != want:
+        raise SystemExit("ring_gpt: %s; want %d K1 and K3 launches"
+                         % (json.dumps(out), want))
+    return out
+
+
+def contrib_ops_phase(device="cuda", check_device="cpu"):
+    """The op corpus's cases of ``op_corpus.CONTRIB_OPS`` (CTCLoss,
+    quantize, dequantize, fft, ifft, count_sketch, SwitchMoE and
+    RingAttention at a head dim the flash kernels do not take) on
+    ``device`` against ``check_device``, forward and the gradient of
+    ``sum(out * cot)`` within ``TOL_OP_CORPUS`` (quantize to the bit;
+    count_sketch's duplicate buckets are summed by ``index_add`` in
+    another order on the card, well inside it); on the card each case's
+    forward and backward under ``set_sync_debug_mode("error")``: no host
+    sync; no kernel launched."""
+    t0 = time.perf_counter()
+    zero_all_counts()
+    rows = op_corpus.card_vs_cpu(device, check_device=check_device,
+                                 ops=op_corpus.CONTRIB_OPS)
+    syncs = {}
+    if torch.device(device).type == "cuda":
+        for case in op_corpus.CASES:
+            op = get_op(case.op)
+            if op.name not in op_corpus.CONTRIB_OPS:
+                continue
+            attrs = op.parse_attrs({k: str(v) for k, v in
+                                    case.attrs.items()})
+            ts = [torch.from_numpy(x).to(device)
+                  for x in op_corpus.inputs_of(case)]
+            for i in case.diff:
+                ts[i].requires_grad_(True)
+            torch.cuda.synchronize()
+
+            def fwd_bwd(op=op, attrs=attrs, ts=ts, case=case):
+                outs = apply_op(op, attrs, OpContext(
+                    device=torch.device(device)), *ts)
+                floats = [o for o in outs if o.requires_grad]
+                if floats:
+                    torch.autograd.grad(
+                        sum(o.float().sum() for o in floats),
+                        [ts[i] for i in case.diff], allow_unused=True)
+            syncs[case.id] = _sync_free(fwd_bwd)
+    counts = all_counts()
+
+    def worst(r):
+        return max(r["out_err"], r["grad_err"] or 0.0)
+
+    over = [r for r in rows if worst(r) > TOL_OP_CORPUS]
+    by_op = {}
+    for r in rows:
+        by_op[r["op"]] = max(by_op.get(r["op"], 0.0), worst(r))
+    out = {"devices": [str(device), str(check_device)],
+           "ops": sorted(by_op), "cases": len(rows), "worst": by_op,
+           "over": over, "tol": TOL_OP_CORPUS,
+           "host_syncs": {k: v for k, v in syncs.items() if v},
+           "sync_checked": len(syncs), "kernel_launches": counts,
+           "kernel_launches_total": sum(counts.values()),
+           "seconds": time.perf_counter() - t0}
+    if over or out["host_syncs"] or any(counts.values()) \
+            or set(by_op) != op_corpus.CONTRIB_OPS:
+        raise SystemExit("contrib_ops: %s" % json.dumps(out))
+    return out
+
+
+def ctc_ocr_phase(ctx, min_accuracy=TOL_CTC_ACCURACY, seed=0, **over):
+    """``tools.lstm_ocr.train`` at ``CTC_OCR`` (``tests/test_ctc_example.py``'s
+    run: 10 epochs of 384 strips, batch 32, Adam lr 0.015) on ``ctx``, numpy's
+    global generator seeded for the shuffle: the losses finite and falling,
+    the exact-match accuracy above ``min_accuracy`` (None: not held), every
+    count 0 (the LSTM, FullyConnected and CTCLoss take no kernel of the
+    port); ms per batch."""
+    from mxnet_tpu_torch.tools import lstm_ocr
+    cfg = dict(CTC_OCR, **over)
+    np.random.seed(seed)
+    zero_all_counts()
+    history = {}
+    t0 = time.perf_counter()
+    _mod, acc = lstm_ocr.train(ctx=ctx, history=history, **cfg)
+    wall = time.perf_counter() - t0
+    counts = all_counts()
+    out = dict(cfg, context=str(ctx), exact_match=acc,
+               losses=history["losses"], accuracy=history["accuracy"],
+               median_batch_ms=float(np.median(history["batch_ms"])),
+               wall_s=wall, kernel_launches=counts,
+               min_accuracy=min_accuracy)
+    losses = history["losses"]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0] \
+            or any(counts.values()) \
+            or (min_accuracy is not None and not acc > min_accuracy):
+        raise SystemExit("ctc_ocr: %s" % json.dumps(out))
+    return out
+
+
 #: what the summary line keeps of each K5, K7 and K8 case
 K5_SHAPE_KEYS = ("shape", "device_ms", "kernel_ms", "host_us", "dot_ms",
                  "plain_ms", "library_ms", "bound_ms", "bound_by",
@@ -3990,6 +4619,28 @@ def k5_summary(entries, launches, ptxas, **extra):
         "shapes": [{k: e[k] for k in ("dtype", "launches_per_step",
                                       "padded") + K5_SHAPE_KEYS if k in e}
                    for e in entries]}, **extra)
+
+
+def k5_inception_fields(zoo_k5, inception):
+    """K5 on Inception-v3's path for the kernel summary line: zoo_kernels'
+    19 shapes summed over one step's 40 launches (the card's time, the
+    time with the host's share, cuBLAS's bare product, plain, library and
+    bound) beside inception_train's launches."""
+    return {"launches": inception["launches"]["matmul_stats"],
+            "steps": inception["steps"],
+            "launches_per_step": inception["launches_per_step"],
+            "per": "one Inception-v3 training step at batch 128, 299x299, "
+                   "%d launches, bf16" % zoo_k5["launches_per_step"],
+            "ms": zoo_k5["step_device_ms"],
+            "wall_ms": zoo_k5["step_kernel_ms"],
+            "dot_ms": zoo_k5["step_dot_ms"],
+            "plain_ms": zoo_k5["step_plain_ms"],
+            "library_ms": zoo_k5["step_library_ms"],
+            "bound_ms": zoo_k5["step_bound_ms"],
+            "max_abs_err": max(e["max_abs_err"] for e in zoo_k5["entries"]),
+            "shapes": [{k: e[k] for k in ("launches_per_step",)
+                        + K5_SHAPE_KEYS if k in e}
+                       for e in zoo_k5["entries"]]}
 
 
 def k5_f32_summary(entries, launches):
@@ -4053,7 +4704,7 @@ COUNTER_OF = {
     "flash_attention_bwd": "flash_attention_bwd",
     "flash_attention_bwd_sm90": "flash_attention_bwd",
     "flash_attention_delta": "flash_attention_delta",
-    "matmul_stats": "matmul_stats", "matmul_stats_f32": "matmul_stats",
+    "matmul_stats": "matmul_stats", "matmul_stats_f32": "matmul_stats_f32",
     "rtc": "rtc",
     "matmul_stats_experiment.matmul_stats": "matmul_stats",
     "matmul_stats_experiment.matmul_stats_prologue":
@@ -4138,6 +4789,24 @@ def main():
         emit("imagenet_train", staged_images_per_s=resnet["images_per_s"],
              **imagenet)
         emit("imagenet_module", **imagenet_module_phase(mx.gpu(0), recs))
+    zoo_k5 = zoo_kernels_phase()
+    emit("zoo_kernels", **zoo_k5)
+    with tempfile.TemporaryDirectory() as workdir:
+        recs, records_s = make_image_records(
+            workdir, INCEPTION_RECORDS, size=INCEPTION_RECORD_SIZE)
+        inception = inception_train_phase(mx.gpu(0), recs)
+        emit("inception_train", records_s=records_s, **inception)
+    emit("inception_check", **inception_check_phase(mx.gpu(0)))
+    zoo_score = zoo_score_phase(mx.gpu(0))
+    emit("zoo_score", **zoo_score)
+    zoo_serve = zoo_serve_phase(mx.gpu(0))
+    emit("zoo_serve", **zoo_serve)
+    ring = ring_gpt_phase(mx.gpu(0))
+    emit("ring_gpt", **ring)
+    contrib = contrib_ops_phase()
+    emit("contrib_ops", **contrib)
+    ctc = ctc_ocr_phase(mx.gpu(0))
+    emit("ctc_ocr", **ctc)
     rtc = rtc_phase()
     mse = matmul_stats_experiment_phase()
     blk = block_experiment_phase()
@@ -4248,7 +4917,8 @@ def main():
         k5_summary(k5, resnet["launches"]["matmul_stats"],
                    ptxas["matmul_stats"],
                    imagenet_launches=imagenet["launches"]["matmul_stats"],
-                   imagenet_steps=imagenet["steps"]),
+                   imagenet_steps=imagenet["steps"],
+                   inception=k5_inception_fields(zoo_k5, inception)),
         k5_f32_summary(k5, resnet_check["k5_launches"]),
         {"name": "rtc", "route": "cuda", "source": "mxnet_tpu_torch/rtc.py",
          "generated": "build/kernels/rtc_rtc_abs_full-<hash>.cu",
@@ -4301,6 +4971,9 @@ def main():
     detection_by_source = {k: ssd_run["flash_source_launches"][k]
                            + rcnn_run["flash_source_launches"][k]
                            for k in ssd_run["flash_source_launches"]}
+    # the zoo's other paths: scoring, serving, the contrib ops and the OCR
+    zoo_counts = {k: sum(r["kernel_launches"][k] for r in (
+        zoo_score, zoo_serve, contrib, ctc)) for k in all_counts()}
     for e in kernels:
         counter = COUNTER_OF[e["name"]]
         for key, run, by_source in (
@@ -4309,9 +4982,18 @@ def main():
                 ("autograd_launches", autograd["flash"]["launches"],
                  autograd["flash"]["source_launches"]),
                 ("detection_launches", detection_counts,
-                 detection_by_source)):
-            e[key] = by_source[e["name"]] if e["name"] in by_source \
-                else run[counter]
+                 detection_by_source),
+                ("inception_launches", inception["kernel_launches"],
+                 inception["flash_source_launches"]),
+                ("ring_gpt_launches", ring["kernel_launches"],
+                 ring["flash_source_launches"]),
+                ("zoo_launches", zoo_counts, {})):
+            if e["name"] in by_source:
+                e[key] = by_source[e["name"]]
+            elif e["name"] == "matmul_stats":       # K5's bf16 launches
+                e[key] = run[counter] - run["matmul_stats_f32"]
+            else:
+                e[key] = run[counter]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,8 +3,8 @@
 The port's copy of ``examples/transformer/train_lm.py``'s
 ``transformer_block``, ``gpt_symbol`` and ``build_bench_trainer``: the same
 graph (and so the same Symbol JSON), the same defaults and the same
-synthetic batch.  ``_contrib_RingAttention`` (``attention="ring"``) is not
-yet ported, so the blocks always use ``_contrib_FlashAttention``.
+synthetic batch.  ``attention="ring"`` builds the blocks on
+``_contrib_RingAttention``, which on one device is the flash op.
 """
 from __future__ import annotations
 
@@ -17,8 +17,10 @@ from ..parallel import ShardedTrainer, build_mesh
 __all__ = ["transformer_block", "gpt_symbol", "build_bench_trainer"]
 
 
-def transformer_block(x, d_model, n_heads, prefix, ffn_mult=4, dropout=0.1):
-    """Pre-norm block: x + Attn(LN(x)); x + FFN(LN(x))."""
+def transformer_block(x, d_model, n_heads, prefix, ffn_mult=4, dropout=0.1,
+                      attention="flash"):
+    """Pre-norm block: x + Attn(LN(x)); x + FFN(LN(x)); ``attention``
+    "flash" or "ring" names the attention op."""
     h = sym.LayerNorm(x, name=prefix + "_ln1")
     qkv = sym.FullyConnected(h, num_hidden=3 * d_model, flatten=False,
                              name=prefix + "_qkv")
@@ -30,8 +32,9 @@ def transformer_block(x, d_model, n_heads, prefix, ffn_mult=4, dropout=0.1):
                     shape=(0, 0, -3, -2))
     v = sym.Reshape(sym.slice_axis(qkv, axis=2, begin=2, end=3),
                     shape=(0, 0, -3, -2))
-    att = sym._contrib_FlashAttention(q, k, v, causal=True,
-                                      name=prefix + "_attn")
+    attn_op = (sym._contrib_RingAttention if attention == "ring"
+               else sym._contrib_FlashAttention)
+    att = attn_op(q, k, v, causal=True, name=prefix + "_attn")
     att = sym.Reshape(att, shape=(0, 0, -3))
     att = sym.FullyConnected(att, num_hidden=d_model, flatten=False,
                              name=prefix + "_proj")
@@ -50,7 +53,7 @@ def transformer_block(x, d_model, n_heads, prefix, ffn_mult=4, dropout=0.1):
 
 
 def gpt_symbol(vocab_size, seq_len, d_model=128, n_heads=4, n_layers=2,
-               dropout=0.1):
+               dropout=0.1, attention="flash"):
     """Token and learned position embeddings, ``n_layers`` blocks, a final
     LayerNorm and the LM head under SoftmaxOutput over (batch*seq) rows."""
     data = sym.Variable("data")                 # (batch, seq)
@@ -63,7 +66,7 @@ def gpt_symbol(vocab_size, seq_len, d_model=128, n_heads=4, n_layers=2,
     x = sym.broadcast_add(tok, sym.expand_dims(pos, axis=0))
     for i in range(n_layers):
         x = transformer_block(x, d_model, n_heads, "block%d" % i,
-                              dropout=dropout)
+                              dropout=dropout, attention=attention)
     x = sym.LayerNorm(x, name="ln_f")
     x = sym.Reshape(x, shape=(-1, d_model))
     logits = sym.FullyConnected(x, num_hidden=vocab_size, name="lm_head")
@@ -72,12 +75,15 @@ def gpt_symbol(vocab_size, seq_len, d_model=128, n_heads=4, n_layers=2,
 
 
 def build_bench_trainer(vocab=16384, seq=1024, d_model=1024, heads=16,
-                        layers=12, batch=16, dtype="bfloat16", ctx=None):
+                        layers=12, batch=16, dtype="bfloat16", ctx=None,
+                        attention="flash"):
     """``(trainer, staged synthetic batch)`` at the repo's benchmark scale:
     Adam at lr 1e-4 on a one-device mesh on ``ctx`` (default ``gpu(0)``),
     tokens from ``RandomState(0)``, labels the tokens shifted by one.  The
-    JAX version's ``auto_layouts`` (XLA state layouts) has no counterpart."""
-    net = gpt_symbol(vocab, seq, d_model, heads, layers, dropout=0.0)
+    JAX version's ``auto_layouts`` (XLA state layouts) has no counterpart;
+    ``attention`` is :func:`gpt_symbol`'s."""
+    net = gpt_symbol(vocab, seq, d_model, heads, layers, dropout=0.0,
+                     attention=attention)
     trainer = ShardedTrainer(
         net, build_mesh(n_devices=1, devices=[ctx or gpu(0)]),
         data_shapes={"data": (batch, seq)},

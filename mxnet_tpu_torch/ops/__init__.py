@@ -14,6 +14,7 @@ from . import optimizer_ops as _opt          # noqa: F401
 from . import flash_attention as _flash      # noqa: F401
 from . import rnn as _rnn                    # noqa: F401
 from . import contrib as _contrib            # noqa: F401
+from . import contrib_dense as _contrib_dense  # noqa: F401
 from . import spatial as _spatial            # noqa: F401
 from .. import operator as _operator         # noqa: F401  (Custom)
 

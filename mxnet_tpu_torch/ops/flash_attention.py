@@ -422,3 +422,15 @@ def flash_attention_op(attrs, ctx, q, k, v):
             and kernel_takes(q, k, v) is None:
         return FlashAttention.apply(q, k, v, causal)
     return attention_plain(q, k, v, causal)
+
+
+@register("_contrib_RingAttention", arg_names=("q", "k", "v"),
+          params={"causal": False})
+def ring_attention_op(attrs, ctx, q, k, v):
+    """Sequence-parallel attention over (batch, seq, heads, head_dim).  The
+    port has no sequence-parallel context (the JAX package's
+    ``parallel.sequence`` and ``ShardedTrainer(sequence_parallel=True)``
+    are not yet ported), and without one the JAX op *is*
+    ``_contrib_FlashAttention``: the same dispatch, so the same Symbol
+    trains with either op, through the flash kernels on the card."""
+    return flash_attention_op(attrs, ctx, q, k, v)

@@ -12,7 +12,8 @@ one region in each direction.
   column sums of ``(y - c)`` and ``(y - c)^2`` from the f32 accumulator.  A
   CUDA tensor launches ``csrc/matmul_stats.cu`` (or raises); a CPU or meta
   tensor takes :func:`matmul_stats_plain`.  ``matmul_stats.launches``
-  counts launches, ``matmul_stats.padded`` those whose shape TMA does not
+  counts launches (``matmul_stats.f32_launches`` the f32 ones),
+  ``matmul_stats.padded`` those whose shape TMA does not
   take (K or N not a multiple of 16 bytes: 8 bf16 or 4 f32 values; or an
   unaligned base), which go through :func:`pad_operands` first.  bf16 runs
   on wgmma, f32 on the tensor cores as split TF32 (three TF32 products a
@@ -242,12 +243,14 @@ def matmul_stats(x2d, w2d, c):
     before ``y`` is rounded.  A CUDA tensor launches the hand-written K5
     kernel (or raises); a CPU or meta tensor takes
     :func:`matmul_stats_plain`.  ``matmul_stats.launches`` counts the
-    launches, ``matmul_stats.padded`` those of them that went through
+    launches, ``matmul_stats.f32_launches`` those of them on the f32 (split
+    TF32) kernel, ``matmul_stats.padded`` those that went through
     :func:`pad_operands`."""
     kind = x2d.device.type
     if kind == "cuda":
         y, s1, s2, padded = _launch(x2d, w2d, c)
         matmul_stats.launches += 1
+        matmul_stats.f32_launches += x2d.dtype == torch.float32
         matmul_stats.padded += padded
         return y, s1, s2
     if kind in ("cpu", "meta"):
@@ -256,6 +259,7 @@ def matmul_stats(x2d, w2d, c):
 
 
 matmul_stats.launches = 0
+matmul_stats.f32_launches = 0
 matmul_stats.padded = 0
 
 

@@ -886,19 +886,23 @@ def pad_op(attrs, ctx, data):
     ``"reflect"``.  The last two pad only the spatial axes."""
     pw = tuple(int(p) for p in attrs["pad_width"])
     pairs = [(pw[2 * i], pw[2 * i + 1]) for i in range(len(pw) // 2)]
-    if len(pairs) == 4 and _is_nhwc(data):
-        pairs = [pairs[0], pairs[2], pairs[3], pairs[1]]
+    nhwc = len(pairs) == 4 and _is_nhwc(data)
     mode = attrs["mode"]
     if mode == "constant":
+        if nhwc:
+            pairs = [pairs[0], pairs[2], pairs[3], pairs[1]]
         widths = [w for p in reversed(pairs) for w in p]
         return F.pad(data, widths, value=float(attrs["constant_value"]))
     if mode not in ("edge", "reflect"):
         raise MXNetError("unknown pad mode %s" % mode)
     if any(p != (0, 0) for p in pairs[:2]):
         raise MXNetError("Pad %s pads only the spatial axes" % mode)
+    # F.pad's edge and reflect modes pad the trailing axes: the spatial
+    # ones of the NCHW view
+    x = data.permute(0, 3, 1, 2) if nhwc else data
     widths = [w for p in reversed(pairs[2:]) for w in p]
-    return F.pad(data, widths,
-                 mode="replicate" if mode == "edge" else "reflect")
+    y = F.pad(x, widths, mode="replicate" if mode == "edge" else "reflect")
+    return y.permute(0, 2, 3, 1) if nhwc else y
 
 
 @register("UpSampling", arg_names=lambda a: tuple(

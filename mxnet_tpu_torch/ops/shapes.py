@@ -192,3 +192,16 @@ def _custom(attrs, known):
         arg_shapes, _, _ = prop.infer_shape(in_shapes)
     return {nm: tuple(s) for nm, s in zip(args, arg_shapes)
             if s is not None}
+
+
+@register_param_shapes("_contrib_SwitchMoE")
+def _switch_moe(attrs, known):
+    data = known.get("data")
+    if data is None:
+        return {}
+    d = int(data[-1])
+    e = int(attrs["num_experts"])
+    ff = int(attrs["hidden_size"])
+    return {"router_weight": (d, e), "expert1_weight": (e, d, ff),
+            "expert1_bias": (e, ff), "expert2_weight": (e, ff, d),
+            "expert2_bias": (e, d)}

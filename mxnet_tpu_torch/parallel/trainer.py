@@ -150,10 +150,13 @@ _PASS_THROUGH = frozenset({
     "Reshape", "Flatten", "expand_dims", "transpose", "BlockGrad",
     "slice_axis", "slice", "identity", "stop_gradient", "SwapAxis",
     "squeeze"})
-# ops of the port adapted to NHWC activations: their channel axis is
-# remapped while the graph runs, so an explicit axis attr is fine
+# ops of the port adapted to NHWC activations (ops/nn.py): their channel
+# axis is remapped while the graph runs, so an explicit axis attr is fine;
+# the JAX trainer's set
 _NHWC_ADAPTED = frozenset({
-    "Convolution", "Pooling", "BatchNorm", "Flatten", "FullyConnected",
+    "Convolution", "Deconvolution", "Pooling", "BatchNorm", "Concat",
+    "SliceChannel", "LRN", "InstanceNorm", "LeakyReLU", "UpSampling",
+    "Crop", "Pad", "SoftmaxActivation", "Flatten", "FullyConnected",
     "Activation", "Dropout", "SoftmaxOutput"})
 
 

@@ -1,11 +1,14 @@
 """Serving replica CLI::
 
-    python -m mxnet_tpu_torch.serving --checkpoint PREFIX --data-shape 1024 \
-        --ladder 1,4
+    python -m mxnet_tpu_torch.serving --model inception-bn \
+        --data-shape 3,224,224 --classes 1000 --ladder 1,4
+    python -m mxnet_tpu_torch.serving --checkpoint PREFIX --data-shape 1024
 
-Loads ``PREFIX-symbol.json`` and ``PREFIX-NNNN.params``, binds a Predictor
-on ``gpu(0)``, warms the batch ladder and serves until SIGTERM or Ctrl-C.
-The ``--model`` zoo route of the JAX CLI is not yet ported.
+The counterpart of ``python -m mxnet_tpu.serving``: builds a zoo model
+(``models.get_model``) with fresh Xavier weights from seed 0, so every
+restart serves the same net, or loads ``PREFIX-symbol.json`` and
+``PREFIX-NNNN.params``; binds a Predictor on ``gpu(0)`` (``--cpu 1`` for
+the CPU), warms the batch ladder and serves until SIGTERM or Ctrl-C.
 """
 from __future__ import annotations
 
@@ -17,38 +20,58 @@ import sys
 
 def _build_predictor(opts):
     import mxnet_tpu_torch as mx
-    if opts.model is not None:
-        raise mx.MXNetError("--model (the model zoo) is not yet ported to "
-                            "mxnet_tpu_torch; serve a --checkpoint")
-    if not opts.checkpoint:
-        raise mx.MXNetError("--checkpoint PREFIX is required")
+    from mxnet_tpu_torch import models
+
+    ctx = mx.cpu() if opts.cpu else mx.gpu(0)
     dims = tuple(int(d) for d in str(opts.data_shape).split(",")
                  if d.strip())
-    return mx.Predictor(opts.checkpoint + "-symbol.json",
-                        "%s-%04d.params" % (opts.checkpoint, opts.epoch),
-                        {"data": (1,) + dims}, ctx=mx.gpu(0))
+    data_shapes = {"data": (1,) + dims}
+    if opts.checkpoint:
+        return mx.Predictor(opts.checkpoint + "-symbol.json",
+                            "%s-%04d.params" % (opts.checkpoint, opts.epoch),
+                            data_shapes, ctx=ctx)
+    ctx.torch_device()       # no card and no --cpu 1: raise before building
+    with mx.name.NameManager():          # the same node names each call
+        net = models.get_model(opts.model, num_classes=opts.classes)
+    mod = mx.module.Module(net, context=mx.cpu())
+    label_names = [n for n in net.list_arguments() if n.endswith("label")]
+    mod.bind(data_shapes=[("data", (1,) + dims)],
+             label_shapes=[(n, (1,)) for n in label_names])
+    mod.init_params(mx.init.Xavier(rnd_type="gaussian", factor_type="in",
+                                   magnitude=2.0, rng=0))
+    arg_params, aux_params = mod.get_params()
+    return mx.Predictor(net.tojson(), dict(arg_params, **aux_params),
+                        data_shapes, ctx=ctx)
+
+
+def parser():
+    p = argparse.ArgumentParser(
+        prog="python -m mxnet_tpu_torch.serving",
+        description="serve a model behind the batch ladder on gpu(0)")
+    p.add_argument("--model", default="mlp",
+                   help="zoo model name (models.get_model)")
+    p.add_argument("--classes", type=int, default=10)
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint prefix to serve instead of a fresh zoo "
+                        "model (expects <prefix>-symbol.json + "
+                        "<prefix>-NNNN.params)")
+    p.add_argument("--epoch", type=int, default=0)
+    p.add_argument("--cpu", type=int, default=0,
+                   help="1: serve on the CPU instead of gpu(0)")
+    p.add_argument("--data-shape", default="64",
+                   help="comma-separated non-batch dims of the 'data' input "
+                        "(e.g. '1024' for a GPT, '3,224,224' for an image)")
+    p.add_argument("--ladder", default=None,
+                   help="rung spec, e.g. '1,4,16'")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--window-ms", type=float, default=None)
+    p.add_argument("--queue-depth", type=int, default=None)
+    p.add_argument("--deadline-ms", type=float, default=None)
+    return p
 
 
 def main(argv=None):
-    parser = argparse.ArgumentParser(
-        prog="python -m mxnet_tpu_torch.serving",
-        description="serve a checkpoint behind the batch ladder on gpu(0)")
-    parser.add_argument("--checkpoint", default=None,
-                        help="checkpoint prefix (expects <prefix>-symbol."
-                             "json + <prefix>-NNNN.params)")
-    parser.add_argument("--epoch", type=int, default=0)
-    parser.add_argument("--model", default=None,
-                        help="zoo model name (not yet ported)")
-    parser.add_argument("--data-shape", default="64",
-                        help="comma-separated non-batch dims of the 'data' "
-                             "input (e.g. '1024' for a GPT)")
-    parser.add_argument("--ladder", default=None,
-                        help="rung spec, e.g. '1,4,16'")
-    parser.add_argument("--port", type=int, default=8080)
-    parser.add_argument("--window-ms", type=float, default=None)
-    parser.add_argument("--queue-depth", type=int, default=None)
-    parser.add_argument("--deadline-ms", type=float, default=None)
-    opts = parser.parse_args(argv)
+    opts = parser().parse_args(argv)
 
     from mxnet_tpu_torch.serving import BatchLadder, Batcher, Server
     pred = _build_predictor(opts)
@@ -63,9 +86,10 @@ def main(argv=None):
         os._exit(0)
 
     signal.signal(signal.SIGTERM, _term)
-    print("serving: checkpoint=%s rungs=%s port=%d pid=%d"
-          % (opts.checkpoint, ladder.rungs, server.port, os.getpid()),
-          flush=True)
+    print("serving: %s rungs=%s port=%d pid=%d"
+          % ("checkpoint=%s" % opts.checkpoint if opts.checkpoint
+             else "model=%s" % opts.model, ladder.rungs, server.port,
+             os.getpid()), flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

@@ -22,7 +22,8 @@ from collections import namedtuple
 
 import numpy as np
 
-__all__ = ["Case", "CASES", "SAMPLERS", "DETECTION_OPS", "CUSTOM_OP_TYPE",
+__all__ = ["Case", "CASES", "SAMPLERS", "DETECTION_OPS", "CONTRIB_OPS",
+           "CUSTOM_OP_TYPE",
            "custom_affine_classes", "inputs_of", "run", "cotangents",
            "rel_err", "compare", "sampler_check", "card_vs_cpu"]
 
@@ -583,6 +584,75 @@ CASES = CASES + [
     _case("custom_affine", "Custom",
           {"op_type": CUSTOM_OP_TYPE, "scale": 3.0}, [_n(3, 4)])]
 
+#: the dense contrib ops and RingAttention: chip_smoke's contrib_ops phase
+#: holds their cases on the card (op_corpus leaves them out)
+CONTRIB_OPS = frozenset([
+    "_contrib_CTCLoss", "_contrib_quantize", "_contrib_dequantize",
+    "_contrib_fft", "_contrib_ifft", "_contrib_count_sketch",
+    "_contrib_SwitchMoE", "_contrib_RingAttention"])
+
+
+def _const(values, dtype=np.float32):
+    return lambda r: np.array(values, dtype)
+
+
+def _quantize_ties(r):
+    """Values on the half-integers of a unit scale (round half to even
+    decides them) and past both ends of the range."""
+    x = (r.randint(-4, 520, (4, 6)) / 2.0).astype(np.float32)
+    x.flat[:4] = [0.5, 1.5, 2.5, 254.5]
+    return x
+
+
+def _uint8(*shape):
+    return lambda r: r.randint(0, 256, shape).astype(np.uint8)
+
+
+def _moe(tokens, d, ff, experts, batch=None):
+    """SwitchMoE's data, router and expert weights (``init_moe_params``'
+    draws, biases drawn too)."""
+    def make(r):
+        x = r.normal(0, 1, (batch, tokens, d) if batch else (tokens, d))
+        return tuple(a.astype(np.float32) for a in (
+            x, r.normal(0, 0.5, (d, experts)),
+            r.normal(0, 0.3, (experts, d, ff)),
+            r.normal(0, 0.1, (experts, ff)),
+            r.normal(0, 0.3, (experts, ff, d)),
+            r.normal(0, 0.1, (experts, d))))
+    return make
+
+
+CASES = CASES + [
+    _case("ctc_repeats_padding", "_contrib_CTCLoss", {},
+          [_n(8, 3, 5), _const([[1, 1, 2], [3, 0, 0], [2, 4, 2]])]),
+    _case("ctc_infeasible", "_contrib_CTCLoss", {},
+          [_n(3, 2, 4), _const([[1, 1, 1], [2, 3, 0]])]),
+    _case("ctc_alias", "ctc_loss", {},
+          [_n(5, 2, 6), _const([[5, 0], [2, 2]])]),
+    _case("quantize_ties_uint8", "_contrib_quantize", {},
+          [_quantize_ties, _const([0.0]), _const([255.0])], diff=(1, 2),
+          exact=True),
+    _case("quantize_int8", "_contrib_quantize", {"out_type": "int8"},
+          [_u(-1.2, 1.2, 5, 7), _const([-1.0]), _const([1.0])],
+          diff=(1, 2), exact=True),
+    _case("dequantize_uint8", "_contrib_dequantize", {},
+          [_uint8(4, 5), _const([-0.5]), _const([2.0])], diff=(1, 2)),
+    _case("fft", "_contrib_fft", {}, [_n(3, 8)]),
+    _case("ifft", "_contrib_ifft", {}, [_n(3, 16)]),
+    _case("count_sketch_duplicates", "_contrib_count_sketch",
+          {"out_dim": 5},
+          [_n(4, 6), _const([[0, 2, 2, 1, 0, 4]]),
+           _const([[1, -1, 1, 1, -1, 1]])], diff=(0, 2)),
+    _case("switch_moe_drops", "_contrib_SwitchMoE",
+          {"num_experts": 3, "hidden_size": 5, "capacity_factor": 0.5},
+          [_moe(6, 4, 5, 3, batch=2)], diff=(0, 1, 2, 3, 4, 5)),
+    _case("switch_moe_tokens", "SwitchMoE",
+          {"num_experts": 4, "hidden_size": 6},
+          [_moe(10, 4, 6, 4)], diff=(0, 1, 2, 3, 4, 5)),
+    _case("ring_attention", "_contrib_RingAttention", {"causal": True},
+          [_n(2, 8, 2, 8), _n(2, 8, 2, 8), _n(2, 8, 2, 8)],
+          diff=(0, 1, 2))]
+
 #: the samplers: (op, attrs, mean, variance) of the distribution drawn
 SAMPLERS = [
     ("_random_uniform", {"low": -1.0, "high": 3.0}, 1.0, 16.0 / 12),
@@ -711,16 +781,18 @@ def sampler_check(device, n=200000, seed=7, samplers=None):
 
 def card_vs_cpu(device="cuda", seed=0, check_device="cpu", ops=None,
                 exclude=()):
-    """Every case (of the ops ``ops``, when given; not of ``exclude``) on
+    """Every case (of the ops ``ops``, when given; not of ``exclude``; an
+    alias counts as its op) on
     ``device`` and on ``check_device``: one dict a case with the worst
     relative error of the outputs and of the gradients."""
     rows = []
     for case in CASES:
-        if ops is not None and case.op not in ops or case.op in exclude:
+        name = _port_op(case.op, {})[0].name      # an alias's op
+        if ops is not None and name not in ops or name in exclude:
             continue
         outs, grads = run(case, device, seed)
         ref_outs, ref_grads = run(case, check_device, seed)
-        rows.append({"id": case.id, "op": _port_op(case.op, {})[0].name,
+        rows.append({"id": case.id, "op": name,
                      "exact": case.exact,
                      "out_err": compare(case, outs, ref_outs),
                      "grad_err": compare(case, grads, ref_grads)

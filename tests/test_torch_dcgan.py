@@ -172,11 +172,8 @@ def test_full_width_parameter_counts():
         == [512, 256, 128, 64, 3]
 
 
-#: the JAX package's ops the port leaves to later slices: the rest of
-#: ops/contrib.py and _contrib_RingAttention
-NOT_PORTED = {"_contrib_CTCLoss", "_contrib_SwitchMoE",
-              "_contrib_count_sketch", "_contrib_dequantize", "_contrib_fft",
-              "_contrib_ifft", "_contrib_quantize", "_contrib_RingAttention"}
+#: the JAX package's ops the port leaves to later slices: none
+NOT_PORTED = set()
 
 
 def _jax_package_ops(jreg):
@@ -189,9 +186,8 @@ def _jax_package_ops(jreg):
 def test_registry_is_the_jax_registry_less_the_detection_path():
     from mxnet_tpu.ops import registry as jreg
     from mxnet_tpu_torch.ops import registry as reg
-    assert len(NOT_PORTED) == 8
     assert set(reg.list_ops()) == _jax_package_ops(jreg) - NOT_PORTED
-    assert len(reg.list_ops()) == 193
+    assert len(reg.list_ops()) == 201
     want = {a: t for a, t in jreg._ALIASES.items() if t not in NOT_PORTED}
     assert reg.aliases() == want
     for alias, target in want.items():

@@ -225,14 +225,16 @@ def test_fused_route_matches_jax(recs, queue, monkeypatch):
 
 
 def _concat_net(m):
-    """A small net with ``Concat(dim=1)``, which both trainers refuse to
-    run NHWC."""
+    """A small net with ``Concat(dim=1)`` and a ``slice_axis`` over the
+    channels, which both trainers refuse to run NHWC (``slice_axis`` has
+    no NHWC adaptation in either package)."""
     data = m.sym.Variable("data")
     a = m.sym.Convolution(data, kernel=(3, 3), pad=(1, 1), num_filter=4,
                           no_bias=True, name="a")
     b = m.sym.Convolution(data, kernel=(1, 1), num_filter=4, no_bias=True,
                           name="b")
     x = m.sym.Concat(a, b, dim=1, name="cat")
+    x = m.sym.slice_axis(x, axis=1, begin=1, end=7, name="mid")
     x = m.sym.BatchNorm(x, fix_gamma=False, name="bn")
     x = m.sym.Activation(x, act_type="relu", name="relu")
     x = m.sym.Pooling(x, kernel=(1, 1), global_pool=True, pool_type="avg",
@@ -248,7 +250,7 @@ def test_fused_route_falls_back_to_nchw_with_raw_batches(recs, monkeypatch):
     batches.  This net is well conditioned, so its leaves are held tighter:
     sound, the worst leaf 2.3e-5, the scale 1.2e-5; planted, weight decay
     dropped 2.2e-3 (a leaf) and the lr 1% high 1.0e-2 (the scale)."""
-    with pytest.raises(MXNetError, match="Concat"):
+    with pytest.raises(MXNetError, match="slice_axis"):
         ShardedTrainer(_concat_net(tmx), build_mesh(devices=[tmx.cpu()]),
                        data_shapes={"data": (BATCH, 3, 32, 32)},
                        label_shapes={"softmax_label": (BATCH,)},
@@ -515,3 +517,51 @@ def test_chip_smoke_imagenet_phases_at_a_small_size(tmp_path):
                                               image=32, batch=4)
     assert module["fusion"]["layout"] == "NCHW"
     assert module["fusion"]["pallas_blocks"] == 0
+
+
+def test_reestimate_moving_stats_folds_in_each_batch_at_fixed_weights():
+    """``imagenet_val_probe.reestimate_moving_stats``: ``n`` passes of one
+    batch leave each moving statistic at ``m**n * old + (1 - m**n) *
+    batch``, m = 0.9, the batch's mean and biased variance of the conv
+    output, to 1e-5; the weights unchanged to the bit; ``accuracy``
+    equals the argmax of ``trainer.forward`` counted by hand."""
+    import torch
+    from mxnet_tpu_torch.tools.imagenet_val_probe import (
+        accuracy, reestimate_moving_stats)
+    sym = tmx.sym
+    x = sym.Convolution(sym.Variable("data"), num_filter=6, kernel=(3, 3),
+                        no_bias=True, name="c")
+    x = sym.Activation(sym.BatchNorm(x, fix_gamma=False, momentum=0.9,
+                                     name="bn"), act_type="relu")
+    x = sym.FullyConnected(sym.Flatten(x), num_hidden=3, name="fc")
+    net = sym.SoftmaxOutput(x, name="softmax")
+    rng = np.random.RandomState(0)
+    data = rng.uniform(-1, 1, (4, 3, 8, 8)).astype(np.float32)
+    label = rng.randint(0, 3, 4).astype(np.float32)
+    np.random.seed(0)
+    pt = ShardedTrainer(net, build_mesh(devices=[tmx.cpu()]),
+                        data_shapes={"data": data.shape},
+                        label_shapes={"softmax_label": label.shape},
+                        optimizer="sgd", learning_rate=0.1, seed=1)
+    params = {k: v.clone() for k, v in pt.params.items()}
+    old = {k: v.clone() for k, v in pt.aux.items()}
+    n = 5
+    it = tmx.io.NDArrayIter(np.tile(data, (n, 1, 1, 1)),
+                            np.tile(label, n), batch_size=4)
+    change = reestimate_moving_stats(pt, it, n)
+    y = torch.nn.functional.conv2d(torch.from_numpy(data),
+                                   params["c_weight"])
+    keep = 0.9 ** n
+    for stat, want in (("moving_mean", y.mean((0, 2, 3))),
+                       ("moving_var", y.var((0, 2, 3), unbiased=False))):
+        np.testing.assert_allclose(
+            pt.aux["bn_" + stat].numpy(),
+            (keep * old["bn_" + stat] + (1 - keep) * want).numpy(),
+            rtol=1e-5, atol=1e-5)
+        assert change[stat]["max_rel_change"] > 0
+    for k, v in params.items():
+        assert torch.equal(pt.params[k], v)
+    probs = pt.forward({"data": data})[0]
+    want = float((probs.argmax(1).numpy() == label).mean())
+    assert accuracy(pt, tmx.io.NDArrayIter(data, label, batch_size=4)) \
+        == want

@@ -176,8 +176,8 @@ def test_unsupported_layout_raises():
 def test_get_model_builds_the_resnet_and_refuses_others():
     net = get_model("resnet-18", num_classes=10, image_shape="3,32,32")
     assert "stage4_unit2_conv2_weight" in net.list_arguments()
-    with pytest.raises(MXNetError, match="not yet ported"):
-        get_model("alexnet")
+    with pytest.raises(ValueError, match="unknown model"):
+        get_model("squeezenet")
 
 
 def test_chip_smoke_resnet_phases_on_cpu():

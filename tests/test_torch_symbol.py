@@ -89,7 +89,7 @@ def test_naming_and_attribute_scopes():
 
 def test_unported_op_is_a_clear_error():
     js = json.dumps({"nodes": [{"op": "null", "name": "x", "inputs": []},
-                               {"op": "_contrib_CTCLoss", "name": "c",
+                               {"op": "_contrib_NoSuchOp", "name": "c",
                                 "inputs": [[0, 0, 0]]}],
                      "arg_nodes": [0], "heads": [[1, 0, 0]]})
     with pytest.raises(tmx.MXNetError, match="not yet ported"):
