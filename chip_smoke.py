@@ -55,8 +55,8 @@ Phases, one JSON line each:
    perplexity finite and the last below the first, the flash forward,
    backward and delta launched once per layer per ``forward_backward`` and
    the forward once per layer per ``score`` batch; then ``score``,
-   ``save_checkpoint`` and ``Module.load`` on ``gpu(0)``, whose score must
-   equal the first within 1e-6; ms per batch, peak memory, and f32
+   ``save_checkpoint`` (its CRC manifest verified) and ``Module.load`` on
+   ``gpu(0)``, whose score must equal the first within 1e-6; ms per batch, peak memory, and f32
    ``ShardedTrainer`` steps at the same width and batch beside them;
 8. ``module_check``: train_check through the Module (one
    ``forward_backward`` + ``update`` with SGD of the GPT cut to 2 layers
@@ -189,13 +189,30 @@ Phases, one JSON line each:
 26. ``imagenet_module``: the ``--fused 0`` route (``Module.fit``, f32
     NCHW, batch 32) on the Module records under ``MXNET_FUSE_BLOCKS=1``:
     the plan's blocks, none on K5 and every count 0, ms per batch;
-27. ``zoo_kernels``: K5 against its plain version at each of the 19
+27. ``resume_train``: the preemption drill of ``tools.resume_train`` on
+    the train records (ResNet-50, batch 128, 224x224, bf16, NHWC, block
+    fusion, one decode thread, cuDNN deterministic, SGD lr 0.01 halved
+    every 4 updates): run U (``RESUME_STEPS`` steps) here; run P in a
+    child process with ``install_preemption_handler``, sent SIGTERM after
+    step ``RESUME_SIGNAL_AFTER``, which must save at the end of the next
+    step and exit 0 with a manifest that verifies; run R in a fresh child
+    (``load_latest_checkpoint(load_optimizer_states=True)``,
+    ``restore_data_iter``): its batches equal U's after the checkpoint
+    (labels and the CRC32 of the uint8 pixels), every loaded array
+    equal to P's (CRC32 against the manifest), its losses within
+    ``TOL_RESUME_LOSS`` of U's, K5 16 launches a step in U and in R; the
+    iterator restored with the data state dropped must fail the batch
+    check; the checkpoint's bytes and its save and load walls; then
+    ``tools.train_imagenet --fused 1 --model-prefix`` for one epoch of the
+    validation records and ``--load-epoch 1`` for a second, each epoch's
+    checkpoint verified;
+28. ``zoo_kernels``: K5 against its plain version at each of the 19
     distinct shapes of Inception-v3's 40 K5 blocks (batch 128, 299x299,
     bf16; ``inception_k5_shapes`` reads them from the plan), bit-identical
     across two launches and never padded, with the card's time, the
     wrapper's host time, cuBLAS's bare product, plain, library and bound
     times, and their sums over one step;
-28. ``inception_train``: ``tools.train_imagenet --network inception-v3
+29. ``inception_train``: ``tools.train_imagenet --network inception-v3
     --image-shape 3,299,299 --fused 1 --dtype bfloat16`` (batch 128, 1000
     classes, SGD momentum 0.9, lr ``INCEPTION_LR``, wd 1e-4) for one epoch
     of 2048 made 320-px records through the native pipeline and a
@@ -208,37 +225,37 @@ Phases, one JSON line each:
     tiles) on the fused route on the card (its 4 1x1 heads on the f32 K5)
     against the Executor route (``Module``) on the CPU, within
     resnet_train_check's bounds;
-29. ``zoo_score``: ``tools.benchmark_score`` over the ten zoo networks on
+30. ``zoo_score``: ``tools.benchmark_score`` over the ten zoo networks on
     the Executor route (f32 NCHW) and the fused route (bf16 NHWC) at batch
     1 and 32: images/s each, every count 0;
-30. ``zoo_serve``: the serving CLI's ``--model inception-bn`` route
+31. ``zoo_serve``: the serving CLI's ``--model inception-bn`` route
     (fresh Xavier weights from its seed) behind the batch ladder: six
     one-image requests from threads and one of two images over HTTP, each
     answer within ``TOL_ZOO_SERVE`` of a CPU Predictor on the same weights;
-31. ``ring_gpt``: one full-width GPT training step with
+32. ``ring_gpt``: one full-width GPT training step with
     ``attention="ring"`` (``_contrib_RingAttention``) and one with
     ``"flash"`` from the same weights: losses, parameters and Adam states
     equal to the bit, the bf16 K1 and K3 launched 12 times each;
-32. ``contrib_ops``: the op corpus's cases of CTCLoss, quantize,
+33. ``contrib_ops``: the op corpus's cases of CTCLoss, quantize,
     dequantize, fft, ifft, count_sketch, SwitchMoE and RingAttention on
     the card against the CPU, forward and gradient, and each under
     ``set_sync_debug_mode("error")``: no host sync;
-33. ``ctc_ocr``: ``tools.lstm_ocr`` (LSTMCell, FullyConnected, CTCLoss
+34. ``ctc_ocr``: ``tools.lstm_ocr`` (LSTMCell, FullyConnected, CTCLoss
     through the Module API) for 10 epochs of 384 strips at lr 0.015, batch
     32: exact-match above ``TOL_CTC_ACCURACY``, every count 0;
-34. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
+35. ``rtc_kernels``: ``mx.rtc`` (K6) compiles the three flows of the JAX
     package's ``tests/test_rtc.py`` written in CUDA C, abs written as a
     CUDA programmer writes it for this card (float4 in a grid-stride
     loop), and both abs bodies over an (8192, 8192) f32 array, and pushes
     each once; each output equals the callable (plain) form's exactly; the
     two full-size ones are timed against ``torch.abs`` and their byte
     bound;
-35. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
+36. ``matmul_stats_experiment``: the tool of that name at its 8 ResNet-50
     shapes at batch 128, then K7 (K5 with c = 0) and K8 (the prologue
     variant) against their plain versions at each shape, bit-identical
     across two launches, with the kernel (the card's, and with the host's
     share), plain, library, cuBLAS product and bound times;
-36. ``block_experiment``: the tool of that name at batch 128 with its
+37. ``block_experiment``: the tool of that name at batch 128 with its
     defaults (64, 64, 256, rows 8, bf16: the wgmma kernel) and again in
     f32 (the general kernel), then K9 against ``block_plain`` at both
     stage-1 channel sets, (64, 64, 256) and (256, 64, 256), batch 128, in
@@ -257,7 +274,8 @@ Phases, one JSON line each:
 Then the kernel summary line (each kernel with its launches on its main
 path, and on the DCGAN path, in autograd_check's recorded attention, on
 the detection path (ssd_train and rcnn_train), on Inception-v3's path, in
-ring_gpt and on the zoo's other paths (zoo_score, zoo_serve, contrib_ops,
+ring_gpt, on the resume path (resume_train's runs U and R and its CLI
+round trip) and on the zoo's other paths (zoo_score, zoo_serve, contrib_ops,
 ctc_ocr) beside them, the flash kernels' by source; K5's entry with its
 Inception-v3 step) and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
@@ -272,6 +290,8 @@ import logging
 import os
 import random
 import re
+import signal
+import subprocess
 import sys
 import tempfile
 import threading
@@ -306,7 +326,7 @@ from mxnet_tpu_torch.tools.transformer_mfu import (            # noqa: E402
 from mxnet_tpu_torch.tools.bench import (                      # noqa: E402
     build_trainer as build_resnet_trainer, time_chains)
 from mxnet_tpu_torch.tools import (                            # noqa: E402
-    block_experiment, nvidia_smi)
+    block_experiment, kernel_counts, nvidia_smi, zero_kernel_counts)
 from mxnet_tpu_torch.tools import matmul_stats_experiment      # noqa: E402
 from mxnet_tpu_torch.tools import module_fit                   # noqa: E402
 from mxnet_tpu_torch.tools import lstm_bucketing               # noqa: E402
@@ -1306,8 +1326,9 @@ def module_train_phase(ctx, cfg, batch=16, batches=MODULE_BATCHES, lr=3e-3,
     Adam at ``lr``, Perplexity, Speedometer(batch, 2)), the flash counts
     set to 0 just before and read just after; each batch's perplexity
     (finite, the last below the first) and time; then ``score``, the
-    checkpoint written and loaded by ``Module.load`` on ``ctx``, and a
-    second score equal to the first within 1e-6.  The bigram must be
+    checkpoint written, its CRC manifest verified, and loaded by
+    ``Module.load`` on ``ctx``, and a second score equal to the first
+    within 1e-6.  The bigram must be
     learned, not only the unigram (a perplexity of ``CHAIN_SUPPORT``): the
     last four batches' perplexity (their geometric mean) and the score
     stay below ``CHAIN_SUPPORT``.  Beside it, on the card,
@@ -1352,6 +1373,11 @@ def module_train_phase(ctx, cfg, batch=16, batches=MODULE_BATCHES, lr=3e-3,
         mod.save_checkpoint(prefix, 1)
         save_s = time.perf_counter() - t0
         params_bytes = os.path.getsize(prefix + "-0001.params")
+        manifest = mx.resilience.verify_manifest(prefix, 1)
+        if manifest is None or list(manifest["files"]) != [
+                "gpt-0001.params"]:
+            raise SystemExit("module_train: the checkpoint's manifest %s"
+                             % manifest)
         t0 = time.perf_counter()
         loaded = mx.mod.Module.load(prefix, 1, context=ctx)
         loaded.bind(data_shapes=it.provide_data,
@@ -1377,6 +1403,8 @@ def module_train_phase(ctx, cfg, batch=16, batches=MODULE_BATCHES, lr=3e-3,
            "forward_launches_per_score_batch":
                score_launches["flash_attention_fwd"] / batches,
            "checkpoint": {"params_bytes": params_bytes, "save_s": save_s,
+                          "manifest_verified": True,
+                          "manifest_arrays": len(manifest["arrays"]),
                           "load_bind_s": load_s, "score": score2,
                           "rel_diff": abs(score2 - score) / score},
            "speedometer": [ln for ln in log.lines if "Speed:" in ln],
@@ -1531,27 +1559,6 @@ BUCKET_CHECK_STEPS = 4
 TOL_RNN_OPS = 1e-5
 
 
-def all_counts():
-    """The launch counts of every hand-written kernel of the port."""
-    from mxnet_tpu_torch.rtc import Rtc
-    bk = block_experiment.block_kernel
-    return dict(flash_counts(), matmul_stats=matmul_stats.launches,
-                matmul_stats_f32=matmul_stats.f32_launches,
-                matmul_stats_prologue=matmul_stats_prologue.launches,
-                rtc=Rtc.launches, bottleneck_block=bk.launches,
-                bottleneck_block_general=bk.general_launches)
-
-
-def zero_all_counts():
-    from mxnet_tpu_torch.rtc import Rtc
-    bk = block_experiment.block_kernel
-    zero_flash_counts()
-    matmul_stats.launches = matmul_stats_prologue.launches = 0
-    matmul_stats.f32_launches = 0
-    Rtc.launches = 0
-    bk.launches = bk.general_launches = 0
-
-
 def _first_batches(batches):
     """Each bucket's first batch's ms in the first epoch (its bind
     included)."""
@@ -1589,13 +1596,13 @@ def bucketing_train_phase(ctx, cfg=LSTM_FULL, sentences=LSTM_SENTENCES,
         gc.collect()
         torch.cuda.empty_cache()
     try:
-        zero_all_counts()
+        zero_kernel_counts()
         mod, it, run = lstm_bucketing.fit(
             ctx, cfg["vocab"], cfg["num_hidden"], cfg["num_embed"],
             cfg["num_layers"], cfg["batch_size"], epochs, lr=lr,
             sentences=sentences, val_sentences=val_sentences,
             disp_batches=40)
-        launches = all_counts()
+        launches = kernel_counts()
     finally:
         logging.getLogger().removeHandler(log)
         logging.getLogger().setLevel(old_level)
@@ -2024,12 +2031,12 @@ def op_corpus_phase(device="cuda", check_device="cpu"):
     holds every output and gradient within ``TOL_CONSISTENCY``; on the
     card its TF32 control must miss that bound."""
     t0 = time.perf_counter()
-    zero_all_counts()
+    zero_kernel_counts()
     rows = op_corpus.card_vs_cpu(
         device, check_device=check_device,
         exclude=op_corpus.DETECTION_OPS | op_corpus.CONTRIB_OPS)
     samplers = op_corpus.sampler_check(device)
-    counts = all_counts()
+    counts = kernel_counts()
     ctxs = [mx.context.context_of(torch.device(d))
             for d in (device, check_device)]
 
@@ -2174,12 +2181,12 @@ def autograd_check_phase(ctx, check_ctx=None, widths=AUTOGRAD_WIDTHS,
     arrs = [mx.nd.array(v, ctx=ctx) for v in qkv]
     for a in arrs:
         a.attach_grad()
-    zero_all_counts()
+    zero_kernel_counts()
     with mx.autograd.record():
         o = mx.nd._contrib_FlashAttention(*arrs, causal=True)
     mx.autograd.backward([o], [mx.nd.array(dout, ctx=ctx)])
     mx.nd.waitall()
-    counts = all_counts()
+    counts = kernel_counts()
     by_source = flash_source_counts()
     names = ("q", "k", "v")
     sym = mx.sym._contrib_FlashAttention(
@@ -2252,9 +2259,9 @@ def dcgan_train_phase(ctx, cfg=DCGAN_FULL, params=DCGAN_PARAMS):
         torch.cuda.empty_cache()
     args = _dcgan_args(cfg)
     t0 = time.perf_counter()
-    zero_all_counts()
+    zero_kernel_counts()
     out, _g, _d = dcgan.run(args, ctx)
-    out["kernel_launches"] = counts = all_counts()
+    out["kernel_launches"] = counts = kernel_counts()
     out["flash_source_launches"] = by_source = flash_source_counts()
     out["seconds"] = time.perf_counter() - t0
     if ctx.device_type == "gpu":
@@ -2473,7 +2480,7 @@ def detection_ops_phase(device="cuda", check_device="cpu", batch=DET_BATCH,
     may sync the host.  No kernel is launched."""
     t0 = time.perf_counter()
     on_card = torch.device(device).type == "cuda"
-    zero_all_counts()
+    zero_kernel_counts()
     rows = op_corpus.card_vs_cpu(device, check_device=check_device,
                                  ops=op_corpus.DETECTION_OPS)
     over = [r for r in rows
@@ -2569,7 +2576,7 @@ def detection_ops_phase(device="cuda", check_device="cpu", batch=DET_BATCH,
         out["sync_debug"] = {k: _sync_free(calls[k]) for k in (
             "multibox_target", "multibox_detection", "proposal")}
         out["nvidia_smi"] = nvidia_smi()
-    out["kernel_launches"] = counts = all_counts()
+    out["kernel_launches"] = counts = kernel_counts()
     out["seconds"] = time.perf_counter() - t0
     bad = []
     if over:
@@ -2625,10 +2632,10 @@ def ssd_train_phase(ctx, workdir, cfg=SSD_FULL):
     ssd.make_record_file(rec, args.images, args.image_size, args.max_objects,
                          seed=args.seed, num_classes=args.num_classes)
     records_s = time.perf_counter() - t0
-    zero_all_counts()
+    zero_kernel_counts()
     calls = mx.operator.Custom.host_calls
     out, _mod = ssd.run(args, ctx, rec)
-    out["kernel_launches"] = counts = all_counts()
+    out["kernel_launches"] = counts = kernel_counts()
     out["flash_source_launches"] = by_source = flash_source_counts()
     out["custom_host_calls"] = mx.operator.Custom.host_calls - calls
     out["records_s"] = records_s
@@ -2783,9 +2790,9 @@ def rcnn_train_phase(ctx, cfg=RCNN_FULL):
                             str(cfg["images"]), "--test-images",
                             str(cfg["test_images"])])
     t0 = time.perf_counter()
-    zero_all_counts()
+    zero_kernel_counts()
     out, _mod = rcnn.run(args, ctx)
-    out["kernel_launches"] = counts = all_counts()
+    out["kernel_launches"] = counts = kernel_counts()
     out["flash_source_launches"] = by_source = flash_source_counts()
     out["seconds"] = time.perf_counter() - t0
     if ctx.device_type == "gpu":
@@ -3426,12 +3433,12 @@ def imagenet_train_phase(ctx, recs, layers=50, image=224, batch=128,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     history = {}
-    zero_all_counts()
+    zero_kernel_counts()
     t0 = time.perf_counter()
     trainer = fit.fit(args, net, train_imagenet.get_rec_iter,
                       history=history)
     wall = time.perf_counter() - t0
-    counts = all_counts()
+    counts = kernel_counts()
     losses = history["losses"]
     steps = len(losses)
     want = k5_blocks * steps if on_card else 0
@@ -3519,7 +3526,7 @@ def imagenet_module_phase(ctx, recs, layers=50, image=224, batch=32):
 
     prev = os.environ.get("MXNET_FUSE_BLOCKS")
     os.environ["MXNET_FUSE_BLOCKS"] = "1"
-    zero_all_counts()
+    zero_kernel_counts()
     try:
         t0 = time.perf_counter()
         fit.fit(args, net, train_imagenet.get_rec_iter,
@@ -3530,7 +3537,7 @@ def imagenet_module_phase(ctx, recs, layers=50, image=224, batch=32):
             del os.environ["MXNET_FUSE_BLOCKS"]
         else:
             os.environ["MXNET_FUSE_BLOCKS"] = prev
-    counts = all_counts()
+    counts = kernel_counts()
     plan = _fusion.last_plan_summary()
     if any(counts.values()):
         raise SystemExit("imagenet_module: launches %s; want 0 (K5 takes "
@@ -3547,6 +3554,284 @@ def imagenet_module_phase(ctx, recs, layers=50, image=224, batch=32):
             "ms_per_batch": ms.tolist(),
             "median_ms_per_batch": float(np.median(ms)),
             "fit_wall_s": wall}
+
+
+# ------------------------------------------------------- the resume drill
+#: the preemption drill (tools.resume_train): the uninterrupted run's
+#: steps, and the step after which the parent sends the preempted child
+#: SIGTERM; the signal is served at the end of the next step, whose
+#: checkpoint the resumed child loads
+RESUME_STEPS = 10
+RESUME_SIGNAL_AFTER = 4
+#: bound on |loss_R - loss_U| / loss_U at each resumed step, set before the
+#: first reading: the three runs take cuDNN's deterministic algorithms and
+#: K5 reduces in a fixed order, and R starts from P's state read back to
+#: the bit, so the losses are predicted equal; the bound admits a
+#: difference of one bf16 rounding (2^-8 of the loss) per step from a
+#: reduction whose order the process picks, over the five resumed steps
+#: (5 * 2^-8 = 2.0e-2 would be the sum; 1e-2 is held).  A resume that
+#: restarted the update count halves the learning rate at other steps, and
+#: one fed other batches reads other images: both move a loss by more
+TOL_RESUME_LOSS = 1e-2
+#: epochs of the CLI round trip (tools.train_imagenet --fused 1
+#: --model-prefix, then --load-epoch 1) on the validation records
+RESUME_CLI_EPOCHS = 2
+
+
+def _drill_child(argv, workdir, name, send_signal=False, timeout=600):
+    """``tools.resume_train`` in a child process: ``(exit code, its JSON
+    lines, wall seconds, the tail of its stderr)``; with ``send_signal``
+    SIGTERM goes to it when it reports waiting for one.  The child is
+    killed if it outlives ``timeout``."""
+    err_path = os.path.join(workdir, name + ".err")
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.resume_train"] + argv
+    t0 = time.perf_counter()
+    lines = []
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=err, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        timer = threading.Timer(timeout, proc.kill)
+        timer.start()
+        try:
+            for line in proc.stdout:
+                if not line.startswith("{"):
+                    continue
+                rec = json.loads(line)
+                lines.append(rec)
+                if send_signal and rec.get("waiting_for_signal"):
+                    proc.send_signal(signal.SIGTERM)
+            rc = proc.wait()
+        finally:
+            timer.cancel()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    with open(err_path) as f:
+        tail = f.read()[-2000:]
+    return rc, lines, time.perf_counter() - t0, tail
+
+
+def _same_batches(got, want):
+    """Whether two runs' step records hold the same labels and pixels."""
+    return len(got) == len(want) and all(
+        g["labels"] == w["labels"] and g["pixels_crc32"] == w["pixels_crc32"]
+        for g, w in zip(got, want))
+
+
+def resume_train_phase(ctx, recs, workdir, steps=RESUME_STEPS,
+                       signal_after=RESUME_SIGNAL_AFTER, layers=50,
+                       image=224, batch=128, dtype="bfloat16", k5_blocks=16,
+                       tol_loss=TOL_RESUME_LOSS):
+    """The preemption drill of ``tools.resume_train`` on the train records:
+    run U (uninterrupted, ``steps`` steps of the full-width ResNet-``layers``
+    in bf16 NHWC with block fusion, one decode thread, in this process), run
+    P (a child with ``install_preemption_handler``, sent SIGTERM after step
+    ``signal_after``: it must checkpoint at the end of the next step and
+    exit 0, and its manifest must verify) and run R (a fresh child:
+    ``load_latest_checkpoint(load_optimizer_states=True)``,
+    ``restore_data_iter``, the remaining steps).  R's batches must equal
+    U's after the checkpoint (labels and the CRC32 of the uint8 pixels,
+    exactly); every array R loaded must equal the one P saved (CRC32 against
+    the manifest); R's losses must follow U's within ``tol_loss``; K5 must
+    launch ``k5_blocks`` times a step in U and in R, every other kernel 0
+    times.  The control: the iterator restored with the data state dropped
+    (offset 0) must fail the batch check.  Then the checkpoint's size, U's
+    save and load walls of it in this process and R's load wall in its own,
+    and the CLI round trip: ``tools.train_imagenet --fused 1
+    --model-prefix`` for one epoch of the validation records, then
+    ``--load-epoch 1`` for a second; each epoch's checkpoint must verify."""
+    from mxnet_tpu_torch import resilience
+    from mxnet_tpu_torch.tools import resume_train, train_imagenet
+    on_card = ctx.device_type == "gpu"
+    prefix = os.path.join(workdir, "drill", "resnet")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
+    base = ["--data-train", recs["train"], "--prefix", prefix, "--steps",
+            str(steps), "--num-layers", str(layers), "--image", str(image),
+            "--batch-size", str(batch), "--dtype", dtype] \
+        + ([] if on_card else ["--cpu", "1"])
+    saved = signal_after + 1
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        t0 = time.perf_counter()
+        u = resume_train.drill(resume_train.parser().parse_args(
+            base + ["--mode", "uninterrupted", "--state-after", str(saved)]),
+            ctx, out=None, keep_trainer=True)
+        u_wall = time.perf_counter() - t0
+        trainer = u.pop("trainer")
+        # the checkpoint's save and load walls, here, on U's trainer
+        walls_prefix = os.path.join(workdir, "walls", "resnet")
+        os.makedirs(os.path.dirname(walls_prefix), exist_ok=True)
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(walls_prefix, steps,
+                                save_optimizer_states=True)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        trainer.load_checkpoint(walls_prefix, steps,
+                                load_optimizer_states=True)
+        if on_card:
+            torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del trainer
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    u_steps = u["steps"]
+    want = k5_blocks * steps if on_card else 0
+    if u["launches"]["matmul_stats"] != want or any(
+            v for k, v in u["launches"].items() if k != "matmul_stats"):
+        raise SystemExit("resume_train: run U launched %s over %d steps; "
+                         "want matmul_stats %d, the rest 0"
+                         % (u["launches"], steps, want))
+
+    p_rc, p_lines, p_wall, p_err = _drill_child(
+        base + ["--mode", "preempted", "--signal-after", str(signal_after)],
+        workdir, "preempted", send_signal=True)
+    if p_rc != 0:
+        raise SystemExit("resume_train: run P exited %d: %s" % (p_rc, p_err))
+    epoch = mx.model.find_latest_checkpoint(prefix, require_states=True)
+    manifest = resilience.verify_manifest(prefix, epoch) \
+        if epoch is not None else None
+    if epoch != saved or manifest is None:
+        raise SystemExit("resume_train: run P's checkpoint is epoch %s, "
+                         "want %d (signal after step %d)"
+                         % (epoch, saved, signal_after))
+    p_steps = [r for r in p_lines if "step" in r and "loss" in r]
+    data_state = manifest["meta"]["data_state"]["state"]
+    size = {k: v["size"] for k, v in manifest["files"].items()}
+
+    r_rc, r_lines, r_wall, r_err = _drill_child(
+        base + ["--mode", "resumed"], workdir, "resumed")
+    if r_rc != 0:
+        raise SystemExit("resume_train: run R exited %d: %s" % (r_rc, r_err))
+    r = r_lines[-1]
+    r_steps = [x for x in r_lines if "step" in x and "loss" in x]
+    tail = u_steps[saved:]
+    batches_equal = _same_batches(r_steps, tail)
+    rel = [abs(a["loss"] - b["loss"]) / (abs(b["loss"]) or 1.0)
+           for a, b in zip(r_steps, tail)]
+    want_r = k5_blocks * len(tail) if on_card else 0
+    out = {"network": "resnet%d" % layers, "batch": batch, "image": image,
+           "dtype": dtype, "layout": "NHWC", "fuse_blocks": True,
+           "decode_threads": 1, "steps": steps,
+           "signal_after_step": signal_after, "checkpoint_epoch": epoch,
+           "data_state": data_state, "applied_state": r["applied_state"],
+           "step_s_u": [x["step_s"] for x in u_steps],
+           "step_s_r": [x["step_s"] for x in r_steps],
+           "losses_u": [x["loss"] for x in u_steps],
+           "losses_p": [x["loss"] for x in p_steps],
+           "losses_r": [x["loss"] for x in r_steps],
+           "loss_rel_diff": rel, "max_loss_rel_diff": max(rel or [0.0]),
+           "losses_equal": [x["loss"] for x in r_steps]
+           == [x["loss"] for x in tail],
+           "tol_loss_rel": tol_loss, "batches_equal": batches_equal,
+           "p_batches_equal_u": _same_batches(p_steps,
+                                              u_steps[:len(p_steps)]),
+           "loaded_equal_saved": r["loaded_equal_saved"],
+           "arrays": r["arrays"],
+           "u_state_equals_p_saved": u["state_crcs"] == {
+               k: v["crc32"] for k, v in manifest["arrays"].items()},
+           "launches_u": u["launches"], "launches_r": r["launches"],
+           "k5_per_step_u": u["launches"]["matmul_stats"] / steps,
+           "k5_per_step_r": r["launches"]["matmul_stats"]
+           / max(1, len(r_steps)),
+           "checkpoint_bytes": size,
+           "checkpoint_total_bytes": sum(size.values()),
+           "save_s": save_s, "load_s": load_s, "r_load_s": r["load_s"],
+           "u_wall_s": u_wall, "p_wall_s": p_wall, "r_wall_s": r_wall,
+           "r_build_s": r["build_s"],
+           # the child's start (interpreter, imports, CUDA) before the drill
+           "r_startup_s": r_wall - r["drill_s"],
+           "r_to_first_step_s": r_wall - r["drill_s"]
+           + (r_steps[0]["t_s"] if r_steps else 0.0)}
+    if not batches_equal or [x["step"] for x in r_steps] != list(
+            range(saved + 1, steps + 1)):
+        raise SystemExit("resume_train: run R's batches differ from run "
+                         "U's after step %d: %s" % (saved, json.dumps(out)))
+    if not r["loaded_equal_saved"]:
+        raise SystemExit("resume_train: the state R loaded differs from "
+                         "the one P saved: %s" % json.dumps(out))
+    if not out["max_loss_rel_diff"] <= tol_loss:
+        raise SystemExit("resume_train: R's losses leave U's by %s > %s: %s"
+                         % (out["max_loss_rel_diff"], tol_loss,
+                            json.dumps(out)))
+    if r["launches"]["matmul_stats"] != want_r or any(
+            v for k, v in r["launches"].items() if k != "matmul_stats"):
+        raise SystemExit("resume_train: run R launched %s over %d steps; "
+                         "want matmul_stats %d, the rest 0"
+                         % (r["launches"], len(tail), want_r))
+    # the control: the same restore with the data state dropped
+    args = resume_train.parser().parse_args(base)
+    it = resume_train.records_iter(args)
+    it.restore(dict(data_state, offset=0))
+    dropped = []
+    for _ in range(len(tail)):
+        b = next(it)
+        dropped.append(resume_train.batch_record(
+            {"data": b.data[0].data, "softmax_label": b.label[0].data}))
+    it.close()
+    out["control_dropped_state_batches_equal"] = _same_batches(dropped, tail)
+    if out["control_dropped_state_batches_equal"]:
+        raise SystemExit("resume_train: the control with the data state "
+                         "dropped passed the batch check")
+
+    # the CLI round trip, in this process
+    cli_prefix = os.path.join(workdir, "cli", "resnet")
+    os.makedirs(os.path.dirname(cli_prefix), exist_ok=True)
+    argv = ["--network", "resnet", "--num-layers", str(layers),
+            "--data-train", recs["val"], "--image-shape",
+            "3,%d,%d" % (image, image), "--num-classes", "1000",
+            "--data-nthreads", str(os.cpu_count() or 1), "--batch-size",
+            str(batch), "--dtype", dtype, "--fused", "1", "--lr", "0.1",
+            "--disp-batches", "0", "--model-prefix", cli_prefix] \
+        + ([] if on_card else ["--cpu", "1"])
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    zero_kernel_counts()
+    t0 = time.perf_counter()
+    try:       # main() sets up logging at INFO for its process
+        first = train_imagenet.main(argv + ["--num-epochs", "1"])
+        second = train_imagenet.main(argv + ["--num-epochs",
+                                             str(RESUME_CLI_EPOCHS),
+                                             "--load-epoch", "1"])
+    finally:
+        root.handlers[:] = handlers
+        root.setLevel(level)
+    cli_wall = time.perf_counter() - t0
+    cli_counts = kernel_counts()
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    verified = {}
+    for ep in range(1, RESUME_CLI_EPOCHS + 1):
+        doc = resilience.verify_manifest(cli_prefix, ep)
+        verified[ep] = doc is not None and sorted(doc["files"]) == [
+            "resnet-%04d.params" % ep, "resnet-%04d.states" % ep]
+    cli_steps = len(first["losses"]) + len(second["losses"])
+    out["cli"] = {
+        "epochs_first": [e["epoch"] for e in first["epochs"]],
+        "epochs_second": [e["epoch"] for e in second["epochs"]],
+        "losses": first["losses"] + second["losses"],
+        "checkpoints": [e.get("checkpoint") for e in
+                        first["epochs"] + second["epochs"]],
+        "verified": verified, "steps": cli_steps, "launches": cli_counts,
+        "wall_s": cli_wall}
+    if not all(verified.values()) or out["cli"]["epochs_second"] != list(
+            range(1, RESUME_CLI_EPOCHS)) or not np.isfinite(
+            out["cli"]["losses"]).all():
+        raise SystemExit("resume_train: the CLI round trip: %s"
+                         % json.dumps(out["cli"]))
+    if cli_counts["matmul_stats"] != (k5_blocks * cli_steps if on_card
+                                      else 0):
+        raise SystemExit("resume_train: the CLI round trip launched %s over "
+                         "%d steps" % (cli_counts, cli_steps))
+    out["kernel_launches"] = {
+        k: u["launches"][k] + r["launches"][k] + cli_counts[k]
+        for k in cli_counts}
+    out["nvidia_smi"] = nvidia_smi() if on_card else None
+    return out
 
 
 # ------------------------------------------------- mx.rtc and experiments
@@ -4144,12 +4429,12 @@ def inception_train_phase(ctx, recs, image=INCEPTION_IMAGE,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     history = {}
-    zero_all_counts()
+    zero_kernel_counts()
     t0 = time.perf_counter()
     trainer = fit.fit(args, net, train_imagenet.get_rec_iter,
                       history=history)
     wall = time.perf_counter() - t0
-    counts = all_counts()
+    counts = kernel_counts()
     by_source = flash_source_counts()
     losses = history["losses"]
     steps = len(losses)
@@ -4312,7 +4597,7 @@ def zoo_score_phase(ctx, networks=ZOO_NETWORKS, batches=ZOO_SCORE_BATCHES,
     count 0 (inference takes no kernel of the port)."""
     from mxnet_tpu_torch.tools import benchmark_score
     t0 = time.perf_counter()
-    zero_all_counts()
+    zero_kernel_counts()
     rates = {}
     for net in networks:
         shape = benchmark_score.image_shape_of(net)
@@ -4324,7 +4609,7 @@ def zoo_score_phase(ctx, networks=ZOO_NETWORKS, batches=ZOO_SCORE_BATCHES,
                 net, b, image_shape=shape, num_batches=num_batches,
                 dtype=dtype, ctx=ctx)
             gc.collect()
-    counts = all_counts()
+    counts = kernel_counts()
     out = {"context": str(ctx), "networks": list(networks),
            "batches": list(batches), "forwards": num_batches,
            "routes": {"executor": "float32 NCHW",
@@ -4358,7 +4643,7 @@ def zoo_serve_phase(ctx, model=ZOO_SERVE["model"],
     rng = np.random.RandomState(2)
     images = rng.uniform(-1, 1, (requests + 2,) + tuple(data_shape)) \
         .astype(np.float32)
-    zero_all_counts()
+    zero_kernel_counts()
     t0 = time.perf_counter()
     pred = _build_predictor(opts)
     ladder = BatchLadder(pred, rungs=opts.ladder)
@@ -4391,7 +4676,7 @@ def zoo_serve_phase(ctx, model=ZOO_SERVE["model"],
     finally:
         server.close()
     serve_s = time.perf_counter() - t0
-    counts = all_counts()
+    counts = kernel_counts()
     if errors or len(results) != requests + 1:
         raise SystemExit("zoo_serve: requests failed or were shed: %s"
                          % errors)
@@ -4441,12 +4726,12 @@ def ring_gpt_phase(ctx, cfg=FULL, batch=16, dtype="bfloat16"):
                 vocab=cfg["vocab"], seq=cfg["seq"], d_model=cfg["d_model"],
                 heads=cfg["heads"], layers=cfg["layers"], batch=batch,
                 dtype=dtype, ctx=ctx, attention=attention)
-            zero_all_counts()
+            zero_kernel_counts()
             loss = float(trainer.step(staged))
             state = {k: v.clone() for k, v in trainer.params.items()}
             state.update({"%s:%d" % (k, i): s.clone() for k, v in
                           trainer.opt_state.items() for i, s in enumerate(v)})
-            runs[attention] = (loss, state, all_counts(),
+            runs[attention] = (loss, state, kernel_counts(),
                                flash_source_counts())
             del trainer, staged
             gc.collect()
@@ -4482,7 +4767,7 @@ def contrib_ops_phase(device="cuda", check_device="cpu"):
     forward and backward under ``set_sync_debug_mode("error")``: no host
     sync; no kernel launched."""
     t0 = time.perf_counter()
-    zero_all_counts()
+    zero_kernel_counts()
     rows = op_corpus.card_vs_cpu(device, check_device=check_device,
                                  ops=op_corpus.CONTRIB_OPS)
     syncs = {}
@@ -4508,7 +4793,7 @@ def contrib_ops_phase(device="cuda", check_device="cpu"):
                         sum(o.float().sum() for o in floats),
                         [ts[i] for i in case.diff], allow_unused=True)
             syncs[case.id] = _sync_free(fwd_bwd)
-    counts = all_counts()
+    counts = kernel_counts()
 
     def worst(r):
         return max(r["out_err"], r["grad_err"] or 0.0)
@@ -4540,12 +4825,12 @@ def ctc_ocr_phase(ctx, min_accuracy=TOL_CTC_ACCURACY, seed=0, **over):
     from mxnet_tpu_torch.tools import lstm_ocr
     cfg = dict(CTC_OCR, **over)
     np.random.seed(seed)
-    zero_all_counts()
+    zero_kernel_counts()
     history = {}
     t0 = time.perf_counter()
     _mod, acc = lstm_ocr.train(ctx=ctx, history=history, **cfg)
     wall = time.perf_counter() - t0
-    counts = all_counts()
+    counts = kernel_counts()
     out = dict(cfg, context=str(ctx), exact_match=acc,
                losses=history["losses"], accuracy=history["accuracy"],
                median_batch_ms=float(np.median(history["batch_ms"])),
@@ -4697,7 +4982,7 @@ def block_summary(name, source, launches, sets, ptxas, **extra):
         "ptxas": ptxas}, **extra)
 
 
-#: the launch counter (:func:`all_counts`) of each summary entry's kernel
+#: the launch counter (:func:`kernel_counts`) of each summary entry's kernel
 COUNTER_OF = {
     "flash_attention_fwd": "flash_attention_fwd",
     "flash_attention_fwd_sm90": "flash_attention_fwd",
@@ -4789,6 +5074,8 @@ def main():
         emit("imagenet_train", staged_images_per_s=resnet["images_per_s"],
              **imagenet)
         emit("imagenet_module", **imagenet_module_phase(mx.gpu(0), recs))
+        resume = resume_train_phase(mx.gpu(0), recs, workdir)
+        emit("resume_train", **resume)
     zoo_k5 = zoo_kernels_phase()
     emit("zoo_kernels", **zoo_k5)
     with tempfile.TemporaryDirectory() as workdir:
@@ -4973,7 +5260,7 @@ def main():
                            for k in ssd_run["flash_source_launches"]}
     # the zoo's other paths: scoring, serving, the contrib ops and the OCR
     zoo_counts = {k: sum(r["kernel_launches"][k] for r in (
-        zoo_score, zoo_serve, contrib, ctc)) for k in all_counts()}
+        zoo_score, zoo_serve, contrib, ctc)) for k in kernel_counts()}
     for e in kernels:
         counter = COUNTER_OF[e["name"]]
         for key, run, by_source in (
@@ -4987,6 +5274,7 @@ def main():
                  inception["flash_source_launches"]),
                 ("ring_gpt_launches", ring["kernel_launches"],
                  ring["flash_source_launches"]),
+                ("resume_launches", resume["kernel_launches"], {}),
                 ("zoo_launches", zoo_counts, {})):
             if e["name"] in by_source:
                 e[key] = by_source[e["name"]]

@@ -70,6 +70,8 @@ from . import parallel
 from . import rtc
 from . import metric
 from . import config
+from . import resilience
+from . import io_resume
 from . import io
 from . import recordio
 from . import io_native

@@ -82,7 +82,10 @@ _CATALOG = {
                              "1 raises where the port's native library "
                              "has no JPEG decoder"),
     # resilience
-    "MXNET_TPU_FAULTS": ("", "inert", "fault injection: " + _NOT_PORTED),
+    "MXNET_TPU_FAULTS": ("", "honored",
+                         "fault injection at the named seams "
+                         "(resilience.py): site:p=,seed=,n=,after=,kind=,"
+                         "delay=;..."),
     "MXNET_TPU_BAD_RECORD_QUOTA": ("0", "honored",
                                    "max corrupt/truncated records a "
                                    "reader skips by magic-resync before "
@@ -110,9 +113,10 @@ _CATALOG = {
     "MXNET_TPU_IOVIEW_EVERY": ("1", "inert",
                                "the input pipeline's stage accounting: "
                                + _NOT_PORTED),
-    "MXNET_TPU_DATA_RESUME": ("1", "inert",
-                              "iterator state in checkpoints: "
-                              + _NOT_PORTED),
+    "MXNET_TPU_DATA_RESUME": ("1", "honored",
+                              "the data iterator's state in checkpoint "
+                              "manifests, restored on resume "
+                              "(io_resume.py)"),
     "MXNET_TPU_BACKPRESSURE": ("0", "inert", _NOT_PORTED),
     "MXNET_TPU_IOVIEW_WINDOW": ("5", "inert", _NOT_PORTED),
     "MXNET_TPU_SKEW_EVERY": ("8", "inert", _NOT_PORTED),

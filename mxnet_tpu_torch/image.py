@@ -6,10 +6,9 @@ the augmenter list protocol (``CreateAugmenter``) and ``ImageIter`` over a
 ``.rec``, a ``.rec`` with its ``.idx``, or a ``.lst`` image list.  Every
 random draw goes to Python's ``random`` or numpy's global generator in the
 JAX code's order, so under the same seeds both packages give the same
-batches.  Batches are f32 NCHW NDArrays on the host.  The JAX package's
-stage accounting and fault seams are not ported, and the iterator's
-durable ``state``/``restore`` belong with resilience (ROADMAP Queue A
-item 7).
+batches.  Batches are f32 NCHW NDArrays on the host.  ``ImageIter`` has
+the JAX package's ``state``/``restore`` (:mod:`~mxnet_tpu_torch.io_resume`).
+The JAX package's stage accounting and decode seam are not ported.
 """
 from __future__ import annotations
 
@@ -22,6 +21,7 @@ import numpy as np
 from .base import MXNetError
 from .context import cpu
 from . import io as io_mod
+from . import io_resume
 from .ndarray import array
 from . import recordio
 
@@ -275,7 +275,12 @@ class ImageIter(io_mod.DataIter):
     ``path_root``, or an in-memory ``imglist`` (reference image.ImageIter).
     ``shuffle`` reorders the keys with ``random.shuffle`` at every
     ``reset``; ``num_parts``/``part_index`` keep one contiguous share of
-    them.  Shuffling or sharding a ``.rec`` needs its ``.idx``."""
+    them.  Shuffling or sharding a ``.rec`` needs its ``.idx``.
+
+    ``state()`` names the epoch, the shard and the cursor, with the
+    epoch's key order when it shuffles (no seed in the state could replay
+    ``random.shuffle``); a ``.rec`` read in order keeps its reader's
+    byte-exact state.  Augmentation draws are not part of the state."""
 
     def __init__(self, batch_size, data_shape, label_width=1,
                  path_imgrec=None, path_imglist=None, path_root=None,
@@ -370,6 +375,7 @@ class ImageIter(io_mod.DataIter):
         self.part_index = int(part_index)
         self.num_parts = int(num_parts)
         self.cur = 0
+        self._epochs = -1           # the reset below makes it 0
         self.reset()
 
     def reset(self):
@@ -378,6 +384,58 @@ class ImageIter(io_mod.DataIter):
         if self.imgrec is not None:
             self.imgrec.reset()
         self.cur = 0
+        self._epochs += 1
+
+    def position(self):
+        """``{"epoch", "shard", "num_shards", "offset", "resyncs"}``: the
+        records consumed this epoch and the reader's resyncs."""
+        if self.seq is not None:
+            offset = self.cur
+        elif self.imgrec is not None:
+            offset = self.imgrec.records_read
+        else:
+            offset = 0
+        return {"epoch": self._epochs, "shard": self.part_index,
+                "num_shards": self.num_parts, "offset": int(offset),
+                "resyncs": int(getattr(self.imgrec, "resyncs", 0) or 0)}
+
+    def state(self):
+        st = {"v": io_resume.STATE_VERSION, "kind": "image",
+              "epoch": self._epochs, "shard": self.part_index,
+              "num_shards": self.num_parts, "cur": int(self.cur)}
+        if self.seq is not None:
+            if self.shuffle:
+                st["seq"] = list(self.seq)
+        else:
+            st["rec"] = self.imgrec.state()
+        return st
+
+    def restore(self, state):
+        io_resume.check_state(state, "image")
+        if int(state["shard"]) != self.part_index or \
+                int(state["num_shards"]) != self.num_parts:
+            raise MXNetError(
+                "image state is for shard %s/%s, iterator is %d/%d"
+                % (state["shard"], state["num_shards"],
+                   self.part_index, self.num_parts))
+        if self.seq is not None:
+            seq = state.get("seq")
+            if seq is not None and len(seq) != len(self.seq):
+                raise MXNetError(
+                    "image state key list has %d entries, iterator has "
+                    "%d; different dataset?" % (len(seq), len(self.seq)))
+            cur = int(state["cur"])
+            limit = len(seq if seq is not None else self.seq)
+            if not 0 <= cur <= limit:
+                raise MXNetError("image cursor %d out of range [0, %d]"
+                                 % (cur, limit))
+            if seq is not None:
+                self.seq = list(seq)
+            self.cur = cur
+        else:
+            self.imgrec.restore(state["rec"])
+            self.cur = int(state["cur"])
+        self._epochs = int(state["epoch"])
 
     def next_sample(self):
         """``(label, image bytes or array)`` of the next sample."""

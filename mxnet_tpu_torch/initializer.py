@@ -13,6 +13,11 @@ seed, and the same calls in the same order, the draws are equal, so a port
 trainer built with ``seed=s`` starts from the weights a JAX trainer starts
 from after ``np.random.seed(s)``.
 
+``Load`` starts parameters from a ``.params`` dict (written by either
+package), ``Mixed`` picks an initializer by name pattern, and ``FusedRNN``
+initializes a ``FusedRNNCell``'s flat parameter vector gate by gate
+through the cell's ``unpack_weights``/``pack_weights``.
+
 A variable's ``__init__`` attribute (``sym.Variable(init=...)``, the
 ``dumps()`` string of an initializer, as the LSTM cell's ``LSTMBias``)
 picks the initializer of that variable; it draws from the calling
@@ -22,13 +27,16 @@ global one.
 from __future__ import annotations
 
 import json
+import logging
+import re
 
 import numpy as np
 
 from .base import MXNetError
 
 __all__ = ["InitDesc", "Initializer", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "LSTMBias", "create"]
+           "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "Load", "Mixed", "FusedRNN", "create", "register"]
 
 _REGISTRY = {}
 
@@ -40,17 +48,22 @@ def register(klass):
     return klass
 
 
-def create(init, rng=None):
-    """An initializer from an instance, a name, or a ``dumps()`` string
-    (``'["lstmbias", {"forget_bias": 1.0}]'``); ``rng`` is passed to the
-    one it makes."""
-    if isinstance(init, Initializer):
+def create(init, rng=None, **kwargs):
+    """An initializer from an instance, a name (with its constructor's
+    ``kwargs``), or a ``dumps()`` string (``'["lstmbias", {"forget_bias":
+    1.0}]'``); ``rng`` is passed to the one it makes when it draws."""
+    if not isinstance(init, str):
         return init
-    name, kwargs = json.loads(init) if init.startswith("[") else (init, {})
+    if init.startswith("["):
+        name, kwargs = json.loads(init)
+    else:
+        name = init
     klass = _REGISTRY.get(name.lower())
     if klass is None:
         raise MXNetError("%s is not registered as an initializer" % name)
-    return klass(rng=rng, **kwargs)
+    if issubclass(klass, Initializer):
+        kwargs = dict(kwargs, rng=rng)
+    return klass(**kwargs)
 
 
 class InitDesc(str):
@@ -91,7 +104,9 @@ class Initializer:
                                                                       arr)
             return
         name = desc.lower()
-        if name.endswith("bias"):
+        if name.endswith("upsampling"):
+            _bilinear(arr)
+        elif name.endswith("bias"):
             self._init_bias(desc, arr)
         elif name.endswith("gamma"):
             self._init_gamma(desc, arr)
@@ -123,6 +138,82 @@ class Initializer:
         raise NotImplementedError("must override _init_weight")
 
 
+def _bilinear(arr):
+    """An upsampling kernel's bilinear weights (the reference's
+    ``_init_bilinear``)."""
+    shape = arr.shape
+    weight = np.zeros(int(np.prod(shape)), dtype="float32")
+    f = np.ceil(shape[3] / 2.0)
+    c = (2 * f - 1 - f % 2) / (2.0 * f)
+    for i in range(int(np.prod(shape))):
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight[i] = (1 - abs(x / f - c)) * (1 - abs(y / f - c))
+    arr[:] = weight.reshape(shape)
+
+
+def _host(v):
+    """An NDArray, tensor or array as a numpy array."""
+    if hasattr(v, "asnumpy"):
+        return v.asnumpy()
+    if hasattr(v, "detach"):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
+@register
+class Load:
+    """Parameters from a loaded dict (``nd.load`` of a ``.params`` file,
+    ``arg:``/``aux:`` prefixes dropped), the others from ``default_init``;
+    a shape that differs, or a missing name without a default, raises."""
+
+    def __init__(self, param, default_init=None, verbose=False):
+        self.param = {
+            (k[4:] if k.startswith(("arg:", "aux:")) else k): v
+            for k, v in param.items()}
+        self.default_init = default_init
+        self.verbose = verbose
+
+    def __call__(self, name, arr):
+        if name in self.param:
+            src = self.param[name]
+            if tuple(src.shape) != tuple(arr.shape):
+                raise MXNetError(
+                    "Parameter %s cannot be initialized from loading, "
+                    "shape mismatch %s vs %s" % (name, src.shape, arr.shape))
+            arr[:] = _host(src)
+            if self.verbose:
+                logging.info("Initialized %s by loading", name)
+        else:
+            if self.default_init is None:
+                raise MXNetError(
+                    "Cannot Initialize %s. Not found in loaded param and no "
+                    "default Initializer is provided." % name)
+            self.default_init(name, arr)
+            if self.verbose:
+                logging.info("Initialized %s by default", name)
+
+
+@register
+class Mixed:
+    """The initializer of the first regular expression in ``patterns`` that
+    matches a parameter's name; no match raises."""
+
+    def __init__(self, patterns, initializers):
+        if len(patterns) != len(initializers):
+            raise MXNetError("patterns and initializers must be same length")
+        self.map = list(zip([re.compile(p) for p in patterns], initializers))
+
+    def __call__(self, name, arr):
+        for prog, init in self.map:
+            if prog.match(name):
+                init(name, arr)
+                return
+        raise MXNetError(
+            "Parameter name %s did not match any pattern. Consider adding a "
+            "\".*\" pattern at the end with default Initializer." % name)
+
+
 @register
 class Zero(Initializer):
     def _init_weight(self, _, arr):
@@ -133,6 +224,11 @@ class Zero(Initializer):
 class One(Initializer):
     def _init_weight(self, _, arr):
         arr[:] = 1.0
+
+
+# the JAX package's aliases
+_REGISTRY["zeros"] = Zero
+_REGISTRY["ones"] = One
 
 
 @register
@@ -167,6 +263,28 @@ class Normal(Initializer):
 
     def _init_weight(self, _, arr):
         arr[:] = self.rng.normal(0, self.sigma, arr.shape)
+
+
+@register
+class Orthogonal(Initializer):
+    """The orthogonal factor of a uniform (``rand_type="uniform"``) or
+    normal draw of (out, in), times ``scale`` (Saxe et al., 2013)."""
+
+    def __init__(self, scale=1.414, rand_type="uniform", rng=None):
+        super().__init__(rng, scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, _, arr):
+        nout = arr.shape[0]
+        nin = int(np.prod(arr.shape[1:]))
+        if self.rand_type == "uniform":
+            tmp = self.rng.uniform(-1.0, 1.0, (nout, nin))
+        else:
+            tmp = self.rng.normal(0.0, 1.0, (nout, nin))
+        u, _, v = np.linalg.svd(tmp, full_matrices=False)
+        res = u if u.shape == tmp.shape else v
+        arr[:] = (self.scale * res).reshape(arr.shape)
 
 
 @register
@@ -207,6 +325,25 @@ class Xavier(Initializer):
 
 
 @register
+class MSRAPrelu(Xavier):
+    """He et al.'s initializer for PReLU nets: Xavier gaussian of magnitude
+    ``2 / (1 + slope^2)``."""
+
+    def __init__(self, factor_type="avg", slope=0.25, rng=None):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2),
+                         rng=rng)
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """Bilinear upsampling weights (a Deconvolution's kernel)."""
+
+    def _init_weight(self, _, arr):
+        _bilinear(arr)
+
+
+@register
 class LSTMBias(Initializer):
     """An LSTM's bias: zeros, with ``forget_bias`` on the forget gate's
     quarter (gate order i, f, g, o)."""
@@ -220,3 +357,48 @@ class LSTMBias(Initializer):
         num_hidden = int(b.shape[0] / 4)
         b[num_hidden:2 * num_hidden] = self.forget_bias
         arr[:] = b
+
+
+@register
+class FusedRNN(Initializer):
+    """A ``FusedRNNCell``'s flat parameter vector, initialized per layer,
+    direction and gate: unpacked by the cell's ``unpack_weights``, each
+    piece given to ``init`` (an initializer, its ``dumps()`` string, or
+    None for the descriptor's global initializer) under its unfused name,
+    and packed back."""
+
+    def __init__(self, init, num_hidden, num_layers, mode,
+                 bidirectional=False, forget_bias=1.0, rng=None):
+        if isinstance(init, str):
+            klass, kwargs = json.loads(init)
+            init = create(klass, rng=rng, **kwargs)
+        super().__init__(rng, init=init.dumps() if init else None,
+                         num_hidden=num_hidden, num_layers=num_layers,
+                         mode=mode, bidirectional=bidirectional,
+                         forget_bias=forget_bias)
+        self._init = init
+        self._num_hidden = num_hidden
+        self._num_layers = num_layers
+        self._mode = mode
+        self._bidirectional = bidirectional
+        self._forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        from .rnn.rnn_cell import FusedRNNCell
+        cell = FusedRNNCell(self._num_hidden, self._num_layers,
+                            self._mode, self._bidirectional,
+                            forget_bias=self._forget_bias)
+        args = cell.unpack_weights({cell._parameter_name(): arr})
+        # the pieces keep the vector's attributes but not its __init__,
+        # which names this initializer (the JAX package passes it on and
+        # recurses into the pieces)
+        attrs = {k: v for k, v in getattr(desc, "attrs", {}).items()
+                 if k != "__init__"}
+        for name, a in args.items():
+            desc_i = InitDesc(name, attrs)
+            if self._init is None:
+                if isinstance(desc, InitDesc) and desc.global_init:
+                    desc.global_init(desc_i, a)
+            else:
+                self._init(desc_i, a)
+        arr[:] = _host(cell.pack_weights(args)[cell._parameter_name()])

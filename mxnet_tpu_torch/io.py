@@ -9,9 +9,11 @@ on the device, or ``DevicePrefetchIter`` stages them ahead of the step.
 does, so with the same ``np.random`` state both packages give the same
 batches.  ``ImageRecordIter`` is the native JPEG pipeline of
 :mod:`~mxnet_tpu_torch.io_native`; :class:`~mxnet_tpu_torch.image.ImageIter`
-is the PIL one.  The iterators' durable state (``state``/``restore``) and
-position telemetry belong to resilience and telemetry (ROADMAP Queue A
-items 7 and 8).
+is the PIL one.  Every iterator has ``position()``, ``state()`` and
+``restore(state)`` (:mod:`~mxnet_tpu_torch.io_resume`): ``state()`` names
+the next batch not yet delivered, in the JAX package's dicts, and a
+wrapper that fetched ahead reports the state from before the batches it
+holds.
 """
 from __future__ import annotations
 
@@ -20,13 +22,15 @@ import queue
 import struct
 import threading
 import time
-from collections import namedtuple
+from collections import deque, namedtuple
 
 import numpy as np
 import torch
 
 from .base import MXNetError
 from .context import cpu
+from . import io_resume
+from .io_resume import iter_position, iter_state
 from .ndarray import NDArray, array
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
@@ -105,6 +109,29 @@ class DataIter:
     def getpad(self):
         raise NotImplementedError
 
+    def position(self):
+        """An advisory position dict (epoch, shard, offset, ...) of the next
+        sample not yet delivered, or None."""
+        return None
+
+    def state(self):
+        """The durable state (``{"v", "kind", ...}``) of the next sample not
+        yet delivered, or None when the iterator declares none;
+        ``restore(state())`` into a like iterator gives the same remaining
+        samples."""
+        return None
+
+    def restore(self, state):
+        """Restore a ``state()`` dict, validating it before anything
+        changes.  The base takes only None."""
+        if state is None:
+            return
+        raise MXNetError(
+            "%s declares no durable state and cannot restore %r; resume "
+            "with the iterator class that produced the state"
+            % (type(self).__name__, state.get("kind")
+               if isinstance(state, dict) else state))
+
 
 class ResizeIter(DataIter):
     """Another iterator cut or extended to ``size`` batches an epoch (it
@@ -156,12 +183,32 @@ class ResizeIter(DataIter):
     def getpad(self):
         return self.current_batch.pad
 
+    def position(self):
+        return self.data_iter.position()
+
+    def state(self):
+        return {"v": io_resume.STATE_VERSION, "kind": "resize",
+                "cur": self.cur, "inner": self.data_iter.state()}
+
+    def restore(self, state):
+        io_resume.check_state(state, "resize")
+        cur = int(state["cur"])
+        if not 0 <= cur <= self.size:
+            raise MXNetError("resize cursor %d out of range [0, %d]"
+                             % (cur, self.size))
+        # the inner iterator validates its own state; the cursor follows
+        self.data_iter.restore(state["inner"])
+        self.cur = cur
+        self.current_batch = None
+
 
 class PrefetchingIter(DataIter):
     """One thread per wrapped iterator fetches its next batch while the
     consumer works on the current one; the batches of several iterators
     are joined into one (``rename_data``/``rename_label`` map names).  An
-    error in a fetch is raised on the consumer's next call."""
+    error in a fetch is raised on the consumer's next call.  Each thread
+    takes its iterator's state before it fetches, which is the wrapper's
+    state while the fetched batch waits."""
 
     def __init__(self, iters, rename_data=None, rename_label=None):
         super().__init__()
@@ -182,12 +229,18 @@ class PrefetchingIter(DataIter):
         self.current_batch = None
         self.next_batch = [None] * self.n_iter
         self.errors = [None] * self.n_iter
+        # each iterator's state and position taken before the fetch of the
+        # batch that waits: what the wrapper reports until it is delivered
+        self.next_state = [None] * self.n_iter
+        self.next_position = [None] * self.n_iter
 
         def fetch(i):
             while True:
                 self.data_taken[i].wait()
                 if not self.started:
                     break
+                self.next_state[i] = iter_state(self.iters[i])
+                self.next_position[i] = iter_position(self.iters[i])
                 try:
                     self.next_batch[i] = self.iters[i].next()
                 except StopIteration:
@@ -230,10 +283,16 @@ class PrefetchingIter(DataIter):
             e.wait()
         for i in self.iters:
             i.reset()
+        self._forget_captures()
         for e in self.data_ready:
             e.clear()
         for e in self.data_taken:
             e.set()
+
+    def _forget_captures(self):
+        for i in range(self.n_iter):
+            self.next_state[i] = None
+            self.next_position[i] = None
 
     def iter_next(self):
         for e in self.data_ready:
@@ -242,6 +301,7 @@ class PrefetchingIter(DataIter):
         if errs:
             # the whole joined batch is dropped and every slot re-armed, so
             # the iterators stay in step
+            self._forget_captures()
             for i in range(self.n_iter):
                 self.errors[i] = None
                 self.data_ready[i].clear()
@@ -263,6 +323,9 @@ class PrefetchingIter(DataIter):
             provide_label=self.provide_label)
         for e in self.data_ready:
             e.clear()
+        # until the threads take new ones, the live states are the next
+        # batch's; cleared before the threads are re-armed
+        self._forget_captures()
         for e in self.data_taken:
             e.set()
         return True
@@ -283,6 +346,48 @@ class PrefetchingIter(DataIter):
 
     def getpad(self):
         return self.current_batch.pad
+
+    def position(self):
+        """The first iterator's position from before the waiting batch's
+        fetch (the live one before an epoch's first fetch)."""
+        pos = self.next_position[0]
+        return pos if pos is not None else self.iters[0].position()
+
+    def state(self):
+        """The inner states from before the waiting batch's fetch, once
+        the threads have finished it."""
+        for e in self.data_ready:
+            e.wait()
+        if self.n_iter == 1:
+            return self.next_state[0]
+        return {"v": io_resume.STATE_VERSION, "kind": "prefetch",
+                "inner": list(self.next_state)}
+
+    def restore(self, state):
+        """Restore the wrapped iterators and drop the waiting batch; the
+        threads then fetch from the restored state."""
+        if state is None:
+            return
+        if self.n_iter == 1:
+            states = [state]
+        else:
+            io_resume.check_state(state, "prefetch")
+            states = list(state["inner"])
+            if len(states) != self.n_iter:
+                raise MXNetError(
+                    "prefetch state has %d inner entries, wrapper has "
+                    "%d iterators" % (len(states), self.n_iter))
+        for e in self.data_ready:
+            e.wait()                 # the threads are parked
+        for it, st in zip(self.iters, states):
+            it.restore(st)
+        self._forget_captures()
+        for i in range(self.n_iter):
+            self.errors[i] = None
+        for e in self.data_ready:
+            e.clear()
+        for e in self.data_taken:
+            e.set()
 
 
 def _init_data(data, allow_empty, default_name):
@@ -337,6 +442,7 @@ class NDArrayIter(DataIter):
         self.cursor = -batch_size
         self.batch_size = batch_size
         self.last_batch_handle = last_batch_handle
+        self._epochs = 0
 
     @property
     def provide_data(self):
@@ -349,6 +455,7 @@ class NDArrayIter(DataIter):
                          v.dtype) for k, v in self.label]
 
     def reset(self):
+        self._epochs += 1
         if self.last_batch_handle == "roll_over" and \
                 self.cursor > self.num_data:
             self.cursor = -self.batch_size + \
@@ -359,6 +466,35 @@ class NDArrayIter(DataIter):
     def iter_next(self):
         self.cursor += self.batch_size
         return self.cursor < self.num_data
+
+    def position(self):
+        """``{"epoch", "offset"}``: the samples consumed this epoch."""
+        return {"epoch": self._epochs,
+                "offset": int(min(max(0, self.cursor + self.batch_size),
+                                  self.num_data))}
+
+    def state(self):
+        """The epoch and offset.  A ``shuffle=True`` iterator permutes once,
+        at construction, from numpy's global generator: restoring in a new
+        process needs ``np.random`` seeded alike before the iterator is
+        made (the order lives in the arrays, not in the state)."""
+        pos = self.position()
+        return {"v": io_resume.STATE_VERSION, "kind": "ndarray",
+                "epoch": pos["epoch"], "offset": pos["offset"],
+                "num_data": int(self.num_data)}
+
+    def restore(self, state):
+        io_resume.check_state(state, "ndarray")
+        if int(state["num_data"]) != int(self.num_data):
+            raise MXNetError(
+                "ndarray state is for %s samples, iterator has %d"
+                % (state["num_data"], self.num_data))
+        offset = int(state["offset"])
+        if not 0 <= offset <= self.num_data:
+            raise MXNetError("ndarray offset %d out of range [0, %d]"
+                             % (offset, self.num_data))
+        self._epochs = int(state["epoch"])
+        self.cursor = offset - self.batch_size
 
     def next(self):
         if self.iter_next():
@@ -422,6 +558,15 @@ class _Wrapped(DataIter):
     def iter_next(self):
         return self._inner.iter_next()
 
+    def position(self):
+        return self._inner.position()
+
+    def state(self):
+        return self._inner.state()
+
+    def restore(self, state):
+        self._inner.restore(state)
+
 
 class MNISTIter(_Wrapped):
     """The MNIST idx-ubyte files: images scaled to [0, 1], ``flat`` or (1,
@@ -433,6 +578,7 @@ class MNISTIter(_Wrapped):
                  shuffle=True, flat=False, seed=0, silent=False,
                  num_parts=1, part_index=0, **kwargs):
         super().__init__(batch_size)
+        self._num_parts, self._part_index = int(num_parts), int(part_index)
         img = _read_idx_file(image).astype(np.float32) / 255.0
         lab = _read_idx_file(label).astype(np.float32)
         if num_parts > 1:
@@ -448,6 +594,11 @@ class MNISTIter(_Wrapped):
             img = img.reshape(img.shape[0], 1, img.shape[1], img.shape[2])
         self._inner = NDArrayIter(img, lab, batch_size=batch_size,
                                   last_batch_handle="discard")
+
+    def position(self):
+        pos = self._inner.position()
+        pos.update(shard=self._part_index, num_shards=self._num_parts)
+        return pos
 
 
 class CSVIter(_Wrapped):
@@ -533,6 +684,13 @@ class DevicePrefetchIter:
     the decode wait) and in ``stage_fn`` with the pinning (``stage_s``),
     and the consumer's seconds blocked on the queue (``wait_s``), over
     ``batches`` delivered.
+
+    The worker takes ``it``'s state and position before each fetch and
+    keeps them in order until the batch is delivered: ``state()`` and
+    ``position()`` are those of the oldest batch not yet delivered (the
+    live ones of ``it`` when none is in flight), never ``it``'s read-ahead.
+    ``restore(state)`` stops the worker, drops what it staged, restores
+    ``it`` and starts again.
     """
 
     def __init__(self, it, stage_fn, depth=2):
@@ -545,6 +703,9 @@ class DevicePrefetchIter:
         self._exhausted = False
         self._copy_stream = torch.cuda.Stream() \
             if torch.cuda.is_available() else None
+        # (state, position) of ``it`` before each fetch not yet delivered
+        self._pending = deque()
+        self._plock = threading.Lock()
         self.timings = {"fetch_s": 0.0, "stage_s": 0.0, "wait_s": 0.0,
                         "batches": 0}
         self._start()
@@ -593,10 +754,17 @@ class DevicePrefetchIter:
             try:
                 src = iter(self._it)
                 while not self._stop:
+                    # taken before the fetch, so a state() read while the
+                    # batch is in flight names it
+                    pre = (iter_state(self._it), iter_position(self._it))
+                    with self._plock:
+                        self._pending.append(pre)
                     t0 = time.perf_counter()
                     try:
                         batch = next(src)
                     except StopIteration:
+                        with self._plock:
+                            self._pending.pop()
                         break
                     t1 = time.perf_counter()
                     staged = self._stage_one(self._to_host(batch))
@@ -628,6 +796,9 @@ class DevicePrefetchIter:
         if kind == "error":
             self._exhausted = True
             raise val
+        with self._plock:
+            if self._pending:
+                self._pending.popleft()
         self.timings["batches"] += 1
         if self._copy_stream is None:
             return val
@@ -639,9 +810,36 @@ class DevicePrefetchIter:
 
     next = __next__
 
+    def position(self):
+        with self._plock:
+            if self._pending:
+                return self._pending[0][1]
+        return iter_position(self._it)
+
+    def state(self):
+        with self._plock:
+            if self._pending:
+                return self._pending[0][0]
+        return iter_state(self._it)
+
+    def restore(self, state):
+        """Stop the worker and drop what it staged (a worker error goes
+        with it), restore ``it``, start again.  ``it`` validates before it
+        changes, so a rejected state leaves it restorable (the worker
+        stays stopped until a restore or ``reset`` succeeds)."""
+        if state is None:
+            return
+        self._cancel_worker()
+        if not callable(getattr(self._it, "restore", None)):
+            raise MXNetError("%s wraps %s, which has no restore()"
+                             % (type(self).__name__, type(self._it).__name__))
+        self._it.restore(state)
+        self._start()
+
     def _cancel_worker(self):
-        """Stop the worker and drain the queue (staged batches are
-        dropped); returns a worker error the consumer never saw."""
+        """Stop the worker, drain the queue and the copy stream (staged
+        batches are dropped); returns a worker error the consumer never
+        saw."""
         self._stop = True
         pending_error = None
         while self._thread.is_alive() or not self._queue.empty():
@@ -652,6 +850,10 @@ class DevicePrefetchIter:
             except queue.Empty:
                 pass
         self._thread.join()
+        if self._copy_stream is not None:
+            self._copy_stream.synchronize()   # the dropped copies ended
+        with self._plock:
+            self._pending.clear()
         return pending_error
 
     def close(self):

@@ -39,6 +39,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import io_resume
+from . import resilience
+
 __all__ = ["available", "jpeg_available", "decoder", "build_info",
            "probe", "build_command", "NativeRecordIOReader", "ImageRecordIter"]
 
@@ -233,6 +236,7 @@ class NativeRecordIOReader:
             skip_bad_records = config.get_int("MXNET_TPU_BAD_RECORD_QUOTA")
         self._bad_quota = int(skip_bad_records)
         self.bad_records = 0
+        self._queue_cap = queue_cap
         self._handle = lib.MXTTRecordIOReaderCreate(path.encode(), queue_cap)
         if not self._handle:
             raise IOError("cannot open %s" % path)
@@ -253,8 +257,16 @@ class NativeRecordIOReader:
                         self._path, self.bad_records, self._bad_quota, exc)
 
     def read(self):
-        """The next record's bytes, or None at EOF."""
+        """The next record's bytes, or None at EOF.  The ``recordio.read``
+        seam stands for a corrupt record: the one it fires on is read,
+        counted as bad and dropped."""
         while True:
+            dropped = False
+            try:
+                resilience.fault_point("recordio.read")
+            except resilience.FaultInjected as e:
+                self._note_bad_record(e)
+                dropped = True
             n = self._lib.MXTTRecordIOReaderNext(self._handle, self._buf,
                                                  self._max_record)
             if n == 0:
@@ -262,13 +274,55 @@ class NativeRecordIOReader:
             if n < 0 or n > self._max_record:
                 # the native side returns the record's full size but copies
                 # at most the buffer's: never hand back a truncated record
-                self._note_bad_record(IOError(
-                    "%s: record of %d bytes exceeds the %d-byte staging "
-                    "buffer (or native error)"
-                    % (self._path, n, self._max_record)))
+                # (one the seam dropped is counted once)
+                if not dropped:
+                    self._note_bad_record(IOError(
+                        "%s: record of %d bytes exceeds the %d-byte "
+                        "staging buffer (or native error)"
+                        % (self._path, n, self._max_record)))
+                continue
+            if dropped:
                 continue
             self.records_read += 1
             return ctypes.string_at(self._buf, n)
+
+    def position(self):
+        """Records the caller has read (the native read-ahead is not
+        counted) and the bad records skipped."""
+        return {"offset": self.records_read,
+                "bad_records": self.bad_records}
+
+    def state(self):
+        return {"v": io_resume.STATE_VERSION, "kind": "native_recordio",
+                "offset": self.records_read}
+
+    def restore(self, state):
+        """A new native reader moved ``offset`` records on (the reader is
+        sequential); the old one is replaced only when it got there."""
+        from .base import MXNetError
+        io_resume.check_state(state, "native_recordio")
+        offset = int(state["offset"])
+        if offset < 0:
+            raise MXNetError("native recordio offset %d < 0" % offset)
+        handle = self._lib.MXTTRecordIOReaderCreate(self._path.encode(),
+                                                    self._queue_cap)
+        if not handle:
+            raise MXNetError("cannot reopen %s for restore" % self._path)
+        try:
+            for i in range(offset):
+                n = self._lib.MXTTRecordIOReaderNext(handle, self._buf,
+                                                     self._max_record)
+                if n == 0:
+                    raise MXNetError(
+                        "%s has only %d records; state expects >= %d: "
+                        "the file shrank since the checkpoint"
+                        % (self._path, i, offset))
+        except BaseException:   # free the new reader, keep the open one
+            self._lib.MXTTRecordIOReaderFree(handle)
+            raise
+        self.close()
+        self._handle = handle
+        self.records_read = offset
 
     def read_float_batch(self, batch, record_floats):
         """``(n, labels, data)``: up to ``batch`` records of IRHeader +
@@ -309,6 +363,12 @@ class ImageRecordIter:
     A last partial batch is filled with wrapped images (``round_batch``)
     and its ``pad`` set.  With more than one decode thread the order of
     records is not deterministic.  An unknown option raises ``TypeError``.
+
+    ``state()`` names the epoch, the shard and the records consumed;
+    ``restore`` reopens the pipeline at the state's epoch (so its seed,
+    and with one decode thread its order and augmentation, are the
+    epoch's) and reads past ``offset`` records.  With more decode threads
+    the offset names how many records were consumed, not which.
     """
 
     def __init__(self, path_imgrec, data_shape, batch_size,
@@ -346,6 +406,7 @@ class ImageRecordIter:
         self._part_index = int(part_index)
         self._round = bool(round_batch)
         self._epoch = 0
+        self._consumed = 0
         self._handle = None
         self._open()
         from .io import DataDesc
@@ -382,7 +443,56 @@ class ImageRecordIter:
 
     def reset(self):
         self._epoch += 1
+        self._consumed = 0
         self._open()
+
+    def position(self):
+        """``{"epoch", "shard", "num_shards", "offset"}``: records the
+        caller has consumed this epoch (the decode threads' read-ahead is
+        not counted)."""
+        return {"epoch": self._epoch, "shard": self._part_index,
+                "num_shards": self._num_parts, "offset": self._consumed}
+
+    def state(self):
+        return {"v": io_resume.STATE_VERSION, "kind": "image_record",
+                "epoch": self._epoch, "shard": self._part_index,
+                "num_shards": self._num_parts,
+                "offset": int(self._consumed)}
+
+    def restore(self, state):
+        """Reopen at the state's epoch and read past its ``offset``
+        records, asking for exactly the records missing, so an offset off
+        a batch boundary restores too.  A state of another shard layout
+        raises."""
+        from .base import MXNetError
+        io_resume.check_state(state, "image_record")
+        if int(state["shard"]) != self._part_index or \
+                int(state["num_shards"]) != self._num_parts:
+            raise MXNetError(
+                "image_record state is for shard %s/%s, iterator is "
+                "%d/%d; elastic resharding of the native pipeline is "
+                "not supported (use ShardedLedgerIter for elastic "
+                "resume)" % (state["shard"], state["num_shards"],
+                             self._part_index, self._num_parts))
+        offset = int(state["offset"])
+        if offset < 0:
+            raise MXNetError("image_record offset %d < 0" % offset)
+        self._epoch = int(state["epoch"])
+        self._consumed = 0
+        self._open()
+        h, w = self.data_shape[1], self.data_shape[2]
+        labels = np.zeros(self.batch_size, np.float32)
+        raw = np.empty((self.batch_size, h, w, 3), np.uint8)
+        while self._consumed < offset:
+            want = min(self.batch_size, offset - self._consumed)
+            n = self._lib.MXTTImagePipelineNextBatch(
+                self._handle, _float_ptr(labels), _u8_ptr(raw), want)
+            if n <= 0:
+                raise MXNetError(
+                    "%s: epoch has only %d records in this shard; state "
+                    "expects >= %d: the file shrank since the checkpoint"
+                    % (self._path, self._consumed, offset))
+            self._consumed += int(n)
 
     def next(self):
         from .io import DataBatch
@@ -399,6 +509,7 @@ class ImageRecordIter:
         if n == 0:
             raise StopIteration
         n = int(n)
+        self._consumed += n
         if n < self.batch_size and self._round:
             # the reference's round_batch wraps real images, never zeros
             for i in range(n, self.batch_size):

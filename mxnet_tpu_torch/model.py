@@ -1,15 +1,21 @@
 """Checkpoints, the kvstore helpers of the update, and ``FeedForward``.
 
 The counterpart of ``mxnet_tpu/model.py``: ``_create_kvstore`` decides
-where updates run, ``_update_params(_on_kvstore)`` push and pull,
+where updates run, ``_update_params(_on_kvstore)`` push and pull.
+
 ``save_checkpoint``/``load_checkpoint`` write and read
 ``prefix-symbol.json`` and ``prefix-%04d.params`` in the JAX package's
-formats, each file written to a temporary name and renamed into place, so a
-crash leaves the last complete file.  The JAX package's CRC manifest
-belongs to its resilience layer (ROADMAP Queue A item 7): the port writes
-none, the JAX loader then reads the checkpoint as one without a manifest,
-and the port's loader ignores a manifest it finds.  Parameters load onto
-the host (``cpu()``); the Module copies them to its device.
+formats.  Each file is written whole or not at all
+(:func:`~mxnet_tpu_torch.resilience.atomic_write`), and the checkpoint is
+committed by ``prefix-%04d.manifest.json``, written last: each file's size
+and CRC32, each array's CRC32, and in ``meta["data_state"]`` the tracked
+data iterator's durable state (:mod:`~mxnet_tpu_torch.io_resume`).  The
+loader verifies the manifest before it parses ``.params`` and stashes the
+data state for the next ``fit``, which resumes mid-epoch;
+:func:`find_checkpoints` and :func:`find_latest_checkpoint` pass over
+epochs whose files fail it.  Checkpoints and manifests of either package
+load and verify in the other.  Parameters load onto the host (``cpu()``);
+the Module copies them to its device.
 """
 from __future__ import annotations
 
@@ -17,12 +23,15 @@ import glob
 import logging
 import os
 import re
+import struct
 from collections import namedtuple
 
 import numpy as np
 
 from . import io
+from . import io_resume
 from . import ndarray as nd
+from . import resilience
 from . import symbol as sym
 from . import kvstore as kvs
 from .base import MXNetError
@@ -30,7 +39,8 @@ from .context import cpu
 from .ndarray import NDArray
 
 __all__ = ["BatchEndParam", "save_checkpoint", "load_checkpoint",
-           "find_checkpoints", "atomic_write", "FeedForward"]
+           "find_checkpoints", "find_latest_checkpoint",
+           "load_latest_checkpoint", "FeedForward"]
 
 BatchEndParam = namedtuple("BatchEndParams",
                            ["epoch", "nbatch", "eval_metric", "locals"])
@@ -38,20 +48,6 @@ BatchEndParam = namedtuple("BatchEndParams",
 #: past this many elements in one parameter, the ``local`` store leaves the
 #: update to the workers (the reference's ``MXNET_KVSTORE_BIGARRAY_BOUND``)
 _BIGARRAY_BOUND = 1000000
-
-
-def atomic_write(path, write):
-    """``write(tmp_path)``, then rename ``tmp_path`` to ``path``: readers
-    see the old file or the whole new one."""
-    tmp = "%s.tmp.%d" % (path, os.getpid())
-    try:
-        write(tmp)
-        with open(tmp, "rb") as f:
-            os.fsync(f.fileno())
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
 
 
 def _create_kvstore(kvstore, num_device, arg_params):
@@ -119,27 +115,51 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
 
 
 def save_checkpoint(prefix, epoch, symbol, arg_params, aux_params):
-    """Write ``prefix-symbol.json`` (unless ``symbol`` is None) and
-    ``prefix-%04d.params`` (``arg:``/``aux:`` names)."""
+    """Write ``prefix-symbol.json`` (unless ``symbol`` is None),
+    ``prefix-%04d.params`` (``arg:``/``aux:`` names) and, last, the
+    manifest, with the tracked iterator's position and durable state in
+    its meta.  The ``checkpoint.save`` seam fires between the ``.params``
+    write and its rename."""
     if symbol is not None:
-        atomic_write("%s-symbol.json" % prefix, symbol.save)
+        resilience.atomic_write("%s-symbol.json" % prefix, symbol.save)
     save_dict = {("arg:%s" % k): v for k, v in arg_params.items()}
     save_dict.update({("aux:%s" % k): v for k, v in aux_params.items()})
     param_name = "%s-%04d.params" % (prefix, epoch)
-    atomic_write(param_name, lambda tmp: nd.save(tmp, save_dict))
+    resilience.atomic_write(param_name,
+                            lambda tmp: nd.save(tmp, save_dict),
+                            fault_site="checkpoint.save")
+    meta = {}
+    pos = io_resume.current_position()
+    if pos is not None:
+        meta["data_position"] = pos
+    entry = io_resume.data_state_entry()
+    if entry is not None:
+        meta["data_state"] = entry
+    resilience.write_manifest(prefix, epoch, [param_name], arrays=save_dict,
+                              meta=meta or None)
     logging.info("Saved checkpoint to \"%s\"", param_name)
 
 
 def load_checkpoint(prefix, epoch):
-    """``(symbol, arg_params, aux_params)``, the parameters on the host;
-    a missing or unreadable file raises an MXNetError naming it."""
+    """``(symbol, arg_params, aux_params)``, the parameters on the host.
+    Fires the ``checkpoint.load`` seam, verifies the manifest (when there
+    is one) before it parses ``.params``, and stashes its data state for
+    the next ``fit``; a missing or corrupt file raises an MXNetError
+    naming it."""
+    resilience.fault_point("checkpoint.load")
     sym_name = "%s-symbol.json" % prefix
     param_name = "%s-%04d.params" % (prefix, epoch)
+    manifest = resilience.verify_manifest(prefix, epoch)
+    if manifest is not None:
+        io_resume.note_loaded_state(
+            (manifest.get("meta") or {}).get("data_state"),
+            source="%s epoch %d" % (prefix, epoch))
     try:
         symbol = sym.load(sym_name)
     except FileNotFoundError as e:
-        raise MXNetError("checkpoint symbol file %r is missing" % sym_name) \
-            from e
+        raise MXNetError("checkpoint symbol file %r is missing; was "
+                         "save_checkpoint(%r, ...) ever run?"
+                         % (sym_name, prefix)) from e
     except (ValueError, KeyError) as e:
         raise MXNetError("checkpoint symbol file %r is corrupt: %s"
                          % (sym_name, e)) from e
@@ -150,6 +170,9 @@ def load_checkpoint(prefix, epoch):
             "checkpoint params file %r is missing for epoch %d; available "
             "epochs for this prefix: %s"
             % (param_name, epoch, find_checkpoints(prefix) or "none")) from e
+    except (MXNetError, ValueError, struct.error, EOFError) as e:
+        raise MXNetError("checkpoint params file %r is corrupt: %s"
+                         % (param_name, e)) from e
     arg_params, aux_params = {}, {}
     for k, v in save_dict.items():
         tp, name = k.split(":", 1)
@@ -162,7 +185,9 @@ def load_checkpoint(prefix, epoch):
 
 def find_checkpoints(prefix, require_states=False):
     """Sorted epochs with a ``prefix-%04d.params`` on disk (and a
-    ``.states`` file when ``require_states``)."""
+    ``.states`` file when ``require_states``) whose manifest, when there
+    is one, screens clean: its files present at their sizes (CRC32 is
+    checked by the loader on the epoch it opens)."""
     pat = re.compile(re.escape(prefix) + r"-(\d{4,})\.params$")
     epochs = []
     for f in glob.glob("%s-*.params" % glob.escape(prefix)):
@@ -173,8 +198,49 @@ def find_checkpoints(prefix, require_states=False):
         if require_states and not os.path.exists(
                 "%s-%04d.states" % (prefix, ep)):
             continue
+        try:
+            resilience.verify_manifest(prefix, ep, quick=True)
+        except MXNetError as e:
+            logging.warning("skipping unverifiable checkpoint epoch %d "
+                            "of %r: %s", ep, prefix, e)
+            continue
         epochs.append(ep)
     return sorted(epochs)
+
+
+def find_latest_checkpoint(prefix, require_states=False):
+    """The newest epoch whose manifest passes the full CRC check, passing
+    over (and logging) corrupt ones; None when none does."""
+    for ep in reversed(find_checkpoints(prefix,
+                                        require_states=require_states)):
+        try:
+            resilience.verify_manifest(prefix, ep)
+            return ep
+        except MXNetError as e:
+            logging.warning("find_latest_checkpoint: skipping "
+                            "unverifiable epoch %d of %r: %s",
+                            ep, prefix, e)
+    return None
+
+
+def load_latest_checkpoint(prefix, require_states=False):
+    """``(epoch, symbol, arg_params, aux_params)`` of the newest checkpoint
+    that loads, passing over (and logging) corrupt or incomplete ones;
+    raises MXNetError when none loads."""
+    failures = []
+    for ep in reversed(find_checkpoints(prefix,
+                                        require_states=require_states)):
+        try:
+            symbol, args_, aux_ = load_checkpoint(prefix, ep)
+            return ep, symbol, args_, aux_
+        except MXNetError as e:
+            failures.append("epoch %d: %s" % (ep, e))
+            logging.warning("falling back past checkpoint epoch %d of "
+                            "%r: %s", ep, prefix, e)
+    raise MXNetError(
+        "no complete checkpoint found for prefix %r%s"
+        % (prefix, " (tried: %s)" % "; ".join(failures)
+           if failures else ""))
 
 
 class FeedForward:

@@ -6,9 +6,12 @@ initializes from the iterator's shapes, then per epoch runs
 ``forward_backward``, ``update``, ``update_metric`` and the batch-end
 callbacks over every batch (between a ``Monitor``'s ``tic`` and
 ``toc_print`` when one is given), logs the epoch's metric and time, hands
-the parameters to the epoch-end callbacks and scores ``eval_data``.  The JAX
-loop's telemetry and mid-epoch resume hooks belong to ROADMAP Queue A
-items 7 and 8.
+the parameters to the epoch-end callbacks and scores ``eval_data``.  It
+tracks the training iterator, whose state the checkpoints written during
+the fit record, and first restores a data state stashed by a checkpoint
+loaded before it (:mod:`~mxnet_tpu_torch.io_resume`), so the first epoch
+resumes at the next sample.  The JAX loop's telemetry belongs to ROADMAP
+Queue A item 8.
 """
 from __future__ import annotations
 
@@ -17,6 +20,7 @@ import time
 
 import numpy as np
 
+from .. import io_resume
 from .. import metric as metric_mod
 from .. import ndarray as nd
 from ..context import cpu
@@ -161,6 +165,10 @@ class BaseModule:
             validation_metric = eval_metric
         if not isinstance(eval_metric, metric_mod.EvalMetric):
             eval_metric = metric_mod.create(eval_metric)
+        # the checkpoints of this run record train_data's state, and a
+        # checkpoint loaded before this fit puts it back mid-epoch
+        io_resume.track(train_data)
+        io_resume.apply_pending(train_data)
 
         for epoch in range(begin_epoch, num_epoch):
             started = time.time()

@@ -24,10 +24,11 @@ from .. import context as ctx_mod
 from .. import io as io_mod
 from .. import ndarray as nd
 from .. import optimizer as opt_mod
+from .. import resilience
 from ..context import cpu
 from ..initializer import Uniform, InitDesc
 from ..model import (_create_kvstore, _initialize_kvstore, _update_params,
-                     _update_params_on_kvstore, atomic_write,
+                     _update_params_on_kvstore,
                      load_checkpoint)
 from .base_module import BaseModule, _check_input_names
 from .executor_group import DataParallelExecutorGroup
@@ -101,15 +102,25 @@ class Module(BaseModule):
 
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
         """``prefix-symbol.json``, ``prefix-%04d.params`` and, when asked,
-        ``prefix-%04d.states``, each written whole or not at all."""
-        atomic_write("%s-symbol.json" % prefix, self._symbol.save)
+        ``prefix-%04d.states``, each written whole or not at all, then the
+        CRC32 manifest that commits them (the ``checkpoint.save`` seam
+        fires before ``.params`` is renamed into place)."""
+        resilience.atomic_write("%s-symbol.json" % prefix,
+                                self._symbol.save)
         param_name = "%s-%04d.params" % (prefix, epoch)
-        atomic_write(param_name, self.save_params)
+        resilience.atomic_write(param_name, self.save_params,
+                                fault_site="checkpoint.save")
         logging.info("Saved checkpoint to \"%s\"", param_name)
+        files = [param_name]
         if save_optimizer_states:
             state_name = "%s-%04d.states" % (prefix, epoch)
-            atomic_write(state_name, self.save_optimizer_states)
+            resilience.atomic_write(state_name, self.save_optimizer_states)
             logging.info("Saved optimizer state to \"%s\"", state_name)
+            files.append(state_name)
+        arg_params, aux_params = self.get_params()
+        arrays = {("arg:%s" % k): v for k, v in arg_params.items()}
+        arrays.update({("aux:%s" % k): v for k, v in aux_params.items()})
+        resilience.write_manifest(prefix, epoch, files, arrays=arrays)
 
     # ----------------------------------------------------------- properties
     @property

@@ -6,8 +6,11 @@ reference's defaults (no weight decay unless the name ends in ``_weight``
 or ``_gamma``), ``num_update``/``begin_num_update`` and an optional
 ``lr_scheduler``.  ``create_state``/``update`` are the Module path's: each
 update runs the update ops of :mod:`.ops.optimizer_ops` (or, for NAG,
-AdaGrad and AdaDelta, the JAX package's arithmetic in PyTorch) in place on
-the weight's NDArray and its states, one parameter at a time; ``Updater``
+AdaGrad, AdaDelta, DCASGD, SGLD, Ftrl and Test, the JAX package's
+arithmetic in PyTorch) in place on the weight's NDArray and its states,
+one parameter at a time; SGLD's noise comes from the generator of the
+weight's device (:func:`mxnet_tpu_torch.random.generator`), so its bits
+differ from the JAX package's.  ``Updater``
 keeps the states by index and pickles them in the JAX package's format.
 ``parallel.ShardedTrainer`` applies the same rules fused over its f32
 masters (``parallel.trainer._make_update_rule``).
@@ -26,8 +29,9 @@ from .context import cpu
 from .ndarray import NDArray, zeros, array as _nd_array
 from .ops import optimizer_ops as _ops
 
-__all__ = ["Optimizer", "SGD", "ccSGD", "NAG", "Adam", "AdaGrad", "RMSProp",
-           "AdaDelta", "Updater", "get_updater", "create", "register"]
+__all__ = ["Optimizer", "SGD", "ccSGD", "NAG", "DCASGD", "SGLD", "Adam",
+           "AdaGrad", "RMSProp", "AdaDelta", "Ftrl", "Test", "Updater",
+           "get_updater", "create", "register"]
 
 
 def _variable_attrs(sym):
@@ -202,6 +206,56 @@ class NAG(SGD):
 
 
 @register
+class DCASGD(Optimizer):
+    """Delay-compensated asynchronous SGD: the gradient corrected by
+    ``lamda * g * g * (w - w_previous)``, with optional momentum."""
+
+    def __init__(self, momentum=0.0, lamda=0.04, **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+        self.weight_previous = {}
+        self.lamda = lamda
+
+    def create_state(self, index, weight):
+        mom = None if self.momentum == 0.0 else _zeros_like(weight)
+        return (mom, weight.copy())
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._update_count(index)
+        g = self._scaled_grad(grad)
+        mon, previous = state
+        w, prev = weight.data, previous.data
+        comp = g + wd * w + self.lamda * g * g * (w - prev)
+        if mon is not None:
+            mon.data.copy_(self.momentum * mon.data - lr * comp)
+            step = mon.data
+        else:
+            step = -lr * comp
+        prev.copy_(w)
+        w.copy_(w + step)
+
+
+@register
+class SGLD(Optimizer):
+    """Stochastic gradient Langevin dynamics: a half step of SGD plus
+    N(0, lr) noise drawn from the weight's device generator."""
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        from .random import generator
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._update_count(index)
+        g = self._scaled_grad(grad)
+        w = weight.data
+        noise = torch.normal(0.0, math.sqrt(lr), size=tuple(w.shape),
+                             generator=generator(w.device), device=w.device,
+                             dtype=w.dtype)
+        w.copy_(w - lr / 2 * (g + wd * w) + noise)
+
+
+@register
 class ccSGD(SGD):
     """Deprecated alias of SGD, kept for compatibility."""
 
@@ -314,6 +368,48 @@ class AdaDelta(Optimizer):
         acc_delta.copy_(self.rho * acc_delta
                         + (1.0 - self.rho) * delta * delta)
         w.copy_(w - delta - wd * w)
+
+
+@register
+class Ftrl(Optimizer):
+    """Follow the regularized leader (FTRL-proximal) with an L1 term
+    ``lamda1``: states ``dn`` and ``n``."""
+
+    def __init__(self, lamda1=0.01, learning_rate=0.1, beta=1, **kwargs):
+        super().__init__(learning_rate=learning_rate, **kwargs)
+        self.lamda1 = lamda1
+        self.beta = beta
+
+    def create_state(self, index, weight):
+        return (zeros(weight.shape, ctx=weight.context),   # dn
+                zeros(weight.shape, ctx=weight.context))   # n
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        lr, wd = self._get_lr(index), self._get_wd(index)
+        self._update_count(index)
+        g = self._scaled_grad(grad)
+        dn, n = (s.data for s in state)
+        w = weight.data
+        dn.copy_(dn + g - ((n + g * g).sqrt() - n.sqrt()) * w / lr)
+        n.copy_(n + g * g)
+        w.copy_((dn.sign() * self.lamda1 - dn)
+                / ((self.beta + n.sqrt()) / lr + wd)
+                * (dn.abs() > self.lamda1))
+
+
+@register
+class Test(Optimizer):
+    """The reference's deterministic test optimizer: ``w += g *
+    rescale_grad``, the state a copy of the new weight."""
+
+    def create_state(self, index, weight):
+        return zeros(weight.shape, ctx=weight.context)
+
+    @torch.no_grad()
+    def update(self, index, weight, grad, state):
+        weight.data.copy_(weight.data + grad.data * self.rescale_grad)
+        state.data.copy_(weight.data)
 
 
 def _state_map(state, fn):

@@ -36,18 +36,37 @@ the std and casts to the compute dtype (the native pipeline's
 
 Dropout draws from one ``torch.Generator`` per trainer, seeded from
 ``seed``; initial weights come from ``numpy.random.RandomState(seed)``.
-Telemetry, numerics, resilience and checkpoints are not yet ported, nor are
-the JAX trainer's TPU-era rewrites and kinds of parallelism: setting one
-raises.
+
+Checkpoints are the JAX trainer's files: ``save_checkpoint`` writes
+``prefix-symbol.json``, ``prefix-%04d.params`` (``arg:``/``aux:``, f32
+OIHW, as the masters are held), with optimizer states
+``prefix-%04d.states`` (``slot%d:<name>`` in the JAX slot order and
+``meta:num_update``), and last the CRC32 manifest with the mesh descriptor
+and the tracked data iterator's state; ``load_checkpoint`` verifies it,
+checks every name, shape and slot before it changes any state, and stashes
+the data state for ``restore_data_iter``.  A checkpoint of either package
+loads in the other.  ``install_preemption_handler`` saves on SIGTERM at
+the end of the step running (or the next one), never inside the update
+loop, and exits 0.  Telemetry and numerics are not yet ported, nor are the
+JAX trainer's TPU-era rewrites and kinds of parallelism: setting one
+raises, as does loading a checkpoint saved at another world size.
 """
 from __future__ import annotations
 
+import logging
 import math
+import signal as _signal
+import struct
+import sys
 
 import numpy as np
 import torch
 
 from ..base import MXNetError, torch_dtype
+from ..context import cpu
+from .. import io_resume
+from .. import ndarray as nd
+from .. import resilience
 from ..initializer import InitDesc, Xavier
 from ..ops.fused import block_fusion, block_fusion_enabled
 from ..ops.nn import NHWC_UNAWARE_OPS, image_layout
@@ -313,6 +332,8 @@ class ShardedTrainer:
         self._generator = torch.Generator(device=self._device)
         self._generator.manual_seed(seed)
         self._step_count = 0
+        self._resume_epoch = 0       # the epoch last loaded
+        self._preemption = None      # (handler, signum) awaiting the save
 
     def _check_nhwc_safe(self):
         """Refuse NHWC for graphs whose ops would silently index the wrong
@@ -569,10 +590,15 @@ class ShardedTrainer:
         """One training step.  ``batch``: dict name -> host array with the
         global batch dim, or a dict from :meth:`put_batch`.  Returns the
         monitoring loss as a 0-dim tensor on the device (reading it is a
-        host sync)."""
+        host sync).  The ``trainer.step`` seam fires first; a preemption
+        signal that arrived before or during the step is served at its
+        end."""
+        resilience.fault_point("trainer.step")
         dev_batch = self._stage(batch)
         lr, t = self._next_update()
-        return self._train_step(dev_batch, lr, t)
+        loss = self._train_step(dev_batch, lr, t)
+        self._serve_preemption()
+        return loss
 
     def run_steps(self, batch, num_steps):
         """``num_steps`` training steps on one batch, staged once: the
@@ -585,6 +611,7 @@ class ShardedTrainer:
         for _ in range(num_steps):
             lr, t = self._next_update()
             losses.append(self._train_step(dev_batch, lr, t))
+            self._serve_preemption()
         return torch.stack(losses)
 
     def forward(self, batch, is_train=False):
@@ -610,10 +637,247 @@ class ShardedTrainer:
         ``fuse_blocks`` is off."""
         return _fusion.last_plan_summary() if self._fuse_blocks else None
 
+    # ------------------------------------------------------------ checkpoints
+    def mesh_descriptor(self):
+        """The mesh and the parameters' partition in the JAX trainer's
+        ``meta["mesh"]`` format: axis sizes, the saving world size (1) and
+        each parameter's spec (all replicated on one device)."""
+        return {"format": 2,
+                "axes": {str(k): int(v) for k, v in self.mesh.shape.items()},
+                "world": 1,
+                "specs": {n: [] for n in self._param_names}}
+
+    def _host_state(self, save_optimizer_states):
+        """``(params and aux, states or None)`` as host f32 tensors under
+        their file names, read after the step's work on the device."""
+        host = {"arg:%s" % k: v.detach().float().cpu()
+                for k, v in self.params.items()}
+        host.update({"aux:%s" % k: v.detach().float().cpu()
+                     for k, v in self.aux.items()})
+        if not save_optimizer_states:
+            return host, None
+        st = {"meta:num_update": torch.tensor(
+            [self.optimizer.begin_num_update + self._step_count],
+            dtype=torch.int64)}
+        for k, slots in self.opt_state.items():
+            for i, sl in enumerate(slots):
+                st["slot%d:%s" % (i, k)] = sl.detach().float().cpu()
+        return host, st
+
     def save_checkpoint(self, prefix, epoch, save_optimizer_states=False):
-        raise MXNetError("ShardedTrainer checkpoints are not yet ported to "
-                         "mxnet_tpu_torch")
+        """Write ``prefix-symbol.json``, ``prefix-%04d.params`` (``arg:``
+        and ``aux:`` names, f32, the reference OIHW weights, so a Module
+        loads them) and, with ``save_optimizer_states``,
+        ``prefix-%04d.states`` (``slot%d:<name>`` and ``meta:num_update``,
+        the begin count plus the steps taken), each written whole or not at
+        all; then the manifest, with ``meta["mesh"]``
+        (:meth:`mesh_descriptor`) and the tracked iterator's position and
+        ``data_state``.  The ``.states`` layout is the fused trainer's own,
+        not the Module's pickled ``Updater`` states."""
+        host, st = self._host_state(save_optimizer_states)
+        resilience.atomic_write("%s-symbol.json" % prefix, self.symbol.save)
+        param_name = "%s-%04d.params" % (prefix, epoch)
+        resilience.atomic_write(
+            param_name,
+            lambda tmp: nd.save(tmp, {k: nd.NDArray(v)
+                                      for k, v in host.items()}),
+            fault_site="checkpoint.save")
+        files = [param_name]
+        arrays = dict(host)
+        if st is not None:
+            states_name = "%s-%04d.states" % (prefix, epoch)
+            resilience.atomic_write(
+                states_name,
+                lambda tmp: nd.save(tmp, {k: nd.NDArray(v)
+                                          for k, v in st.items()}))
+            files.append(states_name)
+            arrays.update(st)
+        meta = {"mesh": self.mesh_descriptor()}
+        pos = io_resume.current_position()
+        if pos is not None:
+            meta["data_position"] = pos
+        entry = io_resume.data_state_entry()
+        if entry is not None:
+            meta["data_state"] = entry
+        resilience.write_manifest(prefix, epoch, files, arrays=arrays,
+                                  meta=meta)
+
+    @staticmethod
+    def _load_file(path, what, epoch):
+        try:
+            return nd.load(path, ctx=cpu())
+        except FileNotFoundError as e:
+            raise MXNetError("checkpoint %s file %r is missing for epoch %d"
+                             % (what, path, epoch)) from e
+        except (MXNetError, ValueError, EOFError, struct.error) as e:
+            raise MXNetError("checkpoint %s file %r is corrupt: %s"
+                             % (what, path, e)) from e
+
+    def _checked(self, what, name, arr, like):
+        """``arr`` as f32 on the host, of ``like``'s shape, else raise."""
+        t = arr.data.float()
+        if tuple(t.shape) != tuple(like.shape):
+            raise MXNetError(
+                "checkpoint %s %r has shape %s, the trainer's is %s"
+                % (what, name, tuple(t.shape), tuple(like.shape)))
+        return t
 
     def load_checkpoint(self, prefix, epoch, load_optimizer_states=False):
-        raise MXNetError("ShardedTrainer checkpoints are not yet ported to "
-                         "mxnet_tpu_torch")
+        """Restore the parameters, moving statistics and (with
+        ``load_optimizer_states``) the optimizer slots and update count of a
+        checkpoint written by :meth:`save_checkpoint` of either package
+        (``.params`` of a Module checkpoint load too).  Fires the
+        ``checkpoint.load`` seam and verifies the manifest first; every
+        name, shape and slot count is checked before any state changes, so
+        a failed load leaves the trainer as it was.  A manifest naming
+        another world size raises: resharding on load waits for
+        multi-device training.  Afterwards the update count starts from
+        the file's ``meta:num_update`` (Adam's bias correction and the lr
+        schedule continue), and the checkpoint's data state is stashed for
+        :meth:`restore_data_iter`."""
+        resilience.fault_point("checkpoint.load")
+        manifest = resilience.verify_manifest(prefix, epoch)
+        saved = (manifest or {}).get("meta", {}).get("mesh")
+        if isinstance(saved, dict) and saved.get("world") is not None \
+                and int(saved["world"]) != 1:
+            raise MXNetError(
+                "checkpoint %r epoch %d was saved by a world of %s "
+                "processes; resharding it onto one device is not yet "
+                "ported to mxnet_tpu_torch" % (prefix, epoch,
+                                                saved["world"]))
+        loaded = self._load_file("%s-%04d.params" % (prefix, epoch),
+                                 "params", epoch)
+        file_args = {k.split(":", 1)[1]: v for k, v in loaded.items()
+                     if k.startswith("arg:")}
+        file_aux = {k.split(":", 1)[1]: v for k, v in loaded.items()
+                    if k.startswith("aux:")}
+        missing = (set(self.params) - set(file_args)) | \
+            (set(self.aux) - set(file_aux))
+        unexpected = (set(file_args) - set(self.params)) | \
+            (set(file_aux) - set(self.aux))
+        if missing or unexpected:
+            raise MXNetError(
+                "checkpoint/model mismatch: missing %s, unexpected %s"
+                % (sorted(missing), sorted(unexpected)))
+        new_params = {k: self._checked("param", k, v, self.params[k])
+                      for k, v in file_args.items()}
+        new_aux = {k: self._checked("aux", k, v, self.aux[k])
+                   for k, v in file_aux.items()}
+        new_slots, new_num_update = None, None
+        if load_optimizer_states:
+            st = self._load_file("%s-%04d.states" % (prefix, epoch),
+                                 "states", epoch)
+            new_slots = {}
+            for k, v in st.items():
+                if k == "meta:num_update":
+                    new_num_update = int(v.data.reshape(-1)[0])
+                    continue
+                slot, name = k.split(":", 1)
+                i = int(slot[len("slot"):])
+                if name not in self.opt_state:
+                    raise MXNetError("optimizer state for %r, which the "
+                                     "trainer has not" % name)
+                new_slots.setdefault(name, {})[i] = self._checked(
+                    "slot", k, v, self.params[name])
+            for name, slots in self.opt_state.items():
+                got = new_slots.get(name, {})
+                if sorted(got) != list(range(len(slots))):
+                    raise MXNetError(
+                        "optimizer state mismatch for %r: file has %d "
+                        "slots, trainer (%s) expects %d; resume with the "
+                        "optimizer the checkpoint was saved with"
+                        % (name, len(got), type(self.optimizer).__name__,
+                           self._n_slots))
+        with torch.no_grad():
+            for k, v in new_params.items():
+                self.params[k].copy_(v)
+            for k, v in new_aux.items():
+                self.aux[k].copy_(v)
+            for name, slots in (new_slots or {}).items():
+                for i, v in slots.items():
+                    self.opt_state[name][i].copy_(v)
+        if new_num_update is not None:
+            self.optimizer.begin_num_update = new_num_update
+        # the restored state is the new baseline: the steps counted before
+        # it no longer describe it; the compute views are made from the
+        # masters each step, the rule from the optimizer's attributes
+        self._resume_epoch = int(epoch)
+        self._step_count = 0
+        self._refresh_rule()
+        if manifest is not None:
+            entry = (manifest.get("meta") or {}).get("data_state")
+            io_resume.note_loaded_state(
+                entry if isinstance(entry, dict) else None,
+                source="%s epoch %d" % (prefix, epoch))
+
+    def load_latest_checkpoint(self, prefix, load_optimizer_states=False):
+        """Load the newest checkpoint under ``prefix`` that loads, passing
+        over (with a warning) epochs whose files fail their manifest.
+        Returns its epoch, or None when there is none (the run starts
+        fresh)."""
+        from ..model import find_checkpoints
+        for ep in reversed(find_checkpoints(
+                prefix, require_states=load_optimizer_states)):
+            try:
+                self.load_checkpoint(
+                    prefix, ep, load_optimizer_states=load_optimizer_states)
+                return ep
+            except MXNetError as e:
+                logging.warning("falling back past checkpoint epoch %d "
+                                "of %r: %s", ep, prefix, e)
+        return None
+
+    def restore_data_iter(self, it):
+        """Restore ``it`` from the data state the last load stashed, and
+        track it, so later checkpoints record its state.  Returns the
+        manifest entry applied, or None when there was none.  A failing
+        restore leaves the entry stashed for another try."""
+        io_resume.track(it)
+        return io_resume.apply_pending(it)
+
+    def install_preemption_handler(self, prefix, save_optimizer_states=True,
+                                   signals=None, exit_process=True):
+        """On SIGTERM (or ``signals``), checkpoint at epoch = the epoch last
+        loaded + the steps taken since, and exit 0 (``exit_process``).
+        The step is a loop of eager updates, so a signal never saves at
+        once: it is served at the end of the step running, or of the next
+        one when it lands between steps, where masters, slots, moving
+        statistics and the iterator's state agree.  The flight-recorder
+        dump of the JAX handler waits for the port's telemetry.  Returns
+        the handler: ``pending`` is True from the signal to the save,
+        ``triggered`` after the save."""
+        if signals is None:
+            signals = (_signal.SIGTERM,)
+
+        def handler(signum, frame):
+            if handler.pending:
+                return
+            handler.pending = True
+            self._preemption = (handler, int(signum))
+
+        handler.pending = False
+        handler.triggered = False
+        handler.prefix = prefix
+        handler.save_optimizer_states = save_optimizer_states
+        handler.exit_process = exit_process
+        for sig in signals:
+            _signal.signal(sig, handler)
+        return handler
+
+    def _serve_preemption(self):
+        """Save and exit for a signal that arrived before the step's end."""
+        if self._preemption is None:
+            return
+        handler, signum = self._preemption
+        epoch = self._resume_epoch + self._step_count
+        logging.warning("preemption signal %d: checkpointing to %r epoch %d"
+                        "%s", signum, handler.prefix, epoch,
+                        " and exiting" if handler.exit_process else "")
+        self.save_checkpoint(
+            handler.prefix, epoch,
+            save_optimizer_states=handler.save_optimizer_states)
+        self._preemption = None
+        handler.pending = False
+        handler.triggered = True
+        if handler.exit_process:
+            sys.exit(0)

@@ -8,9 +8,12 @@ Format per record: ``[uint32 magic][uint32 lrecord][data][padding to 4B]``,
 where lrecord holds the continuation flag (upper 3 bits) and the length
 (lower 29 bits).  A payload holding the magic word at a 4-aligned offset is
 split there into continuation parts (flags 1, 2, 3), as dmlc-core's writer
-does.  The JAX package's fault-injection seam and telemetry counters are
-not ported; the reader's durable ``state``/``restore`` belong with
-resilience (ROADMAP Queue A item 7).
+does.  A reader's ``state()`` names its epoch, the records read and the
+byte offset of the next one, ``restore`` reopens there (the
+:mod:`~mxnet_tpu_torch.io_resume` contract, the JAX package's dicts).
+The ``recordio.read`` fault seam drops the record it fires on as a
+corrupt one, counted against the bad-record quota.  The JAX package's
+telemetry counters are not ported.
 """
 from __future__ import annotations
 
@@ -20,6 +23,9 @@ import struct
 from collections import namedtuple
 
 import numpy as np
+
+from . import io_resume
+from . import resilience
 
 __all__ = ["MXRecordIO", "MXIndexedRecordIO", "IRHeader", "pack", "unpack",
            "pack_img", "unpack_img"]
@@ -52,6 +58,7 @@ class MXRecordIO:
         self.skipped_bytes = 0
         self.resyncs = 0
         self.records_read = 0
+        self._epochs = 0
         self.open()
 
     def open(self):
@@ -80,7 +87,46 @@ class MXRecordIO:
     def reset(self):
         self.close()
         self.open()
+        self._epochs += 1
         self.records_read = 0
+
+    def position(self):
+        """The reader's position: epoch, records read this epoch, the
+        resyncs past corrupt records and the byte offset (advisory)."""
+        pos = {"epoch": self._epochs, "offset": self.records_read,
+               "resyncs": self.resyncs}
+        try:
+            pos["byte"] = self.fid.tell() if self.is_open else None
+        except (OSError, ValueError, AttributeError):
+            pass
+        return pos
+
+    def state(self):
+        """The durable state: epoch, records read and the byte offset of
+        the next record (None for a writer)."""
+        if self.writable:
+            return None
+        return {"v": io_resume.STATE_VERSION, "kind": "recordio",
+                "epoch": self._epochs, "offset": self.records_read,
+                "byte": int(self.fid.tell())}
+
+    def restore(self, state):
+        """Reopen at the state's byte offset; a rejected state leaves the
+        reader as it was."""
+        from .base import MXNetError
+        io_resume.check_state(state, "recordio")
+        if self.writable:
+            raise MXNetError("cannot restore a writable MXRecordIO")
+        byte = int(state["byte"])
+        if byte < 0 or byte % 4 != 0:
+            raise MXNetError(
+                "recordio byte offset %d is not a 4-aligned record "
+                "boundary in %s" % (byte, self.uri))
+        self.close()
+        self.open()
+        self.fid.seek(byte)
+        self._epochs = int(state["epoch"])
+        self.records_read = int(state["offset"])
 
     def tell(self):
         return self.fid.tell()
@@ -207,7 +253,9 @@ class MXRecordIO:
 
     def read(self):
         """The next record, or None at EOF.  Under a bad-record quota a
-        corrupt record is skipped and counted instead of raising."""
+        corrupt record is skipped and counted instead of raising.  The
+        ``recordio.read`` seam stands for a corrupt payload: the record it
+        fires on is read and dropped, and counted as a bad one."""
         if self.writable:
             raise ValueError("read on a writable MXRecordIO")
         while True:
@@ -215,10 +263,21 @@ class MXRecordIO:
             # restarts just past this record's magic
             start = self.fid.tell()
             try:
+                resilience.fault_point("recordio.read")
                 rec = self._read_record()
                 if rec is not None:
                     self.records_read += 1
                 return rec
+            except resilience.FaultInjected as e:
+                self._note_bad_record(e)
+                try:
+                    if self._read_record() is None:
+                        return None
+                except (IOError, OSError, struct.error, ValueError) as e2:
+                    self._note_bad_record(e2)
+                    self.fid.seek(start + 4)
+                    if not self._resync():
+                        return None
             except (IOError, OSError, struct.error, ValueError) as e:
                 self._note_bad_record(e)
                 self.fid.seek(start + 4)

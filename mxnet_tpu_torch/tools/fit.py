@@ -15,7 +15,11 @@ arguments plus ``--cpu``.  ``fit(args, network, data_loader)`` trains
   staged once and reused); a Speedometer-style line every
   ``--disp-batches``, the fusion plan after the first batch, and each
   epoch's validation through ``trainer.forward`` with ``accuracy`` (and
-  ``top_k_accuracy`` with ``--top-k``);
+  ``top_k_accuracy`` with ``--top-k``); with ``--model-prefix`` each
+  epoch ``e`` saves ``trainer.save_checkpoint(prefix, e + 1)`` with its
+  optimizer states, and ``--load-epoch`` loads that checkpoint's
+  parameters and moving statistics (not its optimizer states, as the JAX
+  harness) and trains from that epoch on;
 * the Module route (``--fused 0``; ``-1`` takes it on the CPU):
   ``Module.fit`` with Speedometer, epoch-end checkpoints under
   ``--model-prefix`` and validation.  Block fusion follows
@@ -24,9 +28,7 @@ arguments plus ``--cpu``.  ``fit(args, network, data_loader)`` trains
 The context is ``gpu(i)`` for the first of ``--gpus`` (default 0); the CPU
 only with ``--cpu 1``.  The fused route passes no ``auto_layouts``: XLA's
 chosen state layouts have no counterpart in the port's trainer, which
-raises on it.  Its ``--model-prefix`` and ``--load-epoch`` raise before
-the first step, trainer checkpoints being ROADMAP Queue A item 7.  More
-than one device raises (Queue A item 6).
+raises on it.  More than one device raises (Queue A item 6).
 """
 from __future__ import annotations
 
@@ -190,11 +192,6 @@ def _fit_fused(args, sym, train, val, kv, history):
     per-stage walls) when it is a dict."""
     from ..parallel import ShardedTrainer, build_mesh
 
-    if args.model_prefix or args.load_epoch:
-        raise MXNetError("--model-prefix/--load-epoch on the fused route: "
-                         "ShardedTrainer checkpoints are not yet ported to "
-                         "mxnet_tpu_torch (ROADMAP Queue A item 7); use "
-                         "--fused 0 for the Module route's checkpoints")
     ctx = get_context(args)
     data_desc, label_desc = train.provide_data[0], train.provide_label[0]
     data_name, label_name = data_desc[0], label_desc[0]
@@ -219,6 +216,9 @@ def _fit_fused(args, sym, train, val, kv, history):
         # graphs whose ops pin NCHW axes train in NCHW; put_batch permutes
         # raw NHWC uint8 batches to NCHW on the device
         trainer = ShardedTrainer(sym, mesh, **common)
+    begin_epoch = args.load_epoch or 0
+    if args.load_epoch and args.model_prefix:
+        trainer.load_checkpoint(args.model_prefix, args.load_epoch)
     eval_metrics = _eval_metrics(args)
 
     # --benchmark cycles a small synthetic set: each distinct batch is
@@ -239,7 +239,7 @@ def _fit_fused(args, sym, train, val, kv, history):
                 context=str(ctx))
     timings = {"fetch_s": 0.0, "stage_s": 0.0, "step_dispatch_s": 0.0,
                "queue_wait_s": 0.0, "batches": 0}
-    for epoch in range(args.num_epochs):
+    for epoch in range(begin_epoch, args.num_epochs):
         train.reset()
         _sync(ctx)
         t_epoch = time.perf_counter()
@@ -270,7 +270,7 @@ def _fit_fused(args, sym, train, val, kv, history):
             timings["step_dispatch_s"] += time.perf_counter() - t2
             losses.append(loss)
             nbatch += 1
-            if nbatch == 1 and epoch == 0:
+            if nbatch == 1 and epoch == begin_epoch:
                 fs = trainer.fusion_summary()
                 hist["fusion"] = fs
                 if fs:
@@ -301,6 +301,12 @@ def _fit_fused(args, sym, train, val, kv, history):
         record = {"epoch": epoch, "batches": nbatch, "wall_s": wall,
                   "images_per_s": nbatch * args.batch_size / wall
                   if wall > 0 else None}
+        if args.model_prefix and kv.rank == 0:
+            t0 = time.perf_counter()
+            trainer.save_checkpoint(args.model_prefix, epoch + 1,
+                                    save_optimizer_states=True)
+            record["checkpoint"] = {"epoch": epoch + 1,
+                                    "save_s": time.perf_counter() - t0}
         if val is not None:
             record["val"] = _validate(trainer, val, data_name, eval_metrics,
                                       epoch)

@@ -45,10 +45,13 @@ STEPS = 8
 
 @pytest.fixture(autouse=True)
 def _no_pending_data_state():
-    """A JAX ``load_checkpoint`` stashes data state for the next JAX fit
-    in the process; clear it after each test."""
+    """Each package's ``load_checkpoint`` stashes data state for its next
+    fit in the process, and a fit tracks its iterator for the next
+    checkpoint; clear both after each test."""
     yield
     jmx.io_resume.clear_pending()
+    tmx.io_resume.clear_pending()
+    tmx.io_resume.track(None)
 
 
 def _corpus(n=400, seed=0):

@@ -51,7 +51,8 @@ def test_scan_covers_the_package():
                 ("tools", "io_train_bench.py"), ("tools", "im2rec.py"),
                 ("autograd.py",), ("test_utils.py",),
                 ("contrib", "autograd.py"), ("tools", "dcgan.py"),
-                ("tools", "op_corpus.py")):
+                ("tools", "op_corpus.py"), ("resilience.py",),
+                ("io_resume.py",), ("tools", "resume_train.py")):
         assert os.path.join("mxnet_tpu_torch", *rel) in names
 
 

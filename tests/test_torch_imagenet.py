@@ -463,10 +463,14 @@ def test_the_tool_refuses_the_cpu_unless_asked(recs):
 
 
 def test_fused_checkpoint_arguments_raise_before_a_step(recs):
+    """The fused route takes ``--model-prefix`` and ``--load-epoch`` (the
+    round trip is in ``test_torch_trainer_checkpoint.py``); a checkpoint
+    that is not there raises, naming its file, before the first step."""
     args = train_imagenet.parser().parse_args(
-        _argv(recs, "--fused", "1", "--model-prefix", "/nonexistent/m"))
+        _argv(recs, "--fused", "1", "--model-prefix", "/nonexistent/m",
+              "--load-epoch", "3"))
     history = {}
-    with pytest.raises(MXNetError, match="not yet ported"):
+    with pytest.raises(MXNetError, match="m-0003.params"):
         pfit.fit(args, _net(get_model), train_imagenet.get_rec_iter,
                  history=history)
     assert "losses" not in history

@@ -25,12 +25,15 @@ from mxnet_tpu_torch.base import MXNetError
 
 @pytest.fixture(autouse=True)
 def _no_pending_data_state():
-    """The JAX ``load_checkpoint`` stashes the ``data_state`` of a manifest
-    for the next JAX ``fit`` in the process; clear it after each test so
-    that no later test (of this file or another in the same worker)
-    resumes its iterator from a checkpoint of this one."""
+    """Each package's ``load_checkpoint`` stashes the ``data_state`` of a
+    manifest for its next ``fit`` in the process, and a port ``fit``
+    tracks its iterator for the next checkpoint; clear both after each
+    test so that no later test (of this file or another in the same
+    worker) resumes its iterator from a checkpoint of this one."""
     yield
     jmx.io_resume.clear_pending()
+    tmx.io_resume.clear_pending()
+    tmx.io_resume.track(None)
 
 
 def _batches(it, epochs=2):

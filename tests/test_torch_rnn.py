@@ -46,10 +46,13 @@ RTOL, ATOL = 1e-5, 1e-5
 
 @pytest.fixture(autouse=True)
 def _no_pending_data_state():
-    """A JAX ``load_checkpoint`` stashes data state for the next JAX fit
-    in the process; clear it after each test."""
+    """Each package's ``load_checkpoint`` stashes data state for its next
+    fit in the process, and a fit tracks its iterator for the next
+    checkpoint; clear both after each test."""
     yield
     jmx.io_resume.clear_pending()
+    tmx.io_resume.clear_pending()
+    tmx.io_resume.track(None)
 
 
 def _rnn_inputs(mode, layers, bi, seq=5, batch=3, in_size=4, hidden=6,
@@ -410,8 +413,10 @@ def test_do_rnn_checkpoint_saves_every_period(tmp_path):
     cb = tmx.rnn.do_rnn_checkpoint(cell, str(tmp_path / "p"), period=2)
     for epoch in range(4):
         cb(epoch, net, args, {})
+    # each epoch's .params committed by its CRC manifest
     assert sorted(os.listdir(tmp_path)) == [
-        "p-0002.params", "p-0004.params", "p-symbol.json"]
+        "p-0002.manifest.json", "p-0002.params", "p-0004.manifest.json",
+        "p-0004.params", "p-symbol.json"]
     _sym, back, _aux = tmx.rnn.load_rnn_checkpoint(cell, str(tmp_path / "p"),
                                                    4)
     for k, v in args.items():
