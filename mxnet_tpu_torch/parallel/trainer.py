@@ -45,14 +45,16 @@ OIHW, as the masters are held), with optimizer states
 and the tracked data iterator's state; ``load_checkpoint`` verifies it,
 checks every name, shape and slot before it changes any state, and stashes
 the data state for ``restore_data_iter``.  A checkpoint of either package
-loads in the other.  ``install_preemption_handler`` saves on SIGTERM at
-the end of the step running (or the next one), never inside the update
-loop, and exits 0.  Telemetry and numerics are not yet ported, nor are the
-JAX trainer's TPU-era rewrites and kinds of parallelism: setting one
-raises, as does loading a checkpoint saved at another world size.
+loads in the other.  ``install_preemption_handler`` saves on SIGTERM and
+exits 0: at once between steps, at the end of a step, save or load that
+is running, never inside the update loop.  Telemetry and numerics are not
+yet ported, nor are the JAX trainer's TPU-era rewrites and kinds of
+parallelism: setting one raises, as does loading a checkpoint saved at
+another world size.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import signal as _signal
@@ -334,6 +336,10 @@ class ShardedTrainer:
         self._step_count = 0
         self._resume_epoch = 0       # the epoch last loaded
         self._preemption = None      # (handler, signum) awaiting the save
+        self._busy = 0               # steps, saves and loads in progress
+        # the data (position, state) that goes with the masters: taken at
+        # each step's end, or the loaded checkpoint's
+        self._step_data = (None, None)
 
     def _check_nhwc_safe(self):
         """Refuse NHWC for graphs whose ops would silently index the wrong
@@ -591,13 +597,13 @@ class ShardedTrainer:
         global batch dim, or a dict from :meth:`put_batch`.  Returns the
         monitoring loss as a 0-dim tensor on the device (reading it is a
         host sync).  The ``trainer.step`` seam fires first; a preemption
-        signal that arrived before or during the step is served at its
-        end."""
-        resilience.fault_point("trainer.step")
-        dev_batch = self._stage(batch)
-        lr, t = self._next_update()
-        loss = self._train_step(dev_batch, lr, t)
-        self._serve_preemption()
+        signal that arrives during the step is served at its end."""
+        with self._atomic():
+            resilience.fault_point("trainer.step")
+            dev_batch = self._stage(batch)
+            lr, t = self._next_update()
+            loss = self._train_step(dev_batch, lr, t)
+            self._stepped()
         return loss
 
     def run_steps(self, batch, num_steps):
@@ -609,10 +615,30 @@ class ShardedTrainer:
         dev_batch = self._stage(batch)
         losses = []
         for _ in range(num_steps):
-            lr, t = self._next_update()
-            losses.append(self._train_step(dev_batch, lr, t))
-            self._serve_preemption()
+            with self._atomic():
+                lr, t = self._next_update()
+                losses.append(self._train_step(dev_batch, lr, t))
+                self._stepped()
         return torch.stack(losses)
+
+    @contextlib.contextmanager
+    def _atomic(self):
+        """A step, save or load in progress: a preemption signal that lands
+        in it is served when the outermost one ends without raising."""
+        self._busy += 1
+        try:
+            yield
+        finally:
+            self._busy -= 1
+        if not self._busy:
+            self._serve_preemption()
+
+    def _stepped(self):
+        """At a step's end, take the tracked iterator's position and state
+        as the data that a preemption save before the next step records:
+        a batch fetched and not yet stepped then stays unconsumed."""
+        self._step_data = (io_resume.current_position(),
+                           io_resume.data_state_entry())
 
     def forward(self, batch, is_train=False):
         """Inference forward of the data inputs; returns the head tensors.
@@ -674,6 +700,13 @@ class ShardedTrainer:
         (:meth:`mesh_descriptor`) and the tracked iterator's position and
         ``data_state``.  The ``.states`` layout is the fused trainer's own,
         not the Module's pickled ``Updater`` states."""
+        with self._atomic():
+            self._write_checkpoint(prefix, epoch, save_optimizer_states,
+                                   io_resume.current_position(),
+                                   io_resume.data_state_entry())
+
+    def _write_checkpoint(self, prefix, epoch, save_optimizer_states,
+                          position, data_state):
         host, st = self._host_state(save_optimizer_states)
         resilience.atomic_write("%s-symbol.json" % prefix, self.symbol.save)
         param_name = "%s-%04d.params" % (prefix, epoch)
@@ -693,12 +726,10 @@ class ShardedTrainer:
             files.append(states_name)
             arrays.update(st)
         meta = {"mesh": self.mesh_descriptor()}
-        pos = io_resume.current_position()
-        if pos is not None:
-            meta["data_position"] = pos
-        entry = io_resume.data_state_entry()
-        if entry is not None:
-            meta["data_state"] = entry
+        if position is not None:
+            meta["data_position"] = position
+        if data_state is not None:
+            meta["data_state"] = data_state
         resilience.write_manifest(prefix, epoch, files, arrays=arrays,
                                   meta=meta)
 
@@ -735,6 +766,10 @@ class ShardedTrainer:
         the file's ``meta:num_update`` (Adam's bias correction and the lr
         schedule continue), and the checkpoint's data state is stashed for
         :meth:`restore_data_iter`."""
+        with self._atomic():
+            self._read_checkpoint(prefix, epoch, load_optimizer_states)
+
+    def _read_checkpoint(self, prefix, epoch, load_optimizer_states):
         resilience.fault_point("checkpoint.load")
         manifest = resilience.verify_manifest(prefix, epoch)
         saved = (manifest or {}).get("meta", {}).get("mesh")
@@ -804,11 +839,14 @@ class ShardedTrainer:
         self._resume_epoch = int(epoch)
         self._step_count = 0
         self._refresh_rule()
+        self._step_data = (None, None)
         if manifest is not None:
-            entry = (manifest.get("meta") or {}).get("data_state")
+            meta = manifest.get("meta") or {}
+            entry = meta.get("data_state")
+            entry = entry if isinstance(entry, dict) else None
+            self._step_data = (meta.get("data_position"), entry)
             io_resume.note_loaded_state(
-                entry if isinstance(entry, dict) else None,
-                source="%s epoch %d" % (prefix, epoch))
+                entry, source="%s epoch %d" % (prefix, epoch))
 
     def load_latest_checkpoint(self, prefix, load_optimizer_states=False):
         """Load the newest checkpoint under ``prefix`` that loads, passing
@@ -839,13 +877,16 @@ class ShardedTrainer:
                                    signals=None, exit_process=True):
         """On SIGTERM (or ``signals``), checkpoint at epoch = the epoch last
         loaded + the steps taken since, and exit 0 (``exit_process``).
-        The step is a loop of eager updates, so a signal never saves at
-        once: it is served at the end of the step running, or of the next
-        one when it lands between steps, where masters, slots, moving
-        statistics and the iterator's state agree.  The flight-recorder
-        dump of the JAX handler waits for the port's telemetry.  Returns
-        the handler: ``pending`` is True from the signal to the save,
-        ``triggered`` after the save."""
+        The step is a loop of eager updates, so a signal that lands in a
+        step (or a save or load) is served at its end; one that lands
+        between steps (after the last, in validation, while the loop waits
+        on data) is served at once.  Either way the checkpoint holds the
+        state after the last step and the data state taken at that step's
+        end (or, with no step since a load, the loaded checkpoint's), so a
+        batch fetched and not yet stepped is not lost.  The flight-recorder
+        dump of the JAX handler
+        waits for the port's telemetry.  Returns the handler: ``pending``
+        is True from the signal to the save, ``triggered`` after it."""
         if signals is None:
             signals = (_signal.SIGTERM,)
 
@@ -854,6 +895,8 @@ class ShardedTrainer:
                 return
             handler.pending = True
             self._preemption = (handler, int(signum))
+            if not self._busy:
+                self._serve_preemption()
 
         handler.pending = False
         handler.triggered = False
@@ -865,18 +908,18 @@ class ShardedTrainer:
         return handler
 
     def _serve_preemption(self):
-        """Save and exit for a signal that arrived before the step's end."""
+        """Save and exit for a signal that has arrived."""
         if self._preemption is None:
             return
         handler, signum = self._preemption
+        self._preemption = None
         epoch = self._resume_epoch + self._step_count
         logging.warning("preemption signal %d: checkpointing to %r epoch %d"
                         "%s", signum, handler.prefix, epoch,
                         " and exiting" if handler.exit_process else "")
-        self.save_checkpoint(
-            handler.prefix, epoch,
-            save_optimizer_states=handler.save_optimizer_states)
-        self._preemption = None
+        self._write_checkpoint(handler.prefix, epoch,
+                               handler.save_optimizer_states,
+                               *self._step_data)
         handler.pending = False
         handler.triggered = True
         if handler.exit_process:

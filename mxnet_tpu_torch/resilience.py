@@ -110,7 +110,9 @@ class _Site:
         self.hits = 0
 
 
-_LOCK = threading.Lock()
+# reentrant: a preemption handler's save fires a seam in the main thread,
+# which the signal may have interrupted inside this lock
+_LOCK = threading.RLock()
 _SITES = {}
 _ENV_SNAPSHOT = None     # the MXNET_TPU_FAULTS value last parsed
 _INJECTED = {}           # site -> injections since import

@@ -8,23 +8,24 @@ SIGTERM mid-epoch, and resumed from its checkpoint and iterator state.
 
 The training is ``tools.train_imagenet``'s fused route at full width:
 ResNet-``--num-layers`` (1000 classes) in bf16, NHWC, block fusion (the 1x1
-blocks on K5), batch ``--batch-size`` of ``--image`` pixels, SGD at
-``--lr`` (0.01: a few classes of made records would drive the loss to 0
-within the drill at 0.1) halved every ``--lr-step`` updates (so a resumed
-run must continue the update count), momentum 0.9, weight decay 1e-4,
-initial weights from ``--seed``; the records through the native pipeline
-(``ImageRecordIter(raw_uint8=True, shuffle=True, rand_crop=True,
-rand_mirror=True)``, one decode thread, so the record order is fixed) and
-a ``DevicePrefetchIter`` of depth 2.  cuDNN runs its deterministic
+blocks on K5), batch ``--batch-size`` of ``--image`` pixels, SGD at lr
+0.01 (a few classes of made records would drive the loss to 0 within the
+drill at 0.1) halved every 4 updates (so a resumed run must continue the
+update count), momentum 0.9, weight decay 1e-4, initial weights from seed
+0; the records through the native pipeline (``ImageRecordIter(raw_uint8=
+True, shuffle=True, rand_crop=True, rand_mirror=True)``, one decode
+thread, so the record order is fixed) and a ``DevicePrefetchIter`` of
+depth 2.  cuDNN runs its deterministic
 algorithms.  Each step prints one JSON line: its loss, its labels, the
 CRC32 of its uint8 pixels, its wall (fetch and step, synchronized by
 reading the loss) and the drill's seconds at its end.  The modes:
 
 * ``uninterrupted``: ``--steps`` steps;
 * ``preempted``: ``install_preemption_handler(--prefix)``, then after step
-  ``--signal-after`` the run waits for SIGTERM (from the caller) and goes
-  on; the signal is served at the end of the next step, which writes the
-  checkpoint (optimizer slots and the iterator's state) and exits 0;
+  ``--signal-after`` the run waits for SIGTERM (from the caller), which,
+  landing between steps, is served at once: the checkpoint at epoch
+  ``--signal-after`` (the state after that step, its optimizer slots and
+  the iterator's state at its end), and exit 0;
 * ``resumed``: ``load_latest_checkpoint(--prefix,
   load_optimizer_states=True)`` and ``restore_data_iter``, then the steps
   after the checkpoint's up to ``--steps``; its last line holds the load's
@@ -46,6 +47,10 @@ import zlib
 import numpy as np
 import torch
 
+#: SGD's lr, and the updates after which the schedule halves it
+LR = 0.01
+LR_STEP = 4
+
 __all__ = ["build_trainer", "records_iter", "batch_record", "drill",
            "state_crcs", "parser", "main"]
 
@@ -61,21 +66,22 @@ def build_trainer(args, ctx):
         net, build_mesh(devices=[ctx]),
         data_shapes={"data": (args.batch_size, 3, args.image, args.image)},
         label_shapes={"softmax_label": (args.batch_size,)},
-        optimizer="sgd", learning_rate=args.lr, momentum=0.9,
-        weight_decay=1e-4, seed=args.seed,
+        optimizer="sgd", learning_rate=LR, momentum=0.9,
+        weight_decay=1e-4, seed=0,
         optimizer_params={"lr_scheduler": lr_scheduler.FactorScheduler(
-            step=args.lr_step, factor=0.5)},
+            step=LR_STEP, factor=0.5)},
         dtype=args.dtype, layout="NHWC", fuse_blocks=True,
         input_mean=IMAGENET_MEAN, input_std=IMAGENET_STD)
 
 
 def records_iter(args):
-    """The drill's native iterator over ``--data-train``."""
+    """The drill's native iterator over ``--data-train``, at one decode
+    thread: with more, the records' order is not fixed."""
     from .. import io
     return io.ImageRecordIter(
         path_imgrec=args.data_train,
         data_shape=(3, args.image, args.image),
-        batch_size=args.batch_size, preprocess_threads=args.threads,
+        batch_size=args.batch_size, preprocess_threads=1,
         raw_uint8=True, shuffle=True, rand_crop=True, rand_mirror=True)
 
 
@@ -210,11 +216,6 @@ def parser():
     p.add_argument("--image", type=int, default=224)
     p.add_argument("--batch-size", type=int, default=128)
     p.add_argument("--dtype", default="bfloat16")
-    p.add_argument("--lr", type=float, default=0.01)
-    p.add_argument("--lr-step", type=int, default=4)
-    p.add_argument("--threads", type=int, default=1,
-                   help="decode threads (1: the records' order is fixed)")
-    p.add_argument("--seed", type=int, default=0)
     p.add_argument("--cpu", type=int, default=0)
     return p
 

@@ -20,8 +20,8 @@ def test_resume_phase_at_a_tiny_size(tmp_path):
     out = chip_smoke.resume_train_phase(
         tmx.cpu(), recs, str(tmp_path), steps=4, signal_after=1,
         layers=8, image=16, batch=4, dtype="float32")
-    assert out["checkpoint_epoch"] == 2
-    assert out["data_state"]["offset"] == 8 == out["applied_state"]["offset"]
+    assert out["checkpoint_epoch"] == 1
+    assert out["data_state"]["offset"] == 4 == out["applied_state"]["offset"]
     assert out["batches_equal"] and out["loaded_equal_saved"]
     assert out["losses_equal"] and out["u_state_equals_p_saved"]
     assert out["p_batches_equal_u"] and len(out["losses_p"]) == 1

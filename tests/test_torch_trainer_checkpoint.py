@@ -10,12 +10,16 @@ the norm of their difference to 1e-4), under SGD with momentum and under
 Adam, whose bias correction reads the saved update count.  A run saved
 at step 2 and resumed through ``restore_data_iter`` in a fresh trainer
 equals the uninterrupted five-step run bit for bit; a SIGTERM sent from
-inside the update loop saves the state after the step; ``tools.fit``'s
+inside the update loop saves the state after the step, and one sent
+between steps (after the last, with a batch fetched and not stepped, or
+after a load and no step) saves the last step's (or the loaded) state
+and data state at once; ``tools.fit``'s
 fused ``--model-prefix``/``--load-epoch`` round trip runs at a tiny
 size."""
 import json
 import os
 import signal
+import time
 
 import numpy as np
 import pytest
@@ -262,6 +266,86 @@ def test_sigterm_inside_the_update_loop_saves_the_state_after_the_step(
         for i, s in enumerate(slots):
             assert torch.equal(states["slot%d:%s" % (i, k)].data, s)
     assert int(states["meta:num_update"].data[0]) == 3
+
+
+def _signal_self(handler):
+    """SIGTERM to this process; the handler runs at the next bytecode."""
+    os.kill(os.getpid(), signal.SIGTERM)
+    deadline = time.monotonic() + 10
+    while not handler.triggered and time.monotonic() < deadline:
+        time.sleep(0.001)
+
+
+@pytest.mark.parametrize("fetched", [False, True])
+def test_sigterm_between_steps_saves_the_last_step_at_once(fetched,
+                                                            tmp_path):
+    batches = _batches(5, seed=2)
+    pt = _port("sgd")
+    prefix = str(tmp_path / "between")
+    source = tmx.io.DevicePrefetchIter(_iter(batches), pt.put_batch,
+                                       depth=2)
+    old = signal.getsignal(signal.SIGTERM)
+    try:
+        handler = pt.install_preemption_handler(prefix)
+        pt.restore_data_iter(source)
+        for _ in range(3):
+            pt.step(next(source))
+        after = _state(pt)
+        if fetched:
+            next(source)              # fetched, never stepped
+        with pytest.raises(SystemExit) as e:
+            _signal_self(handler)
+        assert e.value.code == 0 and handler.triggered
+    finally:
+        signal.signal(signal.SIGTERM, old)
+        source.close()
+    doc = resilience.verify_manifest(prefix, 3)
+    state = doc["meta"]["data_state"]["state"]
+    assert state["offset"] == 3 * BATCH
+    files = tmx.nd.load("%s-0003.params" % prefix, ctx=tmx.cpu())
+    states = tmx.nd.load("%s-0003.states" % prefix, ctx=tmx.cpu())
+    got = {"p:" + k[4:]: v.data for k, v in files.items()
+           if k.startswith("arg:")}
+    got.update({"a:" + k[4:]: v.data for k, v in files.items()
+                if k.startswith("aux:")})
+    got.update({"s%s:%s" % (k.split(":", 1)[0][4:], k.split(":", 1)[1]):
+                v.data for k, v in states.items() if k.startswith("slot")})
+    assert sorted(got) == sorted(after)
+    assert all(torch.equal(got[k], after[k]) for k in after)
+    fresh = _iter(batches)
+    io_resume.restore_iterator(fresh, state)
+    assert np.array_equal(next(fresh).data[0].asnumpy(),
+                          batches[3]["data"])
+
+
+def test_sigterm_after_a_load_and_no_step_saves_the_loaded_state(
+        tmp_path):
+    batches = _batches(3, seed=4)
+    pt = _port("sgd")
+    it = _iter(batches)
+    pt.restore_data_iter(it)
+    pt.step(pt.put_batch({"data": batches[0]["data"],
+                          "softmax_label": batches[0]["softmax_label"]}))
+    next(it)
+    first = str(tmp_path / "first")
+    pt.save_checkpoint(first, 1, save_optimizer_states=True)
+    saved = resilience.load_manifest(first, 1)
+    other = _port("sgd", seed=5)
+    other.load_checkpoint(first, 1, load_optimizer_states=True)
+    second = str(tmp_path / "second")
+    old = signal.getsignal(signal.SIGTERM)
+    try:
+        handler = other.install_preemption_handler(second,
+                                                   exit_process=False)
+        _signal_self(handler)
+        assert handler.triggered and not handler.pending
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    doc = resilience.verify_manifest(second, 1)
+    assert doc["meta"]["data_state"] == saved["meta"]["data_state"]
+    assert doc["meta"]["data_state"]["state"]["offset"] == BATCH
+    assert {k: v["crc32"] for k, v in doc["arrays"].items()} == \
+        {k: v["crc32"] for k, v in saved["arrays"].items()}
 
 
 def test_a_failed_load_leaves_the_trainer_as_it_was(tmp_path):
