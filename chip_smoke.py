@@ -286,6 +286,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import json
 import logging
 import os
@@ -298,6 +299,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
 import numpy as np
 import torch
@@ -3579,11 +3581,15 @@ RESUME_SIGNAL_AFTER = 4
 RESUME_CLI_EPOCHS = 2
 
 
-def _drill_child(argv, workdir, name, send_signal=False, timeout=600):
+def _drill_child(argv, workdir, name, send_signal=False, timeout=600,
+                 env=None):
     """``tools.resume_train`` in a child process: ``(exit code, its JSON
     lines, wall seconds, the tail of its stderr)``; with ``send_signal``
-    SIGTERM goes to it when it reports waiting for one.  The child is
-    killed if it outlives ``timeout``."""
+    SIGTERM goes to it when it reports waiting for one; ``env`` adds
+    environment variables.  The child computes with this process's number
+    of torch threads (on the CPU their count sets the order of a sum, and
+    the drill compares the runs to the bit).  The child is killed if it
+    outlives ``timeout``."""
     err_path = os.path.join(workdir, name + ".err")
     cmd = [sys.executable, "-m", "mxnet_tpu_torch.tools.resume_train"] + argv
     t0 = time.perf_counter()
@@ -3591,7 +3597,9 @@ def _drill_child(argv, workdir, name, send_signal=False, timeout=600):
     with open(err_path, "w") as err:
         proc = subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=err, text=True,
-            cwd=os.path.dirname(os.path.abspath(__file__)))
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=dict(os.environ, OMP_NUM_THREADS=str(torch.get_num_threads()),
+                     **(env or {})))
         timer = threading.Timer(timeout, proc.kill)
         timer.start()
         try:
@@ -3611,6 +3619,34 @@ def _drill_child(argv, workdir, name, send_signal=False, timeout=600):
     with open(err_path) as f:
         tail = f.read()[-2000:]
     return rc, lines, time.perf_counter() - t0, tail
+
+
+def _preemption_dump(directory, step):
+    """The flight dump run P left under ``directory``: one
+    ``mxtpu-flight/1`` file of reason ``sigterm`` whose events hold the
+    ``preemption`` event and the ``step_begin`` of step ``step`` (the
+    step the signal followed); else SystemExit."""
+    names = sorted(n for n in os.listdir(directory)
+                   if n.startswith("flight-") and n.endswith(".json")) \
+        if os.path.isdir(directory) else []
+    if len(names) != 1:
+        raise SystemExit("resume_train: run P left flight dumps %s in %s; "
+                         "want one" % (names, directory))
+    with open(os.path.join(directory, names[0])) as f:
+        doc = json.load(f)
+    kinds = [e["kind"] for e in doc["events"]]
+    begun = [e for e in doc["events"] if e["kind"] == "step_begin"
+             and e.get("step") == step]
+    ok = (doc.get("schema") == "mxtpu-flight/1"
+          and doc.get("reason") == "sigterm" and "preemption" in kinds
+          and len(begun) == 1)
+    out = {"file": names[0], "reason": doc.get("reason"),
+           "events": len(kinds), "preemption": "preemption" in kinds,
+           "step_begin_of_step": step, "step_begin_found": len(begun),
+           "live_memory": doc.get("live_memory")}
+    if not ok:
+        raise SystemExit("resume_train: run P's flight dump %s" % out)
+    return out
 
 
 def _same_batches(got, want):
@@ -3687,11 +3723,14 @@ def resume_train_phase(ctx, recs, workdir, steps=RESUME_STEPS,
                          "want matmul_stats %d, the rest 0"
                          % (u["launches"], steps, want))
 
+    flight_dir = os.path.join(workdir, "flight")
     p_rc, p_lines, p_wall, p_err = _drill_child(
         base + ["--mode", "preempted", "--signal-after", str(signal_after)],
-        workdir, "preempted", send_signal=True)
+        workdir, "preempted", send_signal=True,
+        env={"MXNET_TPU_FLIGHT_DIR": flight_dir})
     if p_rc != 0:
         raise SystemExit("resume_train: run P exited %d: %s" % (p_rc, p_err))
+    flight = _preemption_dump(flight_dir, signal_after)
     epoch = mx.model.find_latest_checkpoint(prefix, require_states=True)
     manifest = resilience.verify_manifest(prefix, epoch) \
         if epoch is not None else None
@@ -3717,6 +3756,7 @@ def resume_train_phase(ctx, recs, workdir, steps=RESUME_STEPS,
            "decode_threads": 1, "steps": steps,
            "signal_after_step": signal_after, "checkpoint_epoch": epoch,
            "data_state": data_state, "applied_state": r["applied_state"],
+           "flight_dump": flight,
            "step_s_u": [x["step_s"] for x in u_steps],
            "step_s_r": [x["step_s"] for x in r_steps],
            "losses_u": [x["loss"] for x in u_steps],
@@ -3835,6 +3875,355 @@ def resume_train_phase(ctx, recs, workdir, steps=RESUME_STEPS,
         for k in cli_counts}
     out["nvidia_smi"] = nvidia_smi() if on_card else None
     return out
+
+
+# ------------------------------------------------------------- telemetry
+#: telemetry_train: steps a run, the steps the device trace covers, K5's
+#: kernel as the device trace names it, and the verdicts ioview may give
+TELEMETRY_STEPS = 8
+TELEMETRY_PROFILED = (5, 6)
+K5_KERNEL_NAME = "matmul_stats_sm90_kernel"
+IOVIEW_VERDICTS = ("producer-bound", "consumer-bound", "balanced")
+
+
+class _FirstBatches:
+    """The first ``n`` batches of ``it``, then the epoch's end: a fit that
+    takes exactly ``n`` steps, whose iterator is never asked for more."""
+
+    def __init__(self, it, n):
+        self._it, self._n, self._taken = it, n, 0
+        self.provide_data = it.provide_data
+        self.provide_label = it.provide_label
+        self.batch_size = it.batch_size
+
+    def __getattr__(self, name):        # device_normalization, close, ...
+        return getattr(self._it, name)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        if self._taken >= self._n:
+            raise StopIteration
+        self._taken += 1
+        return self._it.next()
+
+    next = __next__
+
+    def reset(self):
+        self._taken = 0
+        self._it.reset()
+
+
+def _telemetry_run(ctx, args, steps, workdir, sinks, profiled):
+    """One fit of ``steps`` batches through ``tools.fit`` with the
+    telemetry sinks on or off; returns the losses, the launches, the host
+    syncs inside each step and in all, the memory statistics each step
+    end read, and the host wall of each step."""
+    from mxnet_tpu_torch import profiler, telemetry
+    from mxnet_tpu_torch.tools import fit, train_imagenet
+    on_card = ctx.device_type == "gpu"
+    names = ("MXNET_TPU_TELEMETRY_JSONL", "MXNET_TPU_FLIGHT_DIR",
+             "MXNET_TPU_IOVIEW_EVERY", "MXNET_PROFILER_XLA_DIR")
+    saved_env = {k: os.environ.get(k) for k in names}
+    os.makedirs(workdir, exist_ok=True)
+    files = {"jsonl": os.path.join(workdir, "steps.jsonl"),
+             "flight": os.path.join(workdir, "flight"),
+             "profile": os.path.join(workdir, "profile.json"),
+             "device": os.path.join(workdir, "device")}
+    for k in names:
+        os.environ.pop(k, None)
+    os.environ.update(
+        {"MXNET_TPU_TELEMETRY_JSONL": files["jsonl"],
+         "MXNET_TPU_FLIGHT_DIR": files["flight"],
+         "MXNET_TPU_IOVIEW_EVERY": "1",
+         "MXNET_PROFILER_XLA_DIR": files["device"]} if sinks else
+        {"MXNET_TPU_IOVIEW_EVERY": "0"})
+    telemetry.reset()
+    # events left by an earlier profiler session go to a file of their own
+    profiler.profiler_set_config(
+        mode="all", filename=os.path.join(workdir, "earlier.json"))
+    profiler.dump_profile()
+    profiler.profiler_set_config(mode="all", filename=files["profile"])
+    traces_before = len(profiler.device_traces())
+    stats_reads = []
+    real_stats = torch.cuda.memory_stats
+
+    def memory_stats(*a, **kw):         # what the step-end sample read
+        out = real_stats(*a, **kw)
+        stats_reads.append(dict(out))
+        return out
+
+    rec = {"syncs": [], "mem": [], "step_s": [], "profiler_syncs": 0}
+    real_step = ShardedTrainer.step
+
+    def step(self, batch):
+        n = len(rec["step_s"]) + 1
+        if sinks and n == profiled[0]:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                profiler.profiler_set_state("run")
+            rec["profiler_syncs"] += len(w)
+        seen = len(stats_reads)
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            loss = real_step(self, batch)
+            rec["step_s"].append(time.perf_counter() - t0)
+        rec["syncs"].append(sum("synchroniz" in str(x.message) for x in w))
+        rec["mem"].append(stats_reads[-1] if len(stats_reads) > seen
+                          else None)
+        if sinks and n == profiled[1]:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                profiler.profiler_set_state("stop")
+            rec["profiler_syncs"] += len(w)
+        return loss
+
+    def loader(a, kv):
+        train, _val = train_imagenet.get_rec_iter(a, kv)
+        return _FirstBatches(train, steps), None
+
+    history = {}
+    np.random.seed(0)                   # the initializer's draws
+    random.seed(0)
+    ShardedTrainer.step = step
+    if on_card:
+        torch.cuda.memory_stats = memory_stats
+        torch.cuda.set_sync_debug_mode("warn")
+    zero_kernel_counts()
+    try:
+        with warnings.catch_warnings(record=True) as w_all:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            fit.fit(args, _imagenet_net(args), loader, history=history)
+            wall = time.perf_counter() - t0
+    finally:
+        ShardedTrainer.step = real_step
+        torch.cuda.memory_stats = real_stats
+        if on_card:
+            torch.cuda.set_sync_debug_mode(0)
+        if profiler.is_running():
+            profiler.profiler_set_state("stop")
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    counts = kernel_counts()
+    syncs_all = sum("synchroniz" in str(x.message) for x in w_all)
+    out = {"losses": history["losses"], "launches": counts,
+           "syncs_per_step": rec["syncs"], "step_s": rec["step_s"],
+           "syncs_in_fit": syncs_all - rec["profiler_syncs"],
+           "profiler_syncs": rec["profiler_syncs"], "mem": rec["mem"],
+           "fit_s": wall, "io": history["io"],
+           "ioview": telemetry.ioview.snapshot(),
+           "report": telemetry.report(), "files": files}
+    if sinks:
+        profiler.dump_profile()
+        out["device_traces"] = profiler.device_traces()[traces_before:]
+    return out
+
+
+def _imagenet_net(args):
+    from mxnet_tpu_torch.models import get_model
+    return get_model(args.network, num_classes=args.num_classes,
+                     num_layers=args.num_layers,
+                     image_shape=args.image_shape)
+
+
+def _check_jsonl(path, steps, batch, mem, on_card):
+    """Gate 3: one line a step, each with its step time, the trainer.step
+    and data.fetch span totals, the compute/input_wait segments, the
+    memory gauges equal to the statistics the step's end read, and the
+    ioview record."""
+    with open(path) as f:
+        lines = [json.loads(x) for x in f if x.strip()]
+    bad = []
+    if [r.get("step") for r in lines] != list(range(1, steps + 1)):
+        bad.append("steps %s" % [r.get("step") for r in lines])
+    for r, m in zip(lines, mem):
+        spans, seg = r.get("spans", {}), r.get("segments", {})
+        ok = (isinstance(r.get("step_time_s"), float)
+              and r.get("samples") == batch
+              and {"trainer.step", "data.fetch"} <= set(spans)
+              and {"compute", "input_wait"} <= set(seg)
+              and isinstance(r.get("io"), dict))
+        if on_card:
+            g = r.get("gauges", {})
+            ok = ok and m is not None and (
+                g.get('mxtpu_hbm_bytes_in_use{device="cuda:0"}')
+                == m["allocated_bytes.all.current"]) and (
+                g.get('mxtpu_hbm_peak_bytes{device="cuda:0"}')
+                == m["allocated_bytes.all.peak"])
+        if not ok:
+            bad.append(r.get("step"))
+    if bad:
+        raise SystemExit("telemetry_train: JSONL lines fail gate 3: %s"
+                         % bad)
+    return lines
+
+
+def _check_profile(path, profiled):
+    """Gate 5: the Chrome trace parses; its operator events and its spans
+    share the profiler's clock (every operator event lies inside one of the
+    ``len(profiled)`` trainer.step spans)."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    steps = [e for e in events if e["name"] == "trainer.step"]
+    ops = [e for e in events if e["cat"] == "operator"]
+    spans = [e for e in events if e["cat"] != "operator"]
+    outside = [e["name"] for e in ops if not any(
+        s["ts"] <= e["ts"] and e["ts"] + e["dur"] <= s["ts"] + s["dur"]
+        for s in steps)]
+    out = {"events": len(events), "operator_events": len(ops),
+           "span_events": len(spans), "trainer_step_spans": len(steps),
+           "span_names": sorted({e["name"] for e in spans}),
+           "operator_events_outside_steps": len(outside)}
+    if len(steps) != len(profiled) or not ops or outside \
+            or "data.fetch" not in out["span_names"]:
+        raise SystemExit("telemetry_train: Chrome trace fails gate 5: %s"
+                         % out)
+    return out
+
+
+def _device_kernels(path, name):
+    """Gate 6's count: the device trace's kernel events naming ``name``."""
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return len(kernels), sum(name in e.get("name", "") for e in kernels)
+
+
+def telemetry_train_phase(ctx, recs, workdir, steps=TELEMETRY_STEPS,
+                          profiled=TELEMETRY_PROFILED, layers=50, image=224,
+                          batch=128, dtype="bfloat16", k5_blocks=16):
+    """``tools.train_imagenet``'s fused route on the train records (the
+    first ``steps`` batches): ResNet-``layers`` v2, ``batch``, ``image``,
+    ``dtype``, NHWC, block fusion, one decode thread, cuDNN deterministic,
+    a ``DevicePrefetchIter`` of depth 2.  Two runs in this process: every
+    telemetry sink off, then the JSONL step log, the flight directory,
+    ioview every step and the profiler (mode all, with its device trace
+    over steps ``profiled``).  The gates: (1) the losses equal to the bit
+    and K5 ``k5_blocks`` launches a step in both (0 on the CPU); (2) the
+    host syncs inside each step equal, counted under
+    ``set_sync_debug_mode("warn")`` (those outside the steps, the
+    profiler's own start and stop apart, are reported); (3) the JSONL
+    (:func:`_check_jsonl`); (4) ioview's ``decode`` and
+    ``batch`` items ``batch`` a batch fetched, ``device_stage`` one a
+    batch, the verdict one of the JAX names; (5) the Chrome trace
+    (:func:`_check_profile`); (6) the device trace names K5's kernel
+    ``k5_blocks`` times a profiled step; (7) ``tools.bench --dry-run``'s
+    line with a telemetry block of 5 steps.  The step time with telemetry
+    on and off is printed, not gated (the host's speed varies between
+    calls)."""
+    from mxnet_tpu_torch.tools import bench
+    on_card = ctx.device_type == "gpu"
+    args = _imagenet_args(
+        recs["train"], ctx, layers, image, "--batch-size", str(batch),
+        "--dtype", dtype, "--fused", "1", "--num-epochs", "1",
+        "--lr", "0.01", "--mom", "0.9", "--wd", "1e-4",
+        "--device-queue", "1", "--data-nthreads", "1", "--disp-batches",
+        "0")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = [_telemetry_run(ctx, args, steps,
+                               os.path.join(workdir, "telemetry_" + tag),
+                               sinks, profiled)
+                for tag, sinks in (("off", False), ("on", True))]
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    off, on = runs
+    want = k5_blocks * steps if on_card else 0
+    for tag, r in zip(("off", "on"), runs):
+        c = r["launches"]
+        if c["matmul_stats"] - c["matmul_stats_f32"] != want or any(
+                v for k, v in c.items() if k != "matmul_stats"):
+            raise SystemExit("telemetry_train: run %s launched %s; want "
+                             "matmul_stats %d, the rest 0" % (tag, c, want))
+    if off["losses"] != on["losses"] or len(on["losses"]) != steps:
+        raise SystemExit("telemetry_train: losses differ: off %s, on %s"
+                         % (off["losses"], on["losses"]))
+    if off["syncs_per_step"] != on["syncs_per_step"]:
+        raise SystemExit("telemetry_train: host syncs differ: off %s, on %s"
+                         % (off["syncs_per_step"], on["syncs_per_step"]))
+    lines = _check_jsonl(on["files"]["jsonl"], steps, batch, on["mem"],
+                         on_card)
+    stages = on["ioview"]["stages"]
+    items = {k: stages.get(k, {}).get("items") for k in
+             ("decode", "batch", "device_stage")}
+    verdict = on["io"]["bottleneck"]
+    if items != {"decode": batch * steps, "batch": batch * steps,
+                 "device_stage": steps} \
+            or (verdict or {}).get("verdict") not in IOVIEW_VERDICTS:
+        raise SystemExit("telemetry_train: ioview items %s, verdict %s"
+                         % (items, verdict))
+    profile = _check_profile(on["files"]["profile"], profiled)
+    if len(on["device_traces"]) != 1:
+        raise SystemExit("telemetry_train: device traces %s"
+                         % on["device_traces"])
+    kernels, k5 = _device_kernels(on["device_traces"][0], K5_KERNEL_NAME)
+    want_k5 = k5_blocks * len(profiled) if on_card else 0
+    if k5 != want_k5:
+        raise SystemExit("telemetry_train: the device trace names %s %d "
+                         "times over %d steps; want %d"
+                         % (K5_KERNEL_NAME, k5, len(profiled), want_k5))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        bench.dry_run(ctx)
+    dry = json.loads(buf.getvalue().strip().splitlines()[-1])
+    if dry.get("telemetry", {}).get("steps") != 5 or "io" not in dry:
+        raise SystemExit("telemetry_train: bench --dry-run printed %s" % dry)
+
+    def per_step(key, name):
+        return float(np.mean([r[key].get(name, {}).get("total_s", 0.0)
+                              if key == "spans" else r[key][name]
+                              for r in lines]))
+
+    launches = on["launches"]
+    return {
+        "network": "resnet%d" % layers, "batch": batch, "image": image,
+        "dtype": dtype, "layout": "NHWC", "fuse_blocks": True,
+        "decode_threads": 1, "steps": steps, "profiled_steps": profiled,
+        "losses": on["losses"], "losses_equal": True,
+        "syncs_per_step": on["syncs_per_step"],
+        # the rest of the fit's syncs (the masters' upload, the epoch's
+        # end, the worker's first staging) are counted by warnings that
+        # Python's catch_warnings gathers across threads without a lock:
+        # reported, not gated
+        "syncs_outside_steps": {"off": off["syncs_in_fit"],
+                                "on": on["syncs_in_fit"]},
+        "profiler_syncs": on["profiler_syncs"],
+        "step_ms_off": [1e3 * x for x in off["step_s"]],
+        "step_ms_on": [1e3 * x for x in on["step_s"]],
+        "median_step_ms_off": 1e3 * float(np.median(off["step_s"])),
+        "median_step_ms_on": 1e3 * float(np.median(on["step_s"])),
+        "segments_ms_per_step": {
+            k: 1e3 * per_step("segments", k)
+            for k in ("compute", "input_wait", "collective_wait")},
+        "spans_ms_per_step": {
+            k: 1e3 * per_step("spans", k)
+            for k in ("trainer.step", "data.fetch")},
+        "ioview": {"items": items, "verdict": verdict,
+                   "stages_ms_per_batch": {
+                       k: 1e3 * v["s"] / steps for k, v in stages.items()},
+                   "stall_s": on["ioview"]["stall_s"],
+                   "starved_s": on["ioview"]["starved_s"]},
+        "chrome_trace": profile,
+        "device_trace": {"kernel_events": kernels, "k5_events": k5,
+                         "k5_name": K5_KERNEL_NAME,
+                         "bytes": os.path.getsize(on["device_traces"][0])},
+        "report_phases": on["report"]["phases"],
+        "compile": on["report"]["compile"],
+        "memory_live": on["report"]["memory"]["live"],
+        "dry_run": {"value": dry["value"], "telemetry_steps":
+                    dry["telemetry"]["steps"], "fusion": dry["fusion"]},
+        "kernel_launches": launches,
+        "kernel_launches_per_step": {k: v / steps
+                                     for k, v in launches.items()},
+        "fit_s": {"off": off["fit_s"], "on": on["fit_s"]},
+        "nvidia_smi": nvidia_smi() if on_card else None}
 
 
 # ------------------------------------------------- mx.rtc and experiments
@@ -5083,6 +5472,8 @@ def main():
         emit("imagenet_module", **imagenet_module_phase(mx.gpu(0), recs))
         resume = resume_train_phase(mx.gpu(0), recs, workdir)
         emit("resume_train", **resume)
+        tele = telemetry_train_phase(mx.gpu(0), recs, workdir)
+        emit("telemetry_train", **tele)
     zoo_k5 = zoo_kernels_phase()
     emit("zoo_kernels", **zoo_k5)
     with tempfile.TemporaryDirectory() as workdir:
@@ -5282,6 +5673,8 @@ def main():
                 ("ring_gpt_launches", ring["kernel_launches"],
                  ring["flash_source_launches"]),
                 ("resume_launches", resume["kernel_launches"], {}),
+                ("telemetry_launches", tele["kernel_launches_per_step"],
+                 {}),
                 ("zoo_launches", zoo_counts, {})):
             if e["name"] in by_source:
                 e[key] = by_source[e["name"]]

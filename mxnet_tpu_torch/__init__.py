@@ -47,6 +47,8 @@ __version__ = "0.1.0"
 from .base import MXNetError
 from .context import Context, cpu, gpu, current_context, num_gpus
 from . import base
+from . import profiler
+from . import telemetry
 from . import random
 from . import autograd
 from . import ndarray
@@ -90,3 +92,9 @@ from .monitor import Monitor
 from . import rnn
 from . import contrib
 from . import test_utils
+from . import registry
+from . import visualization
+from . import visualization as viz
+from . import torch as th
+sym.TorchModule = th.torch_module_symbol
+sym.TorchCriterion = th.torch_criterion_symbol

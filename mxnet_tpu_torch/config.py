@@ -61,10 +61,21 @@ _CATALOG = {
     "MXNET_CONV1X1_DOT": ("0", "inert",
                           "pointwise convolutions as dots: " + _NOT_PORTED),
     # profiler
-    "MXNET_PROFILER_AUTOSTART": ("0", "inert", "profiler: " + _NOT_PORTED),
-    "MXNET_PROFILER_MODE": ("0", "inert", ""),
-    "MXNET_PROFILER_FILENAME": ("profile.json", "inert", ""),
-    "MXNET_PROFILER_XLA_DIR": ("", "inert", ""),
+    "MXNET_PROFILER_AUTOSTART": ("0", "honored",
+                                 "1: start the profiler at import and "
+                                 "dump its Chrome trace at exit "
+                                 "(profiler.py)"),
+    "MXNET_PROFILER_MODE": ("0", "honored",
+                            "the autostarted profiler's mode when set: "
+                            "0 symbolic, else all (unset: all, as the "
+                            "JAX package)"),
+    "MXNET_PROFILER_FILENAME": ("profile.json", "honored",
+                                "the autostarted profiler's dump file"),
+    "MXNET_PROFILER_XLA_DIR": ("", "honored",
+                               "device trace directory: torch.profiler's "
+                               "Chrome trace (CUDA kernels included) of "
+                               "each run/stop window; the JAX package "
+                               "writes xprof traces here"),
     "MXNET_CUDNN_AUTOTUNE_DEFAULT": ("0", "inert",
                                      "cuDNN's heuristics choose the "
                                      "algorithms"),
@@ -100,32 +111,65 @@ _CATALOG = {
     "MXNET_TPU_RESTART_COUNT": ("0", "inert", _NOT_PORTED),
     "MXNET_TPU_STRICT_BIND": ("0", "inert",
                               "the graph verifier: " + _NOT_PORTED),
-    # telemetry
-    "MXNET_TPU_TELEMETRY_JSONL": ("", "inert",
-                                  "telemetry: " + _NOT_PORTED),
-    "MXNET_TPU_TELEMETRY_PORT": ("0", "inert", _NOT_PORTED),
-    "MXNET_TPU_FLIGHT_DIR": ("", "inert", _NOT_PORTED),
-    "MXNET_TPU_FLIGHT_EVENTS": ("512", "inert", _NOT_PORTED),
-    "MXNET_TPU_TRACE_SAMPLE": ("1", "inert", _NOT_PORTED),
-    "MXNET_TPU_TRACE_DIR": ("", "inert", _NOT_PORTED),
-    "MXNET_TPU_TRACE_RING": ("256", "inert", _NOT_PORTED),
-    "MXNET_TPU_TRACE_SLOW_PCT": ("0.95", "inert", _NOT_PORTED),
-    "MXNET_TPU_IOVIEW_EVERY": ("1", "inert",
-                               "the input pipeline's stage accounting: "
-                               + _NOT_PORTED),
+    # telemetry (telemetry/)
+    "MXNET_TPU_TELEMETRY_JSONL": ("", "honored",
+                                  "append one JSON line per training step "
+                                  "(span timings, segments, full counter/"
+                                  "gauge snapshot, ioview block) to this "
+                                  "file"),
+    "MXNET_TPU_TELEMETRY_PORT": ("0", "honored",
+                                 "serve Prometheus text metrics on "
+                                 "http://0.0.0.0:PORT/metrics (0 = off)"),
+    "MXNET_TPU_FLIGHT_DIR": ("", "honored",
+                             "write flight-recorder dumps here on "
+                             "MXNetError/OOM/SIGTERM/crash (recording "
+                             "is always on)"),
+    "MXNET_TPU_FLIGHT_EVENTS": ("512", "honored",
+                                "flight-recorder ring capacity"),
+    "MXNET_TPU_TRACE_SAMPLE": ("1", "honored",
+                               "tracing sample rate of ordinary traces, "
+                               "in [0,1] (errors and the slow tail are "
+                               "always kept; 0 disables tracing)"),
+    "MXNET_TPU_TRACE_DIR": ("", "honored",
+                            "append kept traces as mxtpu-trace/1 JSONL "
+                            "to trace.rank<N>.jsonl here"),
+    "MXNET_TPU_TRACE_RING": ("256", "honored",
+                             "in-process kept-trace ring capacity"),
+    "MXNET_TPU_TRACE_SLOW_PCT": ("0.95", "honored",
+                                 "slow-tail retention percentile"),
+    "MXNET_TPU_IOVIEW_EVERY": ("1", "honored",
+                               "attach the input pipeline's io block to "
+                               "every Nth step's JSONL record (0: no "
+                               "block; the stage metrics and the "
+                               "classifier keep running)"),
     "MXNET_TPU_DATA_RESUME": ("1", "honored",
                               "the data iterator's state in checkpoint "
                               "manifests, restored on resume "
                               "(io_resume.py)"),
-    "MXNET_TPU_BACKPRESSURE": ("0", "inert", _NOT_PORTED),
-    "MXNET_TPU_IOVIEW_WINDOW": ("5", "inert", _NOT_PORTED),
-    "MXNET_TPU_SKEW_EVERY": ("8", "inert", _NOT_PORTED),
-    "MXNET_TPU_CAPTURE_DIR": ("", "inert", _NOT_PORTED),
+    "MXNET_TPU_BACKPRESSURE": ("0", "honored",
+                               "fit() installs a controller that moves "
+                               "DevicePrefetchIter's depth on the ioview "
+                               "verdict (io_resume.py)"),
+    "MXNET_TPU_IOVIEW_WINDOW": ("5", "honored",
+                                "ioview bottleneck-classifier window in "
+                                "seconds"),
+    "MXNET_TPU_SKEW_EVERY": ("8", "inert",
+                             "the cross-rank timestamp barrier: "
+                             + _NOT_PORTED),
+    "MXNET_TPU_CAPTURE_DIR": ("", "inert",
+                              "on-demand live capture: " + _NOT_PORTED),
     "MXNET_TPU_CAPTURE_SECONDS": ("3", "inert", _NOT_PORTED),
-    "MXNET_TPU_MEMORY_BUDGET": ("1.0", "inert", _NOT_PORTED),
-    "MXNET_TPU_HBM_LIMIT_BYTES": ("", "inert", _NOT_PORTED),
-    "MXNET_TPU_MEMLIVE_TOL": ("0.25", "inert", _NOT_PORTED),
-    "MXNET_TPU_COSTDB": ("", "inert", _NOT_PORTED),
+    "MXNET_TPU_MEMORY_BUDGET": ("1.0", "honored",
+                                "fraction of device capacity the caching "
+                                "allocator may use "
+                                "(set_per_process_memory_fraction at "
+                                "trainer construction; <=0 or 1 off)"),
+    "MXNET_TPU_HBM_LIMIT_BYTES": ("", "honored",
+                                  "device-capacity override for the "
+                                  "memory budget check"),
+    "MXNET_TPU_MEMLIVE_TOL": ("0.25", "inert",
+                              "analysis.memlive: " + _NOT_PORTED),
+    "MXNET_TPU_COSTDB": ("", "inert", "telemetry.costdb: " + _NOT_PORTED),
     "MXNET_TPU_COSTDB_SAMPLE": ("16", "inert", _NOT_PORTED),
     "MXNET_TPU_PEAK_FLOPS": ("", "inert", _NOT_PORTED),
     "MXNET_TPU_PEAK_BW": ("", "inert", _NOT_PORTED),
@@ -155,12 +199,23 @@ _CATALOG = {
     "MXNET_TPU_PLAN_SEARCH": ("cache", "inert", _NOT_PORTED),
     "MXNET_TPU_PLAN_BUDGET": ("64", "inert", _NOT_PORTED),
     "MXNET_TPU_PLAN_BEAM": ("8", "inert", _NOT_PORTED),
-    # training-health numerics
-    "MXNET_TPU_NUMERICS_EVERY": ("0", "inert", _NOT_PORTED),
-    "MXNET_TPU_NUMERICS_STRICT": ("0", "inert", _NOT_PORTED),
-    "MXNET_TPU_NUMERICS_LEDGER": ("", "inert", _NOT_PORTED),
-    "MXNET_TPU_NUMERICS_SPIKE": ("10", "inert", _NOT_PORTED),
-    "MXNET_TPU_NUMERICS_DEAD": ("1.0", "inert", _NOT_PORTED),
+    # training-health numerics (telemetry/numerics.py)
+    "MXNET_TPU_NUMERICS_EVERY": ("0", "honored",
+                                 "parameter and gradient statistics every "
+                                 "Nth trainer step() (one host fetch on a "
+                                 "sampled step); 0 disables"),
+    "MXNET_TPU_NUMERICS_STRICT": ("0", "honored",
+                                  "a fired anomaly rule dumps the flight "
+                                  "ring and raises"),
+    "MXNET_TPU_NUMERICS_LEDGER": ("", "honored",
+                                  "append one mxtpu-numerics/1 record per "
+                                  "sampled step to this file"),
+    "MXNET_TPU_NUMERICS_SPIKE": ("10", "honored",
+                                 "grad_spike factor over the EWMA; 0 "
+                                 "disables the rule"),
+    "MXNET_TPU_NUMERICS_DEAD": ("1.0", "honored",
+                                "dead_grad threshold on a gradient's "
+                                "zero fraction; 0 disables the rule"),
     # SLO engine
     "MXNET_TPU_SLO": ("1", "inert", _NOT_PORTED),
     "MXNET_TPU_SLO_RULES": ("", "inert", _NOT_PORTED),

@@ -25,6 +25,7 @@ from pathlib import Path
 import torch
 
 from .base import MXNetError
+from . import telemetry
 
 __all__ = ["SOURCES", "build_dir", "nvcc_command", "build_all", "library",
            "build_source", "sass_registers", "on_device"]
@@ -110,6 +111,9 @@ def _compile(jobs):
         results.append({"name": name, "cmd": " ".join(cmd),
                         "seconds": seconds, "ptxas": ptxas,
                         "cached": False})
+        # a build is the port's compile: mxtpu_compile_total and a flight
+        # event (a cached library that is only loaded is not one)
+        telemetry.compile_events.record_build(seconds, name)
     if failed:
         raise MXNetError("nvcc failed:\n" + "\n".join(failed))
     return results

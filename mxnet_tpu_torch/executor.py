@@ -27,7 +27,10 @@ applied around every run of the graph, as in the JAX executor.
 
 ``set_monitor_callback(callback)`` calls ``callback(name, NDArray)`` with
 every op output of each forward (the graph then runs unfused): the JAX
-executor's eager monitor route, which is the port's only one.
+executor's eager monitor route.  ``set_stats_monitor(callback, pattern)``
+is its numerics route: each matched output's ``telemetry.numerics`` stat
+bundle, fetched in one transfer a forward.  ``forward`` and ``backward``
+are ``executor.forward`` / ``executor.backward`` telemetry spans.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ from .ndarray import NDArray, zeros as _nd_zeros
 from .ops import fused as _fused
 from .symbol import eval_graph, _classify_vars
 from . import random as _random
+from . import telemetry
+from .telemetry import numerics as _numerics
 
 __all__ = ["Executor"]
 
@@ -120,6 +125,9 @@ class Executor:
         self._train_heads = None     # the heads of the last training forward
         self._leaves = None          # and its leaves, until backward
         self._monitor_callback = None
+        self._stats_cb = None
+        self._stats_pattern = None
+        self._stats_active = None
         Executor.binds += 1
 
     # ------------------------------------------------------------ properties
@@ -164,17 +172,63 @@ class Executor:
         batch = first.shape[0] if first is not None and first.shape \
             else None
         monitor = None
+        stats = None
         if self._monitor_callback is not None:
             cb = self._monitor_callback
 
             def monitor(name, val):
                 cb(name, NDArray(val.detach()))
+        elif self._stats_cb is not None and (
+                self._stats_active is None or self._stats_active()):
+            stats = {}
+            pattern = self._stats_pattern
+
+            def monitor(name, val):
+                if pattern.match(str(name)):
+                    stats[str(name)] = _numerics.tensor_stats(val)
         with _fused.block_fusion(self._block_fusion):
-            return eval_graph(self._topo, self._symbol._entries, var_values,
-                              is_train=is_train, device=self._device,
-                              generator=_random.generator(self._device)
-                              if is_train else None, batch_size=batch,
-                              monitor=monitor)
+            out = eval_graph(self._topo, self._symbol._entries, var_values,
+                             is_train=is_train, device=self._device,
+                             generator=_random.generator(self._device)
+                             if is_train else None, batch_size=batch,
+                             monitor=monitor)
+        if stats:
+            self._deliver_stats(stats)
+        return out
+
+    def _deliver_stats(self, stats):
+        """Fetch every matched output's stat bundle in one transfer, run
+        the numerics anomaly pass over them, then the callback per name in
+        graph order."""
+        names = list(stats)
+        keys = ("l2", "mean_abs", "max_abs", "nonfinite", "zero_frac")
+        flat = torch.stack([stats[n][k].detach().double().reshape(())
+                            for n in names for k in keys]).cpu().tolist()
+        host = {}
+        for i, n in enumerate(names):
+            vals = flat[i * len(keys):(i + 1) * len(keys)]
+            host[n] = {k: (int(v) if k == "nonfinite" else float(v))
+                       for k, v in zip(keys, vals)}
+        _numerics.note_monitored(host, program="executor.forward_stats")
+        for n in names:
+            self._stats_cb(n, host[n])
+
+    def set_stats_monitor(self, callback, pattern=".*", active=None):
+        """Call ``callback(name, stats)`` per op output matching
+        ``pattern`` with its ``telemetry.numerics`` bundle (``l2``,
+        ``mean_abs``, ``max_abs``, ``nonfinite``, ``zero_frac`` floats),
+        computed on the device as the forward runs and fetched in one
+        transfer at its end; non-finite values feed the numerics anomaly
+        rules.  ``active``: a zero-arg gate (a Monitor's interval); when it
+        returns False the forward runs unmonitored.  ``callback=None``
+        uninstalls.  The JAX executor computes the same bundle inside its
+        compiled forward; a ``set_monitor_callback`` callback takes
+        precedence."""
+        import re as _re
+        self._stats_cb = callback
+        self._stats_pattern = (pattern if hasattr(pattern, "match")
+                               else _re.compile(pattern))
+        self._stats_active = active
 
     def set_monitor_callback(self, callback, monitor_all=False):
         """Call ``callback(name, NDArray)`` with every op output of each
@@ -185,7 +239,11 @@ class Executor:
 
     def forward(self, is_train=False, **kwargs):
         """Run the graph forward; ``kwargs`` update named input arrays in
-        place.  Returns the outputs."""
+        place.  Returns the outputs.  An ``executor.forward`` span."""
+        with telemetry.span("executor.forward", category="executor"):
+            return self._forward(is_train, kwargs)
+
+    def _forward(self, is_train, kwargs):
         self._set_inputs(kwargs)
         aux_values = {id(n): self.aux_dict[n.name].data
                       for n in self._aux_nodes}
@@ -221,7 +279,12 @@ class Executor:
     def backward(self, out_grads=None):
         """Gradients of the last ``forward(is_train=True)`` into the bound
         grad arrays.  ``out_grads``: one gradient per head (NDArrays or
-        tensors), else ones for loss heads and zeros for the others."""
+        tensors), else ones for loss heads and zeros for the others.  An
+        ``executor.backward`` span."""
+        with telemetry.span("executor.backward", category="executor"):
+            return self._backward(out_grads)
+
+    def _backward(self, out_grads):
         if self._outputs is None:
             raise MXNetError("call forward(is_train=True) before backward()")
         if self._train_heads is None:
@@ -307,5 +370,8 @@ class Executor:
         exe = Executor(self._symbol, self._ctx, new_args, new_grads,
                        self._grad_req, new_aux)
         exe.set_monitor_callback(self._monitor_callback)
+        if self._stats_cb is not None:
+            exe.set_stats_monitor(self._stats_cb, self._stats_pattern,
+                                  self._stats_active)
         return exe
 

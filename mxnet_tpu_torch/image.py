@@ -8,13 +8,16 @@ random draw goes to Python's ``random`` or numpy's global generator in the
 JAX code's order, so under the same seeds both packages give the same
 batches.  Batches are f32 NCHW NDArrays on the host.  ``ImageIter`` has
 the JAX package's ``state``/``restore`` (:mod:`~mxnet_tpu_torch.io_resume`).
-The JAX package's stage accounting and decode seam are not ported.
+Stage accounting, as the JAX package's: ``imdecode`` is the ioview
+``decode`` stage, the augmenters ``augment``, the batch's assembly
+``batch``.  The JAX decode seam (``io.decode``) is not ported.
 """
 from __future__ import annotations
 
 import logging
 import os
 import random
+import time
 
 import numpy as np
 
@@ -24,6 +27,7 @@ from . import io as io_mod
 from . import io_resume
 from .ndarray import array
 from . import recordio
+from .telemetry import ioview as _ioview
 
 __all__ = ["imdecode", "scale_down", "resize_short", "fixed_crop",
            "random_crop", "center_crop", "color_normalize",
@@ -36,9 +40,12 @@ __all__ = ["imdecode", "scale_down", "resize_short", "fixed_crop",
 
 def imdecode(buf, flag=1, to_rgb=True, out=None):
     """Decode an image byte buffer to HWC uint8 with PIL: RGB for ``flag``
-    1, one channel for 0; ``to_rgb=False`` gives BGR (OpenCV's order)."""
+    1, one channel for 0; ``to_rgb=False`` gives BGR (OpenCV's order).
+    Accounted as the ioview ``decode`` stage (wall per image, input
+    bytes)."""
     import io as _pyio
     from PIL import Image
+    t0 = time.perf_counter()
     im = Image.open(_pyio.BytesIO(buf if isinstance(buf, (bytes, bytearray))
                                   else bytes(buf)))
     im = im.convert("RGB" if flag else "L")
@@ -47,6 +54,8 @@ def imdecode(buf, flag=1, to_rgb=True, out=None):
         arr = arr[:, :, ::-1]
     if arr.ndim == 2:
         arr = arr[:, :, None]
+    _ioview.account("decode", time.perf_counter() - t0, items=1,
+                    nbytes=len(buf))
     return arr
 
 
@@ -465,6 +474,7 @@ class ImageIter(io_mod.DataIter):
             if self.label_width > 1 else np.zeros(batch_size,
                                                   dtype=np.float32)
         i = 0
+        t_batch = 0.0
         try:
             while i < batch_size:
                 label, s = self.next_sample()
@@ -476,6 +486,7 @@ class ImageIter(io_mod.DataIter):
                     logging.debug("Invalid image, skipping:  %s", str(e))
                     continue
                 data = self.augmentation_transform(data)
+                t0 = time.perf_counter()
                 for datum in data:
                     if i >= batch_size:
                         raise MXNetError("the batch size must be a multiple "
@@ -488,9 +499,13 @@ class ImageIter(io_mod.DataIter):
                         batch_label[i] = label if np.isscalar(label) \
                             else np.asarray(label).reshape(-1)[0]
                     i += 1
+                t_batch += time.perf_counter() - t0
         except StopIteration:
             if not i:
                 raise
+        # the batch stage: the cast, transpose and copy into the batch
+        # (decode and augment account themselves)
+        _ioview.account("batch", t_batch, items=i, nbytes=batch_data.nbytes)
         return io_mod.DataBatch([array(batch_data, ctx=cpu())],
                                 [array(batch_label, ctx=cpu())],
                                 pad=batch_size - i)
@@ -512,6 +527,9 @@ class ImageIter(io_mod.DataIter):
             return fin.read()
 
     def augmentation_transform(self, data):
+        t0 = time.perf_counter()
         for aug in self.auglist:
             data = [ret for src in data for ret in aug(src)]
+        _ioview.account("augment", time.perf_counter() - t0,
+                        items=len(data))
         return data

@@ -32,6 +32,7 @@ from .context import cpu
 from . import io_resume
 from .io_resume import iter_position, iter_state
 from .ndarray import NDArray, array
+from .telemetry import ioview as _ioview
 
 __all__ = ["DataDesc", "DataBatch", "DataIter", "ResizeIter",
            "PrefetchingIter", "NDArrayIter", "MNISTIter", "CSVIter",
@@ -236,13 +237,26 @@ class PrefetchingIter(DataIter):
 
         def fetch(i):
             while True:
+                # producer-starved: idle until the consumer takes the batch
+                t_wait = time.perf_counter()
                 self.data_taken[i].wait()
+                _ioview.note_starved("host", time.perf_counter() - t_wait)
                 if not self.started:
                     break
                 self.next_state[i] = iter_state(self.iters[i])
                 self.next_position[i] = iter_position(self.iters[i])
                 try:
+                    # host_prefetch is the fetch less the inner stages
+                    # accounted on this thread (read/decode/batch), so it
+                    # never outweighs them by construction
+                    t_work = time.perf_counter()
+                    inner0 = _ioview.thread_accounted()
                     self.next_batch[i] = self.iters[i].next()
+                    inner = _ioview.thread_accounted() - inner0
+                    _ioview.account(
+                        "host_prefetch",
+                        max(0.0, time.perf_counter() - t_work - inner),
+                        items=1)
                 except StopIteration:
                     self.next_batch[i] = None
                 except BaseException as e:   # raised on the consumer
@@ -250,6 +264,9 @@ class PrefetchingIter(DataIter):
                     self.errors[i] = e
                 self.data_taken[i].clear()
                 self.data_ready[i].set()
+                # the joined batch counts as staged once every slot is
+                if all(e.is_set() for e in self.data_ready):
+                    _ioview.queue_tracker("host").set_depth(1)
 
         self.threads = [threading.Thread(target=fetch, args=(i,),
                                          daemon=True)
@@ -288,6 +305,7 @@ class PrefetchingIter(DataIter):
             e.clear()
         for e in self.data_taken:
             e.set()
+        _ioview.queue_tracker("host").set_depth(0)
 
     def _forget_captures(self):
         for i in range(self.n_iter):
@@ -295,8 +313,12 @@ class PrefetchingIter(DataIter):
             self.next_position[i] = None
 
     def iter_next(self):
+        # consumer stall: blocked on the fetch threads
+        t0 = time.perf_counter()
         for e in self.data_ready:
             e.wait()
+        _ioview.note_stall("host", time.perf_counter() - t0)
+        _ioview.queue_tracker("host").set_depth(0)
         errs = [e for e in self.errors if e is not None]
         if errs:
             # the whole joined batch is dropped and every slot re-armed, so
@@ -683,7 +705,11 @@ class DevicePrefetchIter:
     ``timings`` sums the worker's seconds waiting on ``it`` (``fetch_s``,
     the decode wait) and in ``stage_fn`` with the pinning (``stage_s``),
     and the consumer's seconds blocked on the queue (``wait_s``), over
-    ``batches`` delivered.
+    ``batches`` delivered.  The same walls feed ``telemetry.ioview``: the
+    ``device_stage`` stage (one item a batch staged), the ``device``
+    queue's occupancy, the consumer's stall and the worker's starved time
+    (blocked on a full queue).  ``depth()`` and ``set_depth(n)`` are the
+    backpressure controller's knob.
 
     The worker takes ``it``'s state and position before each fetch and
     keeps them in order until the batch is delivered: ``state()`` and
@@ -748,6 +774,8 @@ class DevicePrefetchIter:
         self._stop = False
         self._exhausted = False
 
+        tracker = _ioview.queue_tracker("device")
+
         def worker():
             # tagged items: a payload of None or a tuple is never taken for
             # a control message
@@ -767,12 +795,22 @@ class DevicePrefetchIter:
                             self._pending.pop()
                         break
                     t1 = time.perf_counter()
-                    staged = self._stage_one(self._to_host(batch))
+                    host = self._to_host(batch)
+                    staged = self._stage_one(host)
                     t2 = time.perf_counter()
                     self.timings["fetch_s"] += t1 - t0
                     self.timings["stage_s"] += t2 - t1
+                    _ioview.account("device_stage", t2 - t1, items=1,
+                                    nbytes=sum(v.nbytes
+                                               for v in host.values()))
+                    # counted before the put: the consumer's take after it
+                    # never drives the depth below 0
+                    tracker.adjust(+1)
+                    t_put = time.perf_counter()
                     if not self._put(("item", staged)):
                         return
+                    _ioview.note_starved("device",
+                                         time.perf_counter() - t_put)
             except BaseException as e:  # raised on the consumer
                 self._put(("error", e))
                 return
@@ -789,13 +827,16 @@ class DevicePrefetchIter:
             raise StopIteration
         t0 = time.perf_counter()
         kind, val = self._queue.get()
-        self.timings["wait_s"] += time.perf_counter() - t0
+        wait = time.perf_counter() - t0
+        self.timings["wait_s"] += wait
+        _ioview.note_stall("device", wait)
         if kind == "end":
             self._exhausted = True
             raise StopIteration
         if kind == "error":
             self._exhausted = True
             raise val
+        _ioview.queue_tracker("device").adjust(-1)
         with self._plock:
             if self._pending:
                 self._pending.popleft()
@@ -854,7 +895,22 @@ class DevicePrefetchIter:
             self._copy_stream.synchronize()   # the dropped copies ended
         with self._plock:
             self._pending.clear()
+        _ioview.queue_tracker("device").set_depth(0)
         return pending_error
+
+    def depth(self):
+        """The staging queue's bound (the backpressure knob)."""
+        return self._depth
+
+    def set_depth(self, depth):
+        """Retune the staging depth: raising it lets the worker run
+        further ahead; lowering it takes effect as the consumer drains
+        (staged batches are never dropped)."""
+        depth = max(1, int(depth))
+        with self._queue.mutex:
+            self._queue.maxsize = depth
+            self._queue.not_full.notify_all()
+        self._depth = depth
 
     def close(self):
         """Stop the worker and drop what it staged; the iterator stays

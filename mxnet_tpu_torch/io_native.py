@@ -23,6 +23,14 @@ The JPEG decoder is chosen at the build:
   raises.
 
 :func:`build_info` reports the compiler line, its time and the decoder.
+
+Telemetry, at the JAX sites: ``mxtpu_io_records_total{source="native"}``
+and the bad-record counter; the ioview ``read`` stage per record of the
+reader; for the image pipeline the ``decode`` stage (the read and decode
+behind one native call, ``n`` images) and the ``batch`` stage (the
+batch's assembly on the host: the round-batch wrap and, for f32 batches,
+the normalization and NCHW transpose; raw uint8 batches are accounted
+too).  The build counts as a compile (``telemetry.compile``).
 """
 from __future__ import annotations
 
@@ -41,6 +49,14 @@ import torch
 
 from . import io_resume
 from . import resilience
+from . import telemetry
+from .telemetry import ioview as _ioview
+
+# per-record counters (the source label separates the native reader)
+_NAT_READS = telemetry.counter(
+    "mxtpu_io_records_total").labels(source="native")
+_NAT_BAD = telemetry.counter(
+    "mxtpu_io_bad_records_total").labels(source="native")
 
 __all__ = ["available", "jpeg_available", "decoder", "build_info",
            "probe", "build_command", "NativeRecordIOReader", "ImageRecordIter"]
@@ -168,6 +184,7 @@ def _build_and_load():
             info["error"] = res.stderr
             return None, info
         os.replace(tmp, out)     # atomic: a concurrent loader never sees
+        telemetry.compile_events.record_build(info["seconds"], out.name)
     return _declare(ctypes.CDLL(str(out))), info   # a partial file
 
 
@@ -248,6 +265,7 @@ class NativeRecordIOReader:
         if self._bad_quota <= 0:
             raise exc
         self.bad_records += 1
+        _NAT_BAD.inc()
         if self.bad_records > self._bad_quota:
             raise IOError(
                 "%s: bad-record quota exhausted (%d > %d); last error: %s"
@@ -260,6 +278,7 @@ class NativeRecordIOReader:
         """The next record's bytes, or None at EOF.  The ``recordio.read``
         seam stands for a corrupt record: the one it fires on is read,
         counted as bad and dropped."""
+        t0 = time.perf_counter()
         while True:
             dropped = False
             try:
@@ -284,6 +303,9 @@ class NativeRecordIOReader:
             if dropped:
                 continue
             self.records_read += 1
+            _NAT_READS.inc()
+            _ioview.account("read", time.perf_counter() - t0, items=1,
+                            nbytes=int(n))
             return ctypes.string_at(self._buf, n)
 
     def position(self):
@@ -328,12 +350,17 @@ class NativeRecordIOReader:
         """``(n, labels, data)``: up to ``batch`` records of IRHeader +
         float32 payload parsed in one native call into numpy arrays of
         ``(batch,)`` and ``(batch, record_floats)``; ``n`` records read."""
+        t0 = time.perf_counter()
         labels = np.zeros(batch, np.float32)
         data = np.zeros((batch, record_floats), np.float32)
         n = self._lib.MXTTRecordIOReadFloatBatch(
             self._handle, _float_ptr(labels), _float_ptr(data),
             record_floats, batch)
-        self.records_read += max(0, int(n))
+        if n > 0:
+            self.records_read += int(n)
+            _NAT_READS.inc(int(n))
+            _ioview.account("read", time.perf_counter() - t0, items=int(n),
+                            nbytes=int(n) * (record_floats * 4 + 4))
         return int(n), labels, data
 
     def close(self):
@@ -500,6 +527,7 @@ class ImageRecordIter:
         h, w = self.data_shape[1], self.data_shape[2]
         labels = np.zeros(self.batch_size, np.float32)
         raw = np.empty((self.batch_size, h, w, 3), np.uint8)
+        t0 = time.perf_counter()
         n = self._lib.MXTTImagePipelineNextBatch(
             self._handle, _float_ptr(labels), _u8_ptr(raw), self.batch_size)
         if n < 0:
@@ -510,6 +538,10 @@ class ImageRecordIter:
             raise StopIteration
         n = int(n)
         self._consumed += n
+        _NAT_READS.inc(n)
+        # the native pipeline reads and decodes behind one call
+        t1 = time.perf_counter()
+        _ioview.account("decode", t1 - t0, items=n, nbytes=int(raw.nbytes))
         if n < self.batch_size and self._round:
             # the reference's round_batch wraps real images, never zeros
             for i in range(n, self.batch_size):
@@ -524,8 +556,11 @@ class ImageRecordIter:
             data = (raw.astype(np.float32) - self._mean) / self._std \
                 * self._scale
             data = np.ascontiguousarray(data.transpose(0, 3, 1, 2))
-        return DataBatch(data=[NDArray(torch.from_numpy(data))],
-                         label=[NDArray(torch.from_numpy(labels))], pad=pad)
+        out = DataBatch(data=[NDArray(torch.from_numpy(data))],
+                        label=[NDArray(torch.from_numpy(labels))], pad=pad)
+        _ioview.account("batch", time.perf_counter() - t1, items=n,
+                        nbytes=int(data.nbytes))
+        return out
 
     def __next__(self):
         return self.next()

@@ -21,8 +21,8 @@ The counterpart of ``mxnet_tpu/io_resume.py``:
 * **the run's tracked iterator**: :func:`track` registers the training
   iterator (``fit`` and ``restore_data_iter`` do), whose state and
   position the checkpoints then record (:func:`current_state`,
-  :func:`current_position`).  The JAX package keeps this in
-  ``telemetry.ioview``, which the port has not ported.
+  :func:`current_position`).  The one copy lives in
+  ``telemetry.ioview``, as in the JAX package; the names here are its.
 * **elastic cursor remap**: :class:`SampleLedger` derives every rank's
   samples from one permutation an epoch (:func:`epoch_permutation`),
   rank ``r`` of ``W`` taking positions ``r, r+W, ...``, so ranks in
@@ -31,22 +31,28 @@ The counterpart of ``mxnet_tpu/io_resume.py``:
   (:class:`SampleAccountant` checks that).  :class:`ShardedLedgerIter` is
   the iterator over it.
 
-The JAX package's backpressure controller reads the input pipeline's
-bottleneck verdict from ``telemetry.ioview``, which is not ported, nor
-are its counters of restores and remapped samples.
-``MXNET_TPU_DATA_RESUME`` (default on) gates writing and restoring the
-data state.
+* **backpressure**: :class:`BackpressureController` reads the
+  ``telemetry.ioview`` bottleneck verdict and moves the registered
+  pipeline knobs (``DevicePrefetchIter``'s depth) with hysteresis;
+  :func:`maybe_controller` installs it when ``MXNET_TPU_BACKPRESSURE`` is
+  on (default off), and ``Module.fit`` ticks it once a batch.
+
+Restores count ``mxtpu_data_resume_total`` and remaps set
+``mxtpu_data_remap_samples``, each with a flight event and a JSONL
+record.  ``MXNET_TPU_DATA_RESUME`` (default on) gates writing and
+restoring the data state.
 """
 from __future__ import annotations
 
 import logging
 import threading
-import weakref
 
 import numpy as np
 
 from .base import MXNetError
 from . import resilience
+from . import telemetry
+from .telemetry import ioview as _ioview
 
 __all__ = [
     "STATE_VERSION", "enabled", "check_state", "iter_state",
@@ -55,7 +61,8 @@ __all__ = [
     "epoch_permutation", "rank_stream", "remap_cursor", "remap_state",
     "SampleLedger", "ShardedLedgerIter", "SampleAccountant",
     "data_state_entry", "note_loaded_state", "pending_state",
-    "clear_pending", "apply_pending",
+    "clear_pending", "apply_pending", "backpressure_enabled",
+    "BackpressureController", "maybe_controller",
 ]
 
 STATE_VERSION = 1
@@ -141,40 +148,20 @@ def restore_iterator(it, state):
             "the iterator class that produced it, or set "
             "MXNET_TPU_DATA_RESUME=0)" % type(it).__name__)
     fn(state)
+    telemetry.counter("mxtpu_data_resume_total").inc()
+    telemetry.flight.record("data_resume", state_kind=state.get("kind"),
+                            epoch=state.get("epoch"))
+    telemetry.jsonl_event("data_resume", kind=state.get("kind"),
+                          epoch=state.get("epoch"))
 
 
 # ---------------------------------------------------- the tracked iterator
 
-_tracked = [None]
-
-
-def track(it):
-    """Register ``it`` as the run's training iterator, whose state and
-    position the next checkpoints record; held by a weak reference.
-    Returns ``it``."""
-    try:
-        _tracked[0] = weakref.ref(it)
-    except TypeError:
-        _tracked[0] = None
-    return it
-
-
-def tracked_iterator():
-    """The tracked iterator, or None."""
-    ref = _tracked[0]
-    return ref() if ref is not None else None
-
-
-def current_state():
-    """The tracked iterator's ``state()``, or None."""
-    it = tracked_iterator()
-    return None if it is None else iter_state(it)
-
-
-def current_position():
-    """The tracked iterator's ``position()``, or None (advisory)."""
-    it = tracked_iterator()
-    return None if it is None else iter_position(it)
+#: the run's training iterator: ``telemetry.ioview`` holds it
+track = _ioview.track
+tracked_iterator = _ioview.tracked_iterator
+current_state = _ioview.current_state
+current_position = _ioview.current_position
 
 
 # -------------------------------------------------- global sample ledger
@@ -252,6 +239,13 @@ def remap_state(state, new_rank, new_world):
     n = int(state["num_samples"])
     g = min(int(state["cursor"]) * int(state["world"]), n)
     new_cursor = remap_cursor(g, new_rank, new_world)
+    telemetry.gauge("mxtpu_data_remap_samples").set(g)
+    telemetry.flight.record("data_remap", old_world=int(state["world"]),
+                            new_world=int(new_world),
+                            new_rank=int(new_rank), global_consumed=g,
+                            epoch=int(state["epoch"]))
+    telemetry.jsonl_event("data_remap", old_world=int(state["world"]),
+                          new_world=int(new_world), global_consumed=g)
     _log.info("elastic data remap: %d/%d samples consumed at world %d "
               "-> rank %d/%d resumes at local cursor %d",
               g, n, int(state["world"]), int(new_rank), int(new_world),
@@ -452,3 +446,131 @@ def apply_pending(it):
     _log.info("resumed data iterator from checkpoint %s: %s",
               entry.get("source") or "", st)
     return entry
+
+
+# ------------------------------------------------ backpressure control
+
+def backpressure_enabled():
+    """``MXNET_TPU_BACKPRESSURE`` (default off): install the controller
+    over the training iterator in ``fit``."""
+    from . import config
+    return str(config.get("MXNET_TPU_BACKPRESSURE", "0")) in (
+        "1", "true", "True")
+
+
+class BackpressureController:
+    """Close the bottleneck-verdict loop: producer-bound windows raise
+    pipeline capacity knobs, consumer-bound windows lower them back.
+
+    Hysteresis: a knob moves only after ``confirm`` consecutive windows
+    with the same non-balanced verdict, and then rests ``cooldown``
+    ticks.  Every move counts
+    ``mxtpu_backpressure_adjust_total{knob,direction}``, leaves a
+    ``backpressure_adjust`` flight event and JSONL record, and is kept on
+    ``self.adjustments``."""
+
+    def __init__(self, confirm=2, cooldown=2):
+        self._knobs = []             # (name, get, set, lo, hi)
+        self._streak = {"producer-bound": 0, "consumer-bound": 0}
+        self._cool = 0
+        self._seen = None
+        self.confirm = int(confirm)
+        self.cooldown = int(cooldown)
+        self.adjustments = []
+
+    def register(self, name, getter, setter, lo, hi):
+        """Register a tunable int knob with its clamp range."""
+        self._knobs.append((name, getter, setter, int(lo), int(hi)))
+        return self
+
+    def attach(self, it):
+        """Walk the iterator wrapper chain and register every knob it
+        exposes (``DevicePrefetchIter``'s depth).  Returns the number of
+        knobs registered."""
+        n = 0
+        seen = set()
+        stack = [it]
+        while stack:
+            obj = stack.pop()
+            if obj is None or id(obj) in seen:
+                continue
+            seen.add(id(obj))
+            if callable(getattr(obj, "set_depth", None)) and \
+                    callable(getattr(obj, "depth", None)):
+                self.register("device_prefetch_depth", obj.depth,
+                              obj.set_depth, 1, max(8, 4 * obj.depth()))
+                n += 1
+            for attr in ("_it", "data_iter", "_inner"):
+                stack.append(getattr(obj, attr, None))
+            stack.extend(getattr(obj, "iters", None) or [])
+        return n
+
+    def _move(self, direction, stage):
+        delta = 1 if direction == "raise" else -1
+        for name, get, set_, lo, hi in self._knobs:
+            cur = int(get())
+            new = min(hi, max(lo, cur + delta))
+            if new == cur:
+                continue
+            set_(new)
+            telemetry.counter("mxtpu_backpressure_adjust_total").labels(
+                knob=name, direction=direction).inc()
+            telemetry.flight.record("backpressure_adjust", knob=name,
+                                    direction=direction, value=new,
+                                    stage=stage or "")
+            telemetry.jsonl_event("backpressure_adjust", knob=name,
+                                  direction=direction, value=new,
+                                  stage=stage or "")
+            _log.info("backpressure: %s %s %d -> %d (verdict stage %s)",
+                      direction, name, cur, new, stage)
+            self.adjustments.append(
+                {"knob": name, "direction": direction, "from": cur,
+                 "to": new, "stage": stage})
+            return True
+        return False
+
+    def tick(self, verdict=None, force=False):
+        """One control step on the live classifier's verdict (only a new
+        window's verdict feeds the streaks), or on ``verdict`` when
+        given.  Returns the adjustment made, or None."""
+        if verdict is None:
+            last = _ioview.classify(force=force)
+            # classify() returns the same dict until a window commits
+            if last is self._seen:
+                return None
+            self._seen = verdict = last
+        if self._cool > 0:
+            self._cool -= 1
+            return None
+        kind = (verdict or {}).get("verdict")
+        if kind not in self._streak:
+            for k in self._streak:
+                self._streak[k] = 0
+            return None
+        self._streak[kind] += 1
+        for k in self._streak:
+            if k != kind:
+                self._streak[k] = 0
+        if self._streak[kind] < self.confirm:
+            return None
+        if self._move("raise" if kind == "producer-bound" else "lower",
+                      (verdict or {}).get("stage")):
+            self._streak[kind] = 0
+            self._cool = self.cooldown
+            return self.adjustments[-1]
+        return None
+
+
+def maybe_controller(it):
+    """A :class:`BackpressureController` over ``it`` when
+    ``MXNET_TPU_BACKPRESSURE`` is on and the chain exposes a knob; None
+    otherwise.  The caller ticks it (``fit``: once a batch)."""
+    if not backpressure_enabled():
+        return None
+    ctl = BackpressureController()
+    if ctl.attach(it) == 0:
+        _log.info("MXNET_TPU_BACKPRESSURE set but the iterator chain "
+                  "exposes no tunable knob (no DevicePrefetchIter); "
+                  "controller not installed")
+        return None
+    return ctl

@@ -10,8 +10,10 @@ the parameters to the epoch-end callbacks and scores ``eval_data``.  It
 tracks the training iterator, whose state the checkpoints written during
 the fit record, and first restores a data state stashed by a checkpoint
 loaded before it (:mod:`~mxnet_tpu_torch.io_resume`), so the first epoch
-resumes at the next sample.  The JAX loop's telemetry belongs to ROADMAP
-Queue A item 8.
+resumes at the next sample.  Telemetry, as the JAX loop's: each fetch is
+a ``data.fetch`` span, each batch one ``telemetry.step_end`` record, and
+with ``MXNET_TPU_BACKPRESSURE`` a backpressure controller ticks once a
+batch.
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ import numpy as np
 
 from .. import io_resume
 from .. import metric as metric_mod
+from .. import telemetry
 from .. import ndarray as nd
 from ..context import cpu
 from ..model import BatchEndParam
@@ -32,6 +35,19 @@ __all__ = ["BaseModule"]
 
 def _as_list(obj):
     return obj if isinstance(obj, list) else [obj]
+
+
+def _batch_samples(batch, data_iter):
+    """Samples a batch counts for throughput: the first data array's
+    batch dim, less the declared pad."""
+    try:
+        n = int(batch.data[0].shape[0])
+    except (AttributeError, IndexError, TypeError):
+        n = int(getattr(data_iter, "batch_size", 0) or 0)
+    pad = getattr(batch, "pad", None)
+    if pad:
+        n = max(0, n - int(pad))
+    return n
 
 
 def _check_input_names(symbol, names, typename, throw):
@@ -169,11 +185,24 @@ class BaseModule:
         # checkpoint loaded before this fit puts it back mid-epoch
         io_resume.track(train_data)
         io_resume.apply_pending(train_data)
+        # MXNET_TPU_BACKPRESSURE: retune the prefetch depth on the ioview
+        # verdict, a tick a batch
+        backpressure = io_resume.maybe_controller(train_data)
+        fetch_span = telemetry.span("data.fetch", category="io")
 
         for epoch in range(begin_epoch, num_epoch):
             started = time.time()
             eval_metric.reset()
-            for nbatch, batch in enumerate(train_data):
+            nbatch = 0
+            data_iter = iter(train_data)
+            while True:
+                # the fetch is a span of its own: a loop starved by the
+                # input pipeline shows as data.fetch time
+                with fetch_span:
+                    batch = next(data_iter, None)
+                if batch is None:
+                    break
+                step_t0 = time.perf_counter()
                 if monitor is not None:
                     monitor.tic()
                 self.forward_backward(batch)
@@ -187,6 +216,12 @@ class BaseModule:
                                          locals=locals())
                     for cb in _as_list(batch_end_callback):
                         cb(info)
+                telemetry.step_end(
+                    samples=_batch_samples(batch, train_data),
+                    step_time=time.perf_counter() - step_t0)
+                if backpressure is not None:
+                    backpressure.tick()
+                nbatch += 1
             for name, val in eval_metric.get_name_value():
                 self.logger.info("Epoch[%d] Train-%s=%f", epoch, name, val)
             self.logger.info("Epoch[%d] Time cost=%.3f", epoch,

@@ -11,14 +11,20 @@ as the forward runs; ``toc()`` reads it back.
 The JAX package has two routes: statistics computed inside its compiled
 forward (the default) and an eager per-node callback (``eager=True``).
 The port runs eagerly, so it has the one route, which gives the eager
-route's triples; ``eager`` is accepted and changes nothing.  The JAX
-monitor's telemetry gauge belongs to ROADMAP Queue A item 8.
+route's triples; ``eager`` is accepted and changes nothing.  As in the JAX
+package, ``toc()`` mirrors each statistic into the telemetry gauge
+``mxtpu_monitor_stat{tensor}`` (its mean; the values are on the host by
+then, so no transfer is added); ``Executor.set_stats_monitor`` is the
+numerics route.
 """
 from __future__ import annotations
 
 import logging
 import re
 
+import numpy as np
+
+from . import telemetry
 from .ndarray import NDArray
 
 __all__ = ["Monitor"]
@@ -78,11 +84,18 @@ class Monitor:
             if not isinstance(v_list, list):
                 v_list = [v_list]
             s = ""
+            host = []
             for v in v_list:
                 if isinstance(v, NDArray):
                     v = v.asnumpy()
+                host.append(v)
                 s += str(v) + "\t"
             res.append((n, k, s))
+            try:
+                telemetry.gauge("mxtpu_monitor_stat").labels(
+                    tensor=str(k)).set(float(np.mean(np.asarray(host[0]))))
+            except (TypeError, ValueError, IndexError):
+                pass      # a non-numeric or empty custom statistic
         self.queue = []
         return res
 

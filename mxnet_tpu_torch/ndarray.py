@@ -43,6 +43,7 @@ from .base import (MXNetError, DTYPE_ID_TO_TORCH, dtype_id, dtype_np,
                    torch_dtype)
 from .context import Context, context_of, current_context
 from . import autograd
+from . import profiler as _profiler
 
 __all__ = ["NDArray", "array", "zeros", "ones", "empty", "full", "arange",
            "zeros_like", "ones_like", "concatenate", "onehot_encode",
@@ -520,7 +521,8 @@ def invoke(op_name, *args, out=None, name=None, ctx=None, **kwargs):
                      generator=_random.generator(device)
                      if op.is_stochastic(attrs) else None)
     with torch.enable_grad() if autograd.is_recording() \
-            else torch.no_grad():
+            else torch.no_grad(), \
+            _profiler.record_scope(op_name, imperative=True):
         outs = apply_op(op, attrs, octx, *ins)
     n_vis, n_aux = op.get_num_outputs(attrs), len(all_names) - len(arg_names)
     for h, upd in zip(handles[len(arg_names):], outs[n_vis:n_vis + n_aux]):

@@ -10,7 +10,10 @@ The ``Custom`` op's body copies its inputs to the host, runs the prop's
 numpy code and copies the outputs back to the inputs' device, under a
 ``torch.autograd.Function`` whose backward calls the op's ``backward``
 the same way: the reference's design, where the engine hands the Python
-callbacks host memory.  ``Custom.host_calls`` counts these host round
+callbacks host memory.  A prop with a ``device_forward(is_train, args)``
+method (the torch bridge's, :mod:`mxnet_tpu_torch.torch`) is called with
+the input tensors on their device instead and returns the outputs as
+tensors, differentiated by autograd: no host round trip.  ``Custom.host_calls`` counts these host round
 trips (one a forward, one a backward).  On the ``meta`` device
 (``Symbol.infer_shape``) the body answers from ``infer_shape`` and
 ``infer_type`` and never calls ``forward``.  As in the JAX package the op
@@ -215,7 +218,9 @@ def Custom(attrs, octx, *inputs):
     out_specs = [(tuple(int(d) for d in s), dtype_np(t))
                  for s, t in zip(out_shapes, out_types)]
     dev = args[0].device
-    if dev.type == "meta":
+    if dev.type != "meta" and hasattr(prop, "device_forward"):
+        outs = prop.device_forward(bool(octx.is_train), list(args))
+    elif dev.type == "meta":
         outs = tuple(torch.empty(s, dtype=torch_dtype(t), device=dev)
                      for s, t in out_specs)
     else:

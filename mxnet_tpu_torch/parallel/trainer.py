@@ -47,10 +47,21 @@ checks every name, shape and slot before it changes any state, and stashes
 the data state for ``restore_data_iter``.  A checkpoint of either package
 loads in the other.  ``install_preemption_handler`` saves on SIGTERM and
 exits 0: at once between steps, at the end of a step, save or load that
-is running, never inside the update loop.  Telemetry and numerics are not
-yet ported, nor are the JAX trainer's TPU-era rewrites and kinds of
-parallelism: setting one raises, as does loading a checkpoint saved at
-another world size.
+is running, never inside the update loop; with ``MXNET_TPU_FLIGHT_DIR`` set
+it first dumps the flight recorder, as the JAX handler does.
+
+Telemetry, as the JAX trainer's: each ``step`` is a ``trainer.step`` span
+and trace, a ``step_begin`` flight event, a ``crash_guard`` and an
+``annotate_oom``, and one ``telemetry.step_end`` record whose segments
+split the host wall into ``input_wait`` (staging a host batch inside the
+step, also charged to the ioview ``device_stage``) and ``compute`` (the
+dispatch; the card runs behind it); ``run_steps`` is one
+``trainer.run_steps`` record of ``count`` steps.  None of it waits for
+the card.  ``MXNET_TPU_NUMERICS_EVERY`` samples parameter and gradient
+statistics on every Nth step (one host fetch on a sampled step only).
+The JAX trainer's TPU-era rewrites and kinds of parallelism are not
+ported: setting one raises, as does loading a checkpoint saved at another
+world size.
 """
 from __future__ import annotations
 
@@ -60,6 +71,7 @@ import math
 import signal as _signal
 import struct
 import sys
+import time
 
 import numpy as np
 import torch
@@ -69,6 +81,10 @@ from ..context import cpu
 from .. import io_resume
 from .. import ndarray as nd
 from .. import resilience
+from .. import telemetry
+from ..telemetry import flight as _flight, memory as _tmem
+from ..telemetry import numerics as _numerics, tracing as _tracing
+from ..telemetry import distview as _distview, ioview as _ioview
 from ..initializer import InitDesc, Xavier
 from ..ops.fused import block_fusion, block_fusion_enabled
 from ..ops.nn import NHWC_UNAWARE_OPS, image_layout
@@ -316,6 +332,7 @@ class ShardedTrainer:
         self._n_slots, self._update_rule = _make_update_rule(optimizer)
 
         # ---- f32 masters, initialized on the host, moved to the device
+        _tmem.apply_budget(self._device)       # MXNET_TPU_MEMORY_BUDGET
         init = initializer or Xavier(rnd_type="gaussian", factor_type="in",
                                      magnitude=2,
                                      rng=np.random.RandomState(seed))
@@ -340,6 +357,8 @@ class ShardedTrainer:
         # the data (position, state) that goes with the masters: taken at
         # each step's end, or the loaded checkpoint's
         self._step_data = (None, None)
+        self._seg = {"input_s": 0.0, "collective_s": 0.0}
+        self._numerics_chain_warned = False
 
     def _check_nhwc_safe(self):
         """Refuse NHWC for graphs whose ops would silently index the wrong
@@ -495,6 +514,21 @@ class ShardedTrainer:
             return batch
         return self.put_batch(batch)
 
+    def _stage_timed(self, batch):
+        """:meth:`_stage` inside a step: the wall of staging a host batch
+        is the step's ``input_wait`` segment and the ioview
+        ``device_stage`` stage (a batch staged already costs nothing)."""
+        t0 = time.perf_counter()
+        dev = self._stage(batch)
+        if dev is batch:
+            return dev
+        dt = time.perf_counter() - t0
+        self._seg["input_s"] += dt
+        _ioview.account("device_stage", dt, items=1,
+                        nbytes=sum(getattr(v, "nbytes", 0)
+                                   for v in batch.values()))
+        return dev
+
     def _node_value_map(self, params, batch, aux):
         vals = {}
         for node in self._arg_nodes:
@@ -545,7 +579,7 @@ class ShardedTrainer:
                               generator=self._generator if is_train
                               else None)
 
-    def _train_step(self, batch, lr, t):
+    def _train_step(self, batch, lr, t, stats_step=None):
         leaves = {k: w.detach().requires_grad_(True)
                   for k, w in self.params.items()}
         heads, aux_upd = self._run_graph(self._compute_view(leaves), batch,
@@ -558,6 +592,13 @@ class ShardedTrainer:
         self._refresh_rule()
         rescale = self.optimizer.rescale_grad
         with torch.no_grad():
+            stats = None
+            if stats_step is not None:
+                # before the in-place update: the step's own parameters
+                stats = _numerics.step_stats(
+                    {k: v.detach() for k, v in leaves.items()},
+                    {k: v.grad for k, v in leaves.items()
+                     if v.grad is not None})
             for k, w in self.params.items():
                 g = leaves[k].grad
                 g = torch.zeros_like(w) if g is None else g.float() * rescale
@@ -569,7 +610,15 @@ class ShardedTrainer:
                 upd = aux_upd.get(id(node))
                 if upd is not None:
                     self.aux[node.name].copy_(upd)
-            return self._monitor_loss(heads, batch)
+            loss = self._monitor_loss(heads, batch)
+        if stats is not None:
+            stats["loss"] = loss
+            payload = _numerics.process_step(
+                stats, step=stats_step, program="trainer.step",
+                scope=("trainer.step", id(self)))
+            if payload is not None:
+                self._seg["numerics"] = payload
+        return loss
 
     def _monitor_loss(self, heads, batch):
         """mean -log p(label) of the first head when it is a loss head over
@@ -597,28 +646,134 @@ class ShardedTrainer:
         global batch dim, or a dict from :meth:`put_batch`.  Returns the
         monitoring loss as a 0-dim tensor on the device (reading it is a
         host sync).  The ``trainer.step`` seam fires first; a preemption
-        signal that arrives during the step is served at its end."""
+        signal that arrives during the step is served at its end, after
+        the step's telemetry record.  Telemetry: see the module
+        docstring."""
         with self._atomic():
-            resilience.fault_point("trainer.step")
-            dev_batch = self._stage(batch)
-            lr, t = self._next_update()
-            loss = self._train_step(dev_batch, lr, t)
-            self._stepped()
+            number = self._step_count + 1
+            tr = _tracing.start_trace("trainer.step",
+                                      attrs={"step": number})
+            with tr:
+                _flight.record("step_begin", program="trainer.step",
+                               step=number)
+                self._seg = {"input_s": 0.0, "collective_s": 0.0}
+                t0 = time.perf_counter()
+                ts0 = time.time()
+                step_ctx = None
+                with telemetry.span("trainer.step", category="trainer"), \
+                        _flight.crash_guard("trainer.step"), \
+                        _tmem.annotate_oom("trainer.step"):
+                    step_ctx = _tracing.current()
+                    resilience.fault_point("trainer.step")
+                    dev_batch = self._stage_timed(batch)
+                    lr, t = self._next_update()
+                    number = self._resume_epoch + self._step_count
+                    sampled = _numerics.sampled(number)
+                    if sampled:
+                        dev_batch = self._maybe_poison_batch(dev_batch)
+                    loss = self._train_step(
+                        dev_batch, lr, t,
+                        stats_step=number if sampled else None)
+                    self._stepped()
+                total = time.perf_counter() - t0
+                if step_ctx is not None:
+                    self._record_segment_spans(step_ctx, ts0, total)
+            telemetry.step_end(samples=self._batch_samples(batch),
+                               step_time=total,
+                               extra=self._segments_extra(total))
         return loss
+
+    def _maybe_poison_batch(self, dev_batch):
+        """The ``numerics.nonfinite`` seam, fired on sampled steps only:
+        when armed (``MXNET_TPU_FAULTS``) the first float data input is
+        multiplied by NaN instead of raising, so detection is what the
+        fault exercises (a graph without one gets a parameter poisoned)."""
+        try:
+            resilience.fault_point("numerics.nonfinite")
+            return dev_batch
+        except resilience.FaultInjected:
+            out = dict(dev_batch)
+            for name in self._data_names:
+                v = out[name]
+                if v.is_floating_point() and name not in self._int_inputs:
+                    out[name] = v * float("nan")
+                    return out
+            with torch.no_grad():
+                self.params[self._param_names[0]].mul_(float("nan"))
+            return dev_batch
+
+    def _record_segment_spans(self, ctx, ts0, total_s):
+        """The step's segments as trace spans under its ``trainer.step``
+        span, laid out in turn from ``ts0``: input_wait, compute,
+        collective_wait."""
+        inp = max(0.0, float(self._seg["input_s"]))
+        coll = max(0.0, float(self._seg["collective_s"]))
+        comp = max(0.0, float(total_s) - inp - coll)
+        _tracing.record_span(ctx, "step.input_wait", ts0, inp)
+        _tracing.record_span(ctx, "step.compute", ts0 + inp, comp)
+        _tracing.record_span(ctx, "step.collective_wait", ts0 + inp + comp,
+                             coll)
+
+    def _segments_extra(self, total_s, count=1):
+        """The step's JSONL fields: the segment split (recorded into
+        ``mxtpu_step_segment_seconds``), the loss when numerics sampled
+        the step, and the compact numerics pair."""
+        extra = {"segments": _distview.record_step_segments(
+            total_s, input_s=self._seg["input_s"],
+            collective_s=self._seg["collective_s"], count=count)}
+        num = self._seg.get("numerics")
+        if num is not None:
+            gn = num.get("grad_norm")
+            if isinstance(gn, float) and math.isfinite(gn):
+                extra["grad_norm"] = gn
+            extra["digest"] = num.get("digest")
+            if _numerics.ledger_path() is None:
+                extra["numerics"] = _numerics.json_safe(
+                    {k: v for k, v in num.items() if k != "anomalies"})
+        return extra
+
+    @staticmethod
+    def _batch_samples(batch):
+        try:
+            first = next(iter(batch.values()))
+            return int(first.shape[0])
+        except (StopIteration, AttributeError, IndexError, TypeError):
+            return 0
 
     def run_steps(self, batch, num_steps):
         """``num_steps`` training steps on one batch, staged once: the
         counterpart of the JAX trainer's scan chain, which is a loop here.
         The lr schedule advances per step as in :meth:`step`.  Returns the
         ``(num_steps,)`` loss tensor on the device; nothing in the loop
-        waits for the device, so reading it is the one host sync."""
-        dev_batch = self._stage(batch)
-        losses = []
-        for _ in range(num_steps):
-            with self._atomic():
-                lr, t = self._next_update()
-                losses.append(self._train_step(dev_batch, lr, t))
-                self._stepped()
+        waits for the device, so reading it is the one host sync.  One
+        ``trainer.run_steps`` span and one ``step_end`` record of
+        ``count=num_steps``, as the JAX chain's."""
+        if _numerics.enabled() and not self._numerics_chain_warned:
+            # as the JAX chain: one opaque program, not sampled
+            self._numerics_chain_warned = True
+            logging.warning("MXNET_TPU_NUMERICS_EVERY is set but run_steps "
+                            "chains are not sampled; use step() where "
+                            "numerics coverage matters")
+        _flight.record("step_begin", program="trainer.run_steps",
+                       step=self._step_count + 1, count=num_steps)
+        self._seg = {"input_s": 0.0, "collective_s": 0.0}
+        t0 = time.perf_counter()
+        with telemetry.span("trainer.run_steps", category="trainer"), \
+                _flight.crash_guard("trainer.run_steps"), \
+                _tmem.annotate_oom("trainer.run_steps"):
+            dev_batch = self._stage_timed(batch)
+            losses = []
+            for _ in range(num_steps):
+                with self._atomic():
+                    lr, t = self._next_update()
+                    losses.append(self._train_step(dev_batch, lr, t))
+                    self._stepped()
+        total = time.perf_counter() - t0
+        telemetry.step_end(samples=self._batch_samples(batch),
+                           step_time=total / max(1, num_steps),
+                           count=num_steps,
+                           extra=self._segments_extra(total,
+                                                      count=num_steps))
         return torch.stack(losses)
 
     @contextlib.contextmanager
@@ -917,6 +1072,10 @@ class ShardedTrainer:
         logging.warning("preemption signal %d: checkpointing to %r epoch %d"
                         "%s", signum, handler.prefix, epoch,
                         " and exiting" if handler.exit_process else "")
+        # black box first: if the grace window ends mid-save, the dump
+        # still tells what the run was doing when the signal landed
+        _flight.record("preemption", signum=int(signum), epoch=epoch)
+        _flight.dump("sigterm")
         self._write_checkpoint(handler.prefix, epoch,
                                handler.save_optimizer_states,
                                *self._step_data)

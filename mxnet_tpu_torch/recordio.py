@@ -12,20 +12,35 @@ does.  A reader's ``state()`` names its epoch, the records read and the
 byte offset of the next one, ``restore`` reopens there (the
 :mod:`~mxnet_tpu_torch.io_resume` contract, the JAX package's dicts).
 The ``recordio.read`` fault seam drops the record it fires on as a
-corrupt one, counted against the bad-record quota.  The JAX package's
-telemetry counters are not ported.
+corrupt one, counted against the bad-record quota.  Telemetry, as the JAX
+reader's: ``mxtpu_io_records_total``, ``mxtpu_io_bad_records_total``,
+``mxtpu_io_resyncs_total`` and ``mxtpu_io_skipped_bytes_total`` under
+``source="recordio"``, and the ioview ``read`` stage per record.
 """
 from __future__ import annotations
 
 import logging
 import os
 import struct
+import time
 from collections import namedtuple
 
 import numpy as np
 
 from . import io_resume
 from . import resilience
+from . import telemetry
+from .telemetry import ioview as _ioview
+
+# per-record counters, bound once
+_REC_READS = telemetry.counter(
+    "mxtpu_io_records_total").labels(source="recordio")
+_REC_BAD = telemetry.counter(
+    "mxtpu_io_bad_records_total").labels(source="recordio")
+_REC_RESYNCS = telemetry.counter(
+    "mxtpu_io_resyncs_total").labels(source="recordio")
+_REC_SKIPPED = telemetry.counter(
+    "mxtpu_io_skipped_bytes_total").labels(source="recordio")
 
 __all__ = ["MXRecordIO", "MXIndexedRecordIO", "IRHeader", "pack", "unpack",
            "pack_img", "unpack_img"]
@@ -214,6 +229,7 @@ class MXRecordIO:
         if self._bad_quota <= 0:
             raise exc
         self.bad_records += 1
+        _REC_BAD.inc()
         if self.bad_records > self._bad_quota:
             raise IOError(
                 "%s: bad-record quota exhausted (%d corrupt/truncated "
@@ -236,6 +252,7 @@ class MXRecordIO:
             chunk = self.fid.read(1 << 16)
             if not chunk:
                 self.skipped_bytes += base + len(tail) - start
+                _REC_SKIPPED.inc(max(0, base + len(tail) - start))
                 return False
             buf = tail + chunk
             i = buf.find(_MAGIC_BYTES)
@@ -245,6 +262,8 @@ class MXRecordIO:
                     self.fid.seek(off)
                     self.resyncs += 1
                     self.skipped_bytes += off - start
+                    _REC_RESYNCS.inc()
+                    _REC_SKIPPED.inc(off - start)
                     return True
                 i = buf.find(_MAGIC_BYTES, i + 1)
             keep = min(3, len(buf))
@@ -262,11 +281,16 @@ class MXRecordIO:
             # a corrupt length can drag the position to EOF, so a resync
             # restarts just past this record's magic
             start = self.fid.tell()
+            t0 = time.perf_counter()
             try:
                 resilience.fault_point("recordio.read")
                 rec = self._read_record()
                 if rec is not None:
                     self.records_read += 1
+                    _REC_READS.inc()
+                    # ioview "read": framing and file IO wall
+                    _ioview.account("read", time.perf_counter() - t0,
+                                    items=1, nbytes=len(rec))
                 return rec
             except resilience.FaultInjected as e:
                 self._note_bad_record(e)

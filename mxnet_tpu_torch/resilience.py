@@ -26,9 +26,10 @@ checkpoint and resume paths build on:
   before a loader parses it), in the JAX package's manifest format, so a
   manifest written by either package verifies in the other.
 
-The JAX package counts retries and injections in its telemetry registry
-(``mxtpu_retry_total``, ``mxtpu_fault_injected_total``); here they are
-plain counts under those names in :func:`fault_stats`.
+Retries and injections count ``mxtpu_retry_total{site}`` and
+``mxtpu_fault_injected_total{site}`` in the telemetry registry (an
+injection also leaves a ``fault`` flight event), as in the JAX package,
+and :func:`fault_stats` keeps plain counts under those names.
 """
 from __future__ import annotations
 
@@ -44,6 +45,7 @@ import zlib
 import numpy as np
 
 from .base import MXNetError
+from . import telemetry as _telemetry
 
 __all__ = [
     "KNOWN_SITES", "FaultInjected", "TimeoutError",
@@ -205,6 +207,8 @@ def fault_point(site):
         s.hits += 1
         hit, kind, delay = s.hits, s.kind, s.delay
         _INJECTED[site] = _INJECTED.get(site, 0) + 1
+    _telemetry.counter("mxtpu_fault_injected_total").labels(site=site).inc()
+    _telemetry.flight.record("fault", site=site, hit=hit, fault_kind=kind)
     if kind == "delay":
         time.sleep(delay)
         return
@@ -292,6 +296,7 @@ def retry_call(fn, args=(), kwargs=None, retries=3,
                 delay = min(delay, rem)
             with _LOCK:
                 _RETRIES[what] = _RETRIES.get(what, 0) + 1
+            _telemetry.counter("mxtpu_retry_total").labels(site=what).inc()
             if on_retry is not None:
                 on_retry(attempt + 1, e, delay)
             else:

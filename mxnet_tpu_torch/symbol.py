@@ -17,9 +17,11 @@ too.
 from __future__ import annotations
 
 import json
+import threading
 
 import torch
 
+from . import profiler as _profiler
 from .base import MXNetError, torch_dtype
 from .context import current_context
 from . import attribute, name as _name_mod
@@ -158,6 +160,11 @@ def eval_graph(topo, entries, var_values, is_train=False, device=None,
             if src.is_variable:
                 aux_updates[id(src)] = upd
 
+    # a running profiler gets one operator event a node (a fused block's
+    # at its terminal): the dispatch of the op on the host, on the clock
+    # of the telemetry spans
+    prof = _profiler.is_running()
+    tid = threading.get_ident() % (1 << 31)
     for node in topo:
         if node.is_variable:
             try:
@@ -172,16 +179,25 @@ def eval_graph(topo, entries, var_values, is_train=False, device=None,
                 continue
             blk = block_plan.blocks.get(id(node))
             if blk is not None:
+                t0 = _profiler.now_us() if prof else 0.0
                 out, bn_node, bn_aux = _fusion.apply_block(blk, vals,
                                                            is_train)
+                if prof:
+                    _profiler.record_event(
+                        "fused_%s" % getattr(blk, "kind", "block"), t0,
+                        _profiler.now_us() - t0, "operator", tid)
                 vals[id(node)] = (out,)
                 if bn_node is not None:
                     thread_aux(bn_node, bn_aux)
                 continue
         ins = [vals[id(src)][idx] for (src, idx) in node.inputs]
+        t0 = _profiler.now_us() if prof else 0.0
         outs = apply_op(node.op, source_attrs(node, batch_size),
                         sctx if node.op.is_stochastic(node.attrs) else octx,
                         *ins)
+        if prof:
+            _profiler.record_event(node.op.name, t0, _profiler.now_us() - t0,
+                                   "operator", tid)
         n_vis = node.num_outputs()
         vals[id(node)] = outs[:n_vis]
         thread_aux(node, outs[n_vis:])

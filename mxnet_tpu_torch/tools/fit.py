@@ -25,6 +25,14 @@ arguments plus ``--cpu``.  ``fit(args, network, data_loader)`` trains
   ``--model-prefix`` and validation.  Block fusion follows
   ``MXNET_FUSE_BLOCKS`` as the executors read it at bind.
 
+Telemetry on the fused route, as the trainer's and the JAX loop's: each
+fetch is a ``data.fetch`` span, each step a ``trainer.step`` record
+(``MXNET_TPU_TELEMETRY_JSONL`` writes them), the training iterator is
+tracked by ``telemetry.ioview`` (its position rides each record), an
+inline ``put_batch`` is charged to the ioview ``device_stage`` stage, and
+``history["io"]`` is ``ioview.summary()`` at the end: the stage totals and
+the bottleneck verdict beside the loop's plain ``timings``.
+
 The context is ``gpu(i)`` for the first of ``--gpus`` (default 0); the CPU
 only with ``--cpu 1``.  The fused route passes no ``auto_layouts``: XLA's
 chosen state layouts have no counterpart in the port's trainer, which
@@ -39,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import callback, initializer, io, kvstore, lr_scheduler, metric
+from .. import telemetry
 from ..base import MXNetError
 from ..context import cpu, gpu
 from ..module import Module
@@ -237,6 +246,7 @@ def _fit_fused(args, sym, train, val, kv, history):
     hist = history if isinstance(history, dict) else {}
     hist.update(losses=[], epochs=[], route="fused", queue=use_queue,
                 context=str(ctx))
+    fetch_span = telemetry.span("data.fetch", category="io")
     timings = {"fetch_s": 0.0, "stage_s": 0.0, "step_dispatch_s": 0.0,
                "queue_wait_s": 0.0, "batches": 0}
     for epoch in range(begin_epoch, args.num_epochs):
@@ -248,10 +258,13 @@ def _fit_fused(args, sym, train, val, kv, history):
         losses = []
         source = io.DevicePrefetchIter(train, trainer.put_batch, depth=2) \
             if use_queue else train
+        # its position rides each step record and checkpoint
+        telemetry.ioview.track(source)
         while True:
             t0 = time.perf_counter()
             try:
-                batch = next(source)
+                with fetch_span:
+                    batch = next(source)
             except StopIteration:
                 break
             t1 = time.perf_counter()
@@ -260,7 +273,11 @@ def _fit_fused(args, sym, train, val, kv, history):
             elif staged is not None and nbatch in staged:
                 dev = staged[nbatch]
             else:
-                dev = trainer.put_batch(host_dict(batch))
+                host = host_dict(batch)
+                dev = trainer.put_batch(host)
+                telemetry.ioview.account(
+                    "device_stage", time.perf_counter() - t1, items=1,
+                    nbytes=sum(v.nbytes for v in host.values()))
                 if staged is not None:
                     staged[nbatch] = dev
             t2 = time.perf_counter()
@@ -312,6 +329,7 @@ def _fit_fused(args, sym, train, val, kv, history):
                                       epoch)
         hist["epochs"].append(record)
     hist["timings"] = timings
+    hist["io"] = telemetry.ioview.summary()
     return trainer
 
 

@@ -13,9 +13,11 @@ The counterpart of ``tools/io_train_bench.py``:
    native pipeline, raw uint8 batches normalized on the card with the
    ImageNet mean and std (``ShardedTrainer(input_mean=, input_std=)``),
    sequential (fetch, ``put_batch``, ``step`` in turn) and through a
-   ``DevicePrefetchIter``; end-to-end images/s and per-stage walls (decode
-   wait, staging, step dispatch), in place of the JAX tool's ioview
-   accounting (ROADMAP Queue A item 8).
+   ``DevicePrefetchIter``; end-to-end images/s and, as the JAX tool
+   prints, the ioview stage table of the timed window (``io``: each
+   stage's ms a batch and items, the consumer's stall and the producers'
+   starved time, the bottleneck verdict); the one hand timer left is the
+   step's dispatch, which is no pipeline stage.
 
 Without ``--rec`` it makes one in a temporary directory with ``make_rec``
 (2000 random 256-px JPEGs, as the JAX tool's).  One JSON line per part,
@@ -144,20 +146,38 @@ def build_trainer(batch, image, layers=50, ctx=None):
         input_mean=IMAGENET_MEAN, input_std=IMAGENET_STD)
 
 
+def _io_delta(before, after, batches):
+    """The ioview stage table between two ``ioview.snapshot()`` readings,
+    in ms a batch: ``{stage: {"ms": .., "items": ..}}`` plus the
+    consumer's ``stall_ms`` and the producers' ``starved_ms`` by queue."""
+    out = {"stages": {}}
+    for st, v in after["stages"].items():
+        prev = before["stages"].get(st, {"s": 0.0, "items": 0})
+        ds, di = v["s"] - prev["s"], v["items"] - prev["items"]
+        if ds > 0 or di > 0:
+            out["stages"][st] = {"ms": 1e3 * ds / max(1, batches),
+                                 "items": di}
+    for kind, key in (("stall_s", "stall_ms"), ("starved_s", "starved_ms")):
+        d = {k: 1e3 * (v - before[kind].get(k, 0.0)) / max(1, batches)
+             for k, v in after[kind].items()}
+        out[key] = {k: v for k, v in d.items() if v > 0.1}
+    return out
+
+
 def train_loop(rec, image, batch, train_batches, trainer, threads=None,
                prefetch_depth=0, warm=2):
     """``train_batches`` steps of ``trainer`` after ``warm`` untimed ones,
     fed from ``rec`` (raw uint8, shuffled; ``threads`` decoders, default
     the host's cores, at least 2), sequentially or through a
     ``DevicePrefetchIter`` of ``prefetch_depth``; the epoch restarts when
-    it ends.  Returns end-to-end images/s, the last loss and the per-stage
-    walls of the timed window in ms a batch: ``decode_wait`` (the host
-    waiting on the pipeline), ``staging`` (``put_batch``), ``step``
-    (``step``'s dispatch; the device's work overlaps the host), and for the
-    queue its worker's decode and staging and the consumer's wait."""
+    it ends.  Returns end-to-end images/s, the last loss, the step's
+    dispatch in ms a batch, and ``io``: the ioview stage table of the
+    timed window (:func:`_io_delta`) and the verdict of a classifier
+    window closed at its end."""
     import torch
 
     from .. import io
+    from ..telemetry import ioview
     threads = threads or max(2, os.cpu_count() or 1)
     on_card = trainer.mesh.device.type == "cuda"
 
@@ -173,18 +193,23 @@ def train_loop(rec, image, batch, train_batches, trainer, threads=None,
                                        depth=prefetch_depth)
     else:
         source = it
-    walls = {"decode_wait": 0.0, "staging": 0.0, "step": 0.0}
-    n, loss, t_wall, q0 = 0, None, None, None
+    ioview.track(source)
+    t_step, n, loss, t_wall, io0 = 0.0, 0, None, None, None
     while n < train_batches + warm:
-        t0 = time.perf_counter()
         try:
             b = next(source)
         except StopIteration:
             source.reset()
             b = next(source)
-        t1 = time.perf_counter()
-        dev = b if prefetch_depth > 0 else trainer.put_batch(
-            {"data": b.data[0].data, "softmax_label": b.label[0].data})
+        if prefetch_depth > 0:
+            dev = b
+        else:
+            host = {"data": b.data[0].data, "softmax_label": b.label[0].data}
+            t1 = time.perf_counter()
+            dev = trainer.put_batch(host)
+            ioview.account("device_stage", time.perf_counter() - t1,
+                           items=1, nbytes=sum(v.nbytes
+                                               for v in host.values()))
         t2 = time.perf_counter()
         loss = trainer.step(dev)
         t3 = time.perf_counter()
@@ -192,27 +217,25 @@ def train_loop(rec, image, batch, train_batches, trainer, threads=None,
         if n == warm:
             float(loss)          # the warm-up's chain ends before timing
             t_wall = time.perf_counter()
-            if prefetch_depth > 0:
-                q0 = dict(source.timings)
+            io0 = ioview.snapshot()
+            ioview.classify(force=True)    # the verdict's window opens
             continue
         if n > warm:
-            walls["decode_wait"] += t1 - t0
-            walls["staging"] += t2 - t1
-            walls["step"] += t3 - t2
+            t_step += t3 - t2
     lval = float(loss)
     sync()
     wall = time.perf_counter() - t_wall
+    io_block = _io_delta(io0, ioview.snapshot(), train_batches)
+    verdict = ioview.classify(force=True)
+    io_block["bottleneck"] = None if verdict is None else {
+        "verdict": verdict["verdict"], "stage": verdict["stage"]}
     out = {"mode": "prefetch" if prefetch_depth > 0 else "sequential",
            "prefetch_depth": prefetch_depth, "threads": threads,
            "batch": batch, "image": image, "train_batches": train_batches,
            "images_per_s": train_batches * batch / wall, "wall_s": wall,
-           "loss": lval,
-           "ms_per_batch": {k: 1e3 * v / train_batches
-                            for k, v in walls.items()}}
+           "loss": lval, "step_dispatch_ms": 1e3 * t_step / train_batches,
+           "io": io_block}
     if prefetch_depth > 0:
-        out["queue_ms_per_batch"] = {
-            k: 1e3 * (source.timings[k] - q0[k]) / train_batches
-            for k in ("fetch_s", "stage_s", "wait_s")}
         source.close()
     it.close()
     return out

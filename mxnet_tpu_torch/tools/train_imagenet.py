@@ -20,8 +20,11 @@ JAX route's f32 batches, a quarter of the bytes).
 
 It trains on ``gpu(0)`` unless ``--cpu 1`` and prints one JSON line at the
 end: the route, each step's loss, each epoch's wall, images/s and
-validation, the per-stage walls (fused route), and on the card its name
-and ``nvidia-smi``'s name and power limit.
+validation, the per-stage walls and the ioview block (fused route), the
+telemetry report (``telemetry.report()``: step-time percentiles, spans,
+compiles, memory), and on the card its name and ``nvidia-smi``'s name and
+power limit.  ``MXNET_TPU_TELEMETRY_JSONL``, ``MXNET_TPU_FLIGHT_DIR`` and
+the profiler's variables turn the rest of the telemetry on.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ import os
 
 import numpy as np
 
-from .. import config, image, io, io_native
+from .. import config, image, io, io_native, telemetry
 from ..models import get_model
 from . import fit
 
@@ -113,7 +116,8 @@ def main(argv=None):
     fit.fit(args, net, get_rec_iter, history=history)
     out = {"network": args.network, "num_layers": args.num_layers,
            "batch_size": args.batch_size, "dtype": args.dtype,
-           "decoder": io_native.decoder(), **history}
+           "decoder": io_native.decoder(), **history,
+           "telemetry": telemetry.report()}
     if fit.get_context(args).device_type == "gpu":
         import torch
         from . import nvidia_smi

@@ -52,7 +52,13 @@ def test_scan_covers_the_package():
                 ("autograd.py",), ("test_utils.py",),
                 ("contrib", "autograd.py"), ("tools", "dcgan.py"),
                 ("tools", "op_corpus.py"), ("resilience.py",),
-                ("io_resume.py",), ("tools", "resume_train.py")):
+                ("io_resume.py",), ("tools", "resume_train.py"),
+                ("profiler.py",), ("visualization.py",), ("registry.py",),
+                ("torch.py",)) + tuple(
+                ("telemetry", m + ".py") for m in (
+                    "__init__", "catalog", "registry", "spans", "tracing",
+                    "exporters", "compile", "flight", "memory",
+                    "distview", "ioview", "numerics")):
         assert os.path.join("mxnet_tpu_torch", *rel) in names
 
 
@@ -80,6 +86,9 @@ def test_package_imports_with_jax_blocked():
             "import mxnet_tpu_torch.tools.train_imagenet\n"
             "import mxnet_tpu_torch.tools.io_train_bench\n"
             "import mxnet_tpu_torch.tools.im2rec\n"
+            "import mxnet_tpu_torch.telemetry, mxnet_tpu_torch.profiler\n"
+            "import mxnet_tpu_torch.visualization, mxnet_tpu_torch.registry\n"
+            "import mxnet_tpu_torch.torch\n"
             "assert not any(m in sys.modules and sys.modules[m] is not None"
             " for m in %r)\n" % (FORBIDDEN, FORBIDDEN))
     env = dict(os.environ, PYTHONPATH=ROOT)

@@ -36,6 +36,8 @@ import sys
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (xdist workers share the cores)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "examples", "transformer"))
 

@@ -12,6 +12,8 @@ import sys
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import mxnet_tpu as jmx
 
 import mxnet_tpu_torch as mx

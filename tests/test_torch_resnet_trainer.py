@@ -20,6 +20,8 @@ import sys
 
 import numpy as np
 import pytest
+
+import torch_threads  # noqa: F401  (xdist workers share the cores)
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

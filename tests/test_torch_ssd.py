@@ -13,6 +13,8 @@ import sys
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401  (xdist workers share the cores)
+
 import mxnet_tpu as jmx
 from mxnet_tpu.image_det import DetRecordIter as JaxDetRecordIter
 
