@@ -31,11 +31,19 @@ Phases, one JSON line each:
    f32, f16), which it must answer through ``attention_plain``;
 4. ``serve``: the GPT LM at full width (vocab 16384, seq 1024, d_model 1024,
    16 heads, 12 layers; random weights from a seed) written as a checkpoint,
-   loaded by ``Predictor`` on ``gpu(0)`` and served through ``BatchLadder``,
-   ``Batcher`` and ``Server``: six one-row requests from threads, one
-   three-row request, ``GET /healthz``; every answer checked, the kernel's
-   launch count checked against the forwards run, one request recomputed
-   on the CPU;
+   loaded by ``Predictor`` on ``gpu(0)`` and served through ``BatchLadder``
+   (one CUDA graph captured a rung, 1 and 4), ``Batcher`` and ``Server``:
+   six one-row requests from threads, one three-row request, one alone;
+   every answer checked; ``/metrics`` counting the requests and rung
+   dispatches sent, ``/healthz?deep=1`` healthy, ``/alerts``; a
+   ``serve.dispatch`` fault answering 500 and a traced ``POST /predict``
+   answering with its ``X-Trace-Id`` and ``traceparent``;
+   ``mxtpu_compile_total`` flat over the requests; the kernel's launch
+   count (one eager forward and one capture a rung) and 12 flash kernels
+   in the device trace of one replay; each rung's replay against an eager
+   forward of the same rung (within 1e-6 of max |d log p|, bit equality
+   reported) with both dispatch walls and both ladders' memory; one
+   request recomputed on the CPU;
 5. ``train``: ``models.gpt.build_bench_trainer`` at full width (batch 16,
    bf16, Adam lr 1e-4) on ``gpu(0)``: ten steps on the staged batch, every
    loss finite, the last below the first, the flash kernels (forward,
@@ -230,7 +238,8 @@ Phases, one JSON line each:
     the Executor route (f32 NCHW) and the fused route (bf16 NHWC) at batch
     1 and 32: images/s each, every count 0;
 31. ``zoo_serve``: the serving CLI's ``--model inception-bn`` route
-    (fresh Xavier weights from its seed) behind the batch ladder: six
+    (fresh Xavier weights from its seed) behind the batch ladder (one
+    CUDA graph a rung, cuDNN's convolutions in them): six
     one-image requests from threads and one of two images over HTTP, each
     answer within ``TOL_ZOO_SERVE`` of a CPU Predictor on the same weights;
 32. ``ring_gpt``: one full-width GPT training step with
@@ -278,7 +287,8 @@ the detection path (ssd_train and rcnn_train), on Inception-v3's path, in
 ring_gpt, on the resume path (resume_train's runs U and R and its CLI
 round trip) and on the zoo's other paths (zoo_score, zoo_serve, contrib_ops,
 ctc_ocr) beside them, the flash kernels' by source; K5's entry with its
-Inception-v3 step) and, last, ``{"ok": true, "device": ...}``.
+Inception-v3 step; the f32 flash forward's with its launches in one
+profiled serving replay) and, last, ``{"ok": true, "device": ...}``.
 Any failed check raises, and the script exits non-zero without the last
 line.  With no CUDA device it exits 1 at once.
 """
@@ -298,6 +308,7 @@ import sys
 import tempfile
 import threading
 import time
+import urllib.error
 import urllib.request
 import warnings
 
@@ -970,19 +981,79 @@ def op_routes_phase():
     return cases
 
 
+#: the serving latency SLO of the full-width GPT (``serve_p99_latency_burn``
+#: threshold): a rung-4 dispatch holds ~170 ms and a request can queue
+#: behind two more, so the default 250 ms target would call one burst of
+#: nine requests a burning budget
+SERVE_LATENCY_SLO_S = 2.5
+#: eager forward against replay: max |d log p| of each rung
+TOL_REPLAY = 1e-6
+#: each rung's eager and replayed dispatch walls: rounds of
+#: (replay, eager, eager, replay)
+SERVE_WALL_ROUNDS = 3
+
+
+def _prom(text):
+    """{``name{labels}``: value} of a Prometheus exposition (exemplar
+    suffixes and comment lines dropped)."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        key, _, rest = line.partition(" ")
+        if "{" in key and not key.endswith("}"):       # a space in labels
+            head, _, rest = line.partition("} ")
+            key = head + "}"
+        out[key] = float(rest.split(" ")[0])
+    return out
+
+
+def _prom_delta(before, after, prefix):
+    """{key: after - before} of the samples starting with ``prefix`` that
+    moved."""
+    return {k: v - before.get(k, 0.0) for k, v in after.items()
+            if k.startswith(prefix) and v != before.get(k, 0.0)}
+
+
+def _http(url, doc=None, headers=None, timeout=600):
+    """(status, headers, body) of a GET, or of a POST of the JSON ``doc``;
+    an HTTP error status is returned, not raised."""
+    data = None if doc is None else json.dumps(doc).encode()
+    req = urllib.request.Request(
+        url, data=data, headers=dict({"Content-Type": "application/json"},
+                                     **(headers or {})))
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _eager_dispatch(pred, feed):
+    """The eager counterpart of a ladder dispatch on a Predictor handle at
+    the rung's batch: stage, forward, copy the output to the host."""
+    pred.forward(data=feed)
+    return pred.get_output(0)
+
+
 def serve_phase(ctx, cfg, rungs=(1, 4), check_ctx=None):
     """Write a GPT checkpoint, serve it on ``ctx`` through Predictor ->
-    BatchLadder -> Batcher -> Server, check every answer, and recompute one
+    BatchLadder (one CUDA graph a rung on the card) -> Batcher -> Server,
+    check every answer and the front door's telemetry, hold each rung's
+    replay against an eager forward of the same rung, and recompute one
     request on ``check_ctx`` (default: the CPU).  Returns the phase's
     fields; raises on any failed check."""
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.telemetry import slo, tracing
     check_ctx = check_ctx or mx.cpu()
-    vocab, seq = cfg["vocab"], cfg["seq"]
-    net = gpt_symbol(vocab, seq, cfg["d_model"], cfg["heads"],
-                     cfg["layers"], dropout=0.0)
+    vocab, seq, layers = cfg["vocab"], cfg["seq"], cfg["layers"]
+    net = gpt_symbol(vocab, seq, cfg["d_model"], cfg["heads"], layers,
+                     dropout=0.0)
     params = gpt_params(net, seq)
     tokens = np.random.RandomState(1).randint(
         0, vocab, (9, seq)).astype(np.float32)
     on_card = ctx.device_type == "gpu"
+    compiles = telemetry.counter("mxtpu_compile_total")
     with tempfile.TemporaryDirectory() as tmp:
         prefix = os.path.join(tmp, "gpt")
         net.save(prefix + "-symbol.json")
@@ -990,18 +1061,60 @@ def serve_phase(ctx, cfg, rungs=(1, 4), check_ctx=None):
                    {"arg:" + k: mx.nd.array(v, ctx=mx.cpu())
                     for k, v in params.items()})
         del params
-        if on_card:
-            torch.cuda.reset_peak_memory_stats()
-        flash_attention_fwd.launches = 0
         t0 = time.perf_counter()
         pred = mx.Predictor(prefix + "-symbol.json", prefix + "-0000.params",
                             {"data": (1, seq)}, ctx=ctx)
+        # the eager ladder: one handle a rung, run once; its footprint
+        # beside the graph ladder's, and later the eager side of each
+        # rung's replay check
+        mem = {}
+        if on_card:
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        eager = {r: pred.reshaped({"data": (r, seq)}) for r in rungs}
+        for r in rungs:
+            _eager_dispatch(eager[r], np.zeros((r, seq), np.float32))
+        if on_card:
+            mem["eager_peak_bytes"] = torch.cuda.max_memory_allocated() \
+                - base
+            mem["eager_resident_bytes"] = torch.cuda.memory_allocated() \
+                - base
+            # a host sync in the forward would abort the capture
+            syncs = _sync_free(
+                lambda: eager[rungs[-1]]._executor.forward(is_train=False))
+            if syncs is not None:
+                raise SystemExit("the eager forward syncs with the host: %s"
+                                 % syncs)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        flash_attention_fwd.launches = 0
+        compiles_before = compiles.get()
+        t_ladder = time.perf_counter()
         ladder = BatchLadder(pred, rungs=rungs)
+        ladder_s = time.perf_counter() - t_ladder
+        warm_launches = flash_attention_fwd.launches
+        capture_compiles = compiles.get() - compiles_before
+        if on_card:
+            mem["graph_peak_bytes"] = torch.cuda.max_memory_allocated() \
+                - base
+            mem["graph_resident_bytes"] = torch.cuda.memory_allocated() \
+                - base
+            # what the graphs hold for good: their private pool's segments
+            mem["graph_pool_bytes"] = sum(
+                seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if tuple(seg.get("segment_pool_id", ())) ==
+                tuple(ladder._pool))
         warm_ms = dict(ladder.describe()["wall_ms"])
         batcher = Batcher(ladder, window_ms=50, queue_depth=64,
                           default_deadline_ms=600000)
+        # a fresh replica's judge: the verdict covers this phase's traffic,
+        # not what the process served or trained before it
+        slo.reset()
         server = Server(ladder, batcher=batcher, port=0,
                         host="127.0.0.1").start()
+        slo.engine().configure("serve_p99_latency_burn",
+                               threshold_s=SERVE_LATENCY_SLO_S)
+        base_url = "http://127.0.0.1:%d" % server.port
         results, errors = {}, []
 
         def go(i, rows):
@@ -1010,7 +1123,12 @@ def serve_phase(ctx, cfg, rungs=(1, 4), check_ctx=None):
             except Exception as e:  # collected and raised below
                 errors.append(repr(e))
 
-        try:
+        got = {}
+
+        def window():
+            """The requests: 7 coalesced and 1 alone, the verdict, one
+            faulted and one traced POST /predict, between /metrics reads."""
+            got["m0"] = _prom(_http(base_url + "/metrics")[2].decode())
             threads = [threading.Thread(target=go, args=(i, 1))
                        for i in range(6)]
             threads.append(threading.Thread(target=go, args=(6, 3)))
@@ -1018,20 +1136,63 @@ def serve_phase(ctx, cfg, rungs=(1, 4), check_ctx=None):
                 th.start()
             for th in threads:
                 th.join(600)
-            alone = batcher.submit({"data": tokens[0:1]})[0]
-            url = "http://127.0.0.1:%d/healthz" % server.port
-            with urllib.request.urlopen(url, timeout=60) as r:
-                health = json.loads(r.read())
+            got["alone"] = batcher.submit({"data": tokens[0:1]})[0]
+            got["m1"] = _prom(_http(base_url + "/metrics")[2].decode())
+            got["counts"] = batcher.dispatch_counts()
+            slo.engine().tick()
+            got["deep"] = _http(base_url + "/healthz?deep=1")
+            got["alerts"] = json.loads(_http(base_url + "/alerts")[2])
+            # one dispatch failed by the fault seam, then a traced request
+            got["tid"] = tid = tracing.new_trace_id()
+            os.environ["MXNET_TPU_FAULTS"] = "serve.dispatch:n=1"
+            try:
+                got["fault"] = _http(base_url + "/predict",
+                                     {"data": tokens[8:9].tolist()},
+                                     {"traceparent": "00-%s-%s-01" % (
+                                         tid, tracing.new_span_id())})
+            finally:
+                os.environ["MXNET_TPU_FAULTS"] = ""
+            got["tid2"] = tid2 = tracing.new_trace_id()
+            got["answer"] = _http(base_url + "/predict",
+                                  {"data": tokens[0:1].tolist()},
+                                  {"traceparent": "00-%s-%s-01" % (
+                                      tid2, tracing.new_span_id())})
+            got["m2"] = _prom(_http(base_url + "/metrics")[2].decode())
+            got["window_counts"] = batcher.dispatch_counts()
+
+        try:
+            compiles_served = compiles.get()
+            # the launches of the requests themselves: replays run K1 from
+            # the graph, past its wrapper, so the device trace counts them
+            flash_attention_fwd.launches = 0
+            profile = profile_device(window) if on_card else window()
+            window_wrapper_launches = flash_attention_fwd.launches
+            compiles_after = compiles.get()
+            health = json.loads(_http(base_url + "/healthz")[2])
         finally:
             server.close()
+            slo.stop_ticker()
         serve_s = time.perf_counter() - t0
-        launches = flash_attention_fwd.launches
-        counts = batcher.dispatch_counts()
-        peak = torch.cuda.max_memory_allocated() if on_card else None
+        m0, m1, m2, counts = got["m0"], got["m1"], got["m2"], got["counts"]
+        alone, deep, alerts = got["alone"], got["deep"], got["alerts"]
+        fault, answer, tid, tid2 = (got["fault"], got["answer"], got["tid"],
+                                    got["tid2"])
         if errors or len(results) != 7:
             raise SystemExit("requests failed or were shed: %s" % errors)
         if health.get("status") != "ok":
             raise SystemExit("/healthz: %r" % health)
+        # the ladder dispatches of the window (the faulted one never
+        # reached the ladder), each one replay of 12 K1 launches
+        replays = sum(got["window_counts"].values())
+        launches = profile["flash_kernels_count"] if on_card \
+            else window_wrapper_launches
+        if window_wrapper_launches != 0 or launches != (
+                layers * replays if on_card else 0):
+            raise SystemExit(
+                "the requests' %d dispatches ran %d flash kernels by the "
+                "device trace and %d through the wrapper; want %d and 0"
+                % (replays, launches, window_wrapper_launches,
+                   layers * replays if on_card else 0))
         for i, out in results.items():
             rows = 3 if i == 6 else 1
             if out.shape != (rows * seq, vocab) or \
@@ -1047,11 +1208,93 @@ def serve_phase(ctx, cfg, rungs=(1, 4), check_ctx=None):
             raise SystemExit("sequence 0 served alone differs from its "
                              "coalesced answer: max |d log p| = %g"
                              % alone_err)
-        forwards = 2 * len(rungs) + sum(counts.values())
-        want = cfg["layers"] * forwards if on_card else 0
-        if launches != want:
-            raise SystemExit("flash_attention_fwd launched %d times over %d "
-                             "forwards; want %d" % (launches, forwards, want))
+        # the front door: metrics, verdict, alerts, fault, trace headers
+        served = _prom_delta(m0, m1, "mxtpu_serve_")
+        want = {'mxtpu_serve_requests_total{outcome="ok"}': 8.0}
+        want.update({'mxtpu_serve_rung_dispatch_total{rung="%d"}' % r:
+                     float(n) for r, n in counts.items()})
+        counted = {k: v for k, v in served.items()
+                   if k.startswith(("mxtpu_serve_requests_total",
+                                    "mxtpu_serve_rung_dispatch_total"))}
+        if counted != want:
+            raise SystemExit("/metrics counted %s for the requests sent; "
+                             "want %s" % (counted, want))
+        verdict = json.loads(deep[2])
+        if deep[0] != 200 or verdict["health"]["status"] != "healthy" \
+                or verdict["health"]["schema"] != "mxtpu-health/1":
+            raise SystemExit("/healthz?deep=1: %d %s" % (deep[0], verdict))
+        if alerts.get("schema") != "mxtpu-health/1" or \
+                {a["rule"] for a in alerts["alerts"]} != {
+                    r["name"] for r in slo.engine().rules}:
+            raise SystemExit("/alerts: %s" % alerts)
+        after = _prom_delta(m1, m2, "mxtpu_serve_requests_total")
+        fault_doc = tracing.get_trace(tid)
+        http = {
+            "fault_status": fault[0],
+            "fault_trace_id": fault[1].get("X-Trace-Id"),
+            "answer_status": answer[0],
+            "answer_trace_id": answer[1].get("X-Trace-Id"),
+            "answer_traceparent": answer[1].get("traceparent"),
+            "requests_after": after,
+            "fault_trace_status": fault_doc and fault_doc["status"],
+        }
+        if fault[0] != 500 or fault[1].get("X-Trace-Id") != tid \
+                or "injected fault" not in json.loads(fault[2])["error"] \
+                or http["fault_trace_status"] != "error":
+            raise SystemExit("serve.dispatch fault: %s %s"
+                             % (json.dumps(http), fault[2][:300]))
+        if answer[0] != 200 or answer[1].get("X-Trace-Id") != tid2 or \
+                tracing.parse_traceparent(
+                    answer[1].get("traceparent", ""))[0] != tid2:
+            raise SystemExit("traced /predict: %s" % json.dumps(http))
+        answered = np.asarray(json.loads(answer[2])["outputs"][0],
+                              np.float32)
+        http["answer_equals_alone"] = bool(np.array_equal(answered, alone))
+        if not http["answer_equals_alone"] or after != {
+                'mxtpu_serve_requests_total{outcome="error"}': 1.0,
+                'mxtpu_serve_requests_total{outcome="ok"}': 1.0}:
+            raise SystemExit("after the fault: %s" % json.dumps(http))
+        if compiles_after != compiles_served:
+            raise SystemExit("mxtpu_compile_total moved over the requests: "
+                             "%s -> %s" % (compiles_served, compiles_after))
+        graphs = ladder.describe()["graphs"]
+        if graphs != (list(rungs) if on_card else []) or \
+                capture_compiles != (len(graphs) if on_card else 0):
+            raise SystemExit("CUDA graphs of rungs %s, %d compile events "
+                             "at warm-up" % (graphs, capture_compiles))
+        forwards = 2 * len(rungs)
+        want = layers * forwards if on_card else 0
+        if warm_launches != want:
+            raise SystemExit(
+                "flash_attention_fwd's wrapper ran %d times at warm-up; want "
+                "%d (one eager forward and one capture a rung)"
+                % (warm_launches, want))
+        # each rung's replay against the eager forward of the same rung
+        replay = {}
+        for r in rungs:
+            feed = tokens[:r]
+            got = ladder.dispatch(r, {"data": feed})[0]
+            ref = _eager_dispatch(eager[r], feed)
+            d = float(np.abs(np.log(got) - np.log(ref)).max())
+            walls = {"replay": [], "eager": []}
+            for _ in range(SERVE_WALL_ROUNDS):
+                for kind in ("replay", "eager", "eager", "replay"):
+                    t1 = time.perf_counter()
+                    if kind == "replay":
+                        ladder.dispatch(r, {"data": feed})
+                    else:
+                        _eager_dispatch(eager[r], feed)
+                    walls[kind].append((time.perf_counter() - t1) * 1e3)
+            replay[str(r)] = {
+                "max_abs_dlogp": d, "bit_equal": bool(np.array_equal(
+                    got, ref)),
+                "replay_ms": float(np.median(walls["replay"])),
+                "eager_ms": float(np.median(walls["eager"])),
+                "replay_ms_all": walls["replay"],
+                "eager_ms_all": walls["eager"]}
+            if d > TOL_REPLAY:
+                raise SystemExit("rung %d: replay vs eager forward max |d "
+                                 "log p| = %g > %g" % (r, d, TOL_REPLAY))
         ref = mx.Predictor(prefix + "-symbol.json", prefix + "-0000.params",
                            {"data": (1, seq)}, ctx=check_ctx)
         ref.forward(data=tokens[0:1])
@@ -1060,19 +1303,23 @@ def serve_phase(ctx, cfg, rungs=(1, 4), check_ctx=None):
         if dlogp > 1e-3:
             raise SystemExit("served vs %s recomputation: max |d log p| = %g"
                              % (check_ctx, dlogp))
-        # after the launch count was read: these forwards are not counted
-        profile = profile_dispatch(ladder, rungs[-1], seq) if on_card \
-            else None
     return {"config": cfg, "context": str(ctx), "requests": 8,
             "request_rows": [1] * 6 + [3, 1],
             "dispatches_per_rung": {str(k): v for k, v in counts.items()},
-            "forwards": forwards, "launches": launches,
-            "launches_per_forward": launches / forwards,
+            "window_dispatches": replays, "launches": launches,
+            "launches_per_dispatch": launches / replays,
+            "capture_launches": warm_launches, "capture_forwards": forwards,
+            "graphs": graphs,
+            "capture_compiles": capture_compiles, "ladder_s": ladder_s,
             "warm_wall_ms": warm_ms,
             "ewma_wall_ms": ladder.describe()["wall_ms"],
+            "replay_vs_eager": replay, "memory": mem,
             "serve_s": serve_s, "alone_vs_coalesced_dlogp": alone_err,
+            "metrics_delta": counted, "health": verdict["health"],
+            "http": http, "compile_total": compiles_after,
             "cross_check": str(check_ctx), "max_abs_dlogp": dlogp,
-            "peak_mem_bytes": peak, "profile": profile}
+            "peak_mem_bytes": mem.get("graph_peak_bytes"),
+            "profile": profile}
 
 
 def profile_device(fn, top=10, marks=None):
@@ -1113,16 +1360,6 @@ def profile_device(fn, top=10, marks=None):
     out["top"] = [{"name": n, "ms": ms, "count": c}
                   for n, ms, c in rows[:top]]
     return out
-
-
-def profile_dispatch(ladder, rung, seq, top=10):
-    """One ladder dispatch at ``rung`` under ``torch.profiler``, after one
-    unprofiled dispatch."""
-    feed = {"data": np.zeros((rung, seq), np.float32)}
-    ladder.dispatch(rung, feed)
-    torch.cuda.synchronize()
-    return dict(profile_device(lambda: ladder.dispatch(rung, feed), top),
-                rung=rung)
 
 
 def train_phase(ctx, cfg, batch=16, dtype="bfloat16", steps=10,
@@ -5071,6 +5308,7 @@ def zoo_serve_phase(ctx, model=ZOO_SERVE["model"],
                                          np.float32)
     finally:
         server.close()
+        mx.telemetry.slo.stop_ticker()
     serve_s = time.perf_counter() - t0
     counts = kernel_counts()
     if errors or len(results) != requests + 1:
@@ -5097,11 +5335,13 @@ def zoo_serve_phase(ctx, model=ZOO_SERVE["model"],
            "dispatches_per_rung": {str(k): v for k, v in
                                    batcher.dispatch_counts().items()},
            "warm_wall_ms": ladder.describe()["wall_ms"], "serve_s": serve_s,
+           "graphs": ladder.describe()["graphs"],
            "cross_check": str(check_ctx), "max_abs_dlogp": dlogp,
            "row_sum_err": row_err, "tol": TOL_ZOO_SERVE,
            "kernel_launches": counts}
+    graphs = list(ladder.rungs) if ctx.device_type == "gpu" else []
     if not finite or row_err > 1e-4 or dlogp > TOL_ZOO_SERVE \
-            or any(counts.values()):
+            or any(counts.values()) or out["graphs"] != graphs:
         raise SystemExit("zoo_serve: %s" % json.dumps(out))
     return out
 
@@ -5549,6 +5789,9 @@ def main():
         kernel_summary(
             "flash_attention_fwd", fwd_src["float32"], k1, k2,
             _case(fwd, [4, 1024, 16, 64], "float32"), serve["launches"],
+            launches_from="serve: the device trace of the requests' %d "
+            "graph replays" % serve["window_dispatches"],
+            capture_launches=serve["capture_launches"],
             sources=fwd_src, train_shape=shape_fields(fwd_train),
             bound_cuda_core_ms=_case(fwd, [4, 1024, 16, 64],
                                      "float32")["bound_cuda_core_ms"],

@@ -184,14 +184,30 @@ _CATALOG = {
     "MXNET_TPU_MIN_WORKERS": ("1", "inert", _NOT_PORTED),
     "MXNET_TPU_FLEET": ("0", "inert", _NOT_PORTED),
     # serving tier
-    "MXNET_TPU_SERVE_LADDER": ("1,4,16,64", "inert",
-                               "the port's ladder takes its rungs as an "
-                               "argument"),
-    "MXNET_TPU_SERVE_WINDOW_MS": ("5", "inert", ""),
-    "MXNET_TPU_SERVE_QUEUE_DEPTH": ("64", "inert", ""),
-    "MXNET_TPU_SERVE_DEADLINE_MS": ("1000", "inert", ""),
-    "MXNET_TPU_SERVE_PORT": ("8080", "inert", ""),
-    "MXNET_TPU_SERVE_COST_MODEL": ("", "inert", ""),
+    "MXNET_TPU_SERVE_LADDER": ("1,4,16,64", "honored",
+                               "batch-ladder rungs the serving tier warms "
+                               "at startup (one captured CUDA graph a "
+                               "rung on the card); requests pad to the "
+                               "nearest rung"),
+    "MXNET_TPU_SERVE_WINDOW_MS": ("5", "honored",
+                                  "batching window: how long the batcher "
+                                  "holds the oldest queued request while "
+                                  "coalescing toward the largest rung"),
+    "MXNET_TPU_SERVE_QUEUE_DEPTH": ("64", "honored",
+                                    "bounded request-queue depth; a submit "
+                                    "beyond it is shed at once "
+                                    "(queue_full)"),
+    "MXNET_TPU_SERVE_DEADLINE_MS": ("1000", "honored",
+                                    "default per-request deadline; a "
+                                    "request whose remaining deadline "
+                                    "cannot cover the estimated rung wall "
+                                    "is shed early (deadline)"),
+    "MXNET_TPU_SERVE_PORT": ("8080", "honored",
+                             "serving replica base port; a replica binds "
+                             "port + MXNET_TPU_PROCESS_ID"),
+    "MXNET_TPU_SERVE_COST_MODEL": ("", "inert",
+                                   "the fitted rung-wall cost model: "
+                                   "autotune.model " + _NOT_PORTED),
     "MXNET_TPU_RESHARD_RULES": ("", "inert", _NOT_PORTED),
     # autotuner and plan search
     "MXNET_TPU_AUTOTUNE": ("cache", "inert", _NOT_PORTED),
@@ -217,12 +233,29 @@ _CATALOG = {
                                 "dead_grad threshold on a gradient's "
                                 "zero fraction; 0 disables the rule"),
     # SLO engine
-    "MXNET_TPU_SLO": ("1", "inert", _NOT_PORTED),
-    "MXNET_TPU_SLO_RULES": ("", "inert", _NOT_PORTED),
-    "MXNET_TPU_SLO_TICK_S": ("1.0", "inert", _NOT_PORTED),
-    "MXNET_TPU_SLO_FAST_S": ("60", "inert", _NOT_PORTED),
-    "MXNET_TPU_SLO_SLOW_S": ("300", "inert", _NOT_PORTED),
-    "MXNET_TPU_SLO_LATENCY_MS": ("250", "inert", _NOT_PORTED),
+    "MXNET_TPU_SLO": ("1", "honored",
+                      "the in-process SLO engine: 0 disables rule "
+                      "evaluation (health() reports status=healthy, "
+                      "disabled=true; no alert metrics, no ticker)"),
+    "MXNET_TPU_SLO_RULES": ("", "honored",
+                            "SLO rule-catalog override: @file.json or an "
+                            "inline JSON list merged by rule name "
+                            "(disable:true drops a rule), or "
+                            "'rule.param=value;rule2.disable=1'; a "
+                            "malformed spec warns once and keeps the "
+                            "defaults"),
+    "MXNET_TPU_SLO_TICK_S": ("1.0", "honored",
+                             "background-ticker evaluation cadence in "
+                             "seconds (floor 0.05); also rate-limits the "
+                             "per-step evaluation"),
+    "MXNET_TPU_SLO_FAST_S": ("60", "honored",
+                             "default fast burn-rate window in seconds"),
+    "MXNET_TPU_SLO_SLOW_S": ("300", "honored",
+                             "default slow burn-rate window in seconds"),
+    "MXNET_TPU_SLO_LATENCY_MS": ("250", "honored",
+                                 "serving latency SLO threshold: a request "
+                                 "slower than this is 'bad' for "
+                                 "serve_p99_latency_burn"),
 }
 
 

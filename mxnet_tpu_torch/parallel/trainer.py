@@ -776,6 +776,14 @@ class ShardedTrainer:
                                                       count=num_steps))
         return torch.stack(losses)
 
+    def health(self):
+        """This rank's SLO health verdict (the ``mxtpu-health/1`` dict of
+        ``telemetry.slo``).  The training-run rules are evaluated on the
+        ``step_end`` cadence that :meth:`step` and :meth:`run_steps`
+        already drive, so this is a read, not an evaluation."""
+        from ..telemetry import slo
+        return slo.health()
+
     @contextlib.contextmanager
     def _atomic(self):
         """A step, save or load in progress: a preemption signal that lands

@@ -62,8 +62,11 @@ def parser():
                    help="comma-separated non-batch dims of the 'data' input "
                         "(e.g. '1024' for a GPT, '3,224,224' for an image)")
     p.add_argument("--ladder", default=None,
-                   help="rung spec, e.g. '1,4,16'")
-    p.add_argument("--port", type=int, default=8080)
+                   help="rung spec, e.g. '1,4,16' (default "
+                        "MXNET_TPU_SERVE_LADDER)")
+    p.add_argument("--port", type=int, default=None,
+                   help="base port (default MXNET_TPU_SERVE_PORT; a "
+                        "replica adds its rank, MXNET_TPU_PROCESS_ID)")
     p.add_argument("--window-ms", type=float, default=None)
     p.add_argument("--queue-depth", type=int, default=None)
     p.add_argument("--deadline-ms", type=float, default=None)
@@ -86,10 +89,11 @@ def main(argv=None):
         os._exit(0)
 
     signal.signal(signal.SIGTERM, _term)
-    print("serving: %s rungs=%s port=%d pid=%d"
+    print("serving: %s rungs=%s port=%d pid=%d rank=%s"
           % ("checkpoint=%s" % opts.checkpoint if opts.checkpoint
              else "model=%s" % opts.model, ladder.rungs, server.port,
-             os.getpid()), flush=True)
+             os.getpid(), os.environ.get("MXNET_TPU_PROCESS_ID", "0")),
+          flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

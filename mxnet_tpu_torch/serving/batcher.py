@@ -13,15 +13,23 @@ between the HTTP front door and the batch ladder:
 * **load shedding**: a submit over the queue depth is refused at once with
   :class:`RequestShed` (``reason="queue_full"``); the deadline check sheds
   with ``reason="deadline"``;
-* **fail fast**: a dispatch error fails every request of that batch and the
-  scheduler moves on; one bad batch never wedges the queue.
+* **fail fast**: a dispatch error (the ``serve.dispatch`` fault seam
+  included) fails every request of that batch and the scheduler moves on;
+  one bad batch never wedges the queue.
 
-Not yet ported: the tracing spans, flight-recorder events, Prometheus
-instruments and fault-injection seam of the JAX batcher.
+The window, depth and deadline default to ``MXNET_TPU_SERVE_WINDOW_MS``,
+``_QUEUE_DEPTH`` and ``_DEADLINE_MS``.  As in the JAX batcher, requests,
+sheds, rung dispatches, latency segments, occupancy and queue depth land
+on the ``mxtpu_serve_*`` instruments; sheds and dispatches leave
+``request_shed`` and ``rung_dispatch`` flight events; and a request
+submitted under a trace gets its queue/coalesce/pad/dispatch/slice spans,
+with one dispatch span shared by, and linked from, every coalesced
+request's trace.
 """
 from __future__ import annotations
 
 import itertools
+import os
 import threading
 import time
 
@@ -29,6 +37,7 @@ import numpy as np
 
 from ..base import MXNetError
 from ..predictor import pad_batch, slice_rows
+from ..telemetry import tracing
 
 __all__ = ["Batcher", "RequestShed"]
 
@@ -46,19 +55,29 @@ class RequestShed(MXNetError):
         self.rid = rid
 
 
-class _Request:
-    __slots__ = ("rid", "feed", "rows", "deadline", "enqueue_t", "done",
-                 "outputs", "error")
+def _env_float(name, default):
+    try:
+        v = float(os.environ.get(name, "") or default)
+    except ValueError:
+        return default
+    return v if v > 0 else default
 
-    def __init__(self, rid, feed, rows, deadline, now):
+
+class _Request:
+    __slots__ = ("rid", "feed", "rows", "deadline", "enqueue_t",
+                 "dequeue_t", "done", "outputs", "error", "trace")
+
+    def __init__(self, rid, feed, rows, deadline, now, trace=None):
         self.rid = rid
         self.feed = feed
         self.rows = rows
         self.deadline = deadline
         self.enqueue_t = now
+        self.dequeue_t = None
         self.done = threading.Event()
         self.outputs = None
         self.error = None
+        self.trace = trace      # the submitter's TraceContext (or None)
 
 
 class Batcher:
@@ -66,20 +85,41 @@ class Batcher:
     :class:`~mxnet_tpu_torch.serving.ladder.BatchLadder`, or any object
     with ``max_rung``, ``input_names``, ``input_tail``, ``input_dtype``,
     ``pick_rung``, ``estimate_wall``, ``observe_wall`` and ``dispatch``
-    (the tests drive the scheduler with a fake ladder)."""
+    (the tests drive the scheduler with a fake ladder).
 
-    def __init__(self, ladder, window_ms=5.0, queue_depth=64,
-                 default_deadline_ms=1000.0, start=True):
+    ``window_ms``/``queue_depth``/``default_deadline_ms`` default to
+    the ``MXNET_TPU_SERVE_*`` knobs."""
+
+    def __init__(self, ladder, window_ms=None, queue_depth=None,
+                 default_deadline_ms=None, start=True):
+        from .. import telemetry
+        from ..telemetry.catalog import OCCUPANCY_BUCKETS
         self._ladder = ladder
-        self._window = (5.0 if window_ms is None else window_ms) / 1e3
-        self._depth = int(64 if queue_depth is None else queue_depth)
-        self._deadline = (1000.0 if default_deadline_ms is None
-                          else default_deadline_ms) / 1e3
+        self._window = (window_ms if window_ms is not None else
+                        _env_float("MXNET_TPU_SERVE_WINDOW_MS", 5.0)) \
+            / 1e3
+        self._depth = int(queue_depth if queue_depth is not None else
+                          _env_float("MXNET_TPU_SERVE_QUEUE_DEPTH", 64))
+        self._deadline = (default_deadline_ms if default_deadline_ms
+                          is not None else
+                          _env_float("MXNET_TPU_SERVE_DEADLINE_MS",
+                                     1000.0)) / 1e3
         self._cv = threading.Condition()
         self._pending = []
         self._stopped = False
         self._ids = itertools.count(1)
         self._dispatches = {}      # rung -> dispatches that ran
+        # instruments (created once; .labels children cached per use
+        # site below)
+        self._m_requests = telemetry.counter("mxtpu_serve_requests_total")
+        self._m_shed = telemetry.counter("mxtpu_serve_shed_total")
+        self._m_rung = telemetry.counter(
+            "mxtpu_serve_rung_dispatch_total")
+        self._m_latency = telemetry.histogram(
+            "mxtpu_serve_request_seconds")
+        self._m_occupancy = telemetry.histogram(
+            "mxtpu_serve_rung_occupancy", buckets=OCCUPANCY_BUCKETS)
+        self._m_depth = telemetry.gauge("mxtpu_serve_queue_depth")
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="mxtt-serve-batcher")
         if start:
@@ -119,15 +159,21 @@ class Batcher:
         now = time.monotonic()
         ddl = now + (deadline_ms / 1e3 if deadline_ms is not None
                      else self._deadline)
-        req = _Request(next(self._ids), feed, rows, ddl, now)
+        req = _Request(next(self._ids), feed, rows, ddl, now,
+                       trace=tracing.current())
         with self._cv:
             if self._stopped:
                 raise MXNetError("batcher stopped")
             if deadline_ms is not None and deadline_ms <= 0:
+                self._count_shed("deadline", req,
+                                 "explicit deadline_ms=%r expired on "
+                                 "arrival" % (deadline_ms,))
                 raise RequestShed("deadline", "explicit deadline_ms=%r is "
                                   "already expired on arrival"
                                   % (deadline_ms,), rid=req.rid)
             if len(self._pending) >= self._depth:
+                self._count_shed("queue_full", req,
+                                 "queue depth %d" % self._depth)
                 raise RequestShed("queue_full", "queue at bounded depth %d"
                                   % self._depth, rid=req.rid)
             # shed early: even alone in its smallest rung this request
@@ -135,11 +181,16 @@ class Batcher:
             min_wall = self._ladder.estimate_wall(
                 self._ladder.pick_rung(rows) or self._ladder.max_rung)
             if ddl - now < min_wall:
+                self._count_shed("deadline", req,
+                                 "deadline %.1fms < estimated wall "
+                                 "%.1fms" % ((ddl - now) * 1e3,
+                                             min_wall * 1e3))
                 raise RequestShed(
                     "deadline", "remaining deadline %.1fms cannot cover "
                     "the estimated rung wall %.1fms"
                     % ((ddl - now) * 1e3, min_wall * 1e3), rid=req.rid)
             self._pending.append(req)
+            self._m_depth.set(len(self._pending))
             self._cv.notify_all()
         wait = timeout if timeout is not None else \
             max(0.05, ddl - now) + 4.0 * max(
@@ -174,10 +225,33 @@ class Batcher:
         if rows < 1:
             raise MXNetError("empty request (0 rows)")
         if rows > self._ladder.max_rung:
-            raise MXNetError("request rows %d exceed the largest ladder rung "
-                             "%d; split the request" % (rows,
-                                                       self._ladder.max_rung))
+            raise MXNetError(
+                "request rows %d exceed the largest ladder rung %d; "
+                "split the request or extend MXNET_TPU_SERVE_LADDER"
+                % (rows, self._ladder.max_rung))
         return feed, rows
+
+    def _count_shed(self, reason, req, detail):
+        from ..telemetry import flight
+        self._m_shed.labels(reason=reason).inc()
+        self._m_requests.labels(outcome="shed").inc()
+        if req.trace is not None:
+            # the trace outlives the refusal: mark it shed so tail-
+            # sampling ALWAYS keeps it and trace_top can explain it
+            tracing.set_trace_status(req.trace, "shed",
+                                     shed_reason=reason, rid=req.rid)
+        extra = {} if req.trace is None else \
+            {"trace_id": req.trace.trace_id}
+        flight.record("request_shed", reason=reason, rid=req.rid,
+                      rows=req.rows,
+                      waited_ms=round(
+                          (time.monotonic() - req.enqueue_t) * 1e3, 3),
+                      detail="rid %d: %s" % (req.rid, detail), **extra)
+
+    def _shed_queued(self, req, reason, detail):
+        self._count_shed(reason, req, detail)
+        req.error = RequestShed(reason, detail, rid=req.rid)
+        req.done.set()
 
     def _run(self):
         while True:
@@ -216,9 +290,13 @@ class Batcher:
                 rows += req.rows
             for req in batch:
                 self._pending.remove(req)
+                req.dequeue_t = time.monotonic()
+            self._m_depth.set(len(self._pending))
             return batch
 
     def _dispatch(self, batch):
+        from ..telemetry import flight
+        from .. import resilience
         # deadline feasibility at the last moment; shedding shrinks the
         # batch, which can shrink the rung and its estimate, so iterate
         while batch:
@@ -231,29 +309,115 @@ class Batcher:
                 break
             for req in hopeless:
                 batch.remove(req)
-                req.error = RequestShed(
-                    "deadline", "%.1fms left < estimated rung-%d wall %.1fms"
-                    % ((req.deadline - now) * 1e3, rung, est * 1e3),
-                    rid=req.rid)
-                req.done.set()
+                self._shed_queued(
+                    req, "deadline",
+                    "%.1fms left < estimated rung-%d wall %.1fms"
+                    % ((req.deadline - now) * 1e3, rung, est * 1e3))
         if not batch:
             return
+        # batch fan-in: ONE dispatch span id is recorded into EVERY
+        # member trace (each parented under that trace's root) with
+        # span links naming all member roots, so trace_top can walk
+        # from any member to its batchmates
+        traced = [r for r in batch if r.trace is not None]
+        links = [{"trace_id": r.trace.trace_id,
+                  "span_id": r.trace.span_id} for r in traced]
+        disp_sid = tracing.new_span_id() if traced else None
+        t_pad = time.monotonic()
         feed = {n: pad_batch(np.concatenate([r.feed[n] for r in batch]),
                              rung)
                 for n in self._ladder.input_names}
-        t0 = time.monotonic()
+        t_disp = time.monotonic()
+        # attach the first member's context (scheduler thread has none
+        # of its own) so the ladder's tracing.annotate() calls and any
+        # fault delay land on THIS dispatch
+        dctx = prev_ctx = None
+        if traced:
+            home = traced[0].trace
+            dctx = tracing.TraceContext(home.trace_id, disp_sid,
+                                        home.span_id)
+            prev_ctx = tracing.attach(dctx)
         try:
+            resilience.fault_point("serve.dispatch")
             outs = self._ladder.dispatch(rung, feed)
-        except Exception as e:  # fail fast: every request of the batch gets the error and the scheduler keeps draining
+        except BaseException as e:  # fail fast; the queue keeps draining
+            t_err = time.monotonic()
+            notes = tracing.take_annotations()
+            if dctx is not None:
+                tracing.detach(prev_ctx)
+            epoch_off = time.time() - time.monotonic()
             for req in batch:
-                req.error = e
+                if req.trace is not None:
+                    attrs = dict(notes, rung=rung, rows=rows,
+                                 requests=len(batch),
+                                 error=str(e)[:200])
+                    tracing.record_span(
+                        req.trace, "serve.dispatch",
+                        t_disp + epoch_off, t_err - t_disp,
+                        attrs=attrs, links=links, status="error",
+                        span_id=disp_sid)
+                req.error = e if isinstance(e, Exception) else \
+                    MXNetError("dispatch aborted: %r" % (e,))
                 req.done.set()
+            self._m_requests.labels(outcome="error").inc(len(batch))
+            flight.record("rung_dispatch", rung=rung, rows=rows,
+                          requests=len(batch), error=str(e)[:200])
+            if not isinstance(e, Exception):
+                raise
             return
-        self._ladder.observe_wall(rung, time.monotonic() - t0)
+        t_done = time.monotonic()
+        notes = tracing.take_annotations()
+        if dctx is not None:
+            tracing.detach(prev_ctx)
+        wall = t_done - t_disp
+        self._ladder.observe_wall(rung, wall)
         with self._cv:
             self._dispatches[rung] = self._dispatches.get(rung, 0) + 1
+        self._m_rung.labels(rung=str(rung)).inc()
+        self._m_occupancy.labels(rung=str(rung)).observe(
+            rows / float(rung))
+        flight.record("rung_dispatch", rung=rung, rows=rows,
+                      requests=len(batch),
+                      wall_ms=round(wall * 1e3, 3),
+                      **({"trace_id": traced[0].trace.trace_id}
+                         if traced else {}))
+        epoch_off = time.time() - time.monotonic()
+        disp_attrs = dict(notes, rung=rung, rows=rows,
+                          requests=len(batch), pad_rows=rung - rows)
+        lat = self._m_latency
         off = 0
         for req in batch:
             req.outputs = [slice_rows(o, off, req.rows, rung) for o in outs]
             off += req.rows
+            # spans are recorded BEFORE done.set(): once the submitter
+            # wakes, its root trace may exit and stop accepting spans
+            if req.trace is not None:
+                ctx = req.trace
+                tracing.record_span(
+                    ctx, "serve.queue", req.enqueue_t + epoch_off,
+                    req.dequeue_t - req.enqueue_t,
+                    attrs={"rid": req.rid})
+                tracing.record_span(
+                    ctx, "serve.coalesce", req.dequeue_t + epoch_off,
+                    t_pad - req.dequeue_t,
+                    attrs={"requests": len(batch)})
+                tracing.record_span(
+                    ctx, "serve.pad", t_pad + epoch_off, t_disp - t_pad,
+                    attrs={"rows": rows, "pad_rows": rung - rows})
+                tracing.record_span(
+                    ctx, "serve.dispatch", t_disp + epoch_off, wall,
+                    attrs=disp_attrs, links=links, span_id=disp_sid)
+                t_slice = time.monotonic()
+                tracing.record_span(
+                    ctx, "serve.slice", t_done + epoch_off,
+                    t_slice - t_done, attrs={"rows": req.rows})
             req.done.set()
+            lat.labels(segment="queue").observe(
+                req.dequeue_t - req.enqueue_t)
+            lat.labels(segment="pad").observe(t_disp - t_pad)
+            lat.labels(segment="dispatch").observe(wall)
+            lat.labels(segment="total").observe(
+                t_done - req.enqueue_t,
+                exemplar=None if req.trace is None
+                else req.trace.trace_id)
+        self._m_requests.labels(outcome="ok").inc(len(batch))

@@ -165,45 +165,56 @@ def eval_graph(topo, entries, var_values, is_train=False, device=None,
     # of the telemetry spans
     prof = _profiler.is_running()
     tid = threading.get_ident() % (1 << 31)
-    for node in topo:
-        if node.is_variable:
-            try:
-                vals[id(node)] = (var_values[id(node)],)
-            except KeyError:
-                raise MXNetError("no value bound for variable %r" % node.name)
-            continue
-        if block_plan is not None:
-            if id(node) in block_plan.skip:
-                # interior of a fused block: evaluated at its terminal
-                vals[id(node)] = (None,) * node.num_outputs()
+    node = None
+    try:
+        for node in topo:
+            if node.is_variable:
+                try:
+                    vals[id(node)] = (var_values[id(node)],)
+                except KeyError:
+                    raise MXNetError("no value bound for variable %r"
+                                     % node.name)
                 continue
-            blk = block_plan.blocks.get(id(node))
-            if blk is not None:
-                t0 = _profiler.now_us() if prof else 0.0
-                out, bn_node, bn_aux = _fusion.apply_block(blk, vals,
-                                                           is_train)
-                if prof:
-                    _profiler.record_event(
-                        "fused_%s" % getattr(blk, "kind", "block"), t0,
-                        _profiler.now_us() - t0, "operator", tid)
-                vals[id(node)] = (out,)
-                if bn_node is not None:
-                    thread_aux(bn_node, bn_aux)
-                continue
-        ins = [vals[id(src)][idx] for (src, idx) in node.inputs]
-        t0 = _profiler.now_us() if prof else 0.0
-        outs = apply_op(node.op, source_attrs(node, batch_size),
-                        sctx if node.op.is_stochastic(node.attrs) else octx,
-                        *ins)
-        if prof:
-            _profiler.record_event(node.op.name, t0, _profiler.now_us() - t0,
-                                   "operator", tid)
-        n_vis = node.num_outputs()
-        vals[id(node)] = outs[:n_vis]
-        thread_aux(node, outs[n_vis:])
-        if monitor is not None:
-            for oname, val in zip(node.output_names(), outs[:n_vis]):
-                monitor(oname, val)
+            if block_plan is not None:
+                if id(node) in block_plan.skip:
+                    # interior of a fused block: evaluated at its terminal
+                    vals[id(node)] = (None,) * node.num_outputs()
+                    continue
+                blk = block_plan.blocks.get(id(node))
+                if blk is not None:
+                    t0 = _profiler.now_us() if prof else 0.0
+                    out, bn_node, bn_aux = _fusion.apply_block(blk, vals,
+                                                               is_train)
+                    if prof:
+                        _profiler.record_event(
+                            "fused_%s" % getattr(blk, "kind", "block"), t0,
+                            _profiler.now_us() - t0, "operator", tid)
+                    vals[id(node)] = (out,)
+                    if bn_node is not None:
+                        thread_aux(bn_node, bn_aux)
+                    continue
+            ins = [vals[id(src)][idx] for (src, idx) in node.inputs]
+            t0 = _profiler.now_us() if prof else 0.0
+            outs = apply_op(node.op, source_attrs(node, batch_size),
+                            sctx if node.op.is_stochastic(node.attrs)
+                            else octx, *ins)
+            if prof:
+                _profiler.record_event(node.op.name, t0,
+                                       _profiler.now_us() - t0, "operator",
+                                       tid)
+            n_vis = node.num_outputs()
+            vals[id(node)] = outs[:n_vis]
+            thread_aux(node, outs[n_vis:])
+            if monitor is not None:
+                for oname, val in zip(node.output_names(), outs[:n_vis]):
+                    monitor(oname, val)
+    except Exception as e:
+        # name the node an error (a failed CUDA graph capture among them)
+        # came from; the message and the type stay the exception's own
+        if node is not None and not node.is_variable:
+            e.add_note("while running op %s (node %r)"
+                       % (node.op.name, node.name))
+        raise
     heads = [vals[id(n)][i] for (n, i) in entries]
     return heads, aux_updates
 

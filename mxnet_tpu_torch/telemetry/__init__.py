@@ -28,16 +28,18 @@ verdicts and flight-recorder dumps, so the JAX package's reader tools
 * **input-pipeline view** (:mod:`.ioview`) — per-stage accounting, queue
   occupancy and the bottleneck verdict;
 * **training-health numerics** (:mod:`.numerics`) — sampled parameter
-  and gradient statistics (``MXNET_TPU_NUMERICS_EVERY``, off by default).
+  and gradient statistics (``MXNET_TPU_NUMERICS_EVERY``, off by default);
+* **SLO engine** (:mod:`.slo`) — declarative rules, burn-rate alerts and
+  the ``mxtpu-health/1`` verdict, ticked by ``step_end`` and by the
+  serving front door's background thread.
 
 Nothing here adds a sync with the card on the default path: spans read
 the host clock, memory sampling reads the allocator's host-side counters,
 and numerics fetch their statistics only on sampled steps.
 
 Not yet ported, and named so that a caller learns it at once:
-:data:`costdb` (the cost database, ROADMAP Queue A item 9) and
-:data:`slo` (the SLO engine, item 5) raise on any use; so does the
-cross-rank half of :mod:`.distview` (item 6).
+:data:`costdb` (the cost database, ROADMAP Queue A item 9) raises on any
+use; so does the cross-rank half of :mod:`.distview` (item 6).
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ from . import memory
 from . import distview
 from . import ioview
 from . import numerics
+from . import slo
 from .exporters import (step_end, jsonl_event, render_prom, report,
                         start_http_server, jsonl_path, env_port, reset,
                         reset_steps)
@@ -83,8 +86,6 @@ class _NotPorted:
 
 #: the cost database (``mxnet_tpu.telemetry.costdb``): not yet ported
 costdb = _NotPorted("costdb", 9)
-#: the SLO engine (``mxnet_tpu.telemetry.slo``): not yet ported
-slo = _NotPorted("slo", 5)
 
 __all__ = [
     "CATALOG", "NOT_EMITTED", "selfcheck",

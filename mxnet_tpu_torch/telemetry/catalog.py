@@ -9,10 +9,9 @@ typo'd name fails at the emit site, not silently in a dashboard).
 
 Some entries describe facts the port has no counterpart of (XLA's static
 memory plan and cost analysis, the cross-rank timestamp barrier) or
-subsystems it has not ported (the cost database, the SLO engine, serving
-hooks, elastic resharding).  They stay declared, so the vocabulary stays
-whole, and :data:`NOT_EMITTED` names each with the reason nothing in the
-port emits it.
+subsystems it has not ported (the cost database, elastic resharding).
+They stay declared, so the vocabulary stays whole, and :data:`NOT_EMITTED`
+names each with the reason nothing in the port emits it.
 
 Naming follows Prometheus conventions: ``_total`` counters,
 ``_seconds``/``_bytes`` units, gauges unsuffixed.
@@ -386,8 +385,6 @@ _PLANS = ("the JAX package plans once a compile; the port plans each eager "
 _OVERLAP = "bucketed gradient overlap not yet ported"
 _MEMLIVE = "analysis.memlive not yet ported"
 _RESHARD = "elastic resharding not yet ported"
-_SERVE = "serving's telemetry hooks not yet ported (Queue A item 5)"
-_SLO = "telemetry.slo not yet ported (Queue A item 5)"
 _COSTDB = "telemetry.costdb not yet ported (Queue A item 9)"
 
 #: declared names nothing in the port emits, with the reason
@@ -426,17 +423,6 @@ NOT_EMITTED = {
     "mxtpu_collective_wait_seconds": _RANKS,
     "mxtpu_rank_step_skew_seconds": _RANKS,
     "mxtpu_capture_total": _RANKS + ": live capture",
-    "mxtpu_serve_requests_total": _SERVE,
-    "mxtpu_serve_shed_total": _SERVE,
-    "mxtpu_serve_rung_dispatch_total": _SERVE,
-    "mxtpu_serve_request_seconds": _SERVE,
-    "mxtpu_serve_rung_occupancy": _SERVE,
-    "mxtpu_serve_queue_depth": _SERVE,
-    "mxtpu_alert_transitions_total": _SLO,
-    "mxtpu_alert_state": _SLO,
-    "mxtpu_alerts_firing": _SLO,
-    "mxtpu_slo_burn_rate": _SLO,
-    "mxtpu_health_status": _SLO,
 }
 
 # rung-occupancy fractions (histogram buckets): fill ratios up to full

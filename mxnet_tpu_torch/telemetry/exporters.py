@@ -18,8 +18,9 @@ record and text formats, so the JAX package's reader tools
   throughput, compile count/time, per-phase breakdown, memory) that
   ``tools.bench`` embeds in its JSON line.
 
-The JAX step-end hooks of the SLO engine and the cost database are not
-ported (``telemetry.slo`` / ``telemetry.costdb`` raise).
+``step_end`` drives the SLO engine's step cadence (``slo.on_step``), as
+in the JAX package; the JAX cost-database hook is not ported
+(``telemetry.costdb`` raises).
 """
 from __future__ import annotations
 
@@ -36,6 +37,7 @@ from . import distview as distview_mod
 from . import flight
 from . import ioview as ioview_mod
 from . import memory as memory_mod
+from . import slo as slo_mod
 from . import tracing as tracing_mod
 from .spans import drain_step_spans
 
@@ -159,6 +161,9 @@ def step_end(samples=None, step_time=None, extra=None, count=1):
         # a postmortem black box carries the last steps' segment shape
         ev["segments"] = extra["segments"]
     flight.record("step_end", **ev)
+    # the SLO judge rides the step cadence: one clock read per step, a
+    # full rule evaluation at most every MXNET_TPU_SLO_TICK_S
+    slo_mod.on_step()
     with _lock:
         fh = _jsonl_handle()
         if fh is None:
@@ -467,6 +472,7 @@ def reset():
     memory_mod.clear_plans()
     from . import numerics as numerics_mod
     numerics_mod.reset()
+    slo_mod.reset()
     tracing_mod.reset()
     with _lock:
         _step_durs.clear()

@@ -58,7 +58,7 @@ def test_scan_covers_the_package():
                 ("telemetry", m + ".py") for m in (
                     "__init__", "catalog", "registry", "spans", "tracing",
                     "exporters", "compile", "flight", "memory",
-                    "distview", "ioview", "numerics")):
+                    "distview", "ioview", "numerics", "slo")):
         assert os.path.join("mxnet_tpu_torch", *rel) in names
 
 

@@ -327,6 +327,9 @@ def test_server_end_to_end(checkpoint):
         assert ei.value.code == 500
     finally:
         server.close()
+        # the Server started the process-wide SLO ticker: stop it, so
+        # later tests in this worker judge only their own traffic
+        tmx.telemetry.slo.stop_ticker()
     assert not bat.alive
 
 

@@ -40,6 +40,10 @@ def test_catalog_is_the_jax_catalog():
     assert ttel.CATALOG == jtel.CATALOG
     assert set(ttel.NOT_EMITTED) < set(ttel.CATALOG)
     assert all(isinstance(v, str) and v for v in ttel.NOT_EMITTED.values())
+    # the serving tier and the SLO engine set every one of theirs
+    assert not [n for n in ttel.NOT_EMITTED
+                if n.startswith(("mxtpu_serve_", "mxtpu_alert",
+                                 "mxtpu_slo_", "mxtpu_health_"))]
     assert ttel.selfcheck() == [] == jtel.selfcheck()
     with pytest.raises(tmx.MXNetError, match="not declared"):
         ttel.counter("mxtpu_no_such_total")
@@ -257,7 +261,7 @@ def test_segments_equal_jax_and_cross_rank_raises():
     for call in (lambda: ttel.distview.RunAggregator("x", 2),
                  lambda: ttel.distview.capture_now(),
                  lambda: ttel.distview.summarize_run([]),
-                 lambda: ttel.costdb.summary(), lambda: ttel.slo.health()):
+                 lambda: ttel.costdb.summary()):
         with pytest.raises(tmx.MXNetError, match="not yet ported"):
             call()
 
