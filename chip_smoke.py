@@ -294,9 +294,26 @@ Phases, one JSON line each:
     those and the range sets in f32; each bit-identical across two
     launches; then the general kernel past cmid 256 at batch 1, cmid 512
     and 1024 in both dtypes, each in the tile its shared memory allows;
-    cmid 4096 must raise in both dtypes.
+    cmid 4096 must raise in both dtypes;
+38. ``autotune`` (last: it leaves the tuning cache empty and the
+    variables unset, so every phase before it ran the built-in tiles):
+    every tile the tuners may pick against the plain versions (K1 and K3
+    at the GPT's training and serving shapes, timed, and at every head
+    dim; K5's configs at the 8 ResNet-50 shapes in bf16 and 2 in f32,
+    timed); ``tools.autotune --model resnet50 --batch 128`` twice, each
+    in a process of its own (the second: every key cached, none tuned),
+    the GPT's flash keys twice; ``tools.plan_search`` of ResNet-50 twice
+    (the second cached; the committed plan no slower than greedy); from
+    the committed cache the bench trainer (every tune and plan lookup a
+    hit, K5 on each of the plan's K5 blocks, losses within
+    ``TOL_TUNED_LOSS`` of a run with both off), the bf16 GPT step and
+    the f32 ladder (flash hits, replays equal to the eager forward to the
+    bit); a flash forward captured in ``search`` mode (no search inside
+    the capture, one after it); the K5 and K1 wrappers' host us a call
+    with the cache off, empty and hit.
 
-Then the kernel summary line (each kernel with its launches on its main
+Then the kernel summary line (each entry with its ``tiles``: the
+built-in tile, the legal set, the tuners' winner and both times) (each kernel with its launches on its main
 path, and on the DCGAN path, in autograd_check's recorded attention, on
 the detection path (ssd_train and rcnn_train), on Inception-v3's path, in
 ring_gpt, on the resume path (resume_train's runs U and R and its CLI
@@ -498,20 +515,23 @@ def env_phase():
 
 def ptxas_summary(text):
     """``-Xptxas -v``'s report of the flash kernels, one entry a kernel
-    instantiation (``flash_fwd_tf32<64>``, ``flash_delta_kernel<64,bf16>``
-    and the like): registers, static shared memory, stack frame and spill
-    bytes."""
+    instantiation, named by its integer template arguments in order (the
+    head dim, then the tile: ``flash_fwd_tf32<64,2,64>``,
+    ``flash_bwd_dq_sm90<64,32>``, ``flash_delta_kernel<64,bf16>`` and the
+    like): registers, static shared memory, stack frame and spill bytes."""
     out, name = {}, None
     for line in text.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties "
                       r"for) '?(\w+)", line)
         if m:
             mangled = m.group(1)
-            k = re.search(r"flash_[a-z0-9_]+?(?=I)", mangled)
-            d = re.search(r"Li(\d+)E", mangled)
+            # the kernel's own name follows its length's last digit (an
+            # anonymous namespace's name may hold "flash_" too)
+            k = re.findall(r"(?<=\d)flash_[a-z0-9_]+?(?=I)", mangled)
+            d = re.findall(r"Li(\d+)E", mangled)
             name = None
             if k and d:
-                name = "%s<%s%s>" % (k.group(0), d.group(1),
+                name = "%s<%s%s>" % (k[-1], ",".join(d),
                                      ",bf16" if "nv_bfloat16" in mangled
                                      else "")
                 out.setdefault(name, {})
@@ -5859,6 +5879,467 @@ K5_SHAPE_KEYS = ("shape", "device_ms", "kernel_ms", "host_us", "dot_ms",
                  "s1_rel_norm", "s2_rel_norm", "bit_identical")
 
 
+# ------------------------------------------------------------ autotune
+#: the flash shapes whose every tile is timed: the GPT's training step
+#: (bf16, batch 16) and its serving rung 4 (f32), both causal
+AUTOTUNE_FLASH = [TRAIN_SHAPE, (4, 1024, 16, 64, torch.float32, True)]
+#: every head dim's tiles, checked (not timed) at a small shape
+AUTOTUNE_FLASH_CHECK = [(2, 256, 4, d, dt, True) for d in (32, 64, 128)
+                        for dt in (torch.float32, torch.bfloat16)]
+
+
+def _flash_tile_entries(case, gen, timed):
+    """Every tile :func:`kernel_tiles` lists of the flash forward and
+    backward at ``case`` against the plain versions, under the kernels
+    phases' tolerances (the backward from the built-in forward's o and
+    lse); with ``timed``, each tile's device time (a CUDA graph of launches,
+    ``autotune.measure_device``)."""
+    from mxnet_tpu_torch.autotune import search as tsearch
+    from mxnet_tpu_torch.ops.flash_attention import kernel_tiles
+    b, t, h, d, dt, causal = case
+    q, k, v, do = (torch.randn(b, t, h, d, generator=gen, device="cuda")
+                   .to(dt) for _ in range(4))
+    f32 = dt == torch.float32
+    ro, rl = flash_attention_plain(q.float(), k.float(), v.float(), causal)
+    out = {"shape": [b, t, h, d], "dtype": str(dt).replace("torch.", ""),
+           "causal": causal, "fwd": [], "bwd": []}
+    tol_o = TOL_F32 if f32 else TOL_BF16
+    for tile in kernel_tiles("fwd", dt, d):
+        o, lse = flash_attention_fwd(q, k, v, causal, blocks=tile)
+        torch.cuda.synchronize()
+        e = {"tile": list(tile),
+             "err_o": (o.float() - ro).abs().max().item(),
+             "err_lse": (lse - rl).abs().max().item()}
+        e["ok"] = e["err_o"] <= tol_o and e["err_lse"] <= TOL_F32
+        if timed:
+            e["ms"] = 1e3 * tsearch.measure_device(
+                lambda: flash_attention_fwd(q, k, v, causal, blocks=tile),
+                repeats=3, chain=10, device="cuda")
+        out["fwd"].append(e)
+        del o, lse
+    o, lse = flash_attention_fwd(q, k, v, causal)
+    ref = flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                    o.float(), lse, do.float(), causal)
+    for tile in kernel_tiles("bwd", dt, d):
+        got = flash_attention_bwd(q, k, v, o, lse, do, causal, blocks=tile)
+        torch.cuda.synchronize()
+        e = {"tile": list(tile), "ok": True}
+        for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+            err = (x.float() - r).abs().max().item()
+            rel = (x.float() - r).norm().item() / r.norm().item()
+            e[name + "_err"], e[name + "_rel_norm"] = err, rel
+            e["ok"] = e["ok"] and err <= TOL_BWD_MAX[dt] * r.abs().max(
+            ).item() + (1e-5 if f32 else 0.0) and rel <= TOL_BWD_NORM[dt]
+        if timed:
+            e["ms"] = 1e3 * tsearch.measure_device(
+                lambda: flash_attention_bwd(q, k, v, o, lse, do, causal,
+                                            blocks=tile),
+                repeats=3, chain=5, device="cuda")
+        out["bwd"].append(e)
+        del got
+    del q, k, v, do, ro, rl, o, lse, ref
+    return out
+
+
+def autotune_kernels_phase():
+    """Every tile the tuners may pick, against the plain versions on the
+    card: K1 and K3 at the GPT's training shape (bf16) and serving shape
+    (f32), and at every head dim at (2, 256, 4, D); K5 at every config
+    ``candidate_matmul_configs`` lists (each width it takes at N, at its
+    built-in grid rows and half of them) at the 8 ResNet-50 shapes in bf16
+    and the 2 f32 shapes, under K5's criteria.  Each timed one's device
+    time (a CUDA graph of launches) and the built-in tile's beside it."""
+    from mxnet_tpu_torch.autotune import search as tsearch
+    from mxnet_tpu_torch.ops import fused as tfused
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    flash = [_flash_tile_entries(c, gen, True) for c in AUTOTUNE_FLASH]
+    flash += [_flash_tile_entries(c, gen, False)
+              for c in AUTOTUNE_FLASH_CHECK]
+    sms = tfused._partial_rows(torch.device("cuda", 0))
+    k5 = []
+    cases = [(m, k, n, torch.bfloat16) for m, k, n, _c in K5_BENCH_SHAPES]
+    cases += [(m, k, n, torch.float32) for m, k, n in K5_F32_SHAPES]
+    for m, k, n, dt in cases:
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dt)
+        w2d = (torch.randn(n, k, generator=gen, device="cuda")
+               / k ** 0.5).to(dt).t()
+        c = 0.1 * torch.randn(n, generator=gen, device="cuda")
+        ref = matmul_stats_plain(x, w2d, c)
+        dtype = str(dt).replace("torch.", "")
+        entry = {"shape": [m, k, n], "dtype": dtype, "configs": []}
+        for cfg in tsearch.candidate_matmul_configs(m, n, dtype, sms=sms):
+            got = matmul_stats(x, w2d, c, config=cfg)
+            torch.cuda.synchronize()
+            e = dict(cfg, **k5_check(*got, *ref))
+            e["device_ms"] = matmul_stats_experiment.device_ms(
+                lambda: matmul_stats(x, w2d, c, config=cfg))
+            entry["configs"].append(e)
+            del got
+        entry["heuristic"] = tfused.heuristic_config(m, n, dt, sms)
+        entry.update(k5_bound(m, k, n, dt))
+        k5.append(entry)
+        del x, w2d, c, ref
+    bad = [e for f in flash for e in f["fwd"] + f["bwd"] if not e["ok"]]
+    bad += [c for e in k5 for c in e["configs"] if not c["ok"]]
+    if bad:
+        raise SystemExit("autotune_kernels: a tile disagrees with the plain "
+                         "version: %s" % json.dumps(bad))
+    return {"flash": flash, "matmul_stats": k5}
+
+
+#: the bench trainer's steps in each of autotune's two dispatch runs, and
+#: the bound on the relative difference of their losses: the tuned tiles
+#: (and a committed plan's decisions) sum in other orders than the built-in
+#: ones, in bf16
+AUTOTUNE_RESNET_STEPS = 4
+TOL_TUNED_LOSS = 5e-2
+#: the GPT's flash keys autotune tunes: the bf16 training step's forward
+#: and backward, and the f32 serving rungs' forward (all causal)
+AUTOTUNE_GPT_KEYS = [("flash_fwd", "16x1024x16x64", "bfloat16"),
+                     ("flash_bwd", "16x1024x16x64", "bfloat16"),
+                     ("flash_fwd", "1x1024x16x64,4x1024x16x64", "float32")]
+
+
+def _tool_main(module, argv):
+    """``module.main(argv + ["--json"])`` in this process: its exit code
+    and the document it printed."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(list(argv) + ["--json"])
+    lines = buf.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else None)
+
+
+def _tool_process(module, argv):
+    """``python -m module argv --json`` from the repo's root, in a process
+    of its own: the document it printed; raises on a non-zero exit."""
+    res = subprocess.run(
+        [sys.executable, "-m", module] + list(argv) + ["--json"],
+        capture_output=True, text=True, timeout=600,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    if res.returncode != 0:
+        raise SystemExit("autotune: %s failed (%d): %s"
+                         % (module, res.returncode, res.stderr[-2000:]))
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _autotune_env(**values):
+    """Set (or, for None, remove) the autotune and plan variables and
+    re-read the tuning cache: a fresh generation and zeroed counts."""
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.analysis import plansearch
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    autotune.reload_cache()
+    autotune.reset_stats()
+    plansearch.reset_stats()
+
+
+def _resnet_dispatch(steps, ctx):
+    """The bench configuration's ResNet-50 trainer (batch 128, 224, bf16,
+    NHWC, fused): ``steps`` steps with K5's count set to 0 just before;
+    the losses, K5's launches a step, the plan's K5 blocks, the tune and
+    plan lookups."""
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.analysis import plansearch
+    trainer, staged = build_resnet_trainer(128, 224, ctx=ctx)
+    matmul_stats.launches = 0
+    losses = [float(trainer.step(staged)) for _ in range(steps)]
+    torch.cuda.synchronize()
+    out = {"losses": losses,
+           "k5_launches_per_step": matmul_stats.launches / steps,
+           "pallas_blocks": trainer.fusion_summary()["pallas_blocks"],
+           "plan_id": trainer.fusion_summary().get("plan_id"),
+           "tune": {k: v for k, v in autotune.summary().items()
+                    if k in ("mode", "entries", "hits", "misses",
+                             "searches")},
+           "plan": plansearch.stats()}
+    del trainer, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _wrapper_us(fn, calls=2000):
+    """Host microseconds a call of ``fn`` (warmed; the card's work at the
+    tiny shapes is a few microseconds)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def autotune_host_costs(rounds=3, calls=1000):
+    """The K5 and K1 wrappers' host microseconds a call at tiny bf16 shapes
+    ((256, 64) @ (64, 64); (1, 128, 1, 64) causal) with the tuning cache
+    off, empty (every lookup a miss, resolved once) and hit (the key
+    committed with the built-in tile): ``rounds`` rounds, the modes in a
+    rotated order in each (the host's speed drifts over seconds), the
+    median of each mode's readings."""
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.ops import fused as tfused
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn(256, 64, generator=gen, device="cuda").bfloat16()
+    w = torch.randn(64, 64, generator=gen, device="cuda").bfloat16()
+    c = torch.zeros(64, device="cuda")
+    q, k, v = (torch.randn(1, 128, 1, 64, generator=gen, device="cuda")
+               .bfloat16() for _ in range(3))
+    modes = ["off", "empty", "hit"]
+    got = {m: {"k5_us": [], "k1_us": []} for m in modes}
+    lookups = {}
+    for r in range(rounds):
+        for mode in modes[r % 3:] + modes[:r % 3]:
+            _autotune_env(MXNET_TPU_AUTOTUNE="off" if mode == "off"
+                          else None, MXNET_TPU_TUNE_CACHE=None)
+            if mode == "hit":
+                autotune.put("matmul_stats", [(256, 64), (64, 64)],
+                             ["bfloat16", "bfloat16"],
+                             tfused.heuristic_config(256, 64,
+                                                     torch.bfloat16),
+                             backend="gpu", persist=False)
+                autotune.put("flash_attention_fwd", [(1, 128, 1, 64)],
+                             ["bfloat16"], {"block_q": 128, "block_k": 128},
+                             extra={"causal": True}, backend="gpu",
+                             persist=False)
+            got[mode]["k5_us"].append(
+                _wrapper_us(lambda: matmul_stats(x, w, c), calls))
+            got[mode]["k1_us"].append(
+                _wrapper_us(lambda: flash_attention_fwd(q, k, v, True),
+                            calls))
+            lookups[mode] = {kk: vv for kk, vv in
+                             autotune.summary().items()
+                             if kk in ("hits", "misses")}
+    _autotune_env(MXNET_TPU_AUTOTUNE=None)
+    return {m: {"k5_us": float(np.median(got[m]["k5_us"])),
+                "k1_us": float(np.median(got[m]["k1_us"])),
+                "k5_us_all": got[m]["k5_us"], "k1_us_all": got[m]["k1_us"],
+                "lookups": lookups[m]} for m in modes}
+
+
+def autotune_capture_check():
+    """``MXNET_TPU_AUTOTUNE=search`` and a key the cache lacks: a flash
+    forward captured into a CUDA graph reads the miss as a plain miss (no
+    search: its synchronisations would break the capture), and the same
+    call outside the capture searches and commits."""
+    from mxnet_tpu_torch import autotune
+    _autotune_env(MXNET_TPU_AUTOTUNE="search", MXNET_TPU_TUNE_CACHE=None)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn(1, 256, 2, 64, generator=gen, device="cuda")
+               for _ in range(3))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        o, _lse = flash_attention_fwd(q, k, v, True)
+    graph.replay()
+    torch.cuda.synchronize()
+    captured = {kk: vv for kk, vv in autotune.summary().items()
+                if kk in ("hits", "misses", "searches")}
+    flash_attention_fwd(q, k, v, True)
+    torch.cuda.synchronize()
+    after = {kk: vv for kk, vv in autotune.summary().items()
+             if kk in ("hits", "misses", "searches", "entries")}
+    del graph, o
+    _autotune_env(MXNET_TPU_AUTOTUNE=None)
+    if captured["searches"] != 0 or captured["misses"] != 1 \
+            or after["searches"] != 1:
+        raise SystemExit("autotune: a search ran inside a CUDA-graph "
+                         "capture, or none outside it: %s then %s"
+                         % (captured, after))
+    return {"in_capture": captured, "after": after}
+
+
+def _tile_times(entry, kind):
+    """``{"heuristic", "legal", "winner", "ms"}`` of one flash case's
+    ``kind`` (``fwd``/``bwd``) tiles from autotune_kernels."""
+    rows = entry[kind]
+    best = min(rows, key=lambda e: e["ms"])
+    return {"shape": entry["shape"], "dtype": entry["dtype"],
+            "heuristic": rows[0]["tile"], "heuristic_ms": rows[0]["ms"],
+            "legal": [e["tile"] for e in rows], "winner": best["tile"],
+            "winner_ms": best["ms"],
+            "ms": {"x".join(map(str, e["tile"])): e["ms"] for e in rows}}
+
+
+def _k5_tile_times(entry):
+    """The same for one K5 shape: configs ``{"bn", "rows"}``."""
+    rows = entry["configs"]
+    best = min(rows, key=lambda e: e["device_ms"])
+    return {"shape": entry["shape"], "dtype": entry["dtype"],
+            "heuristic": entry["heuristic"],
+            "heuristic_ms": rows[0]["device_ms"],
+            "legal": [{"bn": e["bn"], "rows": e["rows"]} for e in rows],
+            "winner": {"bn": best["bn"], "rows": best["rows"]},
+            "winner_ms": best["device_ms"]}
+
+
+def autotune_phase(ctx, workdir, cfg=FULL):
+    """The tuners, the cache and the plan search on the card: every tile
+    against the plain versions (:func:`autotune_kernels_phase`); the
+    ResNet-50 zoo tuning through ``tools.autotune`` twice (each as its own
+    process), the GPT's flash keys, the ResNet-50 plan through
+    ``tools.plan_search`` twice (keyed by the trainer's one-device mesh);
+    then from the committed cache the bench trainer (every tune and plan
+    lookup a hit, K5 on each of the plan's K5 blocks, losses within
+    TOL_TUNED_LOSS of a run with both off), the bf16 GPT step and the f32
+    serving ladder (the flash lookups hits, each rung's replay equal to its
+    eager forward to the bit); no search inside a capture; the wrappers'
+    host cost.  Leaves the cache empty and the variables unset, so that
+    nothing after it changes."""
+    from mxnet_tpu_torch import autotune
+    from mxnet_tpu_torch.analysis import plansearch
+    from mxnet_tpu_torch.tools import autotune as tune_tool
+    from mxnet_tpu_torch.tools import plan_search as plan_tool
+    t0 = time.perf_counter()
+    tiles = autotune_kernels_phase()
+    kernels_s = time.perf_counter() - t0
+    cache = os.path.join(workdir, "tunecache")
+    resnet_args = ["--model", "resnet50", "--batch", "128", "--dtype",
+                   "bfloat16", "--cache", cache]
+    # both runs as their own processes: the CLI as a user calls it
+    t1 = time.perf_counter()
+    first = _tool_process("mxnet_tpu_torch.tools.autotune", resnet_args)
+    tune_s = time.perf_counter() - t1
+    second = _tool_process("mxnet_tpu_torch.tools.autotune", resnet_args)
+    _autotune_env(MXNET_TPU_TUNE_CACHE=cache)
+    if second["tuned"] != 0 or second["cached"] != \
+            first["tuned"] + first["cached"] or first["tuned"] == 0:
+        raise SystemExit("autotune: the second ResNet-50 run searched %s "
+                         "(want 0 and every key cached): first %s"
+                         % (second, first))
+    gpt = []
+    for op, shapes, dtype in AUTOTUNE_GPT_KEYS:
+        for run in (0, 1):
+            rc, doc = _tool_main(tune_tool, [
+                "--op", op, "--shapes", shapes, "--causal", "--dtype",
+                dtype, "--cache", cache])
+            if rc != 0 or (run == 1 and doc["tuned"] != 0):
+                raise SystemExit("autotune: %s %s run %d: %s"
+                                 % (op, shapes, run, doc))
+            if run == 0:
+                gpt.append(doc)
+    plan_args = ["--model", "resnet50", "--batch", "128", "--num-classes",
+                 "1000", "--dtype", "bfloat16", "--mesh", "data=1,model=1",
+                 "--cache", cache]
+    t1 = time.perf_counter()
+    rc, plan1 = _tool_main(plan_tool, plan_args)
+    plan_s = time.perf_counter() - t1
+    rc2, plan2 = _tool_main(plan_tool, plan_args)
+    if rc or rc2 or plan1["cached"] or not plan2["cached"] \
+            or plan1["wall_s"] > plan1["greedy_wall_s"]:
+        raise SystemExit("autotune: plan_search: %s then %s"
+                         % (plan1, plan2))
+    # dispatch: the bench trainer with both off, then from the cache
+    _autotune_env(MXNET_TPU_AUTOTUNE="off", MXNET_TPU_PLAN_SEARCH="off",
+                  MXNET_TPU_TUNE_CACHE=None)
+    off = _resnet_dispatch(AUTOTUNE_RESNET_STEPS, ctx)
+    _autotune_env(MXNET_TPU_AUTOTUNE=None, MXNET_TPU_PLAN_SEARCH=None,
+                  MXNET_TPU_TUNE_CACHE=cache)
+    tuned = _resnet_dispatch(AUTOTUNE_RESNET_STEPS, ctx)
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(tuned["losses"], off["losses"]))
+    if tuned["tune"]["misses"] or not tuned["tune"]["hits"] \
+            or tuned["plan"] != {"hits": 1, "misses": 0} \
+            or tuned["k5_launches_per_step"] != tuned["pallas_blocks"] \
+            or off["k5_launches_per_step"] != K5_PER_STEP \
+            or loss_rel > TOL_TUNED_LOSS \
+            or not all(np.isfinite(tuned["losses"])):
+        raise SystemExit("autotune: the ResNet-50 dispatch from the cache: "
+                         "%s against %s (loss rel %g)"
+                         % (tuned, off, loss_rel))
+    # the bf16 GPT step from the cache
+    _autotune_env()
+    trainer, staged = build_bench_trainer(
+        vocab=cfg["vocab"], seq=cfg["seq"], d_model=cfg["d_model"],
+        heads=cfg["heads"], layers=cfg["layers"], batch=16,
+        dtype="bfloat16", ctx=ctx)
+    zero_flash_counts()
+    gpt_losses = [float(trainer.step(staged)) for _ in range(2)]
+    gpt_step = {"losses": gpt_losses, "launches": flash_counts(),
+                "tune": {k: v for k, v in autotune.summary().items()
+                         if k in ("hits", "misses", "searches")},
+                "tuned": autotune.summary()["tuned"]}
+    del trainer, staged
+    gc.collect()
+    torch.cuda.empty_cache()
+    if gpt_step["tune"]["misses"] or gpt_step["tune"]["hits"] != 2 \
+            or not all(np.isfinite(gpt_losses)):
+        raise SystemExit("autotune: the GPT step from the cache: %s"
+                         % gpt_step)
+    # the f32 serving ladder from the cache
+    _autotune_env()
+    ladder = _ladder_from_cache(ctx, cfg, workdir)
+    if ladder["tune"]["misses"] or ladder["tune"]["hits"] != 2 \
+            or not all(r["bit_equal"] for r in ladder["rungs"].values()):
+        raise SystemExit("autotune: the ladder from the cache: %s" % ladder)
+    capture = autotune_capture_check()
+    host = autotune_host_costs()
+    _autotune_env(MXNET_TPU_TUNE_CACHE=None, MXNET_TPU_AUTOTUNE=None,
+                  MXNET_TPU_PLAN_SEARCH=None)
+    autotune.CACHE.clear()
+    flash = {"%s_%s_%s" % (kind, e["dtype"], e["shape"][0]):
+             _tile_times(e, kind)
+             for e in tiles["flash"] if "ms" in e["fwd"][0]
+             for kind in ("fwd", "bwd")}
+    return {"tiles": tiles, "flash_tiles": flash,
+            "k5_tiles": [_k5_tile_times(e) for e in tiles["matmul_stats"]],
+            "tune_first": {k: first[k] for k in ("tuned", "cached")},
+            "tune_first_keys": first["keys"], "tune_second":
+                {k: second[k] for k in ("tuned", "cached")},
+            "gpt_keys": [d["keys"] for d in gpt],
+            "plan_first": {k: plan1.get(k) for k in (
+                "graph", "plan_id", "searched", "measured", "predicted_s",
+                "greedy_predicted_s", "wall_s", "greedy_wall_s",
+                "candidates")},
+            "plan_second": {k: plan2.get(k) for k in ("cached", "plan_id")},
+            "resnet_off": off, "resnet_tuned": tuned,
+            "resnet_loss_rel": loss_rel, "gpt_step": gpt_step,
+            "ladder": ladder, "capture": capture, "host_us": host,
+            "kernels_s": kernels_s, "tune_s": tune_s, "plan_s": plan_s,
+            "wall_s": time.perf_counter() - t0}
+
+
+def _ladder_from_cache(ctx, cfg, workdir, rungs=(1, 4)):
+    """The f32 GPT served from one CUDA graph a rung, from the cache:
+    each rung's replay against the eager forward of the same rung."""
+    from mxnet_tpu_torch import autotune
+    seq = cfg["seq"]
+    net = gpt_symbol(cfg["vocab"], seq, cfg["d_model"], cfg["heads"],
+                     cfg["layers"], dropout=0.0)
+    params = gpt_params(net, seq)
+    prefix = os.path.join(workdir, "gpt_tuned")
+    net.save(prefix + "-symbol.json")
+    mx.nd.save(prefix + "-0000.params",
+               {"arg:" + k: mx.nd.array(v, ctx=mx.cpu())
+                for k, v in params.items()})
+    del params
+    tokens = np.random.RandomState(2).randint(
+        0, cfg["vocab"], (max(rungs), seq)).astype(np.float32)
+    pred = mx.Predictor(prefix + "-symbol.json", prefix + "-0000.params",
+                        {"data": (1, seq)}, ctx=ctx)
+    eager = {r: pred.reshaped({"data": (r, seq)}) for r in rungs}
+    ladder = BatchLadder(pred, rungs=rungs)
+    out = {"rungs": {}}
+    for r in rungs:
+        got = ladder.dispatch(r, {"data": tokens[:r]})[0]
+        ref = _eager_dispatch(eager[r], tokens[:r])
+        out["rungs"][str(r)] = {
+            "bit_equal": bool(np.array_equal(got, ref)),
+            "max_abs_dlogp": float(np.abs(np.log(got) - np.log(ref)).max())}
+    out["tune"] = {k: v for k, v in autotune.summary().items()
+                   if k in ("hits", "misses", "searches")}
+    out["tuned"] = autotune.summary()["tuned"]
+    del ladder, eager, pred
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def experiment_summary(name, source, replaces, entries, launches, **extra):
     """A K7 or K8 entry of the kernel summary line: the times summed over
     the tool's 8 shapes, one call each; ``ms`` is the card's time
@@ -6109,6 +6590,10 @@ def main():
     rtc = rtc_phase()
     mse = matmul_stats_experiment_phase()
     blk = block_experiment_phase()
+    # last: it commits tuned tiles and a plan, then empties the cache
+    with tempfile.TemporaryDirectory() as workdir:
+        tuned = autotune_phase(mx.gpu(0), workdir)
+    emit("autotune", **tuned)
     train_shape = list(TRAIN_SHAPE[:4])
     fwd_train = _case(fwd, train_shape, "bfloat16")
     bwd_train = _case(bwd, train_shape, "bfloat16")
@@ -6301,6 +6786,26 @@ def main():
                 e[key] = run[counter] - run["matmul_stats_f32"]
             else:
                 e[key] = run[counter]
+    # each kernel's tiles: the built-in one, the legal set, the tuners'
+    # winner and both device times (autotune); K6, K9 and delta take none
+    k5_tiles = {dt: [t for t in tuned["k5_tiles"] if t["dtype"] == dt]
+                for dt in ("bfloat16", "float32")}
+    tiles = {
+        "flash_attention_fwd": tuned["flash_tiles"]["fwd_float32_4"],
+        "flash_attention_bwd": tuned["flash_tiles"]["bwd_float32_4"],
+        "flash_attention_fwd_sm90": tuned["flash_tiles"]["fwd_bfloat16_16"],
+        "flash_attention_bwd_sm90": tuned["flash_tiles"]["bwd_bfloat16_16"],
+        "matmul_stats": k5_tiles["bfloat16"],
+        "matmul_stats_f32": k5_tiles["float32"],
+        "matmul_stats_experiment.matmul_stats": {
+            "tuned": False, "heuristic": "bf16_tile (K5's rule)",
+            "legal": [64, 128, 256]},
+        "matmul_stats_experiment.matmul_stats_prologue": {
+            "tuned": False, "heuristic": "the widest tile N needs",
+            "legal": [64, 128, 256]}}
+    for e in kernels:
+        e["tiles"] = tiles.get(e["name"], {"tuned": False,
+                                            "takes_tile": False})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

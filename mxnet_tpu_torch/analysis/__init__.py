@@ -17,13 +17,14 @@ The counterpart of ``mxnet_tpu/analysis``:
   audits;
 * the **predicted-slow check** (:mod:`.perf`, MXG010) over a fitted
   :class:`mxnet_tpu_torch.autotune.CostModel`;
-* the **block-fusion planner** (:mod:`.fusion`);
+* the **block-fusion planner** (:mod:`.fusion`) and the **plan search**
+  (:mod:`.plansearch`): the cost-model-guided search over its decisions,
+  committed to the tuning cache and consulted at bind time;
 * the **source linter** of ``tools/mxlint.py`` (stdlib only), loaded by
   path by :func:`load_mxlint`.
 
 Not yet ported: the distributed-correctness pass (JAX ``analysis/spmd.py``,
-ROADMAP Queue A item 4) and the plan search (``analysis/plansearch.py``,
-item 2).
+ROADMAP Queue A item 4).
 """
 from __future__ import annotations
 
@@ -35,14 +36,16 @@ from .verifier import (Diagnostic, Report, verify_symbol, verify_json,
 from . import fusion
 from . import memlive
 from . import perf
+from . import plansearch
 from .fusion import plan_block_fusion, last_plan_summary
 from .memlive import LivenessAnalysis, analyze_memory, check_memory
-from .perf import check_predicted_slow
+from .perf import check_predicted_slow, check_predicted_plan
 
 __all__ = ["Diagnostic", "Report", "verify_symbol", "verify_json",
            "verify_model", "infer_node_shapes", "load_mxlint",
            "registry_selfcheck", "fusion", "memlive", "perf",
-           "plan_block_fusion", "last_plan_summary", "check_predicted_slow",
+           "plansearch", "plan_block_fusion", "last_plan_summary",
+           "check_predicted_slow", "check_predicted_plan",
            "LivenessAnalysis", "analyze_memory", "check_memory"]
 
 

@@ -30,9 +30,9 @@ Usage::
 The counterpart of ``python -m mxnet_tpu.analysis``, with its options and
 output.  Not yet ported, and refused with the ROADMAP item that brings
 them: ``--mesh``, ``--pipeline``, ``--microbatches``, ``--sequence`` and
-``--kv-push`` (the distributed pass, Queue A item 4) and ``--plan`` (the
-plan search, Queue A item 2).  Everything here runs on the CPU; no op
-runs on a device.
+``--kv-push`` (the distributed pass, Queue A item 4).  ``--plan`` predicts
+the plan committed to the tuning cache (``MXNET_TPU_TUNE_CACHE``).
+Everything here runs on the CPU; no op runs on a device.
 
 Exit status 1 when any error-severity diagnostic (or lint finding) is
 reported; warnings alone exit 0 unless ``--strict-warnings``.
@@ -153,10 +153,6 @@ def main(argv=None):
             "--mesh/--pipeline/--microbatches/--sequence/--kv-push: the "
             "distributed-correctness pass (analysis.spmd) is not yet "
             "ported to mxnet_tpu_torch (ROADMAP Queue A item 4)")
-    if args.plan:
-        raise MXNetError(
-            "--plan: the plan search (analysis.plansearch) is not yet "
-            "ported to mxnet_tpu_torch (ROADMAP Queue A item 2)")
 
     if not (args.json or args.model or args.registry
             or args.lint is not None):

@@ -16,8 +16,9 @@ against the same peak table (``MXNET_TPU_PEAK_FLOPS``/``MXNET_TPU_PEAK_BW``
 pin it).  :func:`node_cost_estimate` also gives the port's program
 records their analytic flops and bytes (:mod:`..telemetry.costdb`).
 
-``check_predicted_plan`` (the ``--plan`` mode) needs the plan search,
-not yet ported: it raises (ROADMAP Queue A item 2).
+:func:`check_predicted_plan` (the ``--plan`` mode) predicts the plan the
+tuning cache commits for the graph (:mod:`.plansearch`; greedy on a
+miss) instead of the default per-node lowering.
 """
 from __future__ import annotations
 
@@ -173,9 +174,50 @@ def check_predicted_slow(topo, structs, cost_model, factor=3.0,
 
 def check_predicted_plan(topo, entries, structs, cost_model, factor=3.0,
                          report=None, layout="NCHW", mesh=None):
-    """MXG010 for the committed fusion/layout plan: needs the plan search
-    (JAX ``analysis/plansearch.py``), not yet ported."""
-    from ..base import MXNetError
-    raise MXNetError("check_predicted_plan: the plan search "
-                     "(analysis.plansearch) is not yet ported to "
-                     "mxnet_tpu_torch (ROADMAP Queue A item 2)")
+    """MXG010 ``--plan`` mode: predictions for the committed plan rather
+    than the default lowering.  The graph's ``graph_plan`` tuning-cache
+    entry (:mod:`.plansearch`; the greedy plan on a miss) is planned as a
+    bind would plan it; every costed unit (fused blocks, unfused heavy
+    nodes, the boundary transposes of regions in the other layout) is
+    predicted with ``cost_model``, and units predicted above ``factor``
+    times their roofline's attainable time are reported with the plan's
+    identity, so that a slow prediction names the plan that owns it."""
+    from ..autotune import model as _model
+    from . import fusion as _fusion
+    from . import plansearch as _plansearch
+    from .verifier import Report
+
+    report = report if report is not None else Report()
+    model = _model.load_model(cost_model)
+    factor = float(factor)
+    decisions = _plansearch.committed_decisions(topo, entries, layout,
+                                                mesh=mesh)
+    plan = _fusion.plan_block_fusion(topo, entries, layout=layout,
+                                     record=False,
+                                     decisions=dict(decisions)
+                                     if decisions else {})
+    node_shapes = {}
+    for nid, sts in structs.items():
+        if sts is None:
+            continue
+        node_shapes[nid] = tuple(tuple(int(d) for d in st.shape)
+                                 for st in sts)
+    _total, units = _plansearch.predict_plan_wall(
+        topo, entries, plan, node_shapes, model=model)
+    source = "searched" if decisions else "greedy"
+    for u in units:
+        att = u["attainable_s"]
+        predicted = (u["predicted_s"] or 0.0) + (u["relayout_s"] or 0.0)
+        if not att or not predicted:
+            continue
+        if predicted > factor * att:
+            report.add(
+                "MXG010", "warning",
+                "committed plan %s (%s): cost model predicts %.3g ms "
+                "against a roofline-attainable %.3g ms (%.1fx > the "
+                "%.1fx budget) for this %s — candidate for plan "
+                "re-search (tools/plan_search.py) or kernel tuning"
+                % (plan.plan_id, source, predicted * 1e3, att * 1e3,
+                   predicted / att, factor, u["unit"]),
+                node=u["name"], op=u["kind"])
+    return report

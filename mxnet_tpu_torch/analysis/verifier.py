@@ -554,8 +554,7 @@ def verify_symbol(sym, shapes=None, types=None, tp_size=1,
     before any compile (:mod:`.perf`).  ``plan=True`` switches MXG010
     to plan mode: predictions for the COMMITTED fusion/layout plan
     (the ``graph_plan`` tuning-cache entry at ``plan_layout``; greedy
-    on miss) instead of the default per-node lowering: it needs the plan
-    search, not yet ported, and raises (ROADMAP Queue A item 2).
+    on miss) instead of the default per-node lowering.
     ``mesh`` ({axis: size} descriptor) over more than one device asks
     for the distributed-correctness pass (MXG011-016), not yet ported: it
     raises (Queue A item 4); a one-device mesh checks nothing more, and

@@ -249,11 +249,25 @@ _CATALOG = {
                                    "(describe()['cost_model_ms'])"),
     "MXNET_TPU_RESHARD_RULES": ("", "inert", _NOT_PORTED),
     # autotuner and plan search
-    "MXNET_TPU_AUTOTUNE": ("cache", "inert", _NOT_PORTED),
-    "MXNET_TPU_TUNE_CACHE": ("", "inert", _NOT_PORTED),
-    "MXNET_TPU_PLAN_SEARCH": ("cache", "inert", _NOT_PORTED),
-    "MXNET_TPU_PLAN_BUDGET": ("64", "inert", _NOT_PORTED),
-    "MXNET_TPU_PLAN_BEAM": ("8", "inert", _NOT_PORTED),
+    "MXNET_TPU_AUTOTUNE": ("cache", "honored",
+                           "off|cache|search: the kernel wrappers' and the "
+                           "fusion planner's tuning-cache lookups "
+                           "(autotune.cache.kernel_config); search tunes a "
+                           "miss inline, never inside a CUDA-graph capture"),
+    "MXNET_TPU_TUNE_CACHE": ("", "honored",
+                             "tuning-cache directory: tunecache*.jsonl "
+                             "merged on load, puts appended "
+                             "(autotune.cache)"),
+    "MXNET_TPU_PLAN_SEARCH": ("cache", "honored",
+                              "off|cache: the bind-time graph_plan lookup "
+                              "of Executor and ShardedTrainer "
+                              "(analysis.plansearch.committed_decisions)"),
+    "MXNET_TPU_PLAN_BUDGET": ("64", "honored",
+                              "candidate plans the plan search's beam "
+                              "scores (analysis.plansearch.plan_budget)"),
+    "MXNET_TPU_PLAN_BEAM": ("8", "honored",
+                            "the plan search's beam width "
+                            "(analysis.plansearch.plan_beam)"),
     # training-health numerics (telemetry/numerics.py)
     "MXNET_TPU_NUMERICS_EVERY": ("0", "honored",
                                  "parameter and gradient statistics every "

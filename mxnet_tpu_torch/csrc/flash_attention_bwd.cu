@@ -83,10 +83,19 @@ constexpr int STAGES = 2;
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
-struct Cfg {
+struct DefaultTile {
   // rows a streamed tile: 32 ran the backward 8% faster than 64 at D=64 on
   // the H100 (two blocks an SM either way, by registers)
   static constexpr int TILE = 32;
+};
+
+// The streamed tiles a caller may ask for (the autotuner's candidates): 32
+// or 64 rows at D = 32 and 64; at D = 128 only the built-in 32, since
+// 64-row stages (two 32 KB tiles) leave two blocks an SM no room in shared
+// memory.
+template <int D, int TILE_>
+struct Cfg {
+  static constexpr int TILE = TILE_;
   // n-tiles of a gradient summed at a time before it is added (mma_pv_add):
   // at D=128 half the columns, so the partial sum is 32 registers
   static constexpr int NCH = D == 128 ? 8 : D / 8;
@@ -143,7 +152,7 @@ __device__ __forceinline__ void zero(float (&c)[1][N][4]) {
     for (int e = 0; e < 4; ++e) c[0][n][e] = 0.f;
 }
 
-template <int D>
+template <int D, int TILE_>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_bwd_dkdv_tf32(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -151,7 +160,7 @@ flash_bwd_dkdv_tf32(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_do,
                     const __grid_constant__ CUtensorMap tm_lse,
                     const __grid_constant__ CUtensorMap tm_delta, Params p) {
-  using C = Cfg<D>;
+  using C = Cfg<D, TILE_>;
   using OT = typename C::OT;
   using ST = typename C::ST;
   constexpr int TILE = C::TILE;
@@ -253,13 +262,13 @@ flash_bwd_dkdv_tf32(const __grid_constant__ CUtensorMap tm_q,
   store_rows<D>(p.g1, dv, b, h, wk0, ln, p);
 }
 
-template <int D>
+template <int D, int TILE_>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_bwd_dq_tf32(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
                   const __grid_constant__ CUtensorMap tm_do, Params p) {
-  using C = Cfg<D>;
+  using C = Cfg<D, TILE_>;
   using OT = typename C::OT;
   using ST = typename C::ST;
   constexpr int TILE = C::TILE;
@@ -362,9 +371,9 @@ struct Args {
   int causal;
 };
 
-template <int D>
+template <int D, int TILE>
 int launch(const Args& a, cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<D, TILE>;
   using ST = typename C::ST;
   // own tiles load as BLOCK / TILE boxes of TILE rows: one map a tensor
   CUtensorMap m_q, m_do, m_k, m_v, m_lse, m_del;
@@ -389,7 +398,7 @@ int launch(const Args& a, cudaStream_t stream) {
 
   // above 48 KB a block's dynamic shared memory needs this opt-in; a launch
   // refused for it would never run and synchronize() would not say so
-  auto kdkdv = flash_bwd_dkdv_tf32<D>;
+  auto kdkdv = flash_bwd_dkdv_tf32<D, TILE>;
   cudaError_t err = cudaFuncSetAttribute(
       kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -401,7 +410,7 @@ int launch(const Args& a, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  auto kdq = flash_bwd_dq_tf32<D>;
+  auto kdq = flash_bwd_dq_tf32<D, TILE>;
   err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)C::SMEM);
   if (err != cudaSuccess) return (int)err;
@@ -411,14 +420,29 @@ int launch(const Args& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// The launch at streamed tile `tile`: 0 is DefaultTile's, 64 is the other
+// at D <= 64; any other value is refused.
+template <int D>
+int launch_tile(int tile, const Args& a, cudaStream_t st) {
+  constexpr int DEF = DefaultTile<D>::TILE;
+  if (tile == 0 || tile == DEF) return launch<D, DEF>(a, st);
+  if constexpr (D <= 64) {
+    if (tile == 32) return launch<D, 32>(a, st);
+    if (tile == 64) return launch<D, 64>(a, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // float32 only (bfloat16 runs on flash_attention_bwd_sm90.cu).  Strides are
 // in elements, in the order (batch, seq, heads) for each of q, k, v, dO.
-// Launches the dK/dV kernel, then the dQ kernel, on `stream`.  Returns 0, a
-// cudaError_t code, or an sm90 encode error (see mxtt_bwd_error_string).
+// Launches the dK/dV kernel, then the dQ kernel, on `stream`.  tile: rows a
+// streamed tile, 0 for the built-in choice (DefaultTile), else 32 or 64 at
+// D <= 64.  Returns 0, a cudaError_t code, or an sm90 encode error (see
+// mxtt_bwd_error_string).
 int mxtt_flash_attention_bwd(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* delta, void* dq, void* dk, void* dv,
@@ -427,7 +451,7 @@ int mxtt_flash_attention_bwd(const void* q, const void* k, const void* v,
                              long long k_sb, long long k_st, long long k_sh,
                              long long v_sb, long long v_st, long long v_sh,
                              long long o_sb, long long o_st, long long o_sh,
-                             int causal, void* stream) {
+                             int causal, int tile, void* stream) {
   const Args a{q,     k,     v,     dout,  lse,
                delta, dq,    dk,    dv,    batch,
                seq,   heads, {q_sb, q_st, q_sh}, {k_sb, k_st, k_sh},
@@ -435,11 +459,11 @@ int mxtt_flash_attention_bwd(const void* q, const void* k, const void* v,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
-      return launch<32>(a, st);
+      return launch_tile<32>(tile, a, st);
     case 64:
-      return launch<64>(a, st);
+      return launch_tile<64>(tile, a, st);
     case 128:
-      return launch<128>(a, st);
+      return launch_tile<128>(tile, a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

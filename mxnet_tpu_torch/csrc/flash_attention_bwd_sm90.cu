@@ -71,18 +71,22 @@ using namespace sm90;
 constexpr int THREADS = WG;
 constexpr int MIN_BLOCKS = 2;                     // resident blocks an SM
 constexpr int BLOCK = 64;                         // rows a block owns
-constexpr int TILE = 64;                          // rows a streamed tile
+constexpr int DEFAULT_TILE = 64;                  // rows a streamed tile
 constexpr int STAGES = 3;
-// lse and delta rows of a tile come by a 1-d TMA box, which must start on
-// 16 bytes in device memory: a box of ROWS_BOX values starts at the first
-// row rounded down to a multiple of 4, in a slot of ROWS_SLOT values
-// (128-byte aligned)
-constexpr int ROWS_BOX = TILE + 4;
-constexpr int ROWS_SLOT = TILE + 32;
 constexpr float LOG2E = 1.4426950408889634f;
 
-template <int D>
+// TILE: rows a streamed tile, DEFAULT_TILE when the caller passes 0, or 32
+// (the autotuner's other candidate, at every D: S^T and dP^T, or S and dP,
+// are then 16 registers each, and the products m64n32k16).
+template <int D, int TILE_>
 struct Cfg {
+  static constexpr int TILE = TILE_;
+  // lse and delta rows of a tile come by a 1-d TMA box, which must start on
+  // 16 bytes in device memory: a box of ROWS_BOX values starts at the first
+  // row rounded down to a multiple of 4, in a slot of ROWS_SLOT values
+  // (128-byte aligned)
+  static constexpr int ROWS_BOX = TILE + 4;
+  static constexpr int ROWS_SLOT = TILE + 32;
   using OT = Tile<D, BLOCK>;   // the block's own tiles (K, V or Q, dO)
   using ST = Tile<D, TILE>;    // a streamed tile
   static constexpr int STAGE_BYTES = 2 * ST::BYTES;
@@ -158,7 +162,7 @@ struct Ring {
   }
 };
 
-template <int D>
+template <int D, int TILE_>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_k,
@@ -166,9 +170,12 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
                     const __grid_constant__ CUtensorMap tm_do,
                     const __grid_constant__ CUtensorMap tm_lse,
                     const __grid_constant__ CUtensorMap tm_delta, Params p) {
-  using C = Cfg<D>;
+  using C = Cfg<D, TILE_>;
   using OT = typename C::OT;
   using ST = typename C::ST;
+  constexpr int TILE = C::TILE;
+  constexpr int ROWS_BOX = C::ROWS_BOX;
+  constexpr int ROWS_SLOT = C::ROWS_SLOT;
   constexpr int STAGE_BYTES = C::STAGE_BYTES;   // Q then dO
 
   extern __shared__ uint8_t smem_raw[];
@@ -323,15 +330,16 @@ flash_bwd_dkdv_sm90(const __grid_constant__ CUtensorMap tm_q,
   store_rows<D>(p.g1, dv, b, h, k0, warp, lane, p);
 }
 
-template <int D>
+template <int D, int TILE_>
 __global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tm_q,
                   const __grid_constant__ CUtensorMap tm_k,
                   const __grid_constant__ CUtensorMap tm_v,
                   const __grid_constant__ CUtensorMap tm_do, Params p) {
-  using C = Cfg<D>;
+  using C = Cfg<D, TILE_>;
   using OT = typename C::OT;
   using ST = typename C::ST;
+  constexpr int TILE = C::TILE;
   constexpr int STAGE_BYTES = C::STAGE_BYTES;   // K then V
 
   extern __shared__ uint8_t smem_raw[];
@@ -470,12 +478,14 @@ struct Args {
   int causal;
 };
 
-template <int D>
+template <int D, int TILE>
 int launch(const Args& a, cudaStream_t stream) {
-  using C = Cfg<D>;
-  // own tiles and streamed tiles are both 64 rows: one map a tensor
-  static_assert(BLOCK == TILE, "one box size for own and streamed tiles");
+  using C = Cfg<D, TILE>;
+  // the block's own tiles load in boxes of BLOCK rows, the streamed ones in
+  // boxes of TILE rows: the dK/dV pass owns K, V and streams Q, dO; the dQ
+  // pass the reverse.  Equal sizes share one map a tensor.
   CUtensorMap m_q, m_do, m_k, m_v, m_lse, m_del;
+  CUtensorMap o_q, o_do, o_k, o_v;   // BLOCK-row boxes when TILE differs
   const long long n_rows = (long long)a.batch * a.heads * a.seq;
   int rc = encode_bthd<D>(&m_q, a.q, a.batch, a.seq, a.heads, a.qs, TILE);
   if (rc == 0)
@@ -484,8 +494,24 @@ int launch(const Args& a, cudaStream_t stream) {
     rc = encode_bthd<D>(&m_k, a.k, a.batch, a.seq, a.heads, a.ks, TILE);
   if (rc == 0)
     rc = encode_bthd<D>(&m_v, a.v, a.batch, a.seq, a.heads, a.vs, TILE);
-  if (rc == 0) rc = encode_f32_1d(&m_lse, a.lse, n_rows, ROWS_BOX);
-  if (rc == 0) rc = encode_f32_1d(&m_del, a.delta, n_rows, ROWS_BOX);
+  if (TILE == BLOCK) {
+    o_q = m_q;
+    o_do = m_do;
+    o_k = m_k;
+    o_v = m_v;
+  } else {
+    if (rc == 0)
+      rc = encode_bthd<D>(&o_q, a.q, a.batch, a.seq, a.heads, a.qs, BLOCK);
+    if (rc == 0)
+      rc = encode_bthd<D>(&o_do, a.dout, a.batch, a.seq, a.heads, a.os,
+                          BLOCK);
+    if (rc == 0)
+      rc = encode_bthd<D>(&o_k, a.k, a.batch, a.seq, a.heads, a.ks, BLOCK);
+    if (rc == 0)
+      rc = encode_bthd<D>(&o_v, a.v, a.batch, a.seq, a.heads, a.vs, BLOCK);
+  }
+  if (rc == 0) rc = encode_f32_1d(&m_lse, a.lse, n_rows, C::ROWS_BOX);
+  if (rc == 0) rc = encode_f32_1d(&m_del, a.delta, n_rows, C::ROWS_BOX);
   if (rc != 0) return rc;
 
   const float scale = 1.0f / sqrtf((float)D);
@@ -493,26 +519,35 @@ int launch(const Args& a, cudaStream_t stream) {
 
   // above 48 KB a block's dynamic shared memory needs this opt-in; a launch
   // refused for it would never run and synchronize() would not say so
-  auto kdkdv = flash_bwd_dkdv_sm90<D>;
+  auto kdkdv = flash_bwd_dkdv_sm90<D, TILE>;
   cudaError_t err = cudaFuncSetAttribute(
       kdkdv, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::SMEM);
   if (err != cudaSuccess) return (int)err;
   const Params pkv{a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dk),
                    static_cast<__nv_bfloat16*>(a.dv), a.seq, a.heads,
                    a.causal, scale, scale * LOG2E};
-  kdkdv<<<grid, THREADS, C::SMEM, stream>>>(m_q, m_k, m_v, m_do, m_lse,
+  kdkdv<<<grid, THREADS, C::SMEM, stream>>>(m_q, o_k, o_v, m_do, m_lse,
                                             m_del, pkv);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  auto kdq = flash_bwd_dq_sm90<D>;
+  auto kdq = flash_bwd_dq_sm90<D, TILE>;
   err = cudaFuncSetAttribute(kdq, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)C::SMEM);
   if (err != cudaSuccess) return (int)err;
   const Params pq{a.lse, a.delta, static_cast<__nv_bfloat16*>(a.dq), nullptr,
                   a.seq, a.heads, a.causal, scale, scale * LOG2E};
-  kdq<<<grid, THREADS, C::SMEM, stream>>>(m_q, m_k, m_v, m_do, pq);
+  kdq<<<grid, THREADS, C::SMEM, stream>>>(o_q, m_k, m_v, o_do, pq);
   return (int)cudaGetLastError();
+}
+
+// The launch at streamed tile `tile`: 0 is DEFAULT_TILE, 32 the other;
+// any other value is refused.
+template <int D>
+int launch_tile(int tile, const Args& a, cudaStream_t st) {
+  if (tile == 0 || tile == DEFAULT_TILE) return launch<D, DEFAULT_TILE>(a, st);
+  if (tile == 32) return launch<D, 32>(a, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -521,7 +556,8 @@ extern "C" {
 
 // bf16 only.  Strides are in elements, in the order (batch, seq, heads) for
 // each of q, k, v, dO.  Launches the dK/dV kernel, then the dQ kernel, on
-// `stream`.  Returns 0, a cudaError_t code, or an sm90 encode error (see
+// `stream`.  tile: rows a streamed tile, 0 for the built-in 64, or 32.
+// Returns 0, a cudaError_t code, or an sm90 encode error (see
 // mxtt_bwd_sm90_error_string).
 int mxtt_flash_attention_bwd_sm90(
     const void* q, const void* k, const void* v, const void* dout,
@@ -529,7 +565,7 @@ int mxtt_flash_attention_bwd_sm90(
     int batch, int seq, int heads, int head_dim, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_st,
     long long k_sh, long long v_sb, long long v_st, long long v_sh,
-    long long o_sb, long long o_st, long long o_sh, int causal,
+    long long o_sb, long long o_st, long long o_sh, int causal, int tile,
     void* stream) {
   const Args a{q,     k,     v,     dout,  lse,
                delta, dq,    dk,    dv,    batch,
@@ -538,11 +574,11 @@ int mxtt_flash_attention_bwd_sm90(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
-      return launch<32>(a, st);
+      return launch_tile<32>(tile, a, st);
     case 64:
-      return launch<64>(a, st);
+      return launch_tile<64>(tile, a, st);
     case 128:
-      return launch<128>(a, st);
+      return launch_tile<128>(tile, a, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -58,12 +58,22 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
-struct Cfg {
+struct DefaultTile {
   // m16 tiles a warp: two at D <= 64 share each K and V fragment's split
   // between 32 rows; at D=128 O alone is 64 registers a tile
   static constexpr int MT = D == 128 ? 1 : 2;
-  static constexpr int BM = WARPS * 16 * MT;       // query rows a block
   static constexpr int BN = D == 128 ? 32 : 64;    // keys a tile
+};
+
+// The tiles a caller may ask for (the autotuner's candidates): at D = 32
+// and 64, 64 or 128 query rows a block (MT 1 or 2) by 32 or 64 keys a
+// tile; at D = 128 only the built-in 64 by 32, since a 64-key stage there
+// (two 32 KB tiles) leaves two blocks an SM no room in shared memory.
+template <int D, int MT_, int BN_>
+struct Cfg {
+  static constexpr int MT = MT_;
+  static constexpr int BM = WARPS * 16 * MT;       // query rows a block
+  static constexpr int BN = BN_;                   // keys a tile
   static constexpr int STAGES = 2;
   using QT = TileF32<D, BM>;
   using KT = TileF32<D, BN>;
@@ -81,12 +91,12 @@ struct Params {
   float scale_log2;   // log2(e) / sqrt(D)
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
+template <int D, int MT_, int BN_>
+__global__ void __launch_bounds__(THREADS, Cfg<D, MT_, BN_>::MIN_BLOCKS)
 flash_fwd_tf32(const __grid_constant__ CUtensorMap tm_q,
                const __grid_constant__ CUtensorMap tm_k,
                const __grid_constant__ CUtensorMap tm_v, Params p) {
-  using C = Cfg<D>;
+  using C = Cfg<D, MT_, BN_>;
   using QT = typename C::QT;
   using KT = typename C::KT;
   constexpr int MT = C::MT;
@@ -238,11 +248,11 @@ flash_fwd_tf32(const __grid_constant__ CUtensorMap tm_q,
     }
 }
 
-template <int D>
+template <int D, int MT, int BN>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch, int seq, int heads, Strides qs, Strides ks, Strides vs,
            int causal, cudaStream_t stream) {
-  using C = Cfg<D>;
+  using C = Cfg<D, MT, BN>;
   CUtensorMap tm_q, tm_k, tm_v;
   int rc = sm90::encode_tile_map<typename C::QT>(&tm_q, q, batch, seq, heads,
                                                  qs, C::BM);
@@ -253,7 +263,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
     rc = sm90::encode_tile_map<typename C::KT>(&tm_v, v, batch, seq, heads,
                                                vs, C::BN);
   if (rc != 0) return rc;
-  auto kern = flash_fwd_tf32<D>;
+  auto kern = flash_fwd_tf32<D, MT, BN>;
   // above 48 KB a block's dynamic shared memory needs this opt-in; a launch
   // refused for it would never run and synchronize() would not say so
   cudaError_t err = cudaFuncSetAttribute(
@@ -266,33 +276,64 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
+// The launch at tile (block_q, block_k): 0 for either is DefaultTile's;
+// a pair Cfg does not list is refused.
+template <int D>
+int launch_tile(int block_q, int block_k, const void* q, const void* k,
+                const void* v, void* o, float* lse, int batch, int seq,
+                int heads, Strides qs, Strides ks, Strides vs, int causal,
+                cudaStream_t st) {
+  using T = DefaultTile<D>;
+  const int mt = block_q == 0 ? T::MT : block_q / (WARPS * 16);
+  const int bn = block_k == 0 ? T::BN : block_k;
+  if (block_q != 0 && block_q != mt * WARPS * 16)
+    return (int)cudaErrorInvalidValue;
+  if (mt == T::MT && bn == T::BN)
+    return launch<D, T::MT, T::BN>(q, k, v, o, lse, batch, seq, heads, qs,
+                                   ks, vs, causal, st);
+  if constexpr (D <= 64) {
+#define MXTT_FWD_TILE(M, N)                                              \
+  if (mt == M && bn == N)                                                \
+    return launch<D, M, N>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs, \
+                           causal, st);
+    MXTT_FWD_TILE(1, 32)
+    MXTT_FWD_TILE(1, 64)
+    MXTT_FWD_TILE(2, 32)
+    MXTT_FWD_TILE(2, 64)
+#undef MXTT_FWD_TILE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // float32 only (bfloat16 runs on flash_attention_fwd_sm90.cu).  Strides are
-// in elements, (batch, seq, heads) for each of q, k, v.  Returns 0, a
-// cudaError_t code, or an sm90 encode error (see mxtt_error_string).
+// in elements, (batch, seq, heads) for each of q, k, v.  block_q, block_k:
+// query rows a block and keys a tile, 0 for the built-in choice
+// (DefaultTile), else a pair Cfg lists.  Returns 0, a cudaError_t code, or
+// an sm90 encode error (see mxtt_error_string).
 int mxtt_flash_attention_fwd(const void* q, const void* k, const void* v,
                              void* o, float* lse, int batch, int seq,
                              int heads, int head_dim, long long q_sb,
                              long long q_st, long long q_sh, long long k_sb,
                              long long k_st, long long k_sh, long long v_sb,
                              long long v_st, long long v_sh, int causal,
-                             void* stream) {
+                             int block_q, int block_k, void* stream) {
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
-      return launch<32>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs,
-                        causal, st);
+      return launch_tile<32>(block_q, block_k, q, k, v, o, lse, batch, seq,
+                             heads, qs, ks, vs, causal, st);
     case 64:
-      return launch<64>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs,
-                        causal, st);
+      return launch_tile<64>(block_q, block_k, q, k, v, o, lse, batch, seq,
+                             heads, qs, ks, vs, causal, st);
     case 128:
-      return launch<128>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs,
-                         causal, st);
+      return launch_tile<128>(block_q, block_k, q, k, v, o, lse, batch, seq,
+                              heads, qs, ks, vs, causal, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

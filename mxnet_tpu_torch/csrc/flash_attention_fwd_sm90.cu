@@ -93,13 +93,22 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
 template <int D>
-struct Cfg {
-  // keys per K/V tile.  At D=128, 128-key tiles (two stages of 64 KB)
-  // ran slower on the H100 than 64-key tiles (three of 32 KB), and with
-  // O stored by TMA made ptxas spill and serialize the wgmmas; at D=64,
-  // 192-key tiles spilled and ran slower still
+struct DefaultTile {
+  // keys per K/V tile when the caller passes 0.  At D=128, 128-key tiles
+  // (two stages of 64 KB) ran slower on the H100 than 64-key tiles (three
+  // of 32 KB), and with O stored by TMA made ptxas spill and serialize the
+  // wgmmas; at D=64, 192-key tiles spilled and ran slower still
   // (tools/flash_bf16_fwd_experiment.py)
   static constexpr int BN = D == 128 ? 64 : 128;
+};
+
+// The key tiles a caller may ask for (the autotuner's candidates): those
+// whose S (BN/2), O (D/2) and P (BN/4) registers fit the consumers' 232
+// without spills and whose stages fit shared memory: 64 and 128 keys at
+// D = 32 and 64, 32 and 64 at D = 128.
+template <int D, int BN_>
+struct Cfg {
+  static constexpr int BN = BN_;
   static constexpr int STAGES = 3;
   using QT = Tile<D, BM>;
   using KT = Tile<D, BN>;
@@ -193,14 +202,14 @@ __device__ __forceinline__ int item_index(int it, int n_items) {
 // producer runs ahead across items (Q double-buffered, the K/V ring
 // continuing from item to item), so the next item's loads land while the
 // consumers finish this one and store its output.
-template <int D>
+template <int D, int BN_>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tm_q,
                       const __grid_constant__ CUtensorMap tm_k,
                       const __grid_constant__ CUtensorMap tm_v,
                       const __grid_constant__ CUtensorMap tm_o, Params p,
                       int n_q, int n_items) {
-  using C = Cfg<D>;
+  using C = Cfg<D, BN_>;
   using QT = typename C::QT;
   using KT = typename C::KT;
   constexpr int BN = C::BN;
@@ -426,12 +435,12 @@ inline int sm_count() {
   return n;
 }
 
-template <int D>
+template <int D, int BN>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
            int batch, int seq, int heads, Strides qs, Strides ks, Strides vs,
            int causal, cudaStream_t stream) {
-  using C = Cfg<D>;
-  auto kern = flash_fwd_sm90_kernel<D>;
+  using C = Cfg<D, BN>;
+  auto kern = flash_fwd_sm90_kernel<D, BN>;
   // above 48 KB a block's dynamic shared memory needs this opt-in, once
   // per head dim and device; a launch refused for it would never run and
   // synchronize() would not say so
@@ -466,13 +475,31 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   return (int)cudaGetLastError();
 }
 
+// One head dim's launch at key tile block_k: 0 is DefaultTile's, else one
+// of the tiles Cfg lists; any other value is refused.
+template <int D, int ALT>
+int launch_tile(int block_k, const void* q, const void* k, const void* v,
+                void* o, float* lse, int batch, int seq, int heads,
+                Strides qs, Strides ks, Strides vs, int causal,
+                cudaStream_t st) {
+  constexpr int DEF = DefaultTile<D>::BN;
+  if (block_k == 0 || block_k == DEF)
+    return launch<D, DEF>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs,
+                          causal, st);
+  if (block_k == ALT)
+    return launch<D, ALT>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs,
+                          causal, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
 // bf16 only.  Strides are in elements, (batch, seq, heads) for each of q, k,
-// v.  Returns 0, a cudaError_t code, or an sm90 encode error (see
-// mxtt_fwd_sm90_error_string).
+// v.  block_k: keys per K/V tile, 0 for the built-in choice (DefaultTile),
+// else 64 or 128 at D = 32 and 64, 32 or 64 at D = 128.  Returns 0, a
+// cudaError_t code, or an sm90 encode error (see mxtt_fwd_sm90_error_string).
 int mxtt_flash_attention_fwd_sm90(const void* q, const void* k,
                                   const void* v, void* o, float* lse,
                                   int batch, int seq, int heads, int head_dim,
@@ -480,20 +507,21 @@ int mxtt_flash_attention_fwd_sm90(const void* q, const void* k,
                                   long long q_sh, long long k_sb,
                                   long long k_st, long long k_sh,
                                   long long v_sb, long long v_st,
-                                  long long v_sh, int causal, void* stream) {
+                                  long long v_sh, int causal, int block_k,
+                                  void* stream) {
   const Strides qs{q_sb, q_st, q_sh}, ks{k_sb, k_st, k_sh},
       vs{v_sb, v_st, v_sh};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 32:
-      return launch<32>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs,
-                        causal, st);
+      return launch_tile<32, 64>(block_k, q, k, v, o, lse, batch, seq,
+                                 heads, qs, ks, vs, causal, st);
     case 64:
-      return launch<64>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs,
-                        causal, st);
+      return launch_tile<64, 64>(block_k, q, k, v, o, lse, batch, seq,
+                                 heads, qs, ks, vs, causal, st);
     case 128:
-      return launch<128>(q, k, v, o, lse, batch, seq, heads, qs, ks, vs,
-                         causal, st);
+      return launch_tile<128, 32>(block_k, q, k, v, o, lse, batch, seq,
+                                  heads, qs, ks, vs, causal, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

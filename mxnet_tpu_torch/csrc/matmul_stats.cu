@@ -769,7 +769,7 @@ inline int bf16_rows(int M, int N, int BN) {
 
 template <int BN, bool PRO>
 int launch_sm90(const void* x, const void* w, const Args& args, void* y,
-                float* s, int part_rows, cudaStream_t st) {
+                float* s, int part_rows, int grid_rows, cudaStream_t st) {
   using C = Cfg<BN>;
   auto kern = matmul_stats_sm90_kernel<BN, PRO>;
   // above 48 KB a block's dynamic shared memory needs this opt-in, once
@@ -791,8 +791,9 @@ int launch_sm90(const void* x, const void* w, const Args& args, void* y,
                                  args.N, args.K);
   if (rc != 0) return rc;
   const int n_tiles = (args.N + BN - 1) / BN;
-  const int rows = bf16_rows(args.M, args.N, BN);
+  const int rows = grid_rows ? grid_rows : bf16_rows(args.M, args.N, BN);
   if (rows > part_rows) return (int)cudaErrorInvalidValue;
+  if (rows > (args.M + BM - 1) / BM) return (int)cudaErrorInvalidValue;
   kern<<<rows * n_tiles, THREADS, C::SMEM, st>>>(tm_x, tm_w, tm_y, args);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -833,7 +834,8 @@ inline int bf16_tile(int M, int N, bool pro) {
 
 template <bool PRO>
 int launch_bf16(const void* x, const void* w, const Args& args, void* y,
-                float* s, int part_rows, cudaStream_t st) {
+                float* s, int part_rows, int tile, int grid_rows,
+                cudaStream_t st) {
   // TMA: 16-byte bases and row strides; K8's float4 loads of scale, shift
   auto misaligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
@@ -842,13 +844,21 @@ int launch_bf16(const void* x, const void* w, const Args& args, void* y,
       misaligned(w) || misaligned(y) ||
       (PRO && (misaligned(args.scale) || misaligned(args.shift))))
     return (int)cudaErrorInvalidValue;
-  switch (bf16_tile(args.M, args.N, PRO)) {
+  // a tile of the caller's must be one the kernel is built for and no
+  // wider than N needs
+  if (tile != 0 && ((tile != 64 && tile != 128 && tile != 256) ||
+                    tile > widest_tile(args.N)))
+    return (int)cudaErrorInvalidValue;
+  switch (tile ? tile : bf16_tile(args.M, args.N, PRO)) {
     case 64:
-      return launch_sm90<64, PRO>(x, w, args, y, s, part_rows, st);
+      return launch_sm90<64, PRO>(x, w, args, y, s, part_rows, grid_rows,
+                                  st);
     case 128:
-      return launch_sm90<128, PRO>(x, w, args, y, s, part_rows, st);
+      return launch_sm90<128, PRO>(x, w, args, y, s, part_rows, grid_rows,
+                                   st);
     default:
-      return launch_sm90<256, PRO>(x, w, args, y, s, part_rows, st);
+      return launch_sm90<256, PRO>(x, w, args, y, s, part_rows, grid_rows,
+                                   st);
   }
 }
 
@@ -869,7 +879,7 @@ int encode_maps_f32(CUtensorMap* tm_x, CUtensorMap* tm_w, CUtensorMap* tm_y,
 
 template <int BN, bool PRO>
 int launch_tf32(const void* x, const void* w, const Args& args, void* y,
-                float* s, int part_rows, cudaStream_t st) {
+                float* s, int part_rows, int grid_rows, cudaStream_t st) {
   using C = f32::Cfg<BN>;
   auto kern = f32::matmul_stats_tf32_kernel<BN, PRO>;
   // the dynamic shared memory opt-in, once per instantiation and device
@@ -889,8 +899,11 @@ int launch_tf32(const void* x, const void* w, const Args& args, void* y,
                                      args.N, args.K);
   if (rc != 0) return rc;
   const int n_tiles = (args.N + BN - 1) / BN;
-  const int rows = bf16_rows(args.M, args.N, BN);   // the same grid rule
+  // the same grid rule as bf16's
+  const int rows = grid_rows ? grid_rows : bf16_rows(args.M, args.N, BN);
   if (rows > part_rows) return (int)cudaErrorInvalidValue;
+  if (rows > (args.M + f32::BM - 1) / f32::BM)
+    return (int)cudaErrorInvalidValue;
   kern<<<rows * n_tiles, f32::THREADS, C::SMEM, st>>>(tm_x, tm_w, tm_y,
                                                        args);
   err = cudaGetLastError();
@@ -903,7 +916,8 @@ int launch_tf32(const void* x, const void* w, const Args& args, void* y,
 
 template <bool PRO>
 int launch_f32(const void* x, const void* w, const Args& args, void* y,
-               float* s, int part_rows, cudaStream_t st) {
+               float* s, int part_rows, int tile, int grid_rows,
+               cudaStream_t st) {
   // TMA: 16-byte bases and row strides
   auto misaligned = [](const void* p) {
     return (reinterpret_cast<uintptr_t>(p) & 15) != 0;
@@ -911,9 +925,12 @@ int launch_f32(const void* x, const void* w, const Args& args, void* y,
   if (args.K % 4 != 0 || args.N % 4 != 0 || misaligned(x) ||
       misaligned(w) || misaligned(y))
     return (int)cudaErrorInvalidValue;
-  if (args.N <= 64)
-    return launch_tf32<64, PRO>(x, w, args, y, s, part_rows, st);
-  return launch_tf32<128, PRO>(x, w, args, y, s, part_rows, st);
+  if (tile != 0 && ((tile != 64 && tile != 128) ||
+                    (tile == 128 && args.N <= 64)))
+    return (int)cudaErrorInvalidValue;
+  if (tile == 64 || (tile == 0 && args.N <= 64))
+    return launch_tf32<64, PRO>(x, w, args, y, s, part_rows, grid_rows, st);
+  return launch_tf32<128, PRO>(x, w, args, y, s, part_rows, grid_rows, st);
 }
 
 // Both entries: PRO selects the prologue variant (scale and shift are then
@@ -921,15 +938,17 @@ int launch_f32(const void* x, const void* w, const Args& args, void* y,
 template <bool PRO>
 int launch(const void* x, const void* w, const float* scale,
            const float* shift, const float* c, void* y, float* part,
-           float* s, int M, int N, int K, int part_rows, int dtype,
-           void* stream) {
-  if (M < 1 || N < 1 || K < 1 || part_rows < 1)
+           float* s, int M, int N, int K, int part_rows, int tile,
+           int grid_rows, int dtype, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || part_rows < 1 || tile < 0 || grid_rows < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args args{c, scale, shift, part, part + (size_t)part_rows * N,
                   M, N, K};
-  if (dtype == 1) return launch_bf16<PRO>(x, w, args, y, s, part_rows, st);
-  if (dtype == 0) return launch_f32<PRO>(x, w, args, y, s, part_rows, st);
+  if (dtype == 1)
+    return launch_bf16<PRO>(x, w, args, y, s, part_rows, tile, grid_rows, st);
+  if (dtype == 0)
+    return launch_f32<PRO>(x, w, args, y, s, part_rows, tile, grid_rows, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -941,13 +960,19 @@ extern "C" {
 // scratch of 2 x part_rows x N values, part_rows at least the card's SM
 // count; s: 2 x N f32, s1 then s2.  bf16 needs K % 8 == 0, N % 8 == 0 and
 // 16-byte aligned x, w and y (and, in K8, scale and shift); f32 K % 4 ==
-// 0, N % 4 == 0 and 16-byte aligned x, w and y.  Returns 0,
-// a cudaError_t code, or an sm90 encode error (mxtt_matmul_stats_error_string).
+// 0, N % 4 == 0 and 16-byte aligned x, w and y.  tile: columns of w a
+// block's n-tile, 0 for the built-in choice (bf16_tile; the widest for K8,
+// 64 or 128 by N in f32), else 64, 128 or 256 in bf16, 64 or 128 in f32, no
+// wider than N needs (widest_tile).  rows: blocks an n-tile (the persistent
+// grid's rows), 0 for the built-in bf16_rows, else at most part_rows and the
+// m-tiles.  Returns 0, a cudaError_t code, or an sm90 encode error
+// (mxtt_matmul_stats_error_string).
 int mxtt_matmul_stats(const void* x, const void* w, const float* c, void* y,
                       float* part, float* s, int M, int N, int K,
-                      int part_rows, int dtype, void* stream) {
+                      int part_rows, int tile, int rows, int dtype,
+                      void* stream) {
   return launch<false>(x, w, nullptr, nullptr, c, y, part, s, M, N, K,
-                       part_rows, dtype, stream);
+                       part_rows, tile, rows, dtype, stream);
 }
 
 // K8: as mxtt_matmul_stats, of relu(x * scale + shift) rounded to x's dtype.
@@ -955,9 +980,9 @@ int mxtt_matmul_stats_prologue(const void* x, const void* w,
                                const float* scale, const float* shift,
                                const float* c, void* y, float* part,
                                float* s, int M, int N, int K, int part_rows,
-                               int dtype, void* stream) {
+                               int tile, int rows, int dtype, void* stream) {
   return launch<true>(x, w, scale, shift, c, y, part, s, M, N, K, part_rows,
-                      dtype, stream);
+                      tile, rows, dtype, stream);
 }
 
 // The three tensor-map encodes of a bf16 launch alone, for measuring the

@@ -259,7 +259,9 @@ __device__ __forceinline__ uint64_t interleaved_mnmajor(uint32_t addr,
 template <int D, int ROWS>
 struct Tile {
   static_assert(D == 32 || D % 64 == 0, "D must be 32 or a multiple of 64");
-  static_assert(ROWS % 64 == 0, "a tile is a multiple of 64 rows");
+  // 64 rows for an A operand (wgmma's M); a B operand of N = 32 keys or
+  // queries (the tuned flash tiles) is 32
+  static_assert(ROWS % 32 == 0, "a tile is a multiple of 32 rows");
   static constexpr int SWZ = D >= 64 ? 128 : 64;
   static constexpr int BOX_COLS = SWZ / 2;
   static constexpr int BOXES = D / BOX_COLS;

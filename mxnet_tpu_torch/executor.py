@@ -50,6 +50,7 @@ import torch
 from .base import MXNetError
 from .context import Context, current_context
 from .ndarray import NDArray, zeros as _nd_zeros
+from .analysis import fusion as _fusion
 from .ops import fused as _fused
 from .symbol import eval_graph, _classify_vars
 from . import random as _random
@@ -137,6 +138,18 @@ class Executor:
 
         # captured here and applied around every run of the graph
         self._block_fusion = _fused.block_fusion_enabled()
+        # the plan search's decisions: an ambient plan_decisions context is
+        # captured like the fusion flag; otherwise the committed graph_plan
+        # entry for this graph (structural digest, image layout, backend) is
+        # consulted once here, and a hit plans every run below by it (a
+        # miss, or MXNET_TPU_PLAN_SEARCH=off, plans greedily)
+        self._plan_decisions = _fusion.active_decisions()
+        if self._plan_decisions is None and self._block_fusion:
+            from .analysis import plansearch as _plansearch
+            from .ops.nn import current_image_layout
+            self._plan_decisions = _plansearch.committed_decisions(
+                self._topo, symbol._entries, current_image_layout(),
+                backend=_costdb.backend_name(self._device))
         self._head_is_loss = [bool(node.op is not None and node.op.is_loss)
                               for (node, _i) in symbol._entries]
         self._outputs = None
@@ -250,7 +263,8 @@ class Executor:
             def monitor(name, val):
                 if pattern.match(str(name)):
                     stats[str(name)] = _numerics.tensor_stats(val)
-        with _fused.block_fusion(self._block_fusion):
+        with _fused.block_fusion(self._block_fusion), \
+                _fusion.plan_decisions(self._plan_decisions):
             out = eval_graph(self._topo, self._symbol._entries, var_values,
                              is_train=is_train, device=self._device,
                              generator=_random.generator(self._device)

@@ -45,6 +45,7 @@ import math
 
 import torch
 
+from ..autotune import cache as _tune_cache
 from ..base import MXNetError
 from ..cuda_build import on_device
 from ..telemetry import costdb as _costdb
@@ -54,7 +55,7 @@ __all__ = ["flash_attention_fwd", "flash_attention_plain", "attention_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "flash_attention_delta", "flash_attention_delta_plain",
            "FlashAttention", "KERNEL_HEAD_DIMS", "kernel_takes",
-           "check_kernel_args"]
+           "check_kernel_args", "kernel_tiles", "select_tile"]
 
 _BLOCK_Q = 128
 
@@ -62,6 +63,92 @@ _BLOCK_Q = 128
 KERNEL_HEAD_DIMS = (32, 64, 128)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+_F32_FWD = [(128, 64), (128, 32), (64, 64), (64, 32)]
+_F32_BWD = [(64, 32), (64, 64)]
+
+#: ``(which, dtype, head dim) -> [(block_q, block_k), ...]``: the tiles each
+#: kernel is built for, its built-in choice first (the autotuner's
+#: candidates).  Forward: query rows a block by keys a K/V tile; the bf16
+#: forward's block is always 128 rows (two consumer warpgroups).  Backward:
+#: rows a block owns (64) by rows a streamed tile.  Where one tile alone
+#: fits, the list holds one: the f32 forward and backward at D = 128, whose
+#: 64-row stages would leave two blocks an SM no room in shared memory.
+_TILES = {
+    ("fwd", torch.float32, 32): _F32_FWD,
+    ("fwd", torch.float32, 64): _F32_FWD,
+    ("fwd", torch.float32, 128): [(64, 32)],
+    ("fwd", torch.bfloat16, 32): [(128, 128), (128, 64)],
+    ("fwd", torch.bfloat16, 64): [(128, 128), (128, 64)],
+    ("fwd", torch.bfloat16, 128): [(128, 64), (128, 32)],
+    ("bwd", torch.float32, 32): _F32_BWD,
+    ("bwd", torch.float32, 64): _F32_BWD,
+    ("bwd", torch.float32, 128): [(64, 32)],
+    ("bwd", torch.bfloat16, 32): [(64, 64), (64, 32)],
+    ("bwd", torch.bfloat16, 64): [(64, 64), (64, 32)],
+    ("bwd", torch.bfloat16, 128): [(64, 64), (64, 32)],
+}
+
+
+def kernel_tiles(which, dtype, head_dim):
+    """The ``(block_q, block_k)`` tiles the ``which`` (``fwd``/``bwd``)
+    kernel takes at this dtype and head dim, the built-in one first; [] for
+    inputs no kernel takes."""
+    return list(_TILES.get((which, dtype, int(head_dim)), ()))
+
+
+def _dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+# select_tile's answers: (which, shape, dtype, device, causal) -> (the
+# cache's resolution token, the tile); a key's first call a generation
+# goes through autotune.kernel_config, the rest cost one dict lookup
+_SELECTED = {}
+
+
+def select_tile(which, q, causal, blocks=None):
+    """The ``(block_q, block_k)`` the ``which`` kernel launches with for q
+    of shape (B, T, H, D), or None for its built-in choice.  ``blocks``, an
+    explicit override (the tuners measure through it), must be one of
+    :func:`kernel_tiles` or raises.  Without it the tuning cache is
+    consulted under the JAX package's key (``flash_attention_<which>``, q's
+    shape and dtype, ``{"causal": ...}``); a cached tile the kernel does not
+    take at this dtype and D degrades to the built-in choice, as JAX's
+    ``_select_blocks`` does."""
+    if blocks is None:
+        token = _tune_cache.resolution_token()
+        if token[0] == "off":
+            return None
+        key = (which, q.shape, q.dtype, q.device, bool(causal))
+        got = _SELECTED.get(key)
+        if got is not None and got[0] == token and token[0] == "cache":
+            return got[1]
+    legal = kernel_tiles(which, q.dtype, q.shape[-1])
+    if blocks is not None:
+        blocks = tuple(int(b) for b in blocks)
+        if blocks not in legal:
+            raise MXNetError(
+                "flash_attention_%s: tile %s is not one the %s kernel takes "
+                "at D=%d (%s)" % (which, blocks, _dtype_name(q.dtype),
+                                  q.shape[-1], legal))
+        return blocks
+    if not legal:
+        return None
+    cfg = _tune_cache.kernel_config(
+        "flash_attention_%s" % which, [tuple(q.shape)],
+        [_dtype_name(q.dtype)], extra={"causal": bool(causal)},
+        backend=_costdb.backend_name(q.device))
+    pair = None
+    if cfg:
+        try:
+            pair = (int(cfg.get("block_q", legal[0][0])),
+                    int(cfg.get("block_k", legal[0][1])))
+        except (TypeError, ValueError):
+            pair = None
+    pair = pair if pair in legal else None
+    _SELECTED[key] = (_tune_cache.resolution_token(), pair)
+    return pair
 
 
 def attention_plain(q, k, v, causal):
@@ -168,9 +255,13 @@ def check_kernel_args(q, k, v, *more, name="flash_attention_fwd"):
         raise MXNetError("%s: %s" % (name, why))
 
 
-# q, k, v, o, lse, b, t, h, d, the strides of q, k, v, causal, stream
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-             + [ctypes.c_longlong] * 9 + [ctypes.c_int, ctypes.c_void_p])
+# q, k, v, o, lse, b, t, h, d, the strides of q, k, v, causal, then the
+# tile (f32: block_q and block_k; bf16: block_k), stream
+_ARGS = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+         + [ctypes.c_longlong] * 9 + [ctypes.c_int])
+_FWD_ARGTYPES = {torch.float32: _ARGS + [ctypes.c_int] * 2
+                 + [ctypes.c_void_p],
+                 torch.bfloat16: _ARGS + [ctypes.c_int, ctypes.c_void_p]}
 
 
 #: dtype -> (library, entry, error-string function): f32 on the split-TF32
@@ -200,55 +291,72 @@ def _bind(route, argtypes):
     return fn, err
 
 
-def _launch(q, k, v, causal):
+def _launch(q, k, v, causal, blocks=None):
     check_kernel_args(q, k, v)
+    tile = select_tile("fwd", q, causal, blocks)
     b, t, h, d = q.shape
     o = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, t, 1), dtype=torch.float32, device=q.device)
     route = _FWD_ROUTES[q.dtype]
-    fn, err = _bind(route, _ARGTYPES)
+    fn, err = _bind(route, _FWD_ARGTYPES[q.dtype])
+    # 0 is the kernel's built-in tile; the bf16 kernel's block is fixed
+    bq, bk = tile or (0, 0)
+    tile_args = (bq, bk) if q.dtype == torch.float32 else (bk,)
     rc = on_device(q.device, lambda stream: fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), b, t, h, d,
         *(s for x in (q, k, v) for s in kernel_strides(x)),
-        int(bool(causal)), stream))
+        int(bool(causal)), *tile_args, stream))
     if rc != 0:
-        raise MXNetError("flash_attention_fwd: CUDA launch failed (%s): %s "
-                         "(%d)" % (route[0], err(rc).decode(), rc))
+        raise MXNetError("flash_attention_fwd: CUDA launch failed (%s, tile "
+                         "%s): %s (%d)" % (route[0], tile or "built-in",
+                                           err(rc).decode(), rc))
     flash_attention_fwd.launches += 1
     flash_attention_fwd.source_launches[route[0]] += 1
-    return o, lse
+    return o, lse, tile
 
 
-def _note_kernel_cost(op, q, causal, n_matmuls, n_tensors):
+def _note_kernel_cost(op, q, causal, n_matmuls, n_tensors, tile=None):
     """Note this call in the cost database (inside a sampled dispatch):
     the JAX kernels' flops and bytes estimates (``n_matmuls`` products of
     ``B*H*T*T*D`` MACs counted as flops, ``n_tensors`` (B, T, H, D)
-    tensors moved), keyed by the problem shape with the dispatch gate's
-    query tile and the route's source."""
+    tensors moved), keyed by the problem shape with the tile that ran and
+    the route's source.  A kernel launch passes ``tile`` (None for its
+    built-in one, :func:`kernel_tiles`' first); the plain version, which
+    has none, notes the dispatch gate's query tile for both, as before."""
     b, t, h, d = q.shape
-    block = min(_BLOCK_Q, t)
-    route = (_FWD_ROUTES if op == "flash_attention_fwd"
-             else _BWD_ROUTES).get(q.dtype)
+    which = "fwd" if op == "flash_attention_fwd" else "bwd"
+    if q.device.type == "cuda":
+        block_q, block_k = tile or kernel_tiles(which, q.dtype, d)[0]
+    else:
+        block_q = block_k = min(_BLOCK_Q, t)
+    route = (_FWD_ROUTES if which == "fwd" else _BWD_ROUTES).get(q.dtype)
     _costdb.note_kernel(
-        op, [tuple(q.shape)], [str(q.dtype).replace("torch.", "")],
+        op, [tuple(q.shape)], [_dtype_name(q.dtype)],
         flops=float(n_matmuls) * b * h * t * t * d,
         bytes_accessed=float(n_tensors) * b * t * h * d * q.element_size(),
-        block_config={"block_q": block, "block_k": block,
-                      "n_k": t // block, "causal": bool(causal),
+        block_config={"block_q": block_q, "block_k": block_k,
+                      "n_k": -(-t // block_k), "causal": bool(causal),
                       "route": route[0] if route else "plain"})
 
 
-def flash_attention_fwd(q, k, v, causal):
+def flash_attention_fwd(q, k, v, causal, blocks=None):
     """``(o, lse)`` of attention over (B, T, H, D) inputs.  A CUDA tensor
-    launches the hand-written kernel of its dtype (or raises); a CPU or
+    launches the hand-written kernel of its dtype (or raises) at the tile
+    :func:`select_tile` picks (``blocks``, an explicit ``(block_q,
+    block_k)``, else the tuning cache, else the built-in one); a CPU or
     meta tensor takes :func:`flash_attention_plain`.  Inside a sampled
     cost-database dispatch the call is noted (:func:`_note_kernel_cost`)."""
-    if _costdb.SAMPLING:
-        _note_kernel_cost("flash_attention_fwd", q, causal, 4, 4)
     kind = q.device.type
     if kind == "cuda":
-        return _launch(q, k, v, causal)
+        o, lse, tile = _launch(q, k, v, causal, blocks)
+        if _costdb.SAMPLING:
+            _note_kernel_cost("flash_attention_fwd", q, causal, 4, 4, tile)
+        return o, lse
+    if blocks is not None:       # an explicit tile is checked everywhere
+        select_tile("fwd", q, causal, blocks)
+    if _costdb.SAMPLING:
+        _note_kernel_cost("flash_attention_fwd", q, causal, 4, 4)
     if kind in ("cpu", "meta"):
         return flash_attention_plain(q, k, v, causal)
     raise MXNetError("flash_attention_fwd: no path for device %s" % q.device)
@@ -334,9 +442,10 @@ flash_attention_delta.launches = 0
 
 
 # q, k, v, dO, lse, delta, dq, dk, dv, b, t, h, d, the strides of q, k, v,
-# dO, causal, stream
+# dO, causal, the streamed tile's rows, stream
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
-                 + [ctypes.c_longlong] * 12 + [ctypes.c_int, ctypes.c_void_p])
+                 + [ctypes.c_longlong] * 12
+                 + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
 
 #: as :data:`_FWD_ROUTES`, for the backward
 _BWD_ROUTES = {
@@ -348,7 +457,7 @@ _BWD_ROUTES = {
 }
 
 
-def _launch_bwd(q, k, v, o, lse, do, causal):
+def _launch_bwd(q, k, v, o, lse, do, causal, blocks=None):
     name = "flash_attention_bwd"
     # autograd may hand over dO with any strides: the kernel reads it
     # through its (batch, seq, heads) strides, and only a dO that TMA
@@ -366,6 +475,7 @@ def _launch_bwd(q, k, v, o, lse, do, causal):
                          "float32 (%d, %d, 1) tensor on %s, got %s %s on %s"
                          % (name, b * h, t, q.device, tuple(lse.shape),
                             lse.dtype, lse.device))
+    tile = select_tile("bwd", q, causal, blocks)
     # delta = rowsum(dO * O) in f32, outside the attention kernels as in
     # the TPU code, in lse's (B*H, T, 1) layout: one pass of its own kernel
     # (dO and O are checked above)
@@ -380,26 +490,33 @@ def _launch_bwd(q, k, v, o, lse, do, causal):
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
         dv.data_ptr(), b, t, h, d,
         *(s for x in (q, k, v, do) for s in kernel_strides(x)),
-        int(bool(causal)), stream))
+        int(bool(causal)), tile[1] if tile else 0, stream))
     if rc != 0:
-        raise MXNetError("%s: CUDA launch failed (%s): %s (%d)"
-                         % (name, route[0], err(rc).decode(), rc))
+        raise MXNetError("%s: CUDA launch failed (%s, tile %s): %s (%d)"
+                         % (name, route[0], tile or "built-in",
+                            err(rc).decode(), rc))
     flash_attention_bwd.launches += 1
     flash_attention_bwd.source_launches[route[0]] += 1
-    return dq, dk, dv
+    return dq, dk, dv, tile
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal):
+def flash_attention_bwd(q, k, v, o, lse, do, causal, blocks=None):
     """``(dq, dk, dv)`` of attention over (B, T, H, D) inputs, from the
     forward's ``o`` and ``lse`` and the output gradient ``do``.  A CUDA
-    tensor launches the hand-written kernel of its dtype (or raises); a
-    CPU or meta tensor takes :func:`flash_attention_bwd_plain`.  Noted in
-    a sampled cost-database dispatch, as the forward."""
-    if _costdb.SAMPLING:
-        _note_kernel_cost("flash_attention_bwd", q, causal, 10, 8)
+    tensor launches the hand-written kernel of its dtype (or raises) at the
+    tile :func:`select_tile` picks (``blocks`` overrides it); a CPU or meta
+    tensor takes :func:`flash_attention_bwd_plain`.  Noted in a sampled
+    cost-database dispatch, as the forward."""
     kind = q.device.type
     if kind == "cuda":
-        return _launch_bwd(q, k, v, o, lse, do, causal)
+        dq, dk, dv, tile = _launch_bwd(q, k, v, o, lse, do, causal, blocks)
+        if _costdb.SAMPLING:
+            _note_kernel_cost("flash_attention_bwd", q, causal, 10, 8, tile)
+        return dq, dk, dv
+    if blocks is not None:
+        select_tile("bwd", q, causal, blocks)
+    if _costdb.SAMPLING:
+        _note_kernel_cost("flash_attention_bwd", q, causal, 10, 8)
     if kind in ("cpu", "meta"):
         return flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
     raise MXNetError("flash_attention_bwd: no path for device %s" % q.device)

@@ -44,6 +44,7 @@ import torch
 
 from .. import config as _config
 from .. import cuda_build
+from ..autotune import cache as _tune_cache
 from ..base import MXNetError
 from ..telemetry import costdb as _costdb
 from .nn import BNCore, bn_apply, bn_backward, bn_forward, bn_moments, \
@@ -139,8 +140,10 @@ def _kernel(entry):
     lib = cuda_build.library("matmul_stats")
     fn = getattr(lib, entry)
     if fn.argtypes is None:
+        # x, w, [scale, shift,] c, y, part, s; M, N, K, part_rows, tile,
+        # rows, dtype; stream
         pointers = 6 if entry == "mxtt_matmul_stats" else 8
-        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 \
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 7 \
             + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.mxtt_matmul_stats_error_string.argtypes = [ctypes.c_int]
@@ -165,12 +168,122 @@ def _partial_rows(dev):
 #: elements in the 16 bytes TMA wants as a row stride, by dtype
 _TMA_ALIGN = {torch.float32: 4, torch.bfloat16: 8}
 
+#: rows of one of K5's m-tiles (BM in csrc/matmul_stats.cu, both dtypes)
+K5_ROWS = 128
+#: the tile widths (columns of w an n-tile) K5 is built for, by dtype
+K5_TILES = {torch.bfloat16: (64, 128, 256), torch.float32: (64, 128)}
+#: K5's per-item cost in columns, csrc/matmul_stats.cu's ITEM_COST
+_ITEM_COST = 64
+#: the SM count the heuristic assumes where no card is at hand (an H100)
+H100_SMS = 132
 
-def _launch(x2d, w2d, c, scale=None, shift=None):
+
+def widest_tile(n, dtype=torch.bfloat16):
+    """The widest tile N needs (``widest_tile`` in the source; f32 stops at
+    128)."""
+    if n <= 64:
+        return 64
+    return 128 if n <= 128 or dtype == torch.float32 else 256
+
+
+def grid_rows(m, n, bn, sms):
+    """The built-in persistent grid's rows (``bf16_rows``, both dtypes):
+    the blocks of one n-tile, one an SM at most, no more than the
+    m-tiles."""
+    n_tiles = -(-n // bn)
+    m_tiles = -(-m // K5_ROWS)
+    return max(1, min(sms // n_tiles, m_tiles))
+
+
+def heuristic_config(m, n, dtype, sms=H100_SMS, prologue=False):
+    """``{"bn", "rows"}``, the tile and grid K5 (or K8, ``prologue``) takes
+    when it is passed 0 for both: ``bf16_tile``'s width of least cost (K8
+    and f32 the widest), and :func:`grid_rows`."""
+    widest = widest_tile(n, dtype)
+    best = widest
+    if dtype == torch.bfloat16 and not prologue:
+        m_tiles = -(-m // K5_ROWS)
+        best_cost = None
+        bn = widest
+        while bn >= 64:
+            rows = grid_rows(m, n, bn, sms)
+            cost = -(-m_tiles // rows) * (bn + _ITEM_COST)
+            if best_cost is None or cost < best_cost:
+                best, best_cost = bn, cost
+            bn //= 2
+    return {"bn": best, "rows": grid_rows(m, n, best, sms)}
+
+
+def config_takes(cfg, m, n, dtype, sms=H100_SMS):
+    """Whether K5 takes ``cfg`` (``{"bn", "rows"}``, either may be absent or
+    0 for the built-in choice) at this (M, N) and dtype: a width it is
+    built for, no wider than N needs, and rows from 1 to the SM count and
+    the m-tiles."""
+    try:
+        bn = int(cfg.get("bn", 0) or 0)
+        rows = int(cfg.get("rows", 0) or 0)
+    except (AttributeError, TypeError, ValueError):
+        return False
+    if bn and (bn not in K5_TILES.get(dtype, ()) or
+               bn > widest_tile(n, dtype)):
+        return False
+    return rows == 0 or 1 <= rows <= min(sms, -(-m // K5_ROWS))
+
+
+# select_config's answers: (x shape, w shape, dtype, device) -> (the
+# cache's resolution token, (bn, rows)), as flash_attention.select_tile's
+_SELECTED = {}
+
+
+def select_config(x2d, w2d, config=None, prologue=False):
+    """``(bn, rows)`` for the C entry (0 for the built-in choice): an
+    explicit ``config`` (``{"bn", "rows"}``; the tuners measure through it)
+    must be one K5 takes or raises; else K5 (not K8, which JAX does not
+    tune) consults the tuning cache under the JAX key (``matmul_stats``,
+    ``[(m, k), (k, n)]``, both dtypes), and a cached config K5 does not take
+    at this shape degrades to the built-in choice."""
+    if config is None and prologue:
+        return 0, 0
+    if config is None:
+        token = _tune_cache.resolution_token()
+        if token[0] == "off":
+            return 0, 0
+        key = (x2d.shape, w2d.shape, x2d.dtype, x2d.device)
+        got = _SELECTED.get(key)
+        if got is not None and got[0] == token and token[0] == "cache":
+            return got[1]
+    m, k = x2d.shape
+    n = w2d.shape[1]
+    # the width the kernel sees: pad_operands rounds an N TMA cannot take
+    # up to a multiple of 8
+    np_ = -(-n // 8) * 8 if n % _TMA_ALIGN.get(x2d.dtype, 1) else n
+    sms = _partial_rows(x2d.device) if x2d.device.type == "cuda" \
+        else H100_SMS
+    if config is not None:
+        if not config_takes(config, m, np_, x2d.dtype, sms):
+            raise MXNetError("matmul_stats: config %r is not one K5 takes "
+                             "at (%d, %d, %d) %s" % (config, m, k, n,
+                                                     x2d.dtype))
+        return int(config.get("bn", 0) or 0), int(config.get("rows", 0) or 0)
+    cfg = _tune_cache.kernel_config(
+        "matmul_stats", [(m, k), (k, n)],
+        [str(x2d.dtype).replace("torch.", ""),
+         str(w2d.dtype).replace("torch.", "")],
+        backend=_costdb.backend_name(x2d.device))
+    out = (0, 0)
+    if cfg and config_takes(cfg, m, np_, x2d.dtype, sms):
+        out = (int(cfg.get("bn", 0) or 0), int(cfg.get("rows", 0) or 0))
+    _SELECTED[key] = (_tune_cache.resolution_token(), out)
+    return out
+
+
+def _launch(x2d, w2d, c, scale=None, shift=None, config=None):
     """K5, or K8 when ``scale`` and ``shift`` are given (``c`` may then be
-    None, read as 0).  Returns ``(y, s1, s2, padded)``: ``padded`` when a
-    shape TMA does not take (K or N not a multiple of 16 bytes, an
-    unaligned base) went through :func:`pad_operands`."""
+    None, read as 0), at the tile and grid :func:`select_config` picks.
+    Returns ``(y, s1, s2, padded, cfg)``: ``padded`` when a shape TMA does
+    not take (K or N not a multiple of 16 bytes, an unaligned base) went
+    through :func:`pad_operands`; ``cfg`` the ``{"bn", "rows"}`` that
+    ran inside a sampled cost-database dispatch, else None."""
     name = "matmul_stats" if scale is None else "matmul_stats_prologue"
     if x2d.dim() != 2 or w2d.dim() != 2 or x2d.shape[1] != w2d.shape[0]:
         raise MXNetError("%s: need x (M, K) and w (K, N), got %s and %s"
@@ -199,6 +312,7 @@ def _launch(x2d, w2d, c, scale=None, shift=None):
     if min(m, n, k) < 1:
         raise MXNetError("%s: empty product (%d, %d) @ (%d, %d)"
                          % (name, m, k, k, n))
+    bn, grid = select_config(x2d, w2d, config, prologue=scale is not None)
     x2d = x2d.contiguous()
     # the kernel reads w as (N, K) rows: the transpose of a (K, N) view of
     # an OIHW weight is that layout already, and costs no copy
@@ -229,21 +343,35 @@ def _launch(x2d, w2d, c, scale=None, shift=None):
     base = buf.data_ptr()
     rc = cuda_build.on_device(dev, lambda stream: fn(
         *pointers, y.data_ptr(), base, base + 8 * rows * np_, m, np_, kp,
-        rows, _KERNEL_DTYPES[x2d.dtype], stream))
+        rows, bn, grid, _KERNEL_DTYPES[x2d.dtype], stream))
     if rc != 0:
-        raise MXNetError("%s: CUDA launch failed: %s (%d)" % (
-            name, lib.mxtt_matmul_stats_error_string(rc).decode(), rc))
+        raise MXNetError("%s: CUDA launch failed (tile %s, rows %s): %s (%d)"
+                         % (name, bn or "built-in", grid or "built-in",
+                            lib.mxtt_matmul_stats_error_string(rc).decode(),
+                            rc))
+    # the config that ran, for the cost note (only a sampled dispatch
+    # spends the host's time on the built-in choice's arithmetic)
+    ran = None
+    if _costdb.SAMPLING:
+        ran = heuristic_config(m, np_, x2d.dtype, rows,
+                               prologue=scale is not None)
+        ran = {"bn": bn or ran["bn"],
+               "rows": grid or grid_rows(m, np_, bn or ran["bn"], rows)}
     if padded:
-        return y[:, :n].contiguous(), buf[-2, :n], buf[-1, :n], True
-    return y, buf[-2], buf[-1], False
+        return y[:, :n].contiguous(), buf[-2, :n], buf[-1, :n], True, ran
+    return y, buf[-2], buf[-1], False, ran
 
 
-def _note_matmul_stats(x2d, w2d, op="matmul_stats"):
+def _note_matmul_stats(x2d, w2d, op="matmul_stats", cfg=None):
     """The JAX ``matmul_stats`` cost note: 2MNK flops, x and w read and y
-    written; ``bm`` is the kernel's row tile (128, one persistent block an
-    SM walking the tiles)."""
+    written; the block config is the m-tile's rows (``bm``, 128 in both
+    dtypes, and ``grid_m`` m-tiles) with the width and grid rows that ran
+    (``cfg``; on the CPU, the ones an H100 would take)."""
     m, k = x2d.shape
     n = w2d.shape[1]
+    if cfg is None:
+        cfg = heuristic_config(m, n, x2d.dtype,
+                               prologue=op != "matmul_stats")
     _costdb.note_kernel(
         op, [(m, k), (k, n)],
         [str(x2d.dtype).replace("torch.", ""),
@@ -252,28 +380,35 @@ def _note_matmul_stats(x2d, w2d, op="matmul_stats"):
         bytes_accessed=float(m * k * x2d.element_size()
                              + k * n * w2d.element_size()
                              + m * n * x2d.element_size()),
-        block_config={"bm": 128, "grid_m": -(-m // 128)})
+        block_config={"bm": K5_ROWS, "grid_m": -(-m // K5_ROWS),
+                      "bn": int(cfg["bn"]), "rows": int(cfg["rows"])})
 
 
-def matmul_stats(x2d, w2d, c):
+def matmul_stats(x2d, w2d, c, config=None):
     """``(M, K) @ (K, N) -> y`` (M, N) in x's dtype, plus the f32 (N,)
     sums of ``(y - c)`` and ``(y - c)^2`` taken from the f32 accumulator
     before ``y`` is rounded.  A CUDA tensor launches the hand-written K5
-    kernel (or raises); a CPU or meta tensor takes
+    kernel (or raises) at the tile and grid :func:`select_config` picks
+    (``config``, an explicit ``{"bn", "rows"}``, else the tuning cache, else
+    the built-in choice); a CPU or meta tensor takes
     :func:`matmul_stats_plain`.  ``matmul_stats.launches`` counts the
     launches, ``matmul_stats.f32_launches`` those of them on the f32 (split
     TF32) kernel, ``matmul_stats.padded`` those that went through
     :func:`pad_operands`.  Inside a sampled cost-database dispatch the
     call is noted with the JAX kernel's flops and bytes estimates."""
-    if _costdb.SAMPLING:
-        _note_matmul_stats(x2d, w2d)
     kind = x2d.device.type
     if kind == "cuda":
-        y, s1, s2, padded = _launch(x2d, w2d, c)
+        y, s1, s2, padded, ran = _launch(x2d, w2d, c, config=config)
         matmul_stats.launches += 1
         matmul_stats.f32_launches += x2d.dtype == torch.float32
         matmul_stats.padded += padded
+        if _costdb.SAMPLING:
+            _note_matmul_stats(x2d, w2d, cfg=ran)
         return y, s1, s2
+    if config is not None:       # an explicit config is checked everywhere
+        select_config(x2d, w2d, config)
+    if _costdb.SAMPLING:
+        _note_matmul_stats(x2d, w2d)
     if kind in ("cpu", "meta"):
         return matmul_stats_plain(x2d, w2d, c)
     raise MXNetError("matmul_stats: no path for device %s" % x2d.device)
@@ -284,21 +419,28 @@ matmul_stats.f32_launches = 0
 matmul_stats.padded = 0
 
 
-def matmul_stats_prologue(x2d, w2d, scale, shift):
+def matmul_stats_prologue(x2d, w2d, scale, shift, config=None):
     """K8: :func:`matmul_stats` with ``c = 0`` of ``relu(x2d * scale +
     shift)``, computed in f32 and rounded to ``x2d``'s dtype before the
     product; ``scale`` and ``shift`` are f32 with K values.  A CUDA tensor
-    launches the prologue variant of ``csrc/matmul_stats.cu`` (or raises);
-    a CPU or meta tensor takes :func:`matmul_stats_prologue_plain`.  Counts
+    launches the prologue variant of ``csrc/matmul_stats.cu`` (or raises),
+    at its built-in tile (the widest N needs) unless ``config`` asks for
+    another (the tuning cache is not consulted: JAX does not tune K8); a
+    CPU or meta tensor takes :func:`matmul_stats_prologue_plain`.  Counts
     and notes as :func:`matmul_stats` does."""
-    if _costdb.SAMPLING:
-        _note_matmul_stats(x2d, w2d, "matmul_stats_prologue")
     kind = x2d.device.type
     if kind == "cuda":
-        y, s1, s2, padded = _launch(x2d, w2d, None, scale, shift)
+        y, s1, s2, padded, ran = _launch(x2d, w2d, None, scale, shift,
+                                         config=config)
         matmul_stats_prologue.launches += 1
         matmul_stats_prologue.padded += padded
+        if _costdb.SAMPLING:
+            _note_matmul_stats(x2d, w2d, "matmul_stats_prologue", ran)
         return y, s1, s2
+    if config is not None:
+        select_config(x2d, w2d, config, prologue=True)
+    if _costdb.SAMPLING:
+        _note_matmul_stats(x2d, w2d, "matmul_stats_prologue")
     if kind in ("cpu", "meta"):
         return matmul_stats_prologue_plain(x2d, w2d, scale, shift)
     raise MXNetError("matmul_stats_prologue: no path for device %s"

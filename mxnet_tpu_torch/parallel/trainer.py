@@ -298,6 +298,17 @@ class ShardedTrainer:
         self._topo = symbol._topo()
         if self._layout == "NHWC":
             self._check_nhwc_safe()
+        # the plan search's decisions: an ambient plan_decisions context
+        # wins; otherwise the committed graph_plan entry (structural digest,
+        # layout, this mesh's axis sizes, backend) is consulted once here,
+        # and a hit plans every step, eval and captured forward by it
+        self._plan_decisions = _fusion.active_decisions()
+        if self._plan_decisions is None and self._fuse_blocks:
+            from ..analysis import plansearch as _plansearch
+            self._plan_decisions = _plansearch.committed_decisions(
+                self._topo, symbol._entries, self._layout,
+                mesh={str(k): int(v) for k, v in mesh.shape.items()},
+                backend=_costdb.backend_name(self._device))
         self._arg_nodes, self._aux_nodes = _classify_vars(self._topo)
         arg_names = [n.name for n in self._arg_nodes]
         self._input_names = list(data_shapes) + list(label_shapes or ())
@@ -618,7 +629,8 @@ class ShardedTrainer:
     def _run_graph(self, view, batch, is_train):
         """``eval_graph`` under the trainer's image layout and block
         fusion: ``(heads, aux_updates)``."""
-        with image_layout(self._layout), block_fusion(self._fuse_blocks):
+        with image_layout(self._layout), block_fusion(self._fuse_blocks), \
+                _fusion.plan_decisions(self._plan_decisions):
             return eval_graph(self._topo, self.symbol._entries,
                               self._node_value_map(view, batch, self.aux),
                               is_train=is_train, device=self._device,

@@ -403,10 +403,6 @@ NOT_EMITTED = {
     "mxtpu_fusion_blocks_total": _PLANS,
     "mxtpu_fusion_relayouts_eliminated_total": _PLANS,
     "mxtpu_fusion_fallback_total": _PLANS,
-    "mxtpu_tune_cache_hit_total": "the autotune cache not yet ported",
-    "mxtpu_tune_cache_miss_total": "the autotune cache not yet ported",
-    "mxtpu_plan_cache_hit_total": "analysis.plansearch not yet ported",
-    "mxtpu_plan_cache_miss_total": "analysis.plansearch not yet ported",
     "mxtpu_reshard_total": _RESHARD,
     "mxtpu_reshard_params_total": _RESHARD,
     "mxtpu_reshard_bytes_total": _RESHARD,

@@ -35,8 +35,14 @@ counterpart of the JAX step program's top-level equations.  It adds the
 ``telemetry.costdb.summary()`` (each program's measured wall, flops and
 MFU, the worst-MFU blocks and kernels; ``MXNET_TPU_COSTDB_SAMPLE`` sets the
 sampling) and ``flushed_to``, the JSONL file ``MXNET_TPU_COSTDB`` names.
-The ``autotune`` block and the plan-search and overlap legs are not
-ported (ROADMAP Queue A items 2 and 4).
+Both carry the ``autotune`` block, ``autotune.summary()``: the tuning
+cache's mode, directory and size, its hit, miss and search counts and the
+tuned configs this run dispatched with.  With ``BENCH_FUSE_BLOCKS`` on,
+the dry-run leg adds the plan-search A/B (``fusion.plansearch``): a
+whole-graph plan search of the MLP under a small budget, greedy and the
+searched winner measured on the same inputs, committed to the tuning
+cache (a committed entry reads as a hit, no search).  The overlap leg is
+not ported (ROADMAP Queue A item 4).
 
 The JAX options ``stem_space_to_depth`` and ``auto_layouts`` are TPU-era
 rewrites the port does not have: it passes both as False.  The ``--serve``
@@ -127,7 +133,7 @@ def emit(result, fusion=None, numerics=False):
     """Add ``valid``, the fusion block, the ``costdb``, ``io`` and
     ``telemetry`` blocks (and the ``numerics`` roll-up) and print the
     one-line JSON."""
-    from .. import telemetry
+    from .. import autotune, telemetry
     from ..telemetry import costdb
     rep = telemetry.report()
     result["valid"] = True
@@ -137,6 +143,9 @@ def emit(result, fusion=None, numerics=False):
     cost["flushed_to"] = costdb.flush()
     result["costdb"] = cost
     result["io"] = telemetry.ioview.summary()
+    # the tuning cache's attribution: hits, misses and the tuned configs
+    # this run dispatched with
+    result["autotune"] = autotune.summary()
     if numerics:
         result["numerics"] = telemetry.numerics.summary()
     result["telemetry"] = {k: rep[k] for k in (
@@ -196,10 +205,30 @@ def dry_run(ctx, fuse_blocks=True, steps=5):
     dt = time.perf_counter() - t0
     fusion["summary"] = trainer.fusion_summary()
     fusion["step_program_eqns"] = step_program_eqns(trainer)
+    if fuse_blocks:
+        fusion["plansearch"] = plansearch_ab(ctx, batch)
     return emit({"metric": "dryrun_mlp_train_samples_per_sec_per_chip",
                  "value": round(steps * batch / dt, 2),
                  "unit": "samples/s/chip", "vs_baseline": 0},
                 fusion=fusion, numerics=True)
+
+
+def plansearch_ab(ctx, batch):
+    """The dry-run leg's plan-search A/B: a plan search of the MLP under a
+    small budget (12 plans scored, a beam of 4, the 2 best measured beside
+    greedy on the same inputs), committed to the tuning cache; a
+    committed entry reads as a hit with no search."""
+    from ..analysis import plansearch
+    from ..models import get_model
+    doc = plansearch.search_and_commit(
+        get_model("mlp", num_classes=10),
+        {"data": (batch, 64), "softmax_label": (batch,)},
+        layout="NCHW", budget=12, beam=4, topk=2, repeats=2,
+        device=ctx.torch_device())
+    return {k: doc.get(k) for k in (
+        "graph", "plan_id", "cached", "searched", "measured",
+        "predicted_s", "greedy_predicted_s", "wall_s", "greedy_wall_s",
+        "candidates")}
 
 
 def main(argv=None):

@@ -642,8 +642,8 @@ def host_costs(calls=2000, shape=(256, 64, 64)):
         + [ctypes.c_int] * 3
     stream = torch.cuda.current_stream().cuda_stream
     args = (x.data_ptr(), w_nk.data_ptr(), c.data_ptr(), y.data_ptr(),
-            buf.data_ptr(), buf[2 * rows * n:].data_ptr(), m, n, k, rows, 1,
-            stream)
+            buf.data_ptr(), buf[2 * rows * n:].data_ptr(), m, n, k, rows,
+            0, 0, 1, stream)
 
     def wall(f):
         for _ in range(50):

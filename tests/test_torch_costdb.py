@@ -271,5 +271,10 @@ def test_perf_top_document_equals_jax(monkeypatch, tmp_path):
         docs.append(json.loads(buf.getvalue()))
     assert docs[1] == docs[0]
     assert docs[1]["worst"]["name"] == "b0"
-    assert ttool.main([str(tmp_path), "--suggest"]) == 2
+    # --suggest joins the tuning cache: an explicit cache that is not
+    # there is a usage error, as in the JAX tool
+    assert ttool.main([str(tmp_path), "--suggest", "--cache",
+                       str(tmp_path / "no-cache")]) == 2
+    assert jtool.main([str(tmp_path), "--suggest", "--cache",
+                       str(tmp_path / "no-cache")]) == 2
     assert ttool.main([str(tmp_path / "none")]) == 2

@@ -259,7 +259,10 @@ def test_bench_dry_run_on_the_cpu(capsys):
     assert line["telemetry"]["steps"] == 5 and line["valid"]
     assert set(line) >= {"value", "unit", "vs_baseline", "fusion", "io",
                          "numerics", "telemetry"}
-    assert "autotune" not in line
+    # the ported autotune block and the plan-search A/B of the MLP
+    assert line["autotune"]["schema"] == "mxtpu-tunecache/1"
+    ab = line["fusion"]["plansearch"]
+    assert ab["cached"] or ab["wall_s"] <= ab["greedy_wall_s"]
     assert line["costdb"]["schema"] == "mxtpu-costdb/1"
     assert line["fusion"]["ab_unfused"]["step_program_eqns"] > \
         line["fusion"]["step_program_eqns"]

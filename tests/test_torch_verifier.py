@@ -295,20 +295,27 @@ def test_trainer_strict_losses_equal_non_strict():
     assert losses[0] == losses[1]
 
 
-def test_mesh_and_plan_raise_naming_their_items():
+def test_mesh_and_plan_raise_naming_their_items(tmp_path, monkeypatch):
     net = tsym.FullyConnected(tsym.var("data"), num_hidden=4, name="fc1")
     with pytest.raises(tmx.MXNetError, match="item 4"):
         tanalysis.verify_symbol(net, {"data": (2, 8)},
                                 mesh={"data": 2, "model": 2})
     assert tanalysis.verify_symbol(net, {"data": (2, 8)},
                                    mesh={"data": 1}).ok
-    with pytest.raises(tmx.MXNetError, match="item 2"):
-        tanalysis.perf.check_predicted_plan([], [], {}, None)
     from mxnet_tpu_torch.analysis.__main__ import main
-    for argv in (["--model", "mlp", "--mesh", "data=2"],
-                 ["--model", "mlp", "--cost-model", "m.json", "--plan"]):
-        with pytest.raises(tmx.MXNetError, match="not yet ported"):
-            main(argv)
+    with pytest.raises(tmx.MXNetError, match="not yet ported"):
+        main(["--model", "mlp", "--mesh", "data=2"])
+    # the plan search (item 2) is ported: plan mode predicts the plan the
+    # tuning cache commits, greedy on a miss, and raises no more
+    monkeypatch.delenv("MXNET_TPU_TUNE_CACHE", raising=False)
+    from mxnet_tpu_torch.autotune import CostModel
+    model = CostModel()
+    assert tanalysis.perf.check_predicted_plan([], [], {}, model).ok
+    path = str(tmp_path / "m.json")
+    model.save(path)
+    assert main(["--model", "mlp", "--cost-model", path, "--plan"]) == 0
+    assert tanalysis.verify_symbol(net, {"data": (2, 8)}, cost_model=model,
+                                   plan=True).ok
 
 
 def test_cli_json_equals_jax():
