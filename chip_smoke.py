@@ -251,7 +251,8 @@ Phases, one JSON line each:
     resnet_train_check's bounds;
 30. ``zoo_score``: ``tools.benchmark_score`` over the ten zoo networks on
     the Executor route (f32 NCHW) and the fused route (bf16 NHWC) at batch
-    1 and 32: images/s each, every count 0;
+    32, and ResNet-50 and Inception-v3 at batch 1 too: images/s each,
+    every count 0;
 31. ``zoo_serve``: the serving CLI's ``--model inception-bn`` route
     (fresh Xavier weights from its seed) behind the batch ladder (one
     CUDA graph a rung, cuDNN's convolutions in them): six
@@ -310,8 +311,31 @@ Phases, one JSON line each:
     the f32 ladder (flash hits, replays equal to the eager forward to the
     bit); a flash forward captured in ``search`` mode (no search inside
     the capture, one after it); the K5 and K1 wrappers' host us a call
-    with the cache off, empty and hit.
-
+    with the cache off, empty and hit;
+39. ``dist_train``: data parallelism, two ranks on the one card (gloo:
+    NCCL refuses two ranks on one device) through
+    ``mxnet_tpu_torch/tools/launch.py`` and ``tools.dist_train``: the
+    full-width GPT (bf16, global batch 16, 8 a rank, 4 steps) on the
+    train phase's weights and batch, its losses within ``TOL_DIST_LOSS``
+    of that phase's; ResNet-50 (global batch 128, 3 steps, the rank
+    halves of the batch differing in distribution) against one process
+    here: losses within ``TOL_DIST_LOSS``, the moving statistics after a
+    step within ``TOL_DIST_AUX`` of one process's in units of its step,
+    and a control (each rank's BatchNorm over its own rows) beyond it;
+    the masters' gap recorded beside the floor rounding sets (one process
+    on the batch with its halves swapped);
+    the ranks' masters and aux states CRC32-equal, K1, K3 and delta 12 a
+    step and K5 16 a step on each rank; the Module of ``module_train`` at
+    2 layers under ``dist_sync`` with ``MXNET_TPU_OVERLAP`` off and on
+    (equal to the bit) and under ``dist_async`` with DCASGD (the server's
+    weights equal to a host replay of the pushes in the order it applied
+    them); the recovery drill (``--restart-budget 1``, rank 1 SIGKILLed
+    after the step-2 checkpoint, the resumed steps equal to the
+    uninterrupted run's to the bit); the NCCL route at world 1 (a
+    ``dist_sync`` push and pull of the GPT's parameters equal to the
+    bit); each rank's peak memory, build, step walls and collective wait.
+    ``python chip_smoke.py --dist-witness float32`` runs the ResNet-50
+    comparison alone in another dtype.
 Then the kernel summary line (each entry with its ``tiles``: the
 built-in tile, the legal set, the tuners' winner and both times) (each kernel with its launches on its main
 path, and on the DCGAN path, in autograd_check's recorded attention, on
@@ -5313,7 +5337,10 @@ def block_experiment_phase(batch=128, repeats=5, f32_repeats=2):
 ZOO_NETWORKS = ("mlp", "lenet", "alexnet", "vgg16", "resnet50",
                 "inception-bn", "inception-v3", "inception-resnet-v2",
                 "googlenet", "resnext")
+#: the batch sizes scored, and the networks scored at batch 1 (the
+#: latency regime; all ten took 31 s of the phase's 62 s)
 ZOO_SCORE_BATCHES = (1, 32)
+ZOO_SCORE_BATCH1 = ("resnet50", "inception-v3")
 ZOO_SCORE_FORWARDS = 5
 #: Inception-v3 at 299x299 on the fused route: the plan's blocks, 40 of
 #: them on K5 (every 1x1 stride-1 Conv->BN->ReLU head)
@@ -5615,9 +5642,12 @@ def inception_check_phase(ctx, batch=8, image=17, channels=64,
 
 
 def zoo_score_phase(ctx, networks=ZOO_NETWORKS, batches=ZOO_SCORE_BATCHES,
-                    num_batches=ZOO_SCORE_FORWARDS, dtype="bfloat16"):
+                    num_batches=ZOO_SCORE_FORWARDS, dtype="bfloat16",
+                    batch1=None):
     """``tools.benchmark_score`` over ``networks`` on both routes at each
-    of ``batches``: the Executor (f32 NCHW, Xavier weights) and the fused
+    of ``batches`` (batch 1 for the ``batch1`` networks alone, when
+    given): the
+    Executor (f32 NCHW, Xavier weights) and the fused
     ``ShardedTrainer.forward`` (``dtype``, NHWC); images/s each, every
     count 0 (inference takes no kernel of the port)."""
     from mxnet_tpu_torch.tools import benchmark_score
@@ -5628,6 +5658,8 @@ def zoo_score_phase(ctx, networks=ZOO_NETWORKS, batches=ZOO_SCORE_BATCHES,
         shape = benchmark_score.image_shape_of(net)
         rates[net] = {"executor": {}, "fused": {}}
         for b in batches:
+            if b == 1 and batch1 is not None and net not in batch1:
+                continue
             rates[net]["executor"][str(b)] = benchmark_score.score(
                 net, b, image_shape=shape, num_batches=num_batches, ctx=ctx)
             rates[net]["fused"][str(b)] = benchmark_score.score_fused(
@@ -5636,7 +5668,9 @@ def zoo_score_phase(ctx, networks=ZOO_NETWORKS, batches=ZOO_SCORE_BATCHES,
             gc.collect()
     counts = kernel_counts()
     out = {"context": str(ctx), "networks": list(networks),
-           "batches": list(batches), "forwards": num_batches,
+           "batches": list(batches),
+           "batch1_networks": list(networks if batch1 is None else batch1),
+           "forwards": num_batches,
            "routes": {"executor": "float32 NCHW",
                       "fused": "%s NHWC" % dtype},
            "images_per_s": rates, "kernel_launches": counts,
@@ -6471,6 +6505,515 @@ def block_summary(name, source, launches, sets, ptxas, **extra):
         "ptxas": ptxas}, **extra)
 
 
+#: the data-parallel phase: the launcher, the two-rank jobs' time limit,
+#: and its bounds.  Losses: each leg's largest relative difference from
+#: one process at the global batch over its steps (bf16: a rank's GEMMs
+#: run at half the rows, where cuBLAS may pick other kernels, so the bits
+#: differ; the f32 semantics are held to rtol 1e-5 against JAX by
+#: tests/test_torch_dist_trainer.py).  State: ResNet-50's moving
+#: statistics after its first step (the cross-rank sums of the forward),
+#: as ||two ranks - one process|| over ||one process's step||, where its
+#: control (every rank's BatchNorm over its own rows) must read above the
+#: bound.  Both ResNet-50 bounds lie between the sound leg and the
+#: control: on an NVIDIA H100 80GB HBM3 at 700 W the sound leg read losses
+#: 2.38e-3 and moving statistics 2.81e-3 (one process with the batch's
+#: halves swapped 2.35e-3 and 2.70e-3), the control 1.05e-2 and 0.177;
+#: a job that never updates would read 0.149 (PERF.md).
+LAUNCH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                      "mxnet_tpu_torch", "tools", "launch.py")
+DIST_TIMEOUT_S = 400
+TOL_DIST_LOSS = {"gpt": 1e-3, "resnet": 6e-3}
+TOL_DIST_AUX = 0.05
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launch_job(mode, out, n=2, extra=(), env=None, worker=None):
+    """``tools/launch.py -n n -- python -m mxnet_tpu_torch.tools.dist_train
+    mode out`` (or ``python <worker...>``) with a time limit; the launcher
+    tears its workers down on SIGTERM.  Returns ``(returncode, stderr,
+    seconds)``."""
+    cmd = [sys.executable, LAUNCH, "-n", str(n), "--coordinator",
+           "127.0.0.1:%d" % _free_port(), *extra, "--", sys.executable,
+           *(worker or ("-m", "mxnet_tpu_torch.tools.dist_train", mode,
+                        out))]
+    full_env = dict(os.environ, **(env or {}))
+    full_env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.abspath(__file__))]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    p = subprocess.Popen(cmd, env=full_env, text=True,
+                         stderr=subprocess.PIPE, start_new_session=True)
+    try:
+        _out, err = p.communicate(timeout=DIST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGTERM)
+        try:
+            p.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(p.pid, signal.SIGKILL)
+            p.communicate()
+        raise SystemExit("dist_train: the %s job outlived %d s"
+                         % (mode, DIST_TIMEOUT_S))
+    return p.returncode, err, time.perf_counter() - t0
+
+
+def _ranks(out, name, n=2):
+    return [json.load(open(os.path.join(out, "%s.rank%d.json" % (name, r))))
+            for r in range(n)]
+
+
+def _rel_losses(got, want):
+    return max(abs(g - w) / abs(w) for g, w in zip(got, want))
+
+
+@contextlib.contextmanager
+def _async_records(out, r):
+    """In a rank of the legs job: what a host replay of the ``dist_async``
+    parameter server needs.  Each rank keeps what it sends (the
+    optimizer's pickle, the initial values, each gradient by its CRC32) in
+    ``OUT/async-sent.rank<r>.pkl``; the server (rank 0's) records
+    ``(key, CRC32)`` as it applies each push (its updater runs under its
+    lock), and that order goes to ``OUT/async-log.json`` and its final
+    weights to ``OUT/async-server.npz``."""
+    import copy
+    import pickle
+    import zlib
+    from mxnet_tpu_torch.parallel import async_kvstore as ak
+    sent = {"init": {}, "grads": {}}
+    servers = []
+
+    class RecordingServer(ak.ParameterServer):
+        def __init__(self, *args, **kw):
+            self.applied = []
+            super().__init__(*args, **kw)
+            servers.append(self)
+
+        @property
+        def _updater(self):
+            return self.__dict__.get("_recorded_updater")
+
+        @_updater.setter
+        def _updater(self, fn):
+            if fn is not None:
+                inner = fn
+
+                def fn(key, grad, weight):
+                    self.applied.append((key, zlib.crc32(
+                        np.ascontiguousarray(grad.asnumpy()).tobytes())))
+                    return inner(key, grad, weight)
+            self.__dict__["_recorded_updater"] = fn
+
+    cls = ak.AsyncKVStore
+    saved = (cls.init, cls._send_push, cls.set_optimizer, ak.ParameterServer)
+
+    def init(self, key, value):
+        for k, v in zip(*(key, value) if isinstance(key, (list, tuple))
+                        else ([key], [value])):
+            sent["init"][str(k)] = v.asnumpy().copy()
+        return saved[0](self, key, value)
+
+    def send(self, k, merged):
+        sent["grads"][str(zlib.crc32(
+            np.ascontiguousarray(merged).tobytes()))] = merged.copy()
+        return saved[1](self, k, merged)
+
+    def set_optimizer(self, optimizer):
+        o = copy.copy(optimizer)
+        o.sym = None
+        sent["optimizer"] = pickle.dumps(o, protocol=4)
+        return saved[2](self, optimizer)
+
+    cls.init, cls._send_push, cls.set_optimizer = init, send, set_optimizer
+    ak.ParameterServer = RecordingServer
+    try:
+        yield
+    finally:
+        cls.init, cls._send_push, cls.set_optimizer, ak.ParameterServer = \
+            saved
+    for srv in servers:
+        with srv._lock:
+            log = [[str(k), c] for k, c in srv.applied]
+            final = {str(k): v.asnumpy() for k, v in srv._store.items()}
+        np.savez(os.path.join(out, "async-server.npz"), **final)
+        with open(os.path.join(out, "async-log.json"), "w") as f:
+            json.dump(log, f)
+    with open(os.path.join(out, "async-sent.rank%d.pkl" % r), "wb") as f:
+        pickle.dump(sent, f, protocol=4)
+
+
+def replay_async(out, ranks=2):
+    """The server's final weights replayed on the host: the initial
+    values, then the shipped optimizer's updater over each gradient in the
+    order the server applied them.  Returns ``(pushes, keys, keys equal
+    to the server's to the bit)``."""
+    import pickle
+    sent = []
+    for r in range(ranks):
+        with open(os.path.join(out, "async-sent.rank%d.pkl" % r), "rb") as f:
+            sent.append(pickle.load(f))
+    with open(os.path.join(out, "async-log.json")) as f:
+        log = json.load(f)
+    grads = {}
+    for s in sent:
+        grads.update(s["grads"])
+    updater = mx.optimizer.get_updater(pickle.loads(sent[0]["optimizer"]))
+    weights = {k: mx.nd.array(v, ctx=mx.cpu())
+               for k, v in sent[0]["init"].items()}
+    for key, crc in log:
+        updater(int(key), mx.nd.array(grads[str(crc)], ctx=mx.cpu()),
+                weights[key])
+    final = np.load(os.path.join(out, "async-server.npz"))
+    equal = sum(bool(np.array_equal(weights[k].asnumpy(), final[k]))
+                for k in final.files)
+    return len(log), len(final.files), equal
+
+
+def _resnet_cfg(dtype):
+    from mxnet_tpu_torch.tools import dist_train as dt
+    return dict(dt.FULL["resnet"], dtype=dtype)
+
+
+def dist_worker(out, resnet_dtype=None, cpu=False):
+    """One rank of the dist_train phase's legs job (``chip_smoke.py
+    --dist-worker OUT``, under the launcher): ``tools.dist_train``'s legs
+    with the async server's records (:func:`_async_records`), then the
+    control: ResNet-50 for two steps with each rank's BatchNorm over its
+    own rows (the cross-rank sums switched off), which the phase's state
+    gate must refuse.  With ``resnet_dtype``, ResNet-50 and its control
+    alone, in that dtype; with ``cpu``, the tool's tiny CPU size."""
+    from mxnet_tpu_torch.parallel import multihost
+    from mxnet_tpu_torch.tools import dist_train as dt
+    multihost.ensure_initialized()
+    if cpu:
+        ctx, cfg = mx.cpu(), dict(dt.TINY["resnet"])
+    else:
+        ctx = mx.gpu(multihost.device().index)
+        cfg = _resnet_cfg(resnet_dtype or "bfloat16")
+    if resnet_dtype:
+        dt.resnet_leg(cfg, ctx, out)
+    else:
+        with _async_records(out, multihost.rank()):
+            dt.main(["legs", out] + (["--cpu", "1"] if cpu else []))
+    spans = multihost.batch_sums_span_ranks
+    multihost.batch_sums_span_ranks = lambda: False
+    try:
+        dt.resnet_leg(cfg, ctx, out, "resnet_control", 2)
+    finally:
+        multihost.batch_sums_span_ranks = spans
+    return 0
+
+
+def _resnet_reference(cfg, steps, ctx=None, swap=False):
+    """ResNet-50 in this process at the global batch, from the legs' seed
+    and batch: its losses, and its masters and aux states before and
+    after the first step (host arrays).  ``swap`` puts the batch's second
+    half of rows first: the same sums in another order, so its distance
+    from the unswapped run is the floor that rounding alone sets."""
+    from mxnet_tpu_torch.tools import dist_train as dt
+    tr = dt.resnet_trainer(cfg, ctx or mx.gpu(0))
+    batch = dt.resnet_batch(cfg, 0)
+    if swap:
+        half = cfg["batch"] // 2
+        batch = {k: np.concatenate([v[half:], v[:half]])
+                 for k, v in batch.items()}
+    before, losses = dt.host_state(tr), []
+    for i in range(steps):
+        losses.append(float(tr.step(batch)))
+        if i == 0:
+            after = dt.host_state(tr)
+    del tr
+    gc.collect()
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return losses, before, after
+
+
+def _state_gaps(got, after, before, prefix, top=5):
+    """||got - after|| / ||after - before|| over the arrays whose keys
+    start with ``prefix`` (``arg:`` the masters, ``aux:`` the moving
+    statistics), a two-rank step's distance from one process's in units
+    of that step, as ``gap``; the median over the arrays of each one's own
+    gap; and the ``top`` arrays by their share of the squared distance
+    (name, share, own gap)."""
+    keys = [k for k in after if k.startswith(prefix)]
+    num = {k: float(np.square(got[k].astype(np.float64) - after[k]).sum())
+           for k in keys}
+    den = {k: float(np.square(after[k].astype(np.float64) - before[k])
+                    .sum()) for k in keys}
+    own = {k: (num[k] / den[k]) ** 0.5 if den[k] else float(num[k] > 0)
+           for k in keys}
+    total = sum(num.values())
+    worst = sorted(keys, key=lambda k: -num[k])[:top]
+    return {"gap": (total / sum(den.values())) ** 0.5,
+            "median_own": float(np.median(list(own.values()))),
+            "top": [[k, num[k] / total if total else 0.0, own[k]]
+                    for k in worst]}
+
+
+def _gaps(losses, state, ref):
+    """``losses`` and the state after the first step against one process
+    (``ref``): the largest relative loss difference and the state gaps."""
+    ref_losses, before, after = ref
+    if sorted(state) != sorted(after):
+        raise SystemExit("dist_train: a state of other arrays than one "
+                         "process's")
+    parts = {k: _state_gaps(state, after, before, p)
+             for k, p in (("params", "arg:"), ("aux", "aux:"))}
+    return {"losses": losses,
+            "max_rel_loss_diff": _rel_losses(losses, ref_losses),
+            "state_gap": {k: v["gap"] for k, v in parts.items()},
+            "state_gap_parts": parts}
+
+
+def _resnet_readings(out, ref, floor):
+    """The ResNet-50 leg and its control against one process (``ref``,
+    :func:`_resnet_reference`), beside the floor (``floor``, the same run
+    with the batch's halves swapped): the legs' records, and for each
+    its largest relative loss difference and its state gaps after the
+    first step."""
+    got = {"floor": _gaps(floor[0], floor[2], ref)}
+    for name in ("resnet", "resnet_control"):
+        docs = _ranks(out, name)
+        state = np.load(os.path.join(out, "%s.state1.npz" % name))
+        got[name] = dict(_gaps(docs[0]["losses"],
+                               {k: state[k] for k in state.files}, ref),
+                         docs=docs)
+    return got
+
+
+def _gate_resnet(got):
+    """The state gate on the moving statistics: the sound leg and the
+    floor within ``TOL_DIST_AUX``, the control (each rank's BatchNorm
+    over its own rows) beyond it.  The masters' gap is recorded beside
+    the floor's, not gated: one step of ResNet-50 from its initial
+    weights moves them by an amount that rounding alone changes by as
+    much as a fault does."""
+    for name in ("resnet", "floor"):
+        aux = got[name]["state_gap"]["aux"]
+        if not aux <= TOL_DIST_AUX:
+            raise SystemExit("dist_train: ResNet-50's moving statistics "
+                             "after a step (%s) lie %.3g of that step from "
+                             "one process's; bound %g"
+                             % (name, aux, TOL_DIST_AUX))
+    aux = got["resnet_control"]["state_gap"]["aux"]
+    if not aux > TOL_DIST_AUX:
+        raise SystemExit("dist_train: the control (BatchNorm over each "
+                         "rank's rows) reads %.3g on the moving statistics, "
+                         "within the bound %g: the gate cannot tell it "
+                         "from a sound run" % (aux, TOL_DIST_AUX))
+
+
+def dist_witness(dtype):
+    """ResNet-50 on two ranks against one process in ``dtype`` (``python
+    chip_smoke.py --dist-witness float32``): the state gaps and loss
+    differences of the sound leg and its control, printed as one JSON
+    line with the card's name and power limit.  The dist_train phase runs
+    the bf16 case; the f32 one tells rounding from a fault."""
+    from mxnet_tpu_torch.tools import dist_train as dt
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the GPU",
+              file=sys.stderr)
+        return 1
+    cfg = _resnet_cfg(dtype)
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        ref = _resnet_reference(cfg, dt.RESNET_STEPS)
+        floor = _resnet_reference(cfg, dt.RESNET_STEPS, swap=True)
+        ref_s = time.perf_counter() - t0
+        rc, err, job_s = _launch_job(
+            "resnet", out, worker=(os.path.abspath(__file__),
+                                   "--dist-worker", out, dtype))
+        if rc != 0:
+            raise SystemExit("dist_witness: the job failed (%d):\n%s"
+                             % (rc, err[-6000:]))
+        got = _resnet_readings(out, ref, floor)
+    print(json.dumps({
+        "dist_witness": dtype, "reference_losses": ref[0],
+        "reference_s": ref_s, "job_s": job_s, "nvidia_smi": nvidia_smi(),
+        **{k: {f: v[f] for f in ("losses", "max_rel_loss_diff",
+                                 "state_gap", "state_gap_parts")}
+           for k, v in got.items()},
+        "build_s": [d["build_s"] for d in got["resnet"]["docs"]]}),
+        flush=True)
+    return 0
+
+
+def dist_train_phase(workdir, gpt_ref):
+    """Two ranks on the one card (gloo: NCCL refuses two ranks on one
+    device) through the port's launcher, in three launches: the legs
+    (``tools.dist_train``'s under :func:`dist_worker`: the full-width GPT,
+    ResNet-50, the Module under dist_sync with overlap off and on, the
+    Module under dist_async, then ResNet-50's control), the recovery
+    drill (``--restart-budget 1``, rank 1 killed after step 2) and the
+    NCCL route at world 1.  The references are this process's runs of
+    the same weights and batch: ``gpt_ref`` the train phase's losses (the
+    GPT at batch 16); ResNet-50 at batch 128 runs here first.  Gates: each
+    launch's backend; the losses within ``TOL_DIST_LOSS`` of the
+    references; ResNet-50's moving statistics after a step within
+    ``TOL_DIST_AUX`` of one process's, and its control beyond it; the
+    ranks' masters and aux states CRC32-equal; the Module's parameters
+    equal with overlap off and on; the kernels' launches a step on each
+    rank (K1, K3, delta 12 a GPT step; K5 16 a ResNet-50 step); the async
+    server's weights equal to a host replay of its applied pushes; the
+    resumed steps' losses equal to the uninterrupted run's to the bit; the
+    NCCL push and pull equal to the bit.  Records each rank's peak memory,
+    trainer build, step walls and collective wait with the card's name
+    and power limit (two ranks time-share one card and gloo stages
+    through host memory: a record, not a scaling number)."""
+    from mxnet_tpu_torch.tools import dist_train as dt
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ref = _resnet_reference(_resnet_cfg("bfloat16"), dt.RESNET_STEPS)
+    floor = _resnet_reference(_resnet_cfg("bfloat16"), dt.RESNET_STEPS,
+                              swap=True)
+    ref_s = time.perf_counter() - t0
+    refs = {"gpt": list(gpt_ref[:dt.GPT_STEPS]), "resnet": ref[0]}
+    out = os.path.join(workdir, "dist")
+    os.makedirs(out, exist_ok=True)
+    rc, err, legs_s = _launch_job(
+        "legs", out, env={"MXNET_TPU_TELEMETRY_JSONL":
+                          os.path.join(out, "run.jsonl"),
+                          "MXNET_TPU_HEARTBEAT_TIMEOUT": "300"},
+        worker=(os.path.abspath(__file__), "--dist-worker", out))
+    if rc != 0:
+        raise SystemExit("dist_train: the legs job failed (%d):\n%s"
+                         % (rc, err[-6000:]))
+    resnet = _resnet_readings(out, ref, floor)
+    gpt, mod, asy = (_ranks(out, leg) for leg in ("gpt", "module", "async"))
+    res, ctl = resnet["resnet"]["docs"], resnet["resnet_control"]["docs"]
+    for leg, docs in (("gpt", gpt), ("resnet", res), ("module", mod),
+                      ("async", asy), ("resnet_control", ctl)):
+        heads = [(d["rank"], d["world"], d["backend"]) for d in docs]
+        if heads != [(0, 2, "gloo"), (1, 2, "gloo")]:
+            raise SystemExit("dist_train: %s ran as %s; want ranks 0 and 1 "
+                             "of 2 on gloo" % (leg, heads))
+    fields = {}
+    for leg, docs, want in (("gpt", gpt, {
+            "flash_attention_fwd_sm90": 12, "flash_attention_bwd_sm90": 12,
+            "flash_attention_delta": 12}), ("resnet", res, {
+                "matmul_stats": 16})):
+        a, b = docs
+        if a["params"] != b["params"] or a["aux"] != b["aux"]:
+            raise SystemExit("dist_train: %s's ranks differ in their "
+                             "masters or aux states (CRC32)" % leg)
+        if a["losses"] != b["losses"]:
+            raise SystemExit("dist_train: %s's ranks report other losses: "
+                             "%s, %s" % (leg, a["losses"], b["losses"]))
+        rel = _rel_losses(a["losses"], refs[leg])
+        if not np.isfinite(a["losses"]).all() or rel > TOL_DIST_LOSS[leg]:
+            raise SystemExit("dist_train: %s's losses %s against one "
+                             "process's %s: %.3g over %g"
+                             % (leg, a["losses"], refs[leg], rel,
+                                TOL_DIST_LOSS[leg]))
+        per_step = []
+        for d in docs:
+            counts = dict(d["launches"], **d["source_launches"])
+            got = {k: counts[k] / d["steps"] for k in want}
+            if got != {k: float(v) for k, v in want.items()}:
+                raise SystemExit("dist_train: %s rank %d launched %s a "
+                                 "step; want %s" % (leg, d["rank"], got,
+                                                    want))
+            per_step.append(got)
+        fields[leg] = {
+            "losses": a["losses"], "reference_losses": refs[leg],
+            "max_rel_loss_diff": rel, "launches_per_step": per_step[0],
+            "params_crc_equal": True,
+            "step_wall_s": [d["step_wall_s"] for d in docs],
+            "collective_wait_s": [d["collective_wait_s"] for d in docs],
+            "peak_mem_bytes": [d.get("peak_mem_bytes") for d in docs],
+            "build_s": [d["build_s"] for d in docs]}
+    fields["gpt"]["context_s"] = [d["context_s"] for d in gpt]
+    if res[0]["fusion"]["pallas_blocks"] != 16:
+        raise SystemExit("dist_train: ResNet-50's plan %s; want 16 blocks "
+                         "on K5" % res[0]["fusion"])
+    print("dist_train ResNet-50 against one process: %s" % json.dumps(
+        {k: {f: v[f] for f in ("losses", "max_rel_loss_diff",
+                               "state_gap_parts")}
+         for k, v in resnet.items()}), flush=True)
+    _gate_resnet(resnet)
+    fields["resnet"].update(
+        state_gap=resnet["resnet"]["state_gap"],
+        state_gap_parts=resnet["resnet"]["state_gap_parts"],
+        reference_s=ref_s)
+    for name in ("resnet_control", "floor"):
+        fields["resnet_" + name.replace("resnet_", "")] = {
+            k: resnet[name][k] for k in ("losses", "max_rel_loss_diff",
+                                         "state_gap", "state_gap_parts")}
+    m0, m1 = mod
+    for o in ("overlap0", "overlap1"):
+        if m0[o]["params"] != m1[o]["params"]:
+            raise SystemExit("dist_train: the Module's ranks differ (%s)" % o)
+    if m0["overlap0"]["params"] != m0["overlap1"]["params"]:
+        raise SystemExit("dist_train: the Module's parameters differ with "
+                         "overlap on and off")
+    if [m0[o]["overlap_active"] for o in ("overlap0", "overlap1")] != \
+            [False, True]:
+        raise SystemExit("dist_train: the overlap path did not switch")
+    fields["module"] = {
+        o: {k: m0[o][k] for k in ("batch_wall_s", "collectives",
+                                  "source_launches")}
+        for o in ("overlap0", "overlap1")}
+    fields["module"].update(params_equal_overlap_on_off=True,
+                            batches=dt.MODULE_BATCHES,
+                            layers=dt.MODULE_LAYERS)
+    pushes, keys, equal = replay_async(out)
+    if equal != keys or pushes != asy[0]["stats"]["updates"]:
+        raise SystemExit("dist_train: the async server's weights: %d of %d "
+                         "keys equal a host replay of its %d applied pushes "
+                         "(%d updates)" % (equal, keys, pushes,
+                                           asy[0]["stats"]["updates"]))
+    fields["async"] = {"pushes": pushes, "keys": keys, "replay_equal": True,
+                       "batch_wall_s": [d["batch_wall_s"] for d in asy]}
+    timeline = [json.loads(line) for line in
+                open(os.path.join(out, "run.jsonl.run"))]
+    fields["legs_launch"] = {
+        "seconds": legs_s, "backend": "gloo",
+        "timeline_steps": sum(r.get("kind") == "step" for r in timeline)}
+    # launch 2: the recovery drill
+    rc, err, rec_s = _launch_job(
+        "recovery", out, extra=("--restart-budget", "1"),
+        env={"MXNET_TPU_HEARTBEAT_TIMEOUT": "60"})
+    if rc != 0 or "job recovered after 1 restart(s)" not in err:
+        raise SystemExit("dist_train: the recovery drill (%d):\n%s"
+                         % (rc, err[-6000:]))
+    full, resumed = (_ranks(out, n) for n in ("uninterrupted", "resumed"))
+    for u, r_ in zip(full, resumed):
+        if r_["epoch"] != dt.KILL_AFTER or \
+                r_["losses"] != u["losses"][dt.KILL_AFTER:]:
+            raise SystemExit("dist_train: resumed from epoch %s with losses "
+                             "%s; the uninterrupted run's %s"
+                             % (r_["epoch"], r_["losses"], u["losses"]))
+    fields["recovery"] = {
+        "seconds": rec_s, "uninterrupted": full[0]["losses"],
+        "resumed": resumed[0]["losses"], "epoch": resumed[0]["epoch"],
+        "bit_equal": True, "load_s": [d["load_s"] for d in resumed],
+        "save_s": _ranks(out, "checkpointed")[0]["save_s"]}
+    # launch 3: the NCCL route, one process
+    rc, err, nccl_s = _launch_job("nccl", out, n=1)
+    if rc != 0:
+        raise SystemExit("dist_train: the NCCL job failed (%d):\n%s"
+                         % (rc, err[-6000:]))
+    nccl = _ranks(out, "nccl", n=1)[0]
+    if nccl["backend"] != "nccl" or not nccl["equal"] \
+            or nccl["collectives"] != 1:
+        raise SystemExit("dist_train: the NCCL route: %s" % nccl)
+    fields["nccl"] = dict(nccl, seconds=nccl_s)
+    print("dist_train backends: legs gloo, recovery gloo, nccl %s"
+          % nccl["backend"], flush=True)
+    return dict(fields, nvidia_smi=nvidia_smi(),
+                tolerance=TOL_DIST_LOSS,
+                phase_s=time.perf_counter() - t_phase)
+
+
 #: the launch counter (:func:`kernel_counts`) of each summary entry's kernel
 COUNTER_OF = {
     "flash_attention_fwd": "flash_attention_fwd",
@@ -6577,7 +7120,7 @@ def main():
         inception = inception_train_phase(mx.gpu(0), recs)
         emit("inception_train", records_s=records_s, **inception)
     emit("inception_check", **inception_check_phase(mx.gpu(0)))
-    zoo_score = zoo_score_phase(mx.gpu(0))
+    zoo_score = zoo_score_phase(mx.gpu(0), batch1=ZOO_SCORE_BATCH1)
     emit("zoo_score", **zoo_score)
     zoo_serve = zoo_serve_phase(mx.gpu(0))
     emit("zoo_serve", **zoo_serve)
@@ -6590,10 +7133,13 @@ def main():
     rtc = rtc_phase()
     mse = matmul_stats_experiment_phase()
     blk = block_experiment_phase()
-    # last: it commits tuned tiles and a plan, then empties the cache
+    # it commits tuned tiles and a plan, then empties the cache
     with tempfile.TemporaryDirectory() as workdir:
         tuned = autotune_phase(mx.gpu(0), workdir)
     emit("autotune", **tuned)
+    with tempfile.TemporaryDirectory() as workdir:
+        dist = dist_train_phase(workdir, train["losses"])
+    emit("dist_train", **dist)
     train_shape = list(TRAIN_SHAPE[:4])
     fwd_train = _case(fwd, train_shape, "bfloat16")
     bwd_train = _case(bwd, train_shape, "bfloat16")
@@ -6806,6 +7352,18 @@ def main():
     for e in kernels:
         e["tiles"] = tiles.get(e["name"], {"tuned": False,
                                             "takes_tile": False})
+    # each kernel's launches on each rank of the two-rank dist_train legs:
+    # a step of the bf16 GPT (K1, K3, delta) and of ResNet-50 (K5), a
+    # batch of the f32 Module (the f32 flash kernels)
+    gpt_steps = dist["gpt"]["launches_per_step"]
+    module_batch = {k: v / dist["module"]["batches"] for k, v in
+                    dist["module"]["overlap0"]["source_launches"].items()
+                    if not k.endswith("_sm90")}
+    dist_launches = dict(gpt_steps, **module_batch,
+                         matmul_stats=dist["resnet"]["launches_per_step"][
+                             "matmul_stats"])
+    for e in kernels:
+        e["dist_train_launches"] = dist_launches.get(e["name"], 0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6814,4 +7372,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dist-worker"]:
+        sys.exit(dist_worker(*sys.argv[2:4]))
+    if sys.argv[1:2] == ["--dist-witness"]:
+        sys.exit(dist_witness(sys.argv[2]))
     sys.exit(main())

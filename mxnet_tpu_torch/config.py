@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["get", "get_int", "get_bool", "describe"]
+__all__ = ["get", "get_int", "get_bool", "describe", "uncatalogued",
+           "UNCATALOGUED"]
 
 _NOT_PORTED = "not yet ported to mxnet_tpu_torch"
 
@@ -88,15 +89,20 @@ _CATALOG = {
                           "does not apply"),
     # multi-process bootstrap
     "MXNET_TPU_NUM_PROCESSES": ("1", "honored",
-                                "telemetry.distview.world(): above 1 the "
-                                "cross-rank barrier raises (multi-process "
-                                "training: " + _NOT_PORTED + ")"),
+                                "processes in the job: "
+                                "parallel.multihost.ensure_initialized "
+                                "joins a process group of this size; "
+                                "telemetry.distview.world()"),
     "MXNET_TPU_PROCESS_ID": ("0", "honored",
                              "this process's rank: serve_port's offset "
                              "(serving/server.py), the trace and flight "
                              "records' rank (telemetry/tracing.py, "
                              "telemetry/slo.py, telemetry/distview.py)"),
-    "MXNET_TPU_COORDINATOR": ("", "inert", ""),
+    "MXNET_TPU_COORDINATOR": ("", "honored",
+                              "host:port of the job's rendezvous "
+                              "(tcp://), set by tools/launch.py; "
+                              "parallel.multihost.ensure_initialized, "
+                              "and the dist_async server's port + 1"),
     # the input pipeline
     "MXNET_USE_NATIVE_REC": ("", "honored",
                              "force (1) or disable (0) the native JPEG "
@@ -112,13 +118,28 @@ _CATALOG = {
                                    "max corrupt/truncated records a "
                                    "reader skips by magic-resync before "
                                    "raising (0 = strict)"),
-    "MXNET_TPU_HEARTBEAT_TIMEOUT": ("", "inert", _NOT_PORTED),
-    "MXNET_TPU_INIT_TIMEOUT": ("0", "inert", _NOT_PORTED),
-    "MXNET_TPU_INIT_RETRIES": ("2", "inert", _NOT_PORTED),
-    "MXNET_TPU_BARRIER_TIMEOUT": ("0", "inert", _NOT_PORTED),
-    "MXNET_TPU_BARRIER_RETRIES": ("1", "inert", _NOT_PORTED),
-    "MXNET_TPU_RESTART_BUDGET": ("0", "inert", _NOT_PORTED),
-    "MXNET_TPU_HEARTBEAT_INTERVAL": ("0.2", "inert", _NOT_PORTED),
+    "MXNET_TPU_HEARTBEAT_TIMEOUT": ("", "honored",
+                                    "seconds a collective waits for a "
+                                    "peer before the process group "
+                                    "declares it failed (the "
+                                    "init_process_group timeout; unset: "
+                                    "the backend's 30 min)"),
+    "MXNET_TPU_INIT_TIMEOUT": ("0", "honored",
+                               "bound on joining the process group "
+                               "(parallel.multihost; 0 = the backend's)"),
+    "MXNET_TPU_INIT_RETRIES": ("2", "honored",
+                               "retries of a failed join, with backoff"),
+    "MXNET_TPU_BARRIER_TIMEOUT": ("0", "honored",
+                                  "bound on process_barrier (0 = wait); a "
+                                  "timeout raises naming the barrier"),
+    "MXNET_TPU_BARRIER_RETRIES": ("1", "honored",
+                                  "retries of a faulted barrier attempt"),
+    "MXNET_TPU_RESTART_BUDGET": ("0", "honored",
+                                 "tools/launch.py: relaunch a failed job "
+                                 "up to this many times"),
+    "MXNET_TPU_HEARTBEAT_INTERVAL": ("0.2", "honored",
+                                     "tools/launch.py: the watchdog's "
+                                     "poll interval in seconds"),
     "MXNET_TPU_RESTART_COUNT": ("0", "honored",
                                 "the restart attempt a supervisor runs "
                                 "this process under: the "
@@ -174,13 +195,14 @@ _CATALOG = {
                                 "ioview bottleneck-classifier window in "
                                 "seconds"),
     "MXNET_TPU_SKEW_EVERY": ("8", "honored",
-                             "read and reported by telemetry.distview "
-                             "(skew_every); the cross-rank timestamp "
-                             "barrier it paces: " + _NOT_PORTED),
+                             "one cross-rank timestamp barrier every N "
+                             "collectives (telemetry.distview; 0 = "
+                             "never)"),
     "MXNET_TPU_CAPTURE_DIR": ("", "honored",
-                              "read by telemetry.distview.capture_dir; "
-                              "on-demand live capture: " + _NOT_PORTED
-                              + " (capture_status says so)"),
+                              "on-demand live capture's destination: "
+                              "SIGUSR1 or POST /debug/capture writes a "
+                              "torch.profiler window and a flight "
+                              "snapshot under <dir>/rank<N>/"),
     "MXNET_TPU_CAPTURE_SECONDS": ("3", "honored",
                                   "read by telemetry.distview."
                                   "capture_seconds"),
@@ -210,11 +232,16 @@ _CATALOG = {
                           "overrides the costdb peak bytes/s (gpu: "
                           "3.35e12)"),
     # communication overlap
-    "MXNET_TPU_OVERLAP": ("1", "inert",
-                          "bucketed gradient allreduce: " + _NOT_PORTED
-                          + "; DevicePrefetchIter always stages on its "
-                          "own stream"),
-    "MXNET_TPU_BUCKET_BYTES": ("4194304", "inert", _NOT_PORTED),
+    "MXNET_TPU_OVERLAP": ("1", "honored",
+                          "bucketed gradient all-reduce launched "
+                          "asynchronously as the backward produces the "
+                          "gradients (parallel/overlap.py: dist stores' "
+                          "push_bucketed, ShardedTrainer on a data axis "
+                          "of several processes); DevicePrefetchIter "
+                          "always stages on its own stream"),
+    "MXNET_TPU_BUCKET_BYTES": ("4194304", "honored",
+                               "the bucket size target of the overlap "
+                               "path"),
     # elastic training
     "MXNET_TPU_ELASTIC": ("0", "inert", _NOT_PORTED),
     "MXNET_TPU_MIN_WORKERS": ("1", "inert", _NOT_PORTED),
@@ -310,6 +337,27 @@ _CATALOG = {
                                  "slower than this is 'bad' for "
                                  "serve_p99_latency_burn"),
 }
+
+
+#: read by both packages outside the JAX package's catalog, so the two
+#: catalogs stay equal: name -> (default, reader)
+UNCATALOGUED = {
+    "MXNET_TPU_OVERLAP_INFLIGHT": ("0", "parallel/overlap.py: the cap on "
+                                   "buckets in flight (0 = none)"),
+    "MXNET_TPU_ASYNC_PORT": ("", "parallel/async_kvstore.py: the first "
+                             "parameter server's port (unset: the "
+                             "coordinator's port + 1)"),
+    "MXNET_TPU_NUM_SERVERS": ("1", "parallel/async_kvstore.py: parameter "
+                              "servers, inside the first N ranks"),
+    "MXNET_TPU_SERVER_HOSTS": ("", "parallel/async_kvstore.py: the "
+                               "servers' hosts, comma-separated (unset: "
+                               "the coordinator's host)"),
+}
+
+
+def uncatalogued(name):
+    """The value of a variable of :data:`UNCATALOGUED`, or its default."""
+    return os.environ.get(name, UNCATALOGUED[name][0])
 
 
 def get(name, default=None):

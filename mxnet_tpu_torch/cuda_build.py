@@ -13,6 +13,7 @@ started together.  :func:`build_source` builds a source made at run time
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -84,8 +85,20 @@ def nvcc_command(src, out):
 def _compile(jobs):
     """Run ``nvcc`` for each ``(name, src, out)`` at once; one result dict
     per job.  Raises ``MXNetError`` with the compiler's log when any
-    fails."""
+    fails.  An exclusive ``flock`` on the build directory's lock file
+    serializes builds across processes (the ranks of a job on a fresh
+    machine): one process builds, the others wait and then load its
+    libraries; the kernel releases the lock of a process that dies."""
     build_dir().mkdir(parents=True, exist_ok=True)
+    with open(build_dir() / "build.lock", "a") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            return _compile_locked(jobs)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _compile_locked(jobs):
     procs, results = [], []
     for name, src, out in jobs:
         if out.exists():

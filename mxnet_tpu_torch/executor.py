@@ -83,7 +83,8 @@ class Executor:
                  aux_states=None, group2ctx=None, strict=False):
         if group2ctx:
             raise MXNetError("Executor: group2ctx (model-parallel placement) "
-                             "is not yet ported to mxnet_tpu_torch")
+                             "is not yet ported to mxnet_tpu_torch (the "
+                             "next slice of ROADMAP Queue A item 4)")
         self._symbol = symbol
         self._ctx = ctx if isinstance(ctx, Context) else current_context()
         self._device = self._ctx.torch_device()

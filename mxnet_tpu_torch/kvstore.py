@@ -4,18 +4,33 @@ The counterpart of ``mxnet_tpu/kvstore.py``'s ``local`` and ``device``
 types: ``init``, ``push`` (values of a key summed, then handed to the
 updater or stored), ``pull``, ``set_updater``/``set_optimizer`` and the
 optimizer states' files.  The sums run on the values' device.  The
-``dist_*`` types (NCCL across processes) are ROADMAP Queue A item 6 and
-raise.
+``dist_*`` types dispatch as in JAX (:func:`create`): ``dist_sync`` and
+``dist_device_sync`` to ``parallel.dist_kvstore`` (one all-reduce a push
+across the job's processes), ``dist_async`` inside a job of several
+processes to ``parallel.async_kvstore`` (a host parameter server).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .base import MXNetError
 from .ndarray import NDArray
 from . import optimizer as opt
+from . import telemetry
 
 __all__ = ["KVStore", "create"]
+
+_PUSH_BYTES = telemetry.counter("mxtpu_kvstore_push_bytes_total")
+_PULL_BYTES = telemetry.counter("mxtpu_kvstore_pull_bytes_total")
+
+
+def _nbytes(arr):
+    """Bytes of one pushed or pulled array (traffic accounting)."""
+    t = arr.data if isinstance(arr, NDArray) else arr
+    if isinstance(t, torch.Tensor):
+        return t.numel() * t.element_size()
+    return int(np.asarray(t).nbytes)
 
 
 def _key_value(keys, vals):
@@ -54,6 +69,8 @@ class KVStore:
         self._store = {}
         self._updater = None
         self._updater_obj = None
+        self._push_bytes = _PUSH_BYTES.labels(store=kv_type)
+        self._pull_bytes = _PULL_BYTES.labels(store=kv_type)
 
     @property
     def type(self):
@@ -66,6 +83,15 @@ class KVStore:
     @property
     def num_workers(self):
         return 1
+
+    def get_rank(self):
+        return self.rank
+
+    def get_group_size(self):
+        return self.num_workers
+
+    def barrier(self):
+        pass
 
     def init(self, key, value):
         for k, v in zip(*_key_value(key, value)):
@@ -80,7 +106,9 @@ class KVStore:
         weight moves to the sum's device, once: ``local`` and ``device``
         coincide, as in the reference, and the update runs where the
         gradients are."""
-        for k, group in zip(*_group(*_key_value(key, value))):
+        keys, vals = _key_value(key, value)
+        self._push_bytes.inc(sum(_nbytes(v) for v in vals))
+        for k, group in zip(*_group(keys, vals)):
             with torch.no_grad():
                 first = group[0].data
                 merged = first.detach().clone()
@@ -101,7 +129,9 @@ class KVStore:
     def pull(self, key, out=None, priority=0):
         if out is None:
             raise MXNetError("pull needs out arrays")
-        for k, o in zip(*_key_value(key, out)):
+        keys, outs = _key_value(key, out)
+        self._pull_bytes.inc(sum(_nbytes(o) for o in outs))
+        for k, o in zip(keys, outs):
             if k not in self._store:
                 raise MXNetError("key %s has not been inited" % str(k))
             o[:] = self._store[k]
@@ -131,14 +161,23 @@ class KVStore:
 
 
 def create(name="local"):
-    """A KVStore by type name: ``local`` or ``device``.  The ``dist_*``
-    types raise: distributed stores are ROADMAP Queue A item 6."""
+    """A KVStore by type name, dispatched as the JAX package's ``create``:
+    ``dist_async`` inside a job of more than one process is the host
+    parameter server (``parallel.async_kvstore``, every push applied at
+    once on the server); any other ``dist`` type is the synchronous store
+    (``parallel.dist_kvstore``, one all-reduce a push; a one-process
+    ``dist_async`` takes its sync semantics with a warning, as in JAX);
+    ``local`` and ``device`` are this module's store."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
+    if "async" in name:
+        from . import config
+        if (config.get_int("MXNET_TPU_NUM_PROCESSES") or 1) > 1:
+            from .parallel.async_kvstore import AsyncKVStore
+            return AsyncKVStore(name)
     if "dist" in name:
-        raise MXNetError("kvstore %r: distributed stores are not yet ported "
-                         "to mxnet_tpu_torch (ROADMAP Queue A item 6, "
-                         "multi-GPU and distribution)" % name)
+        from .parallel.dist_kvstore import DistKVStore
+        return DistKVStore(name)
     if name not in ("local", "device"):
         raise MXNetError("unknown kvstore type %r" % name)
     return KVStore(name)

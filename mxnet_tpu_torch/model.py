@@ -92,8 +92,25 @@ def _grad_pairs(param_arrays, grad_arrays):
             yield index, arg_list, grad_list
 
 
+def _push_all_bucketed(param_arrays, grad_arrays, kvstore):
+    """The overlap prologue of both update paths: push every gradient
+    into the store's buckets (each full bucket's all-reduce starts at
+    once), then drain at the optimizer boundary."""
+    for index, _arg_list, grad_list in _grad_pairs(param_arrays,
+                                                   grad_arrays):
+        kvstore.push_bucketed(index, grad_list, priority=-index)
+    kvstore.drain()
+
+
 def _update_params_on_kvstore(param_arrays, grad_arrays, kvstore):
-    """Push the gradients, pull the weights the store updated."""
+    """Push the gradients, pull the weights the store updated; on a store
+    with the overlap path on (``MXNET_TPU_OVERLAP``), every push first,
+    one drain, then every pull."""
+    if getattr(kvstore, "overlap_active", False):
+        _push_all_bucketed(param_arrays, grad_arrays, kvstore)
+        for index, arg_list, _g in _grad_pairs(param_arrays, grad_arrays):
+            kvstore.pull(index, arg_list, priority=-index)
+        return
     for index, arg_list, grad_list in _grad_pairs(param_arrays,
                                                   grad_arrays):
         kvstore.push(index, grad_list, priority=-index)
@@ -104,10 +121,16 @@ def _update_params(param_arrays, grad_arrays, updater, num_device,
                    kvstore=None):
     """Sum the gradients through the store (when there is one), then update
     each device's copy with ``updater``; each copy has its own index, so
-    the optimizer keeps a state per device."""
+    the optimizer keeps a state per device.  The store's sums take the
+    overlap path as :func:`_update_params_on_kvstore` does."""
+    overlap = kvstore and getattr(kvstore, "overlap_active", False)
+    if overlap:
+        _push_all_bucketed(param_arrays, grad_arrays, kvstore)
     for index, arg_list, grad_list in _grad_pairs(param_arrays,
                                                   grad_arrays):
-        if kvstore:
+        if overlap:
+            kvstore.pull(index, grad_list, priority=-index)
+        elif kvstore:
             kvstore.push(index, grad_list, priority=-index)
             kvstore.pull(index, grad_list, priority=-index)
         for k, (w, g) in enumerate(zip(arg_list, grad_list)):

@@ -1,10 +1,12 @@
-"""Module: one Symbol bound and trained on one context.
+"""Module: one Symbol bound and trained on its contexts.
 
 The counterpart of ``mxnet_tpu/module/module.py``: ``bind`` builds the
-executor group, ``init_params``/``set_params``/``get_params`` move the
-parameters between the host copies (``cpu()``) and the device,
-``init_optimizer`` creates the optimizer with ``rescale_grad = 1 / batch``
-and an ``Updater`` (one device needs no kvstore), and
+executor group (the batch split across the contexts),
+``init_params``/``set_params``/``get_params`` move the parameters between
+the host copies (``cpu()``) and the devices, ``init_optimizer`` creates
+the optimizer with ``rescale_grad = 1 / batch`` (times the workers of a
+``dist_sync`` store) and a kvstore or an ``Updater`` (one device and no
+``dist`` store need no kvstore), and
 ``forward``/``backward``/``update`` run the executor and the imperative
 update.  ``save_checkpoint``/``load`` write and read the JAX package's
 files, the optimizer states included.  ``install_monitor`` hooks a
@@ -313,7 +315,11 @@ class Module(BaseModule):
             return
         store, on_store = _create_kvstore(kvstore, len(self._context),
                                           self._arg_params)
+        # gradients are averaged over the global batch: each worker of a
+        # dist_sync job adds its own batch to the sum
         batch = self._exec_group.batch_size
+        if store and store.type.startswith("dist") and "_sync" in store.type:
+            batch *= store.num_workers
         if isinstance(optimizer, str):
             names = self._exec_group.param_names
             ndev = 1 if on_store else len(self._context)

@@ -251,11 +251,27 @@ def bn_apply(xf, gamma, beta, mean, var, eps, bshape, act=None):
     return (torch.relu(out) if act == "relu" else out), inv
 
 
+def _batch_span():
+    """``(parallel.multihost, world)`` when BatchNorm's batch reductions
+    span the ranks of a data-parallel trainer's step, else ``(None,
+    1)``."""
+    from ..parallel import multihost
+    if multihost.batch_sums_span_ranks():
+        return multihost, multihost.world_size()
+    return None, 1
+
+
 def bn_moments(s1, s2, n, c, mm, mv, momentum):
     """``(mean, var, new_mm, new_mv)`` from the shifted sums ``s1 =
     sum(x - c)`` and ``s2 = sum((x - c)^2)`` over ``n`` values: the biased
     variance E[(x-c)^2] - E[x-c]^2, and the moving statistics moved toward
     the batch's by ``1 - momentum``."""
+    ranks, world = _batch_span()
+    if ranks is not None:
+        # the global batch's statistics, as the JAX step's one program
+        # takes them: the sums of every rank, over every rank's rows
+        s1, s2 = ranks.reduce_batch_sums(s1, s2)
+        n = n * world
     meanc = s1 / n
     var = (s2 / n - meanc.square()).clamp_min(0.0)
     mean = meanc + c
@@ -301,13 +317,24 @@ def bn_backward(dout, xf, gamma, beta, mean, inv, mm, red, bshape,
     xs = xf - c.reshape(bshape)
     meanc = mean - c
     dbeta = dyf.sum(red)
-    dgamma = ((dyf * xs).sum(red) - meanc * dbeta) * inv
+    dxs = (dyf * xs).sum(red)
+    dgamma = (dxs - meanc * dbeta) * inv
     if train_stats:
         n = xf.numel() // mean.numel()
         dmean = dmean_o + (1 - momentum) * dmm_o
         dvar = dvar_o + (1 - momentum) * dmv_o
-        k = (-a * inv * dgamma + 2.0 * dvar) * (1.0 / n)
-        d = -k * meanc - a * dbeta * (1.0 / n) + dmean * (1.0 / n)
+        gbeta, ggamma = dbeta, dgamma
+        ranks, world = _batch_span()
+        if ranks is not None:
+            # dx reads the global batch's sums; dgamma and dbeta stay this
+            # rank's shares, which the gradient all-reduce adds up
+            gbeta, gxs, dmean, dvar = ranks.reduce_batch_sums(
+                dbeta, dxs, dmean * torch.ones_like(dbeta),
+                dvar * torch.ones_like(dbeta))
+            ggamma = (gxs - meanc * gbeta) * inv
+            n = n * world
+        k = (-a * inv * ggamma + 2.0 * dvar) * (1.0 / n)
+        d = -k * meanc - a * gbeta * (1.0 / n) + dmean * (1.0 / n)
         dx = (dyf * a.reshape(bshape) + xs * k.reshape(bshape)
               + d.reshape(bshape))
         dmm, dmv = momentum * dmm_o, momentum * dmv_o

@@ -79,6 +79,7 @@ def init_moe_params(rng, d, ff, num_experts, scale=0.1):
 
 
 def make_expert_mesh(n_devices, devices=None):
-    """A 1-d ('expert',) mesh: not yet ported (multi-device meshes)."""
+    """A 1-d ('expert',) mesh: not yet ported (model-parallel meshes)."""
     raise MXNetError("make_expert_mesh: expert parallelism is not yet "
-                     "ported to mxnet_tpu_torch (ROADMAP Queue A item 6)")
+                     "ported to mxnet_tpu_torch (the next slice of ROADMAP "
+                     "Queue A item 4)")

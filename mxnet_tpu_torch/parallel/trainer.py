@@ -1,8 +1,9 @@
-"""ShardedTrainer: a loss-headed Symbol trained step by step on one device.
+"""ShardedTrainer: a loss-headed Symbol trained step by step.
 
 The counterpart of ``mxnet_tpu/parallel/trainer.py``.  The JAX trainer jits
 forward, vjp and optimizer update into one XLA program over a mesh; here
-the same step runs eagerly in PyTorch on the mesh's one device:
+the same step runs eagerly in PyTorch on the mesh's device of this
+process:
 
 * f32 master weights are cast to the compute dtype (bf16 training) as the
   graph's view of them, and ``eval_graph`` runs with ``is_train=True`` under
@@ -20,6 +21,24 @@ the same step runs eagerly in PyTorch on the mesh's one device:
   after each step's backward, as the JAX step returns ``new_aux``;
 * the monitoring loss is mean -log p(label) of the softmax head, with the
   label clipped into range.
+
+On a mesh whose data axis spans the processes of a job (``build_mesh``
+under ``tools/launch.py``), each rank steps its own rows of the global
+batch (``multihost.stage_local``; ``data_shapes`` stay global, and so
+does ``rescale_grad``), and the step makes explicit the reductions that
+the JAX step's one global program gets from GSPMD: BatchNorm's batch
+statistics, forward and backward (K5's column sums in the fused regions),
+are summed across the ranks before they normalize
+(``multihost.batch_group``), so the moving statistics written back agree
+too; between the backward and the update one all-reduce sums the f32
+master gradients (with ``MXNET_TPU_OVERLAP`` on, size-targeted buckets
+launched asynchronously as the backward produces them,
+``parallel/overlap.py``); the monitoring loss is the mean over the global
+batch.  Every rank then applies the same update, so the ranks' state
+stays equal to the bit.  The wall the host spends blocked on the
+gradient all-reduce (and the distview timestamp barrier before it) is
+the step's ``collective_wait`` segment.  Checkpoints are written by rank
+0 behind a barrier.
 
 ``layout="NHWC"`` runs the graph under ``image_layout("NHWC")``: image
 activations are channel-minor end to end, ``put_batch`` transposes NCHW
@@ -59,9 +78,9 @@ dispatch; the card runs behind it); ``run_steps`` is one
 ``trainer.run_steps`` record of ``count`` steps.  None of it waits for
 the card.  ``MXNET_TPU_NUMERICS_EVERY`` samples parameter and gradient
 statistics on every Nth step (one host fetch on a sampled step only).
-The JAX trainer's TPU-era rewrites and kinds of parallelism are not
-ported: setting one raises, as does loading a checkpoint saved at another
-world size.
+The JAX trainer's TPU-era rewrites and its model-parallel kinds of
+parallelism are not ported: setting one raises, as does loading a
+checkpoint saved at another world size.
 
 ``strict=True`` (default: ``MXNET_TPU_STRICT_BIND``) verifies the graph at
 the data and label shapes (:mod:`..analysis`, MXG001-009) before any op
@@ -106,6 +125,8 @@ from ..ops.nn import NHWC_UNAWARE_OPS, image_layout
 from ..symbol import _classify_vars, eval_graph
 from ..analysis import fusion as _fusion
 from .. import optimizer as _opt_mod
+from . import multihost
+from . import overlap as _overlap
 
 __all__ = ["ShardedTrainer"]
 
@@ -212,6 +233,79 @@ _NHWC_ADAPTED = frozenset({
     "Activation", "Dropout", "SoftmaxOutput"})
 
 
+class _GradSync:
+    """The f32 master gradients of one step summed across the data axis's
+    processes.  Without overlap, one all-reduce of one flat buffer after
+    the backward; with it (``MXNET_TPU_OVERLAP``), the gradients enter an
+    :class:`~.overlap.BucketQueue` as the backward produces them, in one
+    fixed order every rank shares (reversed parameter order: a gradient
+    enters once it and all before it have landed), so each full bucket's
+    all-reduce starts under the rest of the backward and every rank
+    launches the same buckets in the same order.  ``wait_s`` is the host
+    wall blocked on the collectives after the backward."""
+
+    def __init__(self, names, overlap):
+        self.order = list(reversed(names))
+        self.overlap = bool(overlap)
+        self.wait_s = 0.0
+        self._queue = None
+        self._hooks = []
+
+    def arm(self, leaves):
+        """Before the backward: hook each leaf so its gradient enters the
+        buckets as soon as it and every gradient before it have landed."""
+        if not self.overlap:
+            return
+        self._leaves = leaves
+        self._next = 0
+        self._ready = set()
+        if self._queue is None:
+            self._queue = _overlap.BucketQueue(
+                lambda bucket: multihost.launch_all_reduce(bucket)[0],
+                site="trainer.step", skew_probe=lambda: None)
+
+        def landed(name):
+            def hook(_param):
+                self._ready.add(name)
+                self._advance()
+            return hook
+        self._hooks = [leaves[k].register_post_accumulate_grad_hook(
+            landed(k)) for k in self.order]
+
+    def _advance(self, final=False):
+        while self._next < len(self.order):
+            k = self.order[self._next]
+            g = self._leaves[k].grad
+            if k not in self._ready and not (final and g is None):
+                return
+            if g is None:
+                g = torch.zeros_like(self._leaves[k], dtype=torch.float32)
+            g = g.float()
+            self._queue.push(k, g, g.numel() * 4)
+            self._next += 1
+
+    def finish(self, leaves):
+        """After the backward: ``{name: summed f32 gradient}``."""
+        t0 = time.perf_counter()
+        if self.overlap:
+            for h in self._hooks:
+                h.remove()
+            self._hooks = []
+            self._ready.update(k for k in self.order
+                               if leaves[k].grad is not None)
+            self._advance(final=True)
+            out = self._queue.drain()
+        else:
+            grads = {}
+            for k in self.order:
+                g = leaves[k].grad
+                grads[k] = torch.zeros_like(leaves[k], dtype=torch.float32) \
+                    if g is None else g.float()
+            out = multihost.launch_all_reduce(grads)[0]()
+        self.wait_s = time.perf_counter() - t0
+        return out
+
+
 class ShardedTrainer:
     def __init__(self, symbol, mesh, data_shapes, label_shapes=(),
                  optimizer="sgd", optimizer_params=None, learning_rate=0.05,
@@ -225,8 +319,9 @@ class ShardedTrainer:
                  native_weight_layout=None, strict=None):
         """
         symbol: loss-headed Symbol (e.g. a SoftmaxOutput net).
-        mesh: a one-device mesh from :func:`build_mesh`; state lives on its
-            device (``gpu(0)`` unless the mesh was built on ``mx.cpu()``).
+        mesh: a mesh from :func:`build_mesh`; state lives on its device
+            (``gpu(0)`` unless the mesh was built on ``mx.cpu()``); a data
+            axis over several processes makes each rank step its own rows.
         data_shapes/label_shapes: dict name -> global shape (batch dim 0).
         optimizer: registry name or an Optimizer instance (see
             :func:`_make_update_rule` for the supported set);
@@ -280,13 +375,20 @@ class ShardedTrainer:
         }
         bad = [k for k, on in unported.items() if on]
         if bad:
-            raise MXNetError("ShardedTrainer: %s not yet ported to "
-                             "mxnet_tpu_torch" % ", ".join(bad))
+            model_parallel = pipeline_stages != 1 or sequence_parallel \
+                or tp_rules is not None
+            raise MXNetError(
+                "ShardedTrainer: %s not yet ported to mxnet_tpu_torch%s"
+                % (", ".join(bad), " (model parallelism: the next slice of "
+                   "ROADMAP Queue A item 4)" if model_parallel else ""))
 
         self.symbol = symbol
         self.mesh = mesh
         self.dtype = dtype
         self._device = mesh.device
+        self._world = int(getattr(mesh, "world", 1))
+        self._multiproc = self._world > 1
+        self._grad_sync = None
         self._compute_dtype = torch_dtype(dtype)
         self._layout = layout or "NCHW"
         if fuse_blocks is None:
@@ -416,6 +518,12 @@ class ShardedTrainer:
         self._step_data = (None, None)
         self._seg = {"input_s": 0.0, "collective_s": 0.0}
         self._numerics_chain_warned = False
+        if self._multiproc:
+            # every rank starts from the same state, whatever its
+            # initializer drew: rank 0's, as JAX's replicated put of the
+            # host values
+            multihost.broadcast_from_rank0(list(self.params.values())
+                                           + list(self.aux.values()))
 
     def _check_nhwc_safe(self):
         """Refuse NHWC for graphs whose ops would silently index the wrong
@@ -640,13 +748,27 @@ class ShardedTrainer:
     def _train_step(self, batch, lr, t, stats_step=None):
         leaves = {k: w.detach().requires_grad_(True)
                   for k, w in self.params.items()}
-        heads, aux_upd = self._run_graph(self._compute_view(leaves), batch,
-                                         True)
-        loss_heads = [h for h, il in zip(heads, self._head_is_loss)
-                      if il and h.requires_grad]
-        if loss_heads:
-            torch.autograd.backward(
-                loss_heads, [torch.ones_like(h) for h in loss_heads])
+        sync = None
+        if self._multiproc:
+            if self._grad_sync is None or \
+                    self._grad_sync.overlap != _overlap.overlap_enabled():
+                self._grad_sync = _GradSync(self._param_names,
+                                            _overlap.overlap_enabled())
+            sync = self._grad_sync
+            sync.arm(leaves)
+        with multihost.batch_group(self._multiproc):
+            heads, aux_upd = self._run_graph(self._compute_view(leaves),
+                                             batch, True)
+            loss_heads = [h for h, il in zip(heads, self._head_is_loss)
+                          if il and h.requires_grad]
+            if loss_heads:
+                torch.autograd.backward(
+                    loss_heads, [torch.ones_like(h) for h in loss_heads])
+        grads = {k: v.grad for k, v in leaves.items()}
+        if sync is not None:
+            self._measure_collective_entry("trainer.step")
+            grads = sync.finish(leaves)
+            self._seg["collective_s"] += sync.wait_s
         self._refresh_rule()
         rescale = self.optimizer.rescale_grad
         with torch.no_grad():
@@ -655,10 +777,9 @@ class ShardedTrainer:
                 # before the in-place update: the step's own parameters
                 stats = _numerics.step_stats(
                     {k: v.detach() for k, v in leaves.items()},
-                    {k: v.grad for k, v in leaves.items()
-                     if v.grad is not None})
+                    {k: g for k, g in grads.items() if g is not None})
             for k, w in self.params.items():
-                g = leaves[k].grad
+                g = grads[k]
                 g = torch.zeros_like(w) if g is None else g.float() * rescale
                 lr_mult, wd_eff = self._per_param_hyper(k)
                 self._update_rule(w, g, self.opt_state[k], lr * lr_mult,
@@ -678,6 +799,13 @@ class ShardedTrainer:
                 self._seg["numerics"] = payload
         return loss
 
+    def _measure_collective_entry(self, site):
+        """The distview timestamp barrier before the gradient all-reduce:
+        its measured wait is part of the step's collective wait."""
+        info = _distview.pre_collective_barrier(site)
+        if info is not None:
+            self._seg["collective_s"] += info["wait_s"]
+
     def _monitor_loss(self, heads, batch):
         """mean -log p(label) of the first head when it is a loss head over
         (rows, classes) and a label input is fed; 0 otherwise."""
@@ -696,7 +824,14 @@ class ShardedTrainer:
             # the label clipped into range, as the JAX step's mode="clip"
             idx = label.long().clamp(0, probs.shape[1] - 1).unsqueeze(1)
             p = probs.gather(1, idx)[:, 0].float()
-            loss = -torch.log(p.clamp(min=1e-10)).mean()
+            nll = -torch.log(p.clamp(min=1e-10))
+            if not self._multiproc:
+                return nll.mean()
+            # the mean over the global batch: every rank's sum and rows
+            tot = torch.stack([nll.sum(), torch.tensor(
+                float(nll.numel()), device=nll.device)])
+            multihost.all_reduce(tot)
+            loss = tot[0] / tot[1]
         return loss
 
     def step(self, batch):
@@ -951,11 +1086,11 @@ class ShardedTrainer:
     # ------------------------------------------------------------ checkpoints
     def mesh_descriptor(self):
         """The mesh and the parameters' partition in the JAX trainer's
-        ``meta["mesh"]`` format: axis sizes, the saving world size (1) and
-        each parameter's spec (all replicated on one device)."""
+        ``meta["mesh"]`` format: axis sizes, the saving world size and
+        each parameter's spec (all replicated: data parallelism)."""
         return {"format": 2,
                 "axes": {str(k): int(v) for k, v in self.mesh.shape.items()},
-                "world": 1,
+                "world": self._world,
                 "specs": {n: [] for n in self._param_names}}
 
     def _host_state(self, save_optimizer_states):
@@ -992,6 +1127,17 @@ class ShardedTrainer:
 
     def _write_checkpoint(self, prefix, epoch, save_optimizer_states,
                           position, data_state):
+        """Rank 0 writes (the state is replicated); on a data axis of
+        several processes a barrier then orders the write before any
+        rank's later read."""
+        if not self._multiproc or multihost.rank() == 0:
+            self._write_files(prefix, epoch, save_optimizer_states,
+                              position, data_state)
+        if self._multiproc:
+            multihost.process_barrier("sharded_trainer_ckpt_save")
+
+    def _write_files(self, prefix, epoch, save_optimizer_states, position,
+                     data_state):
         host, st = self._host_state(save_optimizer_states)
         resilience.atomic_write("%s-symbol.json" % prefix, self.symbol.save)
         param_name = "%s-%04d.params" % (prefix, epoch)
@@ -1046,8 +1192,8 @@ class ShardedTrainer:
         ``checkpoint.load`` seam and verifies the manifest first; every
         name, shape and slot count is checked before any state changes, so
         a failed load leaves the trainer as it was.  A manifest naming
-        another world size raises: resharding on load waits for
-        multi-device training.  Afterwards the update count starts from
+        another world size raises: resharding on load comes with the
+        model-parallel half of multi-GPU training.  Afterwards the update count starts from
         the file's ``meta:num_update`` (Adam's bias correction and the lr
         schedule continue), and the checkpoint's data state is stashed for
         :meth:`restore_data_iter`."""
@@ -1059,12 +1205,12 @@ class ShardedTrainer:
         manifest = resilience.verify_manifest(prefix, epoch)
         saved = (manifest or {}).get("meta", {}).get("mesh")
         if isinstance(saved, dict) and saved.get("world") is not None \
-                and int(saved["world"]) != 1:
+                and int(saved["world"]) != self._world:
             raise MXNetError(
                 "checkpoint %r epoch %d was saved by a world of %s "
-                "processes; resharding it onto one device is not yet "
+                "processes; resharding it onto a world of %d is not yet "
                 "ported to mxnet_tpu_torch" % (prefix, epoch,
-                                                saved["world"]))
+                                                saved["world"], self._world))
         loaded = self._load_file("%s-%04d.params" % (prefix, epoch),
                                  "params", epoch)
         file_args = {k.split(":", 1)[1]: v for k, v in loaded.items()

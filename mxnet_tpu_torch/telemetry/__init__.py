@@ -23,8 +23,10 @@ verdicts and flight-recorder dumps, so the JAX package's reader tools
 * **device memory** (:mod:`.memory`) — the caching allocator's live
   statistics at step boundaries, ``MXNET_TPU_MEMORY_BUDGET`` and OOM
   forensics;
-* **step segments** (:mod:`.distview`, single rank) — ``compute`` /
-  ``input_wait`` / ``collective_wait``;
+* **cross-rank view** (:mod:`.distview`) — step segments (``compute`` /
+  ``input_wait`` / ``collective_wait``), the pre-collective timestamp
+  barrier, the ``mxtpu-run/1`` run timeline and on-demand live capture
+  (SIGUSR1, installed at import when ``MXNET_TPU_CAPTURE_DIR`` is set);
 * **input-pipeline view** (:mod:`.ioview`) — per-stage accounting, queue
   occupancy and the bottleneck verdict;
 * **training-health numerics** (:mod:`.numerics`) — sampled parameter
@@ -41,8 +43,6 @@ the host clock, memory sampling reads the allocator's host-side counters,
 numerics fetch their statistics only on sampled steps, and the cost
 database reads its CUDA events with ``query()``.
 
-Not yet ported, and named so that a caller learns it at once: the
-cross-rank half of :mod:`.distview` raises (ROADMAP Queue A item 4).
 """
 from __future__ import annotations
 
@@ -83,6 +83,10 @@ _init_env_state()
 # black-box mode: an uncaught crash leaves a flight dump
 if flight.dump_dir():
     flight.install_excepthook()
+# on-demand live capture: SIGUSR1 (relayed to every worker by
+# tools/launch.py) captures a bounded profiler window and a flight snapshot
+if distview.capture_dir():
+    distview.install_capture_handler()
 _port = env_port()
 if _port > 0:
     try:

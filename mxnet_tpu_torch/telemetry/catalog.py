@@ -8,8 +8,8 @@ the registry refuses to create a metric that is not declared here (a
 typo'd name fails at the emit site, not silently in a dashboard).
 
 Some entries describe facts the port has no counterpart of (XLA's static
-memory plan and cost analysis, the cross-rank timestamp barrier) or
-subsystems it has not ported (the cost database, elastic resharding).
+memory plan and cost analysis) or subsystems it has not ported (elastic
+resharding).
 They stay declared, so the vocabulary stays whole, and :data:`NOT_EMITTED`
 names each with the reason nothing in the port emits it.
 
@@ -379,23 +379,12 @@ CATALOG = {
 }
 
 _XLA = "no eager PyTorch counterpart: XLA's compiled-program analysis"
-_RANKS = "the cross-rank distview (ROADMAP Queue A item 6)"
 _PLANS = ("the JAX package plans once a compile; the port plans each eager "
           "run of the graph, so a count would count runs")
-_OVERLAP = "bucketed gradient overlap not yet ported"
 _RESHARD = "elastic resharding not yet ported"
 
 #: declared names nothing in the port emits, with the reason
 NOT_EMITTED = {
-    "mxtpu_kvstore_pending_async": "dist_async kvstore not yet ported",
-    "mxtpu_kvstore_push_bytes_total": "the one-device kvstore moves no "
-                                      "bytes",
-    "mxtpu_kvstore_pull_bytes_total": "the one-device kvstore moves no "
-                                      "bytes",
-    "mxtpu_overlap_buckets_total": _OVERLAP,
-    "mxtpu_overlap_bucket_bytes": _OVERLAP,
-    "mxtpu_overlap_drain_seconds": _OVERLAP,
-    "mxtpu_overlap_inflight_buckets": _OVERLAP,
     "mxtpu_memory_plan_bytes": _XLA + " (memory_analysis)",
     "mxtpu_program_flops": _XLA + " (cost_analysis)",
     "mxtpu_program_bytes_accessed": _XLA + " (cost_analysis)",
@@ -408,9 +397,6 @@ NOT_EMITTED = {
     "mxtpu_reshard_bytes_total": _RESHARD,
     "mxtpu_reshard_seconds": _RESHARD,
     "mxtpu_elastic_resizes_total": _RESHARD,
-    "mxtpu_collective_wait_seconds": _RANKS,
-    "mxtpu_rank_step_skew_seconds": _RANKS,
-    "mxtpu_capture_total": _RANKS + ": live capture",
 }
 
 # rung-occupancy fractions (histogram buckets): fill ratios up to full

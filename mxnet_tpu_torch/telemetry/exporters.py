@@ -282,8 +282,9 @@ _server = {"httpd": None, "thread": None}
 def start_http_server(port=None):
     """Serve ``render_prom()`` on ``/metrics`` from a daemon thread
     (stdlib only), plus ``/debug`` (JSON rank status).  ``POST
-    /debug/capture`` answers 501: live capture belongs to the cross-rank
-    distview, not yet ported.
+    /debug/capture`` starts an on-demand capture
+    (``distview.capture_now``) when ``MXNET_TPU_CAPTURE_DIR`` is set, else
+    answers 403.
     ``port=None`` reads ``MXNET_TPU_TELEMETRY_PORT``
     (:func:`env_port`); 0 binds an
     ephemeral port.  Returns the server object (its
@@ -331,10 +332,15 @@ def start_http_server(port=None):
                 self.send_error(404)
                 return
             from . import distview
-            self._send(json.dumps(
-                {"started": False, "reason": distview.capture_status()[
-                    "reason"]}).encode("utf-8"), "application/json",
-                status=501)
+            if not distview.capture_dir():
+                self._send(json.dumps(
+                    {"started": False,
+                     "reason": "MXNET_TPU_CAPTURE_DIR is not set"})
+                    .encode("utf-8"), "application/json", status=403)
+                return
+            res = distview.capture_now(trigger="http")
+            self._send(json.dumps(res).encode("utf-8"),
+                       "application/json")
 
         def log_message(self, fmt, *args):
             pass   # scrapes must not spam the training log

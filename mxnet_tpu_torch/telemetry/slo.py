@@ -24,8 +24,8 @@ metrics (the JAX ``tools/health_top.py`` reads either):
   thread; training loops ride ``telemetry.step_end`` (one clock read a
   step, a full evaluation at most every ``MXNET_TPU_SLO_TICK_S``).
   :class:`FleetHealth` evaluates the ``scope="fleet"`` rules over
-  ``mxtpu-run/1`` step records as pure logic; nothing in the port feeds
-  it a live fleet yet (multi-GPU supervision, ROADMAP Queue A item 6).
+  ``mxtpu-run/1`` step records as pure logic; ``tools/launch.py`` loads
+  this file by path and judges each merged step of a job with it.
 
 Module-level imports are stdlib-only and in-package imports are deferred
 into the engine methods, as in the JAX module.

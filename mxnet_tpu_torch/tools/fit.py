@@ -33,10 +33,18 @@ inline ``put_batch`` is charged to the ioview ``device_stage`` stage, and
 ``history["io"]`` is ``ioview.summary()`` at the end: the stage totals and
 the bottleneck verdict beside the loop's plain ``timings``.
 
-The context is ``gpu(i)`` for the first of ``--gpus`` (default 0); the CPU
-only with ``--cpu 1``.  The fused route passes no ``auto_layouts``: XLA's
-chosen state layouts have no counterpart in the port's trainer, which
-raises on it.  More than one device raises (Queue A item 6).
+The Module route binds ``gpu(i)`` for each of ``--gpus`` (default 0),
+the batch split across them; the CPU only with ``--cpu 1``.  The fused
+route runs one device a process: ``--gpus`` with one id, or inside a
+job of ``tools/launch.py`` the rank's card, on a mesh whose data axis
+spans the job's processes (several ids in one process raise).  With
+``--kv-store dist_*`` each rank reads its part of the records (the data
+loader's ``num_parts``/``part_index``), ``--batch-size`` is a rank's
+batch (the fused trainer's global batch is it times the workers), the lr
+schedule's epoch is ``num_examples // batch_size // workers``, and every
+rank calls the checkpoint save, which rank 0 writes.  The fused route
+passes no ``auto_layouts``: XLA's chosen state layouts have no
+counterpart in the port's trainer, which raises on it.
 """
 from __future__ import annotations
 
@@ -53,7 +61,8 @@ from ..context import cpu, gpu
 from ..module import Module
 from ..ndarray import NDArray
 
-__all__ = ["add_fit_args", "get_context", "use_fused", "fit"]
+__all__ = ["add_fit_args", "get_context", "get_contexts", "use_fused",
+           "fit"]
 
 
 def add_fit_args(parser):
@@ -122,21 +131,37 @@ def add_fit_args(parser):
     return train
 
 
-def get_context(args):
-    """``gpu(i)`` for the first of ``--gpus``/``--tpus`` (default 0), the
-    CPU with ``--cpu 1``; more than one device, or no CUDA device without
-    ``--cpu 1``, raises."""
+def get_contexts(args):
+    """``[gpu(i) for i in --gpus/--tpus]`` (default 0), or ``[cpu()]`` with
+    ``--cpu 1``; no CUDA device without ``--cpu 1`` raises."""
     if getattr(args, "cpu", 0):
-        return cpu()
+        return [cpu()]
     spec = getattr(args, "gpus", None) or getattr(args, "tpus", None) or "0"
     ids = [int(i) for i in str(spec).split(",") if i.strip() != ""]
-    if len(ids) != 1:
-        raise MXNetError("--gpus %r: training on more than one device is "
-                         "not yet ported to mxnet_tpu_torch" % spec)
     if not torch.cuda.is_available():
         raise MXNetError("no CUDA device: this tool trains on the card; pass "
                          "--cpu 1 to train on the CPU")
-    return gpu(ids[0])
+    return [gpu(i) for i in ids]
+
+
+def get_context(args):
+    """The fused route's one device: the rank's card inside a launched job
+    (``MXNET_TPU_NUM_PROCESSES`` > 1), else the one id of ``--gpus``;
+    several ids in one process raise (one process a card: launch the
+    job with ``tools/launch.py``)."""
+    ctxs = get_contexts(args)
+    from .. import config
+    if ctxs[0].device_type == "gpu" and \
+            (config.get_int("MXNET_TPU_NUM_PROCESSES") or 1) > 1:
+        from ..parallel import multihost
+        return gpu(multihost.device().index)
+    if len(ctxs) != 1:
+        raise MXNetError(
+            "--gpus %r: the fused route runs one device a process; launch "
+            "one process a card with tools/launch.py (several devices in "
+            "one process are the next slice of ROADMAP Queue A item 4)"
+            % getattr(args, "gpus", None))
+    return ctxs[0]
 
 
 def _get_lr_scheduler(args, kv):
@@ -164,7 +189,7 @@ def use_fused(args):
     """``--fused``, and for -1 whether the context is a GPU."""
     if getattr(args, "fused", -1) != -1:
         return bool(args.fused)
-    return get_context(args).device_type == "gpu"
+    return get_contexts(args)[0].device_type == "gpu"
 
 
 def _host_nchw(desc):
@@ -205,9 +230,14 @@ def _fit_fused(args, sym, train, val, kv, history):
     data_desc, label_desc = train.provide_data[0], train.provide_label[0]
     data_name, label_name = data_desc[0], label_desc[0]
     lr, lr_sched = _get_lr_scheduler(args, kv)
+    mesh = build_mesh(devices=[ctx])
+    # the iterators give this rank's rows; the trainer takes global shapes
+    world = mesh.world
+    host = _host_nchw(data_desc)
     common = dict(
-        data_shapes={data_name: _host_nchw(data_desc)},
-        label_shapes={label_name: tuple(label_desc[1])},
+        data_shapes={data_name: (host[0] * world,) + tuple(host[1:])},
+        label_shapes={label_name: (label_desc[1][0] * world,)
+                      + tuple(label_desc[1][1:])},
         optimizer=args.optimizer,
         optimizer_params={"lr_scheduler": lr_sched},
         learning_rate=lr, momentum=args.mom, weight_decay=args.wd,
@@ -218,7 +248,6 @@ def _fit_fused(args, sym, train, val, kv, history):
         # raw decoded bytes: the iterator's normalization runs on the card
         mean, std = train.device_normalization()
         common.update(input_mean=mean, input_std=std)
-    mesh = build_mesh(devices=[ctx])
     try:
         trainer = ShardedTrainer(sym, mesh, layout="NHWC", **common)
     except MXNetError:
@@ -318,7 +347,8 @@ def _fit_fused(args, sym, train, val, kv, history):
         record = {"epoch": epoch, "batches": nbatch, "wall_s": wall,
                   "images_per_s": nbatch * args.batch_size / wall
                   if wall > 0 else None}
-        if args.model_prefix and kv.rank == 0:
+        if args.model_prefix:
+            # every rank: rank 0 writes, behind the trainer's barrier
             t0 = time.perf_counter()
             trainer.save_checkpoint(args.model_prefix, epoch + 1,
                                     save_optimizer_states=True)
@@ -386,10 +416,11 @@ def fit(args, network, data_loader, **kwargs):
         sym, arg_params, aux_params = network, None, None
 
     lr, lr_sched = _get_lr_scheduler(args, kv)
-    ctx = get_context(args)
+    ctxs = get_contexts(args)
     if isinstance(kwargs.get("history"), dict):
-        kwargs["history"].update(route="module", context=str(ctx))
-    model = Module(context=[ctx], symbol=sym)
+        kwargs["history"].update(route="module",
+                                 context=",".join(str(c) for c in ctxs))
+    model = Module(context=ctxs, symbol=sym)
     optimizer_params = {"learning_rate": lr, "wd": args.wd,
                         "lr_scheduler": lr_sched}
     if args.optimizer in ("sgd", "nag", "dcasgd"):

@@ -307,7 +307,7 @@ def main(argv=None):
         gpus = [int(i) for i in (a.gpus or "0").split(",")]
         if len(gpus) != 1:
             raise SystemExit("lstm_bucketing: one card; several are ROADMAP "
-                             "Queue A item 6")
+                             "Queue A item 4")
         ctx = mx.gpu(gpus[0])
     _model, _it, out = fit(
         ctx, a.vocab, a.num_hidden, a.num_embed, a.num_layers, a.batch_size,

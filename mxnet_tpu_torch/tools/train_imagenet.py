@@ -118,7 +118,7 @@ def main(argv=None):
            "batch_size": args.batch_size, "dtype": args.dtype,
            "decoder": io_native.decoder(), **history,
            "telemetry": telemetry.report()}
-    if fit.get_context(args).device_type == "gpu":
+    if fit.get_contexts(args)[0].device_type == "gpu":
         import torch
         from . import nvidia_smi
         out.update(device=torch.cuda.get_device_name(0),

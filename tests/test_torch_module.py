@@ -266,8 +266,8 @@ def test_feedforward_fit_and_predict_match_jax():
 
 
 def test_module_surface(mlp_pair):
-    """Shapes, outputs, get_input_grads, reshape, install_monitor, and the
-    pieces that wait for later slices."""
+    """Shapes, outputs, get_input_grads, reshape, install_monitor, several
+    contexts and a dist store outside a job."""
     _j, (tm, ti, _t), (x, y, batch) = mlp_pair
     assert tm.data_shapes[0].shape == (batch, 784)
     assert tm.output_shapes == [("softmax_output", (batch, 10))]
@@ -294,11 +294,15 @@ def test_module_surface(mlp_pair):
     mod.forward(next(tmx.io.NDArrayIter(x[:8], y[:8], 8)), is_train=False)
     np.testing.assert_allclose(mod.get_outputs()[0].asnumpy(), full[:8],
                                1e-6, 1e-7)
-    with pytest.raises(MXNetError, match="Queue A item 6"):
-        tmx.mod.Module(tm.symbol, context=[tmx.cpu(0), tmx.cpu(1)]).bind(
-            data_shapes=ti.provide_data, label_shapes=ti.provide_label)
-    with pytest.raises(MXNetError, match="Queue A item 6"):
-        tmx.kv.create("dist_sync")
+    # several contexts split the batch (their training is held against
+    # JAX in test_torch_dist_kvstore.py), and a dist store outside a job
+    # is a store of one worker, as in JAX
+    two = tmx.mod.Module(tm.symbol, context=[tmx.cpu(0), tmx.cpu(1)])
+    two.bind(data_shapes=ti.provide_data, label_shapes=ti.provide_label)
+    assert [sl.stop - sl.start for sl in two._exec_group.slices] == \
+        [batch // 2, batch - batch // 2]
+    kv = tmx.kv.create("dist_sync")
+    assert (kv.type, kv.rank, kv.num_workers) == ("dist_sync", 0, 1)
 
 
 def test_fit_logs_epoch_lines(caplog, mlp_pair):

@@ -37,6 +37,19 @@ def _key(report):
     return [(d.rule, d.severity, d.node, d.op) for d in report]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _drop_test_op():
+    """Take ``_test_noshaperule`` out of each registry this module put it
+    in, so later test files on the same worker see the registries as
+    shipped."""
+    had = [r._OP_REGISTRY.get("_test_noshaperule")
+           for r in (jregistry, tregistry)]
+    yield
+    for r, before in zip((jregistry, tregistry), had):
+        if before is None:
+            r._OP_REGISTRY.pop("_test_noshaperule", None)
+
+
 def _noshaperule(sym, registry):
     if not registry.has_op("_test_noshaperule"):
         @registry.register("_test_noshaperule", arg_names=("data", "gain"))
